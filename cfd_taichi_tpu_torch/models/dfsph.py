@@ -1,9 +1,18 @@
 """DFSPH: divergence-free SPH with warm start and adaptive CFL timestep.
 
 Counterpart of `cfd_taichi_tpu/models/dfsph.py` (reference
-dfsph_solver.py:1-445) for fluid-only scenes. One engine replaces the JAX
-package's dense/compact split: every pair sum is a CSR-stencil pass of
-ops/stencil.py, recomputed from positions, so nothing per pair is stored.
+dfsph_solver.py:1-445) for fluid-only scenes. The one-shot pair sums are
+CSR-stencil passes of ops/stencil.py. The two loop matvecs run on one of
+two engines, chosen per step by the JAX package's policy (store when it
+fits, recompute beyond that; `cfd_taichi_tpu/models/dfsph.py:101-114`):
+
+* the stored-coefficient engine (ops/coef.py, the counterpart of
+  bandmat.CoefEngine): each step stores w = m gc(r) for every pair, in
+  CSR form, and each loop iteration streams it. It runs whenever the
+  store fits `COEF_BYTE_BUDGET`;
+* the recompute engine (stencil.matvec / matvec_dot, the counterpart of
+  the JAX window engine, bandmat.py:508-616): every iteration recomputes
+  the coefficients from positions and stores nothing per pair.
 
 The two pressure loops run on the host, as the reference's do
 (dfsph_solver.py:221-233, 393-416): each iteration reads its residual
@@ -20,6 +29,7 @@ import numpy as np
 import torch
 
 from cfd_taichi_tpu_torch.models import base
+from cfd_taichi_tpu_torch.ops import coef
 from cfd_taichi_tpu_torch.ops import neighbors as nb
 from cfd_taichi_tpu_torch.ops import stencil
 from cfd_taichi_tpu_torch.ops.smoothing import f32, true_div
@@ -38,6 +48,27 @@ MIN_DT = 1e-5                 # dfsph_solver.py:29
 VISCOSITY_C_S = 13.0
 VISCOSITY_ALPHA = 0.08
 TENSION_K = 0.5
+
+# Byte budget for the stored-coefficient engine's pair store, P pairs of
+# (int32 nbr, w): 12 GB is 15 % of the H100's 80 GB. breaking_dam_1m needs
+# ~0.23 GB in f32 (28 M pairs from rest), so only scenes of tens of
+# millions of particles fall back to the recompute engine. The budget also
+# keeps P below 2^31 for the int32 offsets (12e9 / 6 bytes = 2e9 pairs).
+COEF_BYTE_BUDGET = 12e9
+# Storage dtype of w, the counterpart of the JAX package's BAND_DTYPE
+# (bf16 there, chosen to fit a 16 GB chip). f32 here: under the engine's
+# absolute-coordinate split, bf16 lanes amplify rounding by ~|x| / |x_ij|
+# (~100x on breaking_dam_1m), and the store fits the card in f32.
+# torch.bfloat16 is supported and held to the JAX bf16 engine.
+COEF_DTYPE = torch.float32
+
+
+def coef_bytes(n_pairs: int, dtype: torch.dtype) -> int:
+    return n_pairs * (4 + dtype.itemsize)
+
+
+def use_coef_engine(n_pairs: int, dtype: torch.dtype) -> bool:
+    return coef_bytes(n_pairs, dtype) <= COEF_BYTE_BUDGET
 
 
 def init_state(scene: Scene) -> base.SimState:
@@ -141,15 +172,27 @@ def prepare(scene: Scene, state: base.SimState) -> _Pre:
           if scene.akinci else None)
     rho, alpha, S, tension = dense_pre_terms(scene, ft, bt)
 
+    # The one host read of the prepare: the pair count sizes nbr and w.
+    # (The loops read a residual every iteration anyway; an upper bound
+    # from the count maximum would need a read too.) Summed in int64, so
+    # that a scene far beyond the budget cannot wrap it.
+    n_pairs = int(ft.count.sum(dtype=torch.int64))
+    if use_coef_engine(n_pairs, COEF_DTYPE):
+        eng = coef.build_coef(pos, starts, grid, h, m,
+                              coef.csr_offsets(ft.count), COEF_DTYPE,
+                              n_pairs=n_pairs)
+        mv = functools.partial(coef.coef_matvec, eng, pos)
+        mvd = functools.partial(coef.coef_matvec_dot, eng, pos)
+    else:
+        mv = functools.partial(stencil.matvec, pos, starts, grid, h, m)
+        mvd = functools.partial(stencil.matvec_dot, pos, starts, grid, h, m)
+
     def ext_force_fn(v):
         return tension + stencil.viscosity(pos, starts, grid, h, m, v, rho,
                                            VISCOSITY_C_S, VISCOSITY_ALPHA)
 
     return _Pre(pos=pos, oid=oid, vel=vel, acc=acc, warm_k=warm_s, rho=rho,
-                alpha=alpha, count=ft.count, S=S,
-                mv=functools.partial(stencil.matvec, pos, starts, grid, h, m),
-                mvd=functools.partial(stencil.matvec_dot, pos, starts, grid,
-                                      h, m),
+                alpha=alpha, count=ft.count, S=S, mv=mv, mvd=mvd,
                 ext_force_fn=ext_force_fn)
 
 

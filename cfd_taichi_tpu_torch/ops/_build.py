@@ -2,8 +2,9 @@
 
 At first use, `nvcc` compiles every `csrc/*.cu` into one shared library
 with a plain C interface, `build/kernels/libstencil-<hash>.so` at the root
-of the checkout. The hash covers the sources and the flags, so an edited
-kernel is rebuilt and an unchanged one is loaded as it is. The library is
+of the checkout: one `nvcc -c` per source, all started together, then one
+link. The hash covers the sources and the flags, so an edited kernel is
+rebuilt and an unchanged one is loaded as it is. The library is
 bound with ctypes: pointers come from `Tensor.data_ptr()`, the stream from
 `torch.cuda.current_stream().cuda_stream`, and every entry returns
 `cudaGetLastError()` so that a refused launch is reported right away.
@@ -27,8 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 # -fmad=false: see csrc/stencil.cuh (exact r2 rounding at r == h).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-fmad=false", "-Xptxas=-v")
+              "-std=c++17", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas=-v")
 
 
 class StencilParams(ctypes.Structure):
@@ -54,6 +55,9 @@ _SIGNATURES = {
     "matvec_launch": (_P, _P, _I, _PP, _F, _P, _P, _P),
     "matvec_dot_launch": (_P, _P, _I, _PP, _F, _P, _P, _P),
     "viscosity_launch": (_P, _P, _I, _PP, _F, _F, _F, _P, _P, _P, _P),
+    "coef_build_launch": (_P, _P, _I, _PP, _F, _P, _P, _P, _I, _P),
+    "coef_matvec_launch": (_P, _I, _P, _P, _P, _I, _P, _P, _I, _P),
+    "coef_matvec_dot_launch": (_P, _I, _P, _P, _P, _I, _P, _P, _I, _P),
 }
 
 
@@ -94,6 +98,20 @@ def _nvcc() -> str:
                        "toolkit (PATH, CUDA_HOME or /usr/local/cuda)")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands side by side and wait for all of them; their
+    output, or raise if one failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def library() -> KernelLibrary:
     """The kernel library, compiled on first use in this checkout."""
     global _LIBRARY
@@ -109,15 +127,17 @@ def library() -> KernelLibrary:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in sources() if s.suffix == ".cu")]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        cus = [src for src in sources() if src.suffix == ".cu"]
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in cus]
+        log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in zip(cus, objs)])
+        log += _run_all([[_nvcc(), "-shared", "-o", str(tmp),
+                          *(str(obj) for obj in objs)]])
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
+        for obj in objs:
+            obj.unlink()
+        log_path.write_text(log)
         os.replace(tmp, so)
     log = log_path.read_text() if log_path.exists() else ""
     _LIBRARY = KernelLibrary(so, seconds, log)

@@ -1,0 +1,225 @@
+"""The stored-coefficient loop engine: per-pair coefficients in CSR form.
+
+Counterpart of `cfd_taichi_tpu/ops/bandmat.py:619-972` (`CoefEngine`,
+`build_coef_engine`, `coef_matvec_ops`) and of the three Pallas kernels of
+`tools/perf_r5_mv3.py:66-125`, which compute the same contraction. Once per
+step `build_coef` stores, for every pair j != i with r2 <= f32(h)^2 (the
+stencil passes' pair set, ops/stencil.py),
+
+    nbr[p] = j,  w[p] = m gc(r_ij),   p in [offsets[i], offsets[i+1])
+
+where `offsets` is the exclusive cumsum of `FluidTerms.count`. Each loop
+iteration then contracts w against four lanes of the source particle and
+finishes with JAX's split over absolute coordinates (bandmat.py:624-629):
+
+    coef_matvec(k)[i, c]  = x_ic s0 - s(1+c),   s = sum_p w [k, xk, yk, zk]_j
+    coef_matvec_dot(v)[i] = sum_c x_ic s_c - s3, s = sum_p w [v, x . v]_j
+
+The JAX engine stores w as (QB, B, nbcap * 64) windows over block plans
+with capacities; here the rows are exactly the pairs, so nothing can
+overflow. w is stored as f32 or bf16; with bf16, each lane value is rounded
+to bf16 before it is multiplied by w, as bandmat.py:913-914 and 958-959
+round the product table.
+
+Each pass has a hand-written CUDA kernel (csrc/coef_build.cu,
+csrc/coef_matvec.cu), a plain PyTorch version `*_plain`, and a wrapper that
+launches the kernel for CUDA tensors and runs the plain version for CPU
+tensors; any other device raises. Launches and plain calls are counted in
+`stencil.KERNELS`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from cfd_taichi_tpu_torch.ops.neighbors import GridSpec
+from cfd_taichi_tpu_torch.ops.smoothing import cubic_grad_coeff, f32
+from cfd_taichi_tpu_torch.ops.stencil import (KERNELS, _check,
+                                              _check_pos_starts, _launch,
+                                              _on_cuda, _pair_chunks,
+                                              _params, walk_offsets)
+
+STORAGE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+class CoefEngine(NamedTuple):
+    offsets: torch.Tensor  # (N + 1,) int32: row i is [off[i], off[i + 1])
+    nbr: torch.Tensor      # (P,) int32 source slot of each pair
+    w: torch.Tensor        # (P,) f32 or bf16, m gc(r) of each pair
+
+    @property
+    def n(self) -> int:
+        return self.offsets.shape[0] - 1
+
+
+def csr_offsets(count: torch.Tensor) -> torch.Tensor:
+    """(N + 1,) int32 exclusive cumsum of the (N,) int32 pair counts."""
+    off = torch.zeros(count.shape[0] + 1, dtype=torch.int32,
+                      device=count.device)
+    off[1:] = torch.cumsum(count, 0, dtype=torch.int32)
+    return off
+
+
+def _is_bf16(eng: CoefEngine) -> int:
+    return int(eng.w.dtype == torch.bfloat16)
+
+
+def _check_dtype(dtype: torch.dtype) -> None:
+    if dtype not in STORAGE_DTYPES:
+        raise ValueError(f"coef storage dtype {dtype}: want one of "
+                         f"{STORAGE_DTYPES}")
+
+
+def _check_engine(eng: CoefEngine, pos: torch.Tensor) -> int:
+    n = pos.shape[0]
+    _check("pos", pos, torch.float32, (n, 3), pos.device)
+    _check("offsets", eng.offsets, torch.int32, (n + 1,), pos.device)
+    p = eng.nbr.shape[0]
+    _check("nbr", eng.nbr, torch.int32, (p,), pos.device)
+    _check_dtype(eng.w.dtype)
+    _check("w", eng.w, eng.w.dtype, (p,), pos.device)
+    return n
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+def build_coef(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
+               h: float, m: float, offsets: torch.Tensor,
+               dtype: torch.dtype = torch.float32,
+               n_pairs: int | None = None) -> CoefEngine:
+    """K5: the step's pair store (replaces bandmat.build_coef_engine).
+    `n_pairs` is offsets[-1] when the caller has read it already; else the
+    wrapper reads it (one host sync) to allocate nbr and w."""
+    _check_dtype(dtype)
+    if not _on_cuda("coef_build", pos):
+        return build_coef_plain(pos, starts, grid, h, m, offsets, dtype)
+    n = _check_pos_starts(pos, starts, grid)
+    _check("offsets", offsets, torch.int32, (n + 1,), pos.device)
+    p = int(offsets[-1]) if n_pairs is None else n_pairs
+    if not 0 <= p <= torch.iinfo(torch.int32).max:
+        raise ValueError(f"{p} pairs do not fit the int32 offsets")
+    eng = CoefEngine(offsets, torch.empty(p, dtype=torch.int32,
+                                          device=pos.device),
+                     torch.empty(p, dtype=dtype, device=pos.device))
+    _launch("coef_build", pos.device, pos, starts, n,
+            ctypes.byref(_params(grid, h)), f32(m), offsets, eng.nbr, eng.w,
+            _is_bf16(eng))
+    return eng
+
+
+def coef_matvec(eng: CoefEngine, pos: torch.Tensor, k: torch.Tensor,
+                lane_sums: bool = False) -> torch.Tensor:
+    """K6a: (N, 3) sum_j m gc x_ij k_j over the stored pairs (replaces the
+    coef matvec contraction); with `lane_sums`, the (N, 4) sums s instead."""
+    if not _on_cuda("coef_matvec", pos):
+        return coef_matvec_plain(eng, pos, k, lane_sums)
+    n = _check_engine(eng, pos)
+    _check("k", k, torch.float32, (n,), pos.device)
+    out = pos.new_empty(n, 4 if lane_sums else 3)
+    _launch("coef_matvec", pos.device, pos, n, eng.offsets, eng.nbr, eng.w,
+            _is_bf16(eng), k, out, int(lane_sums))
+    return out
+
+
+def coef_matvec_dot(eng: CoefEngine, pos: torch.Tensor, v: torch.Tensor,
+                    lane_sums: bool = False) -> torch.Tensor:
+    """K6b: (N,) sum_j m gc x_ij . v_j over the stored pairs; with
+    `lane_sums`, the (N, 4) sums s instead."""
+    if not _on_cuda("coef_matvec_dot", pos):
+        return coef_matvec_dot_plain(eng, pos, v, lane_sums)
+    n = _check_engine(eng, pos)
+    _check("v", v, torch.float32, (n, 3), pos.device)
+    out = pos.new_empty((n, 4) if lane_sums else (n,))
+    _launch("coef_matvec_dot", pos.device, pos, n, eng.offsets, eng.nbr,
+            eng.w, _is_bf16(eng), v, out, int(lane_sums))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def build_coef_plain(pos: torch.Tensor, starts: torch.Tensor,
+                     grid: GridSpec, h: float, m: float,
+                     offsets: torch.Tensor,
+                     dtype: torch.dtype = torch.float32) -> CoefEngine:
+    """Pairs in the kernel's walk order, so that nbr compares exactly."""
+    KERNELS["coef_build"].plain_calls += 1
+    _check_dtype(dtype)
+    nbr = [pos.new_zeros(0, dtype=torch.int32)]
+    w = [pos.new_zeros(0)]
+    for _, pr in _pair_chunks(pos, pos, starts, grid, h, exclude_self=True,
+                              offsets=walk_offsets(grid)):
+        nbr.append(pr.slot[pr.valid].to(torch.int32))
+        w.append((f32(m) * cubic_grad_coeff(pr.r, h))[pr.valid])
+    eng = CoefEngine(offsets, torch.cat(nbr), torch.cat(w).to(dtype))
+    if eng.nbr.shape[0] != int(offsets[-1]):
+        raise ValueError(f"offsets hold {int(offsets[-1])} pairs, the "
+                         f"stencil found {eng.nbr.shape[0]}")
+    return eng
+
+
+def _contract_plain(eng: CoefEngine, lanes: torch.Tensor) -> torch.Tensor:
+    """(N, 4) sums over each row's pairs of w * lanes[nbr], the lanes
+    rounded to the storage dtype first."""
+    lanes = lanes.to(eng.w.dtype).float()
+    rows = torch.repeat_interleave(
+        torch.arange(eng.n, device=lanes.device), eng.offsets.diff())
+    return lanes.new_zeros(eng.n, 4).index_add_(
+        0, rows, eng.w.float()[:, None] * lanes[eng.nbr.long()])
+
+
+def coef_matvec_plain(eng: CoefEngine, pos: torch.Tensor, k: torch.Tensor,
+                      lane_sums: bool = False) -> torch.Tensor:
+    KERNELS["coef_matvec"].plain_calls += 1
+    s = _contract_plain(eng, torch.stack(
+        [k, pos[:, 0] * k, pos[:, 1] * k, pos[:, 2] * k], dim=1))
+    return s if lane_sums else pos * s[:, :1] - s[:, 1:]
+
+
+def coef_matvec_dot_plain(eng: CoefEngine, pos: torch.Tensor,
+                          v: torch.Tensor,
+                          lane_sums: bool = False) -> torch.Tensor:
+    KERNELS["coef_matvec_dot"].plain_calls += 1
+    xv = pos[:, 0] * v[:, 0] + pos[:, 1] * v[:, 1] + pos[:, 2] * v[:, 2]
+    s = _contract_plain(eng, torch.cat([v, xv[:, None]], dim=1))
+    if lane_sums:
+        return s
+    return pos[:, 0] * s[:, 0] + pos[:, 1] * s[:, 1] + pos[:, 2] * s[:, 2] \
+        - s[:, 3]
+
+
+# ---------------------------------------------------------------------------
+# From the JAX engine
+# ---------------------------------------------------------------------------
+
+def coef_from_blocks(blkq: np.ndarray, w: np.ndarray, n: int, B: int,
+                     block: int) -> CoefEngine:
+    """The CSR engine of a JAX `bandmat.CoefEngine`, from its numpy arrays:
+    `blkq` (QB, nbcap) source-block ids and `w` (QB, B, nbcap * block), f32
+    or bf16. Slot c of query q = g B + b reads source blkq[g, c // block] *
+    block + c % block. Zero coefficients are dropped: masked and padding
+    slots hold 0, and so do pairs at r = h, which add nothing."""
+    blkq, w = np.asarray(blkq), np.asarray(w)
+    qb, b, width = w.shape
+    if b != B or blkq.shape[0] != qb or blkq.shape[1] * block != width:
+        raise ValueError(f"blkq {blkq.shape} and w {w.shape} do not match "
+                         f"B={B}, block={block}")
+    src = (blkq[:, :, None].astype(np.int64) * block
+           + np.arange(block)).reshape(qb, 1, width)
+    src = np.broadcast_to(src, w.shape).reshape(qb * b, width)[:n]
+    wf = w.astype(np.float32).reshape(qb * b, width)[:n]
+    keep = wf != 0.0
+    offsets = np.zeros(n + 1, np.int32)
+    offsets[1:] = np.cumsum(keep.sum(axis=1))
+    wt = torch.from_numpy(wf[keep])
+    return CoefEngine(torch.from_numpy(offsets),
+                      torch.from_numpy(src[keep].astype(np.int32)),
+                      wt.to(torch.bfloat16) if w.dtype.name == "bfloat16"
+                      else wt)

@@ -20,7 +20,8 @@ cell with r2 = |x_i - x_j|^2 <= f32(h)^2 (and j != i for fluid sources).
 With no capacity anywhere this is exactly the JAX package's pair set when
 its block plans do not overflow (cfd_taichi_tpu/ops/bandmat.py:32-38).
 
-`KERNELS` counts launches and plain calls, so a run can show which path
+`KERNELS` counts launches and plain calls of these passes and of the
+stored-coefficient engine's (ops/coef.py), so a run can show which path
 carried it.
 """
 
@@ -63,6 +64,15 @@ KERNELS = {k.name: k for k in (
            "cfd_taichi_tpu/ops/bandmat.py:1975"),
     Kernel("viscosity", _CSRC + "viscosity.cu",
            "cfd_taichi_tpu/ops/bandmat.py:975"),
+    # The stored-coefficient engine (ops/coef.py).
+    Kernel("coef_build", _CSRC + "coef_build.cu",
+           "cfd_taichi_tpu/ops/bandmat.py:682"),
+    Kernel("coef_matvec", _CSRC + "coef_matvec.cu",
+           "tools/perf_r5_mv3.py:66-69/72-77/97-125, "
+           "cfd_taichi_tpu/ops/bandmat.py:817"),
+    Kernel("coef_matvec_dot", _CSRC + "coef_matvec.cu",
+           "tools/perf_r5_mv3.py:66-69/72-77/97-125, "
+           "cfd_taichi_tpu/ops/bandmat.py:817"),
 )}
 
 
@@ -241,6 +251,21 @@ _OFFSETS = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
             for dz in (-1, 0, 1)]
 
 
+def walk_offsets(grid: GridSpec) -> list[tuple[int, int, int]]:
+    """The 27 cell offsets in the kernels' walk order (csrc/stencil.cuh):
+    mid axis outermost, then slow, then fast, so that each stencil row's
+    three cells, and the slots in them, come in ascending sorted order."""
+    fast, mid, slow = grid.axes_by_stride
+    out = []
+    for dm in (-1, 0, 1):
+        for ds in (-1, 0, 1):
+            for df in (-1, 0, 1):
+                o = [0, 0, 0]
+                o[mid], o[slow], o[fast] = dm, ds, df
+                out.append(tuple(o))
+    return out
+
+
 class _Pairs(NamedTuple):
     """Masked candidates of a query chunk; every tensor is (Q, W)."""
     slot: torch.Tensor   # int64 index into the sorted source set
@@ -251,9 +276,12 @@ class _Pairs(NamedTuple):
 
 
 def _pair_chunks(qpos: torch.Tensor, spos: torch.Tensor, starts: torch.Tensor,
-                 grid: GridSpec, h: float, exclude_self: bool
+                 grid: GridSpec, h: float, exclude_self: bool,
+                 offsets: list | None = None
                  ) -> Iterator[tuple[slice, _Pairs]]:
-    """Yield (query rows, candidates) over chunks of queries."""
+    """Yield (query rows, candidates) over chunks of queries. Candidates
+    come cell by cell in the order of `offsets` (default `_OFFSETS`),
+    ascending slot within a cell."""
     n, ns = qpos.shape[0], spos.shape[0]
     occ = int((starts[1:] - starts[:-1]).max().item()) if ns else 0
     if n == 0 or occ == 0:
@@ -261,7 +289,7 @@ def _pair_chunks(qpos: torch.Tensor, spos: torch.Tensor, starts: torch.Tensor,
     dev = qpos.device
     width = 27 * occ
     chunk = max(1, CHUNK_CANDIDATES // width)
-    off = torch.tensor(_OFFSETS, dtype=torch.int32, device=dev)
+    off = torch.tensor(offsets or _OFFSETS, dtype=torch.int32, device=dev)
     dims = torch.tensor(grid.dims, dtype=torch.int32, device=dev)
     strides = torch.tensor(grid.strides, dtype=torch.int32, device=dev)
     t = torch.arange(occ, dtype=torch.int32, device=dev)

@@ -9,6 +9,11 @@ reference run sets `BAND_DTYPE` to f32 as tests/test_solvers.py:251-256
 does for its own engine comparisons. Tolerances are the repo's own
 engine-equivalence bar (tests/test_solvers.py:263-271): positions to atol
 5e-6, dt to rtol 1e-5, iteration counts exact.
+
+The JAX reference runs its band engine on TINY, so the port is pinned to
+its recompute engine (coef budget 0), as JAX's own tests pin engines
+(tests/test_bandmat.py:280-291); tests/test_torch_coef.py holds the port's
+stored-coefficient engine against the JAX coef engine.
 """
 
 import copy
@@ -30,6 +35,7 @@ from cfd_taichi_tpu.utils import io as jio
 from cfd_taichi_tpu_torch import Simulation, build_scene, read_config
 from cfd_taichi_tpu_torch.config import parse_config
 from cfd_taichi_tpu_torch import models
+from cfd_taichi_tpu_torch.models import dfsph as pdfsph
 from cfd_taichi_tpu_torch.utils import io
 
 TINY = {
@@ -41,6 +47,11 @@ TINY = {
 ROOT = Path(__file__).resolve().parents[1]
 STEPS = 6
 CARRY_AT = 20
+
+
+@pytest.fixture(autouse=True)
+def recompute_engine(monkeypatch):
+    monkeypatch.setattr(pdfsph, "COEF_BYTE_BUDGET", 0)
 
 
 def _pos_by_oid(pos, oid):

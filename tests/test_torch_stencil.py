@@ -29,6 +29,7 @@ from cfd_taichi_tpu.ops.vec import V3
 from cfd_taichi_tpu_torch import build_scene
 from cfd_taichi_tpu_torch.config import parse_config
 from cfd_taichi_tpu_torch.models import base
+from cfd_taichi_tpu_torch.ops import coef
 from cfd_taichi_tpu_torch.ops import neighbors as nb
 from cfd_taichi_tpu_torch.ops import stencil
 
@@ -154,13 +155,17 @@ def test_cpu_tensors_take_the_plain_versions(case):
     sc, pos, starts = c["sc"], c["pos_s"], c["starts"]
     k, v, rho = (torch.from_numpy(c[key]) for key in ("k", "v", "rho"))
     stencil.reset_counts()
-    stencil.fluid_terms(pos, starts, sc.grid, sc.h, sc.particle_m)
+    ft = stencil.fluid_terms(pos, starts, sc.grid, sc.h, sc.particle_m)
     stencil.boundary_terms(pos, sc.boundary_pos, sc.boundary_volume,
                            sc.boundary_starts, sc.grid, sc.h, 1000.0)
     stencil.matvec(pos, starts, sc.grid, sc.h, sc.particle_m, k)
     stencil.matvec_dot(pos, starts, sc.grid, sc.h, sc.particle_m, v)
     stencil.viscosity(pos, starts, sc.grid, sc.h, sc.particle_m, v, rho,
                       **VISC)
+    eng = coef.build_coef(pos, starts, sc.grid, sc.h, sc.particle_m,
+                          coef.csr_offsets(ft.count))
+    coef.coef_matvec(eng, pos, k)
+    coef.coef_matvec_dot(eng, pos, v)
     for kern in stencil.KERNELS.values():
         assert (kern.launches, kern.plain_calls) == (0, 1), kern.name
 
