@@ -70,7 +70,9 @@ class KernelLibrary:
         self.log = log                      # nvcc output (-Xptxas -v)
         self.lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():
-            fn = getattr(self.lib, name)
+            fn = getattr(self.lib, name, None)
+            if fn is None:      # a library built from some sources only
+                continue
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
 
@@ -98,9 +100,9 @@ def _nvcc() -> str:
                        "toolkit (PATH, CUDA_HOME or /usr/local/cuda)")
 
 
-def _run_all(cmds: list[list[str]]) -> str:
-    """Run the commands side by side and wait for all of them; their
-    output, or raise if one failed."""
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands side by side and wait for all of them; the output
+    of each, or raise if one failed."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
@@ -109,7 +111,7 @@ def _run_all(cmds: list[list[str]]) -> str:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{out}")
-    return "".join(outs)
+    return outs
 
 
 def library() -> KernelLibrary:
@@ -125,20 +127,31 @@ def library() -> KernelLibrary:
     log_path = so.with_suffix(".log")
     seconds = 0.0
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        cus = [src for src in sources() if src.suffix == ".cu"]
-        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in cus]
-        log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                        for src, obj in zip(cus, objs)])
-        log += _run_all([[_nvcc(), "-shared", "-o", str(tmp),
-                          *(str(obj) for obj in objs)]])
+        build_shared({so: [src for src in sources() if src.suffix == ".cu"]})
         seconds = time.perf_counter() - t0
-        for obj in objs:
-            obj.unlink()
-        log_path.write_text(log)
-        os.replace(tmp, so)
     log = log_path.read_text() if log_path.exists() else ""
     _LIBRARY = KernelLibrary(so, seconds, log)
     return _LIBRARY
+
+
+def build_shared(libraries: dict[Path, list[Path]]) -> None:
+    """Build each shared library from its `.cu` sources (which may include
+    the headers of csrc/): every `nvcc -c` of every library at once, then
+    one link each. The nvcc output goes to `<library>.log`."""
+    jobs = []
+    for so, cus in libraries.items():
+        so.parent.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        jobs.append((so, tmp, [(src, tmp.with_name(f"{tmp.name}.{src.stem}.o"))
+                               for src in cus]))
+    logs = iter(_run_all([[_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-c",
+                           "-o", str(obj), str(src)]
+                          for _, _, objs in jobs for src, obj in objs]))
+    _run_all([[_nvcc(), "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj in objs)] for _, tmp, objs in jobs])
+    for so, tmp, objs in jobs:
+        so.with_suffix(".log").write_text("".join(next(logs) for _ in objs))
+        for _, obj in objs:
+            obj.unlink()
+        os.replace(tmp, so)

@@ -316,6 +316,14 @@ def _pair_chunks(qpos: torch.Tensor, spos: torch.Tensor, starts: torch.Tensor,
         yield slice(lo, lo + nq), _Pairs(slot, valid, d, r2, r)
 
 
+def count_pairs(qpos: torch.Tensor, spos: torch.Tensor, starts: torch.Tensor,
+                grid: GridSpec, h: float, exclude_self: bool) -> int:
+    """Pairs within h over the queries' 27-cell stencils: the pairs whose
+    terms a stencil pass evaluates."""
+    return sum(int(pr.valid.sum()) for _, pr in _pair_chunks(
+        qpos, spos, starts, grid, h, exclude_self))
+
+
 def _rowsum(valid: torch.Tensor, term: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, term, torch.zeros_like(term)).sum(dim=1)
 

@@ -46,7 +46,7 @@ class Scene:
         return self.fluid_pos0.device
 
 
-def build_scene(cfg: SimConfig, device="cpu") -> Scene:
+def build_scene(cfg: SimConfig, device="cuda") -> Scene:
     """Build the fluid-only scene of `cfg` with its tensors on `device`."""
     sc, sv, fl = cfg.scene, cfg.solver, cfg.fluid
     if cfg.solid is not None:

@@ -26,7 +26,7 @@ NUM_LEAVES = 31
 _RIGID_PARTICLE_LEAVES = (10, 11, 12, 13, 14, 15, 20, 21, 22)
 
 
-def state_from_numpy(leaves, device="cpu") -> base.SimState:
+def state_from_numpy(leaves, device="cuda") -> base.SimState:
     """Port state from the JAX `SimState` leaves (numpy arrays, flatten
     order). The scene must be fluid-only: the rigid leaves must be empty."""
     leaves = [np.asarray(a) for a in leaves]
@@ -84,7 +84,7 @@ def save_checkpoint(path: str, state: base.SimState, meta: dict | None = None):
         json.dump({"num_leaves": len(leaves), "meta": meta or {}}, f)
 
 
-def load_checkpoint(path: str, device="cpu") -> base.SimState:
+def load_checkpoint(path: str, device="cuda") -> base.SimState:
     """Restore a state saved by either package's `save_checkpoint`."""
     with np.load(path) as data:
         leaves = [data[f"leaf_{i}"] for i in range(NUM_LEAVES)]

@@ -20,8 +20,18 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 bf16 w within one ulp in at most 1e-4 of the slots (the
                 count is printed), the four lane sums to 1e-5 of each
                 lane's largest value and the final form to 1e-5 of the
-                largest |x_i| |s_i| (it cancels). Kernel and plain times:
-                CUDA events, median of 10 after 3 warm-up calls.
+                largest |x_i| |s_i| (it cancels). The coef contraction
+                also runs on ragged CSR engines (rows of 0, 1, G-1, G+1 and
+                100+ pairs for every lane-group width G in 4-32, random
+                sources, 1000 and 1003 rows), f32 and bf16. Kernel and
+                plain times: CUDA events, median of 10 after 3 warm-up
+                calls. Each kernel's bound (perf/bounds.py: the bytes and
+                f32 operations of the call's inputs at the H100's peaks)
+                and, for the coef contraction, the one PyTorch call that
+                computes its lane sums (torch.sparse CSR @ dense lanes,
+                row- and column-major, timed like the kernel; the port
+                never calls it): perf/cases.py, which perf/kernel_table.py
+                shares.
 4. agree      - the TINY scene (tests/test_solvers.py:14-23) stepped 6 times
                 on the card and on the CPU: positions through oid to 5e-6,
                 dt to rtol 1e-5, equal iteration counts.
@@ -42,23 +52,21 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 residual printed, positions finite.
 
 Each run prints steps/s, iterations per step, the last density residual
-and peak device memory. The line before the last is {"kernels": [...]},
-the last one {"ok": true, "device": {...}}.
+and peak device memory. The line before the last is {"kernels": [...]}
+(ms, plain_ms, bound_ms, library_ms at 30k; bound_us_1m, library_ms_1m
+and the other sizes and dtypes beside them), the last one {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
 
-import contextlib
 import copy
-import dataclasses
 import json
-import os
 import statistics
 import subprocess
 import sys
 import time
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-5
 TINY = {
     "scene": {"box_min": [0.0, 0.0, 0.0], "box_max": [0.6, 0.8, 0.6],
@@ -83,81 +91,9 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def dfsph_config(name: str):
-    from cfd_taichi_tpu_torch import read_config
-
-    cfg = read_config(os.path.join(ROOT, "configs", name))
-    return dataclasses.replace(cfg, solver=dataclasses.replace(
-        cfg.solver, name="dfsph"))
-
-
-def time_ms(fn, torch, reps: int = 10, warm: int = 3) -> float:
-    for _ in range(warm):
-        fn()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
-
-
 # ---------------------------------------------------------------------------
 # [kernels]
 # ---------------------------------------------------------------------------
-
-def kernel_inputs(cfg_name: str, seed: int):
-    """A jittered seed lattice, cell-sorted, with random k, v and rho."""
-    import numpy as np
-    import torch
-
-    from cfd_taichi_tpu_torch import build_scene
-    from cfd_taichi_tpu_torch.models import base
-    from cfd_taichi_tpu_torch.ops import neighbors as nb
-
-    def dev(a):
-        return torch.from_numpy(a.astype(np.float32)).cuda()
-
-    sc = build_scene(dfsph_config(cfg_name), device="cuda")
-    rng = np.random.default_rng(seed)
-    n, r = sc.n_fluid, sc.particle_radius
-    pos = sc.fluid_pos0.cpu().numpy() + rng.uniform(
-        -0.1 * r, 0.1 * r, (n, 3)).astype(np.float32)
-    scid, _, p, _ = base.sort_by_cells(sc.grid, dev(pos))
-    return dict(sc=sc, p=p, st=nb.csr_starts(scid, sc.grid.num_cells),
-                k=dev(rng.uniform(0.0, 2.0, n)),
-                v=dev(rng.standard_normal((n, 3))),
-                rho=dev(rng.uniform(900.0, 1100.0, n)))
-
-
-def stencil_cases(x):
-    """(name -> (kernel call, plain call)) of the stencil passes."""
-    from cfd_taichi_tpu_torch.ops import stencil as S
-
-    sc, p, st, k, v, rho = (x[key] for key in
-                            ("sc", "p", "st", "k", "v", "rho"))
-    g, h, m = sc.grid, sc.h, sc.particle_m
-    bnd = (sc.boundary_pos, sc.boundary_volume, sc.boundary_starts, g, h,
-           1000.0)
-    visc = dict(c_s=13.0, alpha=0.08)
-    return {
-        "fluid_terms": (lambda: S.fluid_terms(p, st, g, h, m),
-                        lambda: S.fluid_terms_plain(p, st, g, h, m)),
-        "boundary_terms": (lambda: S.boundary_terms(p, *bnd),
-                           lambda: S.boundary_terms_plain(p, *bnd)),
-        "matvec": (lambda: S.matvec(p, st, g, h, m, k),
-                   lambda: S.matvec_plain(p, st, g, h, m, k)),
-        "matvec_dot": (lambda: S.matvec_dot(p, st, g, h, m, v),
-                       lambda: S.matvec_dot_plain(p, st, g, h, m, v)),
-        "viscosity": (lambda: S.viscosity(p, st, g, h, m, v, rho, **visc),
-                      lambda: S.viscosity_plain(p, st, g, h, m, v, rho,
-                                                **visc)),
-    }
-
 
 def compare(name: str, got, want, torch) -> float:
     """Max abs error of a kernel's outputs against the plain version's."""
@@ -220,64 +156,76 @@ def compare_contraction(tag: str, got_sums, want_sums, got, want, pos,
     return err
 
 
-def coef_checks(x, dtype, torch) -> dict:
-    """(name -> (max_abs_err, kernel call, plain call)) of the three coef
-    kernels at one storage dtype, after comparing them."""
-    from cfd_taichi_tpu_torch.ops import coef
-    from cfd_taichi_tpu_torch.ops import stencil as S
-
-    sc, p, st, k, v = (x[key] for key in ("sc", "p", "st", "k", "v"))
-    g, h, m = sc.grid, sc.h, sc.particle_m
-    off = coef.csr_offsets(S.fluid_terms(p, st, g, h, m).count)
-    eng = coef.build_coef(p, st, g, h, m, off, dtype)
-    want = coef.build_coef_plain(p, st, g, h, m, off, dtype)
-    bad = int((eng.nbr != want.nbr).sum())
-    print(f"    coef_build nbr: {bad} of {eng.nbr.numel()} slots differ "
-          f"(want 0)")
-    check(bad == 0, f"coef_build: {bad} nbr mismatches")
-    out = {"coef_build": (
-        compare_w("coef_build", eng.w, want.w, torch),
-        lambda: coef.build_coef(p, st, g, h, m, off, dtype),
-        lambda: coef.build_coef_plain(p, st, g, h, m, off, dtype))}
-    for name, fn, plain, arg, dot in (
-            ("coef_matvec", coef.coef_matvec, coef.coef_matvec_plain, k,
-             False),
-            ("coef_matvec_dot", coef.coef_matvec_dot,
-             coef.coef_matvec_dot_plain, v, True)):
-        err = compare_contraction(
-            name, fn(eng, p, arg, lane_sums=True),
-            plain(eng, p, arg, lane_sums=True), fn(eng, p, arg),
-            plain(eng, p, arg), p, dot, torch)
-        out[name] = (err, lambda fn=fn, a=arg: fn(eng, p, a),
-                     lambda plain=plain, a=arg: plain(eng, p, a))
-    return out
+def check_case(case, pos, torch) -> float:
+    """Compare a case's kernel with its plain version; its max_abs_err."""
+    if case.name == "coef_build":
+        eng, want = case.kern(), case.plain()
+        bad = int((eng.nbr != want.nbr).sum())
+        print(f"    {case.key} nbr: {bad} of {eng.nbr.numel()} slots differ "
+              f"(want 0)")
+        check(bad == 0, f"{case.key}: {bad} nbr mismatches")
+        return compare_w(case.key, eng.w, want.w, torch)
+    if case.library:        # the coef contraction
+        return compare_contraction(
+            case.key, case.kern(lane_sums=True), case.plain(lane_sums=True),
+            case.kern(), case.plain(), pos, case.name == "coef_matvec_dot",
+            torch)
+    return compare(case.key, case.kern(), case.plain(), torch)
 
 
-def record(results: dict, name: str, key: str, err: float, kern,
-           plain, torch) -> None:
-    ms = time_ms(kern, torch)
-    plain_ms = time_ms(plain, torch)
-    print(f"  {name:15s} {key}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
-          f"  max_abs_err {err:.3e}")
-    row = results.setdefault(name, {})
-    row[f"ms_{key}"], row[f"plain_ms_{key}"] = ms, plain_ms
-    row[f"max_abs_err_{key}"] = err
+def ragged_checks(torch) -> None:
+    """The coef contraction on ragged CSR engines, kernel against plain."""
+    from cfd_taichi_tpu_torch.perf import cases, inputs
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (1000, 1003):
+            eng, pos, k, v = inputs.ragged_engine(n, dtype)
+            print(f"[kernels] ragged engine: {n} rows, "
+                  f"{eng.nbr.numel()} pairs, {dtype} storage")
+            for name, fn, plain, src, dot in cases.CONTRACTIONS:
+                arg = k if src == "k" else v
+                compare_contraction(
+                    f"{name} ragged", fn(eng, pos, arg, lane_sums=True),
+                    plain(eng, pos, arg, lane_sums=True), fn(eng, pos, arg),
+                    plain(eng, pos, arg), pos, dot, torch)
+
+
+def record(results: dict, case, key: str, err: float) -> None:
+    """Time the case (perf/cases.py: kernel, bound, library call) and its
+    plain version; store them under `key`."""
+    from cfd_taichi_tpu_torch.perf import cases, timing
+
+    row = cases.measure(case)
+    row["plain_ms"], row["max_abs_err"] = timing.event_ms(case.plain), err
+    results.setdefault(case.name, {}).update(
+        {f"{k}_{key}": val for k, val in row.items()})
+    lib = ""
+    if case.library:
+        lib = (f"  torch.sparse {row['library_ms']:.4f} ms "
+               f"({row['library_layout']} lanes; kernel lane sums "
+               f"{row['lane_sums_ms']:.4f} ms)"
+               if row["library_ms"] is not None else
+               "  torch.sparse not available")
+    print(f"  {case.name:15s} {key}: kernel {row['ms']:.4f} ms  plain "
+          f"{row['plain_ms']:.4f} ms  max_abs_err {err:.3e}  bound "
+          f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}), share "
+          f"{row['share']:.3f}{lib}")
 
 
 def phase_kernels(torch, results: dict) -> None:
+    from cfd_taichi_tpu_torch.perf import cases, inputs
+
     for tag, cfg_name in CONFIGS:
-        x = kernel_inputs(cfg_name, seed=7)
-        print(f"[kernels] {cfg_name}: {x['sc'].n_fluid} fluid particles")
-        for name, (kern, plain) in stencil_cases(x).items():
-            record(results, name, tag, compare(name, kern(), plain(), torch),
-                   kern, plain, torch)
-        for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
-            print(f"[kernels] coef engine, {dtype} storage")
-            for name, (err, kern, plain) in coef_checks(x, dtype,
-                                                        torch).items():
-                record(results, name, tag + suffix, err, kern, plain, torch)
+        x = inputs.lattice_inputs(cfg_name, seed=7)
+        pairs = cases.fluid_pairs(x)
+        print(f"[kernels] {cfg_name}: {x['sc'].n_fluid} fluid particles, "
+              f"{pairs} pairs")
+        for case in cases.scene_cases(x, pairs):
+            record(results, case, tag + case.key[len(case.name):],
+                   check_case(case, x["p"], torch))
         del x
         torch.cuda.empty_cache()
+    ragged_checks(torch)
 
 
 # ---------------------------------------------------------------------------
@@ -318,23 +266,6 @@ def phase_agree(torch) -> None:
 # ---------------------------------------------------------------------------
 # The DFSPH runs
 # ---------------------------------------------------------------------------
-
-@contextlib.contextmanager
-def engine(budget=None, dtype=None):
-    """Pin the DFSPH loop engine: the coef byte budget and storage dtype
-    of cfd_taichi_tpu_torch.models.dfsph, restored on exit."""
-    from cfd_taichi_tpu_torch.models import dfsph
-
-    saved = dfsph.COEF_BYTE_BUDGET, dfsph.COEF_DTYPE
-    if budget is not None:
-        dfsph.COEF_BYTE_BUDGET = budget
-    if dtype is not None:
-        dfsph.COEF_DTYPE = dtype
-    try:
-        yield
-    finally:
-        dfsph.COEF_BYTE_BUDGET, dfsph.COEF_DTYPE = saved
-
 
 def run_steps(sim, steps: int, torch):
     diags = []
@@ -405,9 +336,10 @@ def drive(sim, tag: str, windows, path, torch) -> dict:
 
 def phase_main(torch, sims: dict, results: dict) -> None:
     from cfd_taichi_tpu_torch import Simulation
+    from cfd_taichi_tpu_torch.perf import inputs
 
-    sim = sims["30k"] = Simulation(dfsph_config("breaking_dam_30k.json"),
-                                   device="cuda")
+    sim = sims["30k"] = Simulation(
+        inputs.dfsph_config("breaking_dam_30k.json"), device="cuda")
     run = drive(sim, "main", [100], COEF_PATH, torch)
     for name in ("matvec", "matvec_dot"):
         check(run["launches"][name] == 0,
@@ -424,10 +356,11 @@ def phase_main(torch, sims: dict, results: dict) -> None:
 
 def one_million(torch, sims: dict):
     from cfd_taichi_tpu_torch import Simulation
+    from cfd_taichi_tpu_torch.perf import inputs
 
     if "1m" not in sims:
         t0 = time.perf_counter()
-        sims["1m"] = Simulation(dfsph_config("breaking_dam_1m.json"),
+        sims["1m"] = Simulation(inputs.dfsph_config("breaking_dam_1m.json"),
                                 device="cuda")
         print(f"[scale] breaking_dam_1m scene built in "
               f"{time.perf_counter() - t0:.1f} s")
@@ -435,6 +368,8 @@ def one_million(torch, sims: dict):
 
 
 def phase_recompute(torch, sims: dict, results: dict) -> None:
+    from cfd_taichi_tpu_torch.perf.inputs import engine
+
     with engine(budget=0):
         run = drive(sims["30k"], "recompute", [100], RECOMPUTE_PATH, torch)
         residual = run["last_diag"][3]
@@ -458,6 +393,8 @@ def phase_scale(torch, sims: dict, results: dict) -> None:
 
 
 def phase_scale_bf16(torch, sims: dict, results: dict) -> None:
+    from cfd_taichi_tpu_torch.perf.inputs import engine
+
     with engine(dtype=torch.bfloat16):
         results["_runs"]["1m_coef_bf16"] = drive(
             one_million(torch, sims), "scale-bf16", [5, 10], COEF_PATH, torch)
@@ -515,13 +452,17 @@ def main() -> int:
     kernels = []
     for k in stencil.KERNELS.values():
         row = results[k.name]
-        kernels.append(dict(
+        head = dict(
             name=k.name, route="cuda", source=k.source, replaces=k.replaces,
-            launches=row["launches"], max_abs_err=row["max_abs_err_30k"],
-            ms=row["ms_30k"], plain_ms=row["plain_ms_30k"],
-            **{key: val for key, val in sorted(row.items())
-               if key not in ("launches", "max_abs_err_30k", "ms_30k",
-                              "plain_ms_30k")}))
+            launches=row.pop("launches"),
+            max_abs_err=row.pop("max_abs_err_30k"), ms=row.pop("ms_30k"),
+            plain_ms=row.pop("plain_ms_30k"),
+            bound_ms=row.pop("bound_ms_30k"),
+            bound_by=row.pop("bound_by_30k"),
+            library_ms=row.pop("library_ms_30k", None),
+            bound_us_1m=row["bound_ms_1m"] * 1e3,
+            library_ms_1m=row.pop("library_ms_1m", None))
+        kernels.append({**head, **dict(sorted(row.items()))})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,7 +8,9 @@ held against the JAX package, on the CPU:
     build_coef_engine` + `coef_matvec_ops` on a random cloud;
 (c) DFSPH steps on TINY (tests/test_solvers.py:14-23) with the port's coef
     engine against the JAX coef engine (`BAND_BYTE_BUDGET = 0`);
-(d) the engine choice.
+(d) the engine choice;
+(e) the contraction on ragged CSR engines against a numpy per-row loop,
+    and the byte and operation counts of the kernels' bounds.
 
 Tolerances. The contraction's lane sums are the same f32 products summed
 in another order: 1e-5 of each lane's largest magnitude. The final form
@@ -46,6 +48,7 @@ from cfd_taichi_tpu_torch.models import dfsph
 from cfd_taichi_tpu_torch.ops import coef
 from cfd_taichi_tpu_torch.ops import neighbors as nb
 from cfd_taichi_tpu_torch.ops import stencil
+from cfd_taichi_tpu_torch.perf import bounds, inputs
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = {
@@ -402,3 +405,96 @@ def test_engine_choice(budget, monkeypatch):
         assert stored[0] == 1 and min(stored) > 0 and recomputed == (0, 0)
     else:
         assert stored == (0, 0, 0) and min(recomputed) > 0
+
+
+# ---------------------------------------------------------------------------
+# (e) ragged CSR engines and the bound counts
+# ---------------------------------------------------------------------------
+
+def _numpy_contraction(eng, pos, x, op):
+    """(N, 4) lane sums by a per-row loop in f64 over f32 lanes, rounded to
+    the storage dtype first as `_contract_plain` rounds them."""
+    pos, x = pos.numpy(), x.numpy()
+    if op == "matvec":
+        lanes = np.stack([x, pos[:, 0] * x, pos[:, 1] * x, pos[:, 2] * x], 1)
+    else:
+        xv = pos[:, 0] * x[:, 0] + pos[:, 1] * x[:, 1] + pos[:, 2] * x[:, 2]
+        lanes = np.concatenate([x, xv[:, None]], axis=1)
+    lanes = torch.from_numpy(lanes).to(eng.w.dtype).double().numpy()
+    off, nbr = eng.offsets.numpy(), eng.nbr.numpy()
+    w = eng.w.double().numpy()
+    sums = np.zeros((eng.n, 4))
+    for i in range(eng.n):
+        p = slice(off[i], off[i + 1])
+        sums[i] = w[p] @ lanes[nbr[p]]
+    return sums
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("op", ["matvec", "matvec_dot"])
+def test_contraction_on_ragged_engine(op, dtype):
+    """Rows of 0, 1, G-1, G+1 and 100+ pairs for every lane-group width G
+    in 4-32, random (not walk-order) sources, 1000 rows."""
+    eng, pos, k, v = inputs.ragged_engine(1000, DTYPES[dtype][1],
+                                          device="cpu")
+    lengths = set(np.diff(eng.offsets.numpy()).tolist())
+    assert {0, 1, 3, 5, 7, 9, 15, 17, 31, 33}.issubset(lengths)
+    assert max(lengths) >= 100
+    fn = coef.coef_matvec if op == "matvec" else coef.coef_matvec_dot
+    x = k if op == "matvec" else v
+    want = _numpy_contraction(eng, pos, x, op)
+    got = fn(eng, pos, x, lane_sums=True).numpy()
+    _close_lanes(got, want)
+    p = pos.numpy().astype(np.float64)
+    final = p * want[:, :1] - want[:, 1:] if op == "matvec" else \
+        (p * want[:, :3]).sum(axis=1) - want[:, 3]
+    np.testing.assert_allclose(fn(eng, pos, x).numpy(), final, rtol=0,
+                               atol=1e-5 * _cancel_scale(p, want, op))
+
+
+@pytest.mark.parametrize("op", ["matvec", "matvec_dot"])
+def test_contraction_bound_counts_each_array_once(op):
+    dot = op == "matvec_dot"
+    for dtype, w_bytes in ((torch.float32, 4), (torch.bfloat16, 2)):
+        eng, pos, k, v = inputs.ragged_engine(1003, dtype, device="cpu")
+        fn = coef.coef_matvec_dot if dot else coef.coef_matvec
+        x = v if dot else k
+        for lane_sums in (False, True):
+            out = fn(eng, pos, x, lane_sums=lane_sums)
+            arrays = (*eng, pos, x, out)
+            work = bounds.coef_contraction_work(dot, eng.n, eng.nbr.numel(),
+                                                w_bytes, lane_sums)
+            assert work.bytes == sum(a.numel() * a.element_size()
+                                     for a in arrays)
+            # a multiply and an add per lane and pair, plus the lanes
+            assert work.ops > 8 * eng.nbr.numel()
+    assert bounds.Work(int(3.35e12), 0).bound() == (1.0, "bytes")
+    assert bounds.Work(0, int(67e12)).bound() == (1.0, "operations")
+
+
+def test_stencil_candidates_match_brute_force(cloud):
+    """`candidates` counts the sources in each query's 27 clamped cells."""
+    cells = nb.cell_coords(cloud["pos"], cloud["grid"]).numpy()
+    near = np.abs(cells[:, None, :] - cells[None, :, :]).max(axis=2) <= 1
+    assert bounds.candidates(cloud["pos"], cloud["starts"],
+                             cloud["grid"]) == int(near.sum())
+
+
+def test_stencil_bound_counts_pairs_and_walk(cloud):
+    """A stencil kernel's bound counts the pairs within h (brute force), a
+    distance test and a pair term each; the walk's other candidates count
+    only in `walk_ops`."""
+    pos = cloud["pos"].double()
+    d2 = ((pos[:, None, :] - pos[None, :, :]) ** 2).sum(-1)
+    pairs = stencil.count_pairs(cloud["pos"], cloud["pos"], cloud["starts"],
+                                cloud["grid"], H, exclude_self=True)
+    near = int((d2 <= H * H).sum()) - N
+    assert abs(pairs - near) <= 1e-3 * near     # f32 r2 against f64 at r = h
+    cand = bounds.candidates(cloud["pos"], cloud["starts"], cloud["grid"])
+    work = bounds.stencil_work("fluid_terms", N, cloud["grid"].num_cells,
+                               cand, pairs)
+    per_pair = bounds.CANDIDATE_OPS + bounds.PAIR_OPS["fluid_terms"]
+    assert work.ops == per_pair * pairs
+    assert work.walk_ops == work.ops + bounds.CANDIDATE_OPS * (cand - pairs)
+    assert work.bound()[0] == max(work.bytes / bounds.HBM_BYTES_PER_S,
+                                  work.ops / bounds.F32_OPS_PER_S)

@@ -29,6 +29,7 @@ from cfd_taichi_tpu_torch.models import base
 from cfd_taichi_tpu_torch.ops import coef
 from cfd_taichi_tpu_torch.ops import neighbors as nb
 from cfd_taichi_tpu_torch.ops import stencil
+from cfd_taichi_tpu_torch.perf import inputs
 
 TINY = {
     "scene": {"box_min": [0.0, 0.0, 0.0], "box_max": [0.6, 0.8, 0.6],
@@ -144,4 +145,27 @@ def test_coef_kernels_match_plain_versions(cuda, dtype):
                        * np.linalg.norm(lanes, axis=1)).max())
         np.testing.assert_allclose(fn(eng, pos, x).cpu().numpy(),
                                    fn(want, pos.cpu(), x.cpu()).numpy(),
+                                   rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 1003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_coef_kernels_on_ragged_engines(cuda, dtype, n):
+    """Rows of 0, 1, G-1, G+1 and 100+ pairs, random sources, a row count
+    that is not a multiple of the rows a block takes."""
+    eng, pos, k, v = inputs.ragged_engine(n, dtype, device=cuda)
+    cpu = coef.CoefEngine(*(t.cpu() for t in eng))
+    for fn, x in ((coef.coef_matvec, k), (coef.coef_matvec_dot, v)):
+        sums = fn(eng, pos, x, lane_sums=True).cpu().numpy()
+        ref = fn(cpu, pos.cpu(), x.cpu(), lane_sums=True).numpy()
+        for r in range(4):
+            np.testing.assert_allclose(
+                sums[:, r], ref[:, r], rtol=0,
+                atol=1e-5 * float(np.abs(ref[:, r]).max()))
+        lanes = ref[:, :1] if fn is coef.coef_matvec else ref[:, :3]
+        scale = float((np.linalg.norm(pos.cpu().numpy(), axis=1)
+                       * np.linalg.norm(lanes, axis=1)).max())
+        np.testing.assert_allclose(fn(eng, pos, x).cpu().numpy(),
+                                   fn(cpu, pos.cpu(), x.cpu()).numpy(),
                                    rtol=0, atol=1e-5 * scale)

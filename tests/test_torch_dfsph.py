@@ -129,7 +129,8 @@ def test_dfsph_steps_match_jax(scene, request):
 
 def test_dfsph_step_from_carried_jax_state(jax_run):
     sim = _port_sim()
-    sim.state = io.state_from_numpy(jax_run[CARRY_AT]["leaves"])
+    sim.state = io.state_from_numpy(jax_run[CARRY_AT]["leaves"],
+                                     device="cpu")
     np.testing.assert_allclose(float(sim.state.t),
                                float(jax_run[CARRY_AT]["leaves"][26]))
     sim.step()
@@ -138,7 +139,7 @@ def test_dfsph_step_from_carried_jax_state(jax_run):
 
 def test_scene_matches_jax_scene():
     jsc = jscene.build_scene(jparse_config(copy.deepcopy(TINY)))
-    sc = build_scene(parse_config(copy.deepcopy(TINY)))
+    sc = build_scene(parse_config(copy.deepcopy(TINY)), device="cpu")
     order = np.asarray(jsc.arrays.boundary_table.order)
     np.testing.assert_array_equal(sc.boundary_pos.numpy(),
                                   jsc.arrays.boundary_pos.to_numpy()[order])
@@ -171,7 +172,7 @@ def test_unported_parts_raise_with_roadmap_pointer():
     raw = copy.deepcopy(TINY)
     raw["solid"] = {"mesh": "builtin:cube", "active": True}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_scene(parse_config(raw))
+        build_scene(parse_config(raw), device="cpu")
 
 
 def test_checkpoints_cross_between_packages(tmp_path, jax_run):
@@ -187,14 +188,14 @@ def test_checkpoints_cross_between_packages(tmp_path, jax_run):
     for a, b in zip(jax.tree_util.tree_flatten(jstate)[0],
                     io.state_to_numpy(sim.state)):
         np.testing.assert_array_equal(np.asarray(a), b)
-    back = io.load_checkpoint(path)
+    back = io.load_checkpoint(path, device="cpu")
     for a, b in zip(io.state_to_numpy(back), io.state_to_numpy(sim.state)):
         np.testing.assert_array_equal(a, b)
 
     jpath = str(tmp_path / "jax.npz")
     np.savez(jpath, **{f"leaf_{i}": a for i, a in
                        enumerate(jax_run[CARRY_AT]["leaves"])})
-    carried = io.load_checkpoint(jpath)
+    carried = io.load_checkpoint(jpath, device="cpu")
     for a, b in zip(io.state_to_numpy(carried), jax_run[CARRY_AT]["leaves"]):
         np.testing.assert_array_equal(a, b)
 
@@ -210,7 +211,7 @@ def test_runner_cli_checkpoint_and_resume(tmp_path):
                    cwd=ROOT)
     ckpt = out / "ckpt_000002.npz"
     assert ckpt.exists()
-    state = io.load_checkpoint(str(ckpt))
+    state = io.load_checkpoint(str(ckpt), device="cpu")
     assert int(state.step_count) == 2
     done = subprocess.run(cmd[:-2] + ["--resume", str(ckpt)], check=True,
                           capture_output=True, text=True, timeout=120,
