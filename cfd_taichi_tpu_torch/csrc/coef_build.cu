@@ -2,22 +2,39 @@
 //
 // Replaces bandmat.build_coef_engine (cfd_taichi_tpu/ops/bandmat.py:682-768),
 // a dense (QB, B, nbcap*64) window pass over block plans that writes a
-// masked coefficient into every slot of every window. Here one thread per
-// cell-sorted query i walks the 27-cell stencil exactly as fluid_terms does
-// (same pair test r2 <= h2 under -fmad=false, same j != i rule) and writes
+// masked coefficient into every slot of every window. Here each cell-sorted
+// query i walks the 27-cell stencil with the same pair test as fluid_terms
+// (r2 <= h2 under -fmad=false, j != i) and writes
 //   nbr[offsets[i] + t] = j,   w[offsets[i] + t] = m gc(r_ij)
 // in walk order: 9 runs, ascending slot in each. offsets is the exclusive
 // cumsum of fluid_terms' counts, so row i has room for exactly its pairs;
-// the writes also stop at offsets[i+1], so offsets that disagree cannot
-// write out of bounds. bf16 storage rounds the f32 w to nearest even
-// (__float2bfloat16_rn), as astype does.
-// Bound on the card: the serial walk of ~27 x occupancy candidates per
-// thread, as in K1, plus the stores. A thread's ~28 stores go to its own
-// contiguous run of nbr and w, so the 32 threads of a warp write 32
-// scattered 4-byte pieces per store (P x 8 bytes in f32, 0.23 GB at 1M).
-// Measured on the H100 (PERF.md) that makes the build ~3.4x fluid_terms'
-// time at 1M; staging a block's pairs for coalesced stores is left for
-// later.
+// no store reaches offsets[i+1] or beyond, so offsets that disagree with
+// the walk cannot write out of bounds. bf16 storage rounds the f32 w to
+// nearest even (__float2bfloat16_rn), as astype does.
+//
+// Bound on the card: bytes (the pair store, P x 8 bytes in f32, 0.23 GB at
+// breaking_dam_1m: 73 us at 3.35 TB/s). Neither form comes near it. One
+// thread per query (the form before this one) walked ~216 candidates in
+// series, ran gc on every lane whenever any lane of the warp held a pair,
+// and wrote its own row, so a store instruction touched 32 rows ~28 pairs
+// apart: 1.9 ms at 1M on the H100 (PERF.md).
+//
+// Design: a group of kGroupWalk lanes per query (group_walk, stencil.cuh):
+// a round tests G neighbouring candidates with one contiguous pos read,
+// the group queues its hits in walk order, and the warp hands them out in
+// batches, lane l of a group taking the query's next hit, number q + l:
+//   nbr[q + l] = j,  w[q + l] = m gc(r),  q += taken
+// so a batch's stores land contiguous within the row, in walk order (the
+// order the checks hold exactly), and the square root and divisions of gc
+// run on lanes that nearly all hold a pair. Groups past n walk nothing and
+// store nothing. Measured at 1M on the H100 (PERF.md §6,
+// perf/coef_compare.py): 0.71 ms, 2.7x faster than one thread per query.
+// Of the walk before its round was trimmed (0.75 ms), the tests and
+// ballots took 0.41 ms, the queue and batches 0.08, the nbr store 0.14,
+// gc and the w store 0.13. A warp per cell with the candidates staged in
+// shared memory, two candidates a lane a round, a deeper queue and
+// lane-contiguous chunks were slower, or at most 3 % faster on the
+// lattice and slower on dense cells.
 #include <cuda_bf16.h>
 
 #include "stencil.cuh"
@@ -36,31 +53,21 @@ coef_build_kernel(const float* __restrict__ pos,
                   const int* __restrict__ starts, int n, StencilParams p,
                   float m, const int* __restrict__ offsets,
                   int* __restrict__ nbr, T* __restrict__ w) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
-  int c[3];
-  cell_of(xi, yi, zi, p, c);
-
-  int q = offsets[i];
-  const int end = offsets[i + 1];
-  for (int dm = -1; dm <= 1; ++dm) {
-    for (int ds = -1; ds <= 1; ++ds) {
-      int lo, hi;
-      if (!stencil_run(c, dm, ds, starts, p, lo, hi)) continue;
-      for (int j = lo; j < hi && q < end; ++j) {
-        if (j == i) continue;
-        const float dx = xi - __ldg(pos + 3 * j);
-        const float dy = yi - __ldg(pos + 3 * j + 1);
-        const float dz = zi - __ldg(pos + 3 * j + 2);
-        const float r2 = dx * dx + dy * dy + dz * dz;
-        if (!(r2 <= p.h2)) continue;
-        nbr[q] = j;
-        store_w(w, q, m * cubic_grad_coeff(pair_r(r2), p));
-        ++q;
-      }
+  const WalkGroup g = walk_group(n);
+  const int i = g.i;
+  int q = g.live ? __ldg(offsets + i) : 0;
+  const int end = g.live ? __ldg(offsets + i + 1) : 0;
+  const float xi = g.live ? pos[3 * i] : 0.f;
+  const float yi = g.live ? pos[3 * i + 1] : 0.f;
+  const float zi = g.live ? pos[3 * i + 2] : 0.f;
+  group_walk(pos, n, starts, p, g, xi, yi, zi, [&](const Pair& k, int taken) {
+    const int slot = q + g.lane;
+    if (k.hit && slot < end) {
+      nbr[slot] = k.j;
+      store_w(w, slot, m * cubic_grad_coeff(pair_r(k.r2), p));
     }
-  }
+    q += taken;
+  });
 }
 
 extern "C" int coef_build_launch(const float* pos, const int* starts, int n,
@@ -70,10 +77,10 @@ extern "C" int coef_build_launch(const float* pos, const int* starts, int n,
   if (n > 0) {
     const cudaStream_t s = (cudaStream_t)stream;
     if (bf16) {
-      coef_build_kernel<<<grid_blocks(n), kThreads, 0, s>>>(
+      coef_build_kernel<<<walk_blocks(n), kThreads, 0, s>>>(
           pos, starts, n, *p, m, offsets, nbr, (__nv_bfloat16*)w);
     } else {
-      coef_build_kernel<<<grid_blocks(n), kThreads, 0, s>>>(
+      coef_build_kernel<<<walk_blocks(n), kThreads, 0, s>>>(
           pos, starts, n, *p, m, offsets, nbr, (float*)w);
     }
   }

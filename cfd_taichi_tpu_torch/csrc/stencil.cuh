@@ -1,12 +1,14 @@
 // Shared pieces of the CSR-stencil pair kernels (ops/stencil.py).
 //
-// Every kernel runs one thread per cell-sorted query particle. The thread
-// finds its cell (floor(x * 1/h), clamped into the grid like
-// cfd_taichi_tpu/ops/neighbors.py:98-108), then visits the 27-cell stencil
-// as 9 contiguous runs of the source CSR table: the fast axis has stride 1,
-// so the three cells of one stencil row are adjacent in the sorted order.
-// Sums stay in f32 registers and each thread writes only its own row, so
-// there are no atomics and every run gives bit-identical results.
+// A query particle finds its cell (floor(x * 1/h), clamped into the grid
+// like cfd_taichi_tpu/ops/neighbors.py:98-108), then visits the 27-cell
+// stencil as 9 contiguous runs of the source CSR table: the fast axis has
+// stride 1, so the three cells of one stencil row are adjacent in the
+// sorted order. fluid_terms, boundary_terms and matvec run one thread per
+// cell-sorted query over the runs; coef_build and viscosity run a group of
+// kGroupWalk lanes per query (group_walk below). Sums stay in f32
+// registers and each query's row is written by its own thread or group,
+// so there are no atomics and every run gives bit-identical results.
 //
 // Built with -fmad=false: r2 = dx*dx + dy*dy + dz*dz must round like the
 // plain PyTorch and JAX versions, because the seed lattice has many pairs
@@ -90,3 +92,146 @@ __device__ __forceinline__ float pair_r(float r2) {
 constexpr int kThreads = 128;
 
 inline int grid_blocks(int n) { return (n + kThreads - 1) / kThreads; }
+
+// ---------------------------------------------------------------------------
+// The group walk: kGroupWalk consecutive lanes of a warp share one query.
+//
+// Lane l of a round tests candidate lo + round * G + l of the run [lo, hi),
+// so the group's pos loads are one contiguous 12 G-byte read and G
+// candidates are in flight a round, not one as in a thread's serial walk.
+//
+// About one candidate in eight is a pair, and a pair's term (a square
+// root, divisions, more loads, a store) costs several times a distance
+// test. Run where its test found it, the term would take the issue slots of
+// a whole warp for the one or two lanes of a round that hold a pair. So a
+// group queues its hits in a ring in shared memory, in walk order, and the
+// warp hands them to the caller's pair function in batches: whenever a
+// group of the warp holds G hits, every group passes its oldest min(held,
+// G) to its lanes 0, 1, ..., and once more at the end.
+//
+// The runs come in the one-thread order (dm outer, ds inner, ascending j),
+// ascending lanes of a round hold ascending j, and a ballot ranks a round's
+// hits, so a group's hits reach the pair function in walk order: the
+// query's hit number done + l on lane l (coef_build's slots).
+//
+// The whole warp walks together: for each of the 9 runs it takes the most
+// rounds any of its groups needs, so every lane reaches every ballot, vote
+// and batch. A lane whose candidate lies past its run's end, is the query
+// itself, or belongs to a group past n takes part with hit = false.
+// ---------------------------------------------------------------------------
+
+constexpr int kGroupWalk = 8;  // lanes per query: a power of two <= 32
+static_assert(kGroupWalk >= 1 && kGroupWalk <= 32 &&
+                  (kGroupWalk & (kGroupWalk - 1)) == 0,
+              "kGroupWalk must be a power of two no larger than a warp");
+constexpr int kQueriesPerBlock = kThreads / kGroupWalk;
+
+inline int walk_blocks(int n) {
+  return (n + kQueriesPerBlock - 1) / kQueriesPerBlock;
+}
+
+struct WalkGroup {
+  int i;          // the group's cell-sorted query
+  bool live;      // i < n: the group has a query
+  int lane;       // 0 .. kGroupWalk - 1
+  unsigned mask;  // the group's lanes within its warp
+};
+
+__device__ __forceinline__ WalkGroup walk_group(int n) {
+  WalkGroup g;
+  g.i = blockIdx.x * kQueriesPerBlock + threadIdx.x / kGroupWalk;
+  g.live = g.i < n;
+  g.lane = threadIdx.x & (kGroupWalk - 1);
+  const int base = (threadIdx.x & 31) & ~(kGroupWalk - 1);
+  g.mask = kGroupWalk == 32 ? 0xffffffffu
+                            : ((1u << kGroupWalk) - 1u) << base;
+  return g;
+}
+
+// Sum of x over the group's lanes, on every lane of the group.
+__device__ __forceinline__ float walk_sum(float x, const WalkGroup& g) {
+#pragma unroll
+  for (int off = kGroupWalk / 2; off > 0; off >>= 1)
+    x += __shfl_xor_sync(g.mask, x, off, kGroupWalk);
+  return x;
+}
+
+// A pair handed to the pair function: its source slot j, x_ij and r2, and
+// whether the lane holds one (hit).
+struct Pair {
+  int j;
+  bool hit;
+  float dx, dy, dz, r2;
+};
+
+// A queued hit: 16 bytes, one shared-memory store and one load.
+struct alignas(16) QueuedHit {
+  int j;
+  float dx, dy, dz;
+};
+
+__device__ __forceinline__ float dist2(float dx, float dy, float dz) {
+  return dx * dx + dy * dy + dz * dz;
+}
+
+// Walk query g.i (at xi, yi, zi; any values where !g.live) over the
+// 27-cell stencil. Every lane of the warp must call it. pairs(const Pair&,
+// int taken) runs on every lane of the warp together, once per batch: lane
+// l of a group holds the group's hit number done + l, for l < taken (its
+// hit is false beyond), where done is the hits of earlier batches. n is
+// the number of sources: loads past a run's end read source n - 1.
+template <typename Pairs>
+__device__ __forceinline__ void group_walk(const float* __restrict__ pos,
+                                           int n,
+                                           const int* __restrict__ starts,
+                                           const StencilParams& p,
+                                           const WalkGroup& g, float xi,
+                                           float yi, float zi, Pairs&& pairs) {
+  constexpr int kRing = 2 * kGroupWalk;  // held < G before a round
+  __shared__ QueuedHit rings[kQueriesPerBlock * kRing];
+  const int ring0 = (threadIdx.x / kGroupWalk) * kRing;
+  const unsigned lane_bit = 1u << (threadIdx.x & 31);
+  const unsigned below = g.mask & (lane_bit - 1u);  // the group's lower lanes
+  const float h2 = p.h2;
+  int head = 0, held = 0;  // the oldest queued hit's ring slot; hits queued
+
+  // Hand the oldest min(held, G) hits of every group to its lanes.
+  auto batch = [&]() {
+    __syncwarp();
+    const int taken = min(held, kGroupWalk);
+    const QueuedHit q = rings[ring0 + ((head + g.lane) & (kRing - 1))];
+    __syncwarp();
+    head += taken;
+    held -= taken;
+    pairs(Pair{q.j, g.lane < taken, q.dx, q.dy, q.dz,
+               dist2(q.dx, q.dy, q.dz)},
+          taken);
+  };
+
+  int c[3];
+  cell_of(xi, yi, zi, p, c);
+  for (int dm = -1; dm <= 1; ++dm) {
+    for (int ds = -1; ds <= 1; ++ds) {
+      int lo = 0, hi = 0;
+      if (!g.live || !stencil_run(c, dm, ds, starts, p, lo, hi)) lo = hi = 0;
+      const int rounds = __reduce_max_sync(
+          0xffffffffu, (hi - lo + kGroupWalk - 1) / kGroupWalk);
+      int j = lo + g.lane;
+      for (int t = 0; t < rounds; ++t, j += kGroupWalk) {
+        const int jl = min(j, n - 1);
+        const float dx = xi - __ldg(pos + 3 * jl);
+        const float dy = yi - __ldg(pos + 3 * jl + 1);
+        const float dz = zi - __ldg(pos + 3 * jl + 2);
+        const bool hit = (j < hi) & (j != g.i) & (dist2(dx, dy, dz) <= h2);
+        // The warp votes at once; a group counts its own lanes' bits.
+        const unsigned ballot = __ballot_sync(0xffffffffu, hit);
+        if (hit)
+          rings[ring0 + ((head + held + __popc(ballot & below)) &
+                         (kRing - 1))] = QueuedHit{j, dx, dy, dz};
+        held += __popc(ballot & g.mask);
+        if (__any_sync(0xffffffffu, held >= kGroupWalk)) batch();
+      }
+    }
+  }
+  if (__any_sync(0xffffffffu, held > 0)) batch();
+}

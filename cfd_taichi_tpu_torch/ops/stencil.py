@@ -2,12 +2,14 @@
 
 Each pass has three parts:
 
-* a hand-written CUDA kernel (`csrc/*.cu`, built by ops/_build.py): one
-  thread per cell-sorted query walks the 27-cell stencil of the source CSR
-  table and sums in registers. What bounds every kernel on the card is
-  that serial walk (load latency of ~27 x occupancy candidates), not DRAM
-  bandwidth or FLOPs; the note atop each `.cu` file says what its design
-  does about it;
+* a hand-written CUDA kernel (`csrc/*.cu`, built by ops/_build.py) that
+  walks each cell-sorted query's 27-cell stencil of the source CSR table
+  and sums in registers: one thread per query in fluid_terms,
+  boundary_terms and matvec / matvec_dot, a group of lanes per query in
+  viscosity and coef_build (`csrc/stencil.cuh`, group_walk). The walk of
+  ~27 x occupancy candidates, not DRAM bandwidth or FLOPs, sets their
+  time; the note atop each `.cu` file says what bounds it and what its
+  design does about that;
 * a plain PyTorch version of the same function, `*_plain`, which walks the
   same stencil as (Q, 27 * max_occupancy) masked candidates, chunked over
   queries so that it fits at 1M particles;

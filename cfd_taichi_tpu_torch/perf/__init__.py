@@ -2,7 +2,7 @@
 from the root of a checkout:
 
     python -m cfd_taichi_tpu_torch.perf.kernel_table   # kernel table, rates
-    python -m cfd_taichi_tpu_torch.perf.coef_compare   # coef kernel sources
+    python -m cfd_taichi_tpu_torch.perf.coef_compare   # a kernel's sources
 
 `inputs` makes the seeded inputs they share with chip_smoke.py and the
 tests, `cases` the kernel calls and their measurement (time, `bounds`,

@@ -109,6 +109,34 @@ def lane_error(got: torch.Tensor, want: torch.Tensor) -> float:
                / max(float(want[:, r].abs().max()), 1e-30) for r in range(4))
 
 
+def scaled_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| over the largest |want|."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                  1e-30)
+
+
+def build_error(got: coef.CoefEngine, want: coef.CoefEngine) -> dict:
+    """How coef_build's engine differs from the plain build's: `nbr_bad`
+    slots that differ (the walk order is kept, so want 0), the largest
+    |w - w_plain| (`w_abs_err`) and over the largest |w_plain| (`w_err`).
+    f32 w holds to 1e-5 of scale. A bf16 w may round a value that sits on
+    a rounding boundary the other way, so `w_off` slots may differ, each
+    by at most one ulp (2^-7 relative), in at most 1e-4 of the slots.
+    `ok` says whether all of it holds."""
+    a, b = got.w.float(), want.w.float()
+    err = float((a - b).abs().max()) if b.numel() else 0.0
+    row = dict(nbr_bad=int((got.nbr != want.nbr).sum()), w_abs_err=err,
+               w_err=err / max(float(b.abs().max()), 1e-30)
+               if b.numel() else 0.0)
+    if got.w.dtype == torch.float32:
+        row["ok"] = row["nbr_bad"] == 0 and row["w_err"] <= 1e-5
+        return row
+    row["w_off"] = int((a != b).sum())
+    row["ok"] = (row["nbr_bad"] == 0 and row["w_off"] <= 1e-4 * b.numel()
+                 and bool(((a - b).abs() <= 2.0**-7 * b.abs()).all()))
+    return row
+
+
 def measure(case: Case) -> dict:
     """The case's kernel time (CUDA events, median of 10), its bound (and
     the walk's, `bounds.Work.walk_ops`) and the share of the bound reached.

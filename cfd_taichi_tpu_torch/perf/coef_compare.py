@@ -1,37 +1,54 @@
-"""The coef contraction kernels of the tree (csrc/coef_matvec.cu) beside
-other sources of the same two C entry points, on one card:
+"""One kernel of the tree beside other sources of the same C entry points,
+on one card:
 
     python -m cfd_taichi_tpu_torch.perf.coef_compare \\
-        --variant NAME=PATH [--variant NAME=PATH ...] [--out PATH]
+        [--kernel coef_matvec|coef_build|viscosity] \\
+        [--variant NAME=PATH ...] [--out PATH]
 
-For instance, the one-thread-per-row kernel of commit 334462f:
+`--kernel` picks the source: csrc/coef_matvec.cu (the default, both
+contractions), csrc/coef_build.cu or csrc/viscosity.cu. A variant's PATH
+is a source of that file, or a directory: its `.cu` of the kernel's name
+(else the tree's) is built beside its headers, which take the place of
+the tree's (`#include "..."` looks beside the source first; the headers
+it lacks come from the tree's csrc). For instance, the one-thread-per-query
+coef_build of commit 3853c6a, and the tree's coef_build with 4-lane groups:
 
-    mkdir -p build/baseline
-    git show 334462f:cfd_taichi_tpu_torch/csrc/coef_matvec.cu \\
-        > build/baseline/coef_matvec.cu
-    python -m cfd_taichi_tpu_torch.perf.coef_compare \\
-        --variant row_thread=build/baseline/coef_matvec.cu
+    mkdir -p build/pr3 build/g4
+    git show 3853c6a:cfd_taichi_tpu_torch/csrc/coef_build.cu \\
+        > build/pr3/coef_build.cu
+    sed 's/kGroupWalk = 8;/kGroupWalk = 4;/' \\
+        cfd_taichi_tpu_torch/csrc/stencil.cuh > build/g4/stencil.cuh
+    python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel coef_build \\
+        --variant pr3=build/pr3/coef_build.cu --variant g4=build/g4
 
 Each source, the tree's ("tree") first, is built into its own library
-(build/compare/; one that does not build is reported and left out) and
-checked against the plain contraction (lane sums to 1e-5 of each lane's
-largest value) on breaking_dam_1m's jittered lattice and on two ragged
-engines (1000 and 1003 rows). Then it is timed at 1M in f32 and bf16
-storage: CUDA events around 20 back-to-back launches of the final form,
-over the count, in 4 rounds that visit the sources forward and backward
-in turn (median of the rounds); and at 30k, torch.profiler's device time
-per launch. Prints one line per measurement and writes the whole as JSON
+(build/compare/<kernel>/<name>/; one that does not build is reported and
+left out) and called through the port's wrappers with that library in
+place of the tree's. It is checked against the plain version on
+breaking_dam_1m's jittered lattice and, for the contraction, on two
+ragged engines of 1000 and 1003 rows (lane sums to 1e-5 of each lane's
+largest value), else on the clustered cloud of chip_smoke.py
+(perf/inputs.py; coef_build: nbr exactly, w as perf/cases.build_error
+says; viscosity: 1e-5 of the largest value). Then it is timed, the
+coef kernels in f32 and bf16 storage: on the 1M lattice (and the
+clustered cloud), CUDA events around 20 back-to-back calls, over the
+count, in 4 rounds that visit the sources forward and backward in turn
+(median of the rounds); and at 30k, torch.profiler's device time per
+launch. Prints one line per measurement and writes the whole as JSON
 (--out); exits 1 if a check failed.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
+import contextlib
+import functools
 import json
+import shutil
 import statistics
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -41,121 +58,195 @@ from cfd_taichi_tpu_torch.perf import cases, inputs, timing
 
 COMPARE_DIR = _build.BUILD_DIR.parent / "compare"
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+SOURCES = {"coef_matvec": "coef_matvec.cu", "coef_build": "coef_build.cu",
+           "viscosity": "viscosity.cu"}
+CLUSTERED_N = 100_000
 ROUNDS = 4
+TOL = 1e-5
 
 
-def build_variants(sources: dict[str, Path]) -> dict:
+class Entry(NamedTuple):
+    label: str                 # what is called, e.g. "f32/coef_matvec"
+    kernel: str                # the kernel's name in the profiler
+    call: Callable             # one call through the wrapper
+    check: Callable[[], float]  # error of a call against the plain version
+
+
+def build_variants(kernel: str, sources: dict[str, Path]) -> dict:
     """{name: KernelLibrary} of the sources that build, each on its own."""
-    COMPARE_DIR.mkdir(parents=True, exist_ok=True)
     srcs = {}
     for name, path in sources.items():
-        srcs[name] = COMPARE_DIR / f"coef_matvec_{name}.cu"
-        srcs[name].write_text(Path(path).read_text())
-    libs = {name: COMPARE_DIR / f"lib_{name}.so" for name in srcs}
+        path, vdir = Path(path), COMPARE_DIR / kernel / name
+        shutil.rmtree(vdir, ignore_errors=True)
+        vdir.mkdir(parents=True)
+        if path.is_dir():
+            for f in path.glob("*.cuh"):
+                shutil.copy(f, vdir / f.name)
+            path = path / SOURCES[kernel] if (path / SOURCES[kernel]).exists() \
+                else _build._CSRC / SOURCES[kernel]
+        srcs[name] = vdir / SOURCES[kernel]
+        shutil.copy(path, srcs[name])
 
     def build(name):
+        lib = srcs[name].parent / f"lib_{kernel}.so"
         try:
-            _build.build_shared({libs[name]: [srcs[name]]})
+            _build.build_shared({lib: [srcs[name]]})
         except RuntimeError as e:
             print(f"[compare] {name} does not build, left out:\n{e}")
             return None
-        return _build.KernelLibrary(libs[name], 0.0,
-                                    libs[name].with_suffix(".log").read_text())
+        return _build.KernelLibrary(lib, 0.0,
+                                    lib.with_suffix(".log").read_text())
 
     with ThreadPoolExecutor(len(srcs)) as pool:
         built = dict(zip(srcs, pool.map(build, srcs)))
     return {name: lib for name, lib in built.items() if lib is not None}
 
 
-def launcher(lib, op: str, eng, pos, x, lane_sums: bool):
-    """(launch, out): one launch of `op` from `lib` into `out`, with the
-    pointers bound once."""
-    n = pos.shape[0]
-    out = pos.new_empty((n, 4) if lane_sums else
-                        ((n, 3) if op == "coef_matvec" else (n,)))
-    args = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
-            else a for a in (pos, n, eng.offsets, eng.nbr, eng.w,
-                             int(eng.w.dtype == torch.bfloat16), x, out,
-                             int(lane_sums))]
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    return (lambda: lib.call(f"{op}_launch", *args, stream)), out
+@contextlib.contextmanager
+def using(lib):
+    """The wrappers launch from `lib` inside the block."""
+    saved = _build._LIBRARY
+    _build._LIBRARY = lib
+    try:
+        yield
+    finally:
+        _build._LIBRARY = saved
 
 
-def lattice_engines(cfg_name: str) -> tuple[dict, dict]:
-    """(lattice inputs, {dtype name: engine}) of the config."""
-    x = inputs.lattice_inputs(cfg_name, seed=7)
-    sc, p, st = x["sc"], x["p"], x["st"]
-    g, h, m = sc.grid, sc.h, sc.particle_m
+def _scene(x: dict) -> tuple:
+    """(grid, h, m) of lattice inputs (a scene) or the clustered cloud."""
+    if "sc" in x:
+        return x["sc"].grid, x["sc"].h, x["sc"].particle_m
+    return x["grid"], x["h"], x["m"]
+
+
+def contraction_entries(engs: dict, pos, k, v) -> list[Entry]:
+    out = []
+    for d, eng in engs.items():
+        for op, fn, plain, src, _ in cases.CONTRACTIONS:
+            arg = k if src == "k" else v
+            want = plain(eng, pos, arg, lane_sums=True)
+            out.append(Entry(
+                f"{d}/{op}", op, functools.partial(fn, eng, pos, arg),
+                lambda fn=fn, eng=eng, arg=arg, want=want: cases.lane_error(
+                    fn(eng, pos, arg, lane_sums=True), want)))
+    return out
+
+
+def entries(kernel: str, x: dict) -> list[Entry]:
+    """The kernel's calls on inputs `x` (perf/inputs.py), each with its
+    check; the coef kernels once per storage dtype. Engines and offsets
+    come from the tree's kernels."""
+    g, h, m = _scene(x)
+    p, st = x["p"], x["st"]
+    if kernel == "viscosity":
+        args = (p, st, g, h, m, x["v"], x["rho"])
+        want = S.viscosity_plain(*args, **cases.VISC)
+        return [Entry("f32", "viscosity",
+                      lambda: S.viscosity(*args, **cases.VISC),
+                      lambda: cases.scaled_error(
+                          S.viscosity(*args, **cases.VISC), want))]
     off = coef.csr_offsets(S.fluid_terms(p, st, g, h, m).count)
-    return x, {d: coef.build_coef(p, st, g, h, m, off, dt)
-               for d, dt in DTYPES.items()}
+    if kernel == "coef_matvec":
+        return contraction_entries(
+            {d: coef.build_coef(p, st, g, h, m, off, dt)
+             for d, dt in DTYPES.items()}, p, x["k"], x["v"])
+    pairs = int(off[-1])
+    out = []
+    for d, dt in DTYPES.items():
+        want = coef.build_coef_plain(p, st, g, h, m, off, dt)
+        call = functools.partial(coef.build_coef, p, st, g, h, m, off, dt,
+                                 pairs)
+
+        def check(call=call, want=want):
+            e = cases.build_error(call(), want)
+            return e["w_err"] if e["ok"] else float("inf")
+        out.append(Entry(d, "coef_build", call, check))
+    return out
+
+
+def run_checks(res: dict, libs: dict, case: str, ents: list[Entry]) -> None:
+    for ent in ents:
+        for name, lib in libs.items():
+            with using(lib):
+                err = ent.check()
+            key = f"{name}/{case}/{ent.label}"
+            res["check"][key] = err
+            print(f"[check] {key}: error / scale {err:.3e} "
+                  f"{'ok' if err <= TOL else 'FAIL'}")
+
+
+def time_rounds(res: dict, libs: dict, case: str,
+                ents: list[Entry]) -> None:
+    """CUDA events around batches of calls, sources in alternating order."""
+    names = list(libs)
+    for ent in ents:
+        times: dict = {name: [] for name in names}
+        for r in range(ROUNDS):
+            for name in (names if r % 2 == 0 else names[::-1]):
+                with using(libs[name]):
+                    times[name].append(timing.batch_ms(ent.call))
+        for name in names:
+            ms = statistics.median(times[name])
+            res.setdefault(f"ms_{case}", {})[f"{name}/{ent.label}"] = dict(
+                median=ms, rounds=times[name])
+            print(f"[{case}] {name:10s} {ent.label:20s} {ms * 1e3:9.2f} us "
+                  f"(rounds {[round(t * 1e3, 2) for t in times[name]]})")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=sorted(SOURCES),
+                    default="coef_matvec")
     ap.add_argument("--variant", action="append", default=[],
-                    metavar="NAME=PATH", help="another coef_matvec source")
-    ap.add_argument("--out", default="build/perf/coef_compare.json")
+                    metavar="NAME=PATH", help="another source of the kernel")
+    ap.add_argument("--out", default=None,
+                    help="JSON output (default build/perf/compare_<kernel>"
+                         ".json)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA card")
-    sources = {"tree": _build._CSRC / "coef_matvec.cu",
+    kernel = args.kernel
+    sources = {"tree": _build._CSRC / SOURCES[kernel],
                **dict(v.split("=", 1) for v in args.variant)}
-    print(f"[compare] card: {timing.card()}")
-    libs = build_variants(sources)
+    print(f"[compare] {kernel} on card: {timing.card()}")
+    libs = build_variants(kernel, sources)
     for name, lib in libs.items():
         regs = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln]
         print(f"[compare] {name}: {regs}")
-    names = list(libs)
-    res: dict = {"card": timing.card(), "check": {}, "ms_1m": {},
+    res: dict = {"card": timing.card(), "kernel": kernel, "check": {},
                  "device_us_30k": {}}
 
-    x, engs = lattice_engines("breaking_dam_1m.json")
-    for d, dt in DTYPES.items():
-        checks = [("1m", engs[d], x["p"], x["k"], x["v"])]
-        for n in (1000, 1003):
-            checks.append((f"ragged{n}", *inputs.ragged_engine(n, dt)))
-        for case, eng, pos, k, v in checks:
-            for op, _, plain, src, _ in cases.CONTRACTIONS:
-                arg = k if src == "k" else v
-                want = plain(eng, pos, arg, lane_sums=True)
-                for name in names:
-                    fn, got = launcher(libs[name], op, eng, pos, arg, True)
-                    fn()
-                    err = cases.lane_error(got, want)
-                    key = f"{name}/{d}/{op}/{case}"
-                    res["check"][key] = err
-                    print(f"[check] {key}: lane err / scale {err:.3e} "
-                          f"{'ok' if err <= 1e-5 else 'FAIL'}")
-    for d in DTYPES:
-        for op, _, _, src, _ in cases.CONTRACTIONS:
-            fns = {name: launcher(libs[name], op, engs[d], x["p"], x[src],
-                                  False)[0] for name in names}
-            times: dict = {name: [] for name in names}
-            for r in range(ROUNDS):
-                for name in (names if r % 2 == 0 else names[::-1]):
-                    times[name].append(timing.batch_ms(fns[name]))
-            for name in names:
-                ms = statistics.median(times[name])
-                res["ms_1m"][f"{name}/{d}/{op}"] = dict(median=ms,
-                                                        rounds=times[name])
-                print(f"[1m] {name:10s} {d:4s} {op:16s} {ms * 1e3:9.2f} us "
-                      f"(rounds {[round(t * 1e3, 2) for t in times[name]]})")
-    del x, engs
+    x = inputs.lattice_inputs("breaking_dam_1m.json", seed=7)
+    ents = entries(kernel, x)
+    run_checks(res, libs, "1m", ents)
+    time_rounds(res, libs, "1m", ents)
+    del x, ents
     torch.cuda.empty_cache()
 
-    x, engs = lattice_engines("breaking_dam_30k.json")
-    for d in DTYPES:
-        for op, _, _, src, _ in cases.CONTRACTIONS:
-            for name in names:
-                fn, _ = launcher(libs[name], op, engs[d], x["p"], x[src],
-                                 False)
-                us = timing.kernel_device_us(fn, op)
-                res["device_us_30k"][f"{name}/{d}/{op}"] = us
-                print(f"[30k] {name:10s} {d:4s} {op:16s} {us:8.2f} us")
-    bad = [k for k, err in res["check"].items() if not err <= 1e-5]
-    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    Path(args.out).write_text(json.dumps(res, indent=1))
+    if kernel == "coef_matvec":
+        for n in (1000, 1003):
+            # One seed: the same rows, sources, pos, k and v in both dtypes.
+            rag = {d: inputs.ragged_engine(n, dt) for d, dt in DTYPES.items()}
+            run_checks(res, libs, f"ragged{n}", contraction_entries(
+                {d: r[0] for d, r in rag.items()}, *rag["f32"][1:]))
+    else:
+        ents = entries(kernel, inputs.clustered_inputs(CLUSTERED_N, seed=5))
+        run_checks(res, libs, "clustered", ents)
+        time_rounds(res, libs, "clustered", ents)
+        del ents
+
+    x = inputs.lattice_inputs("breaking_dam_30k.json", seed=7)
+    for ent in entries(kernel, x):
+        for name, lib in libs.items():
+            with using(lib):
+                us = timing.kernel_device_us(ent.call, ent.kernel)
+            res["device_us_30k"][f"{name}/{ent.label}"] = us
+            print(f"[30k] {name:10s} {ent.label:20s} {us:8.2f} us")
+    bad = [key for key, err in res["check"].items() if not err <= TOL]
+    out = Path(args.out or f"build/perf/compare_{kernel}.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(res, indent=1))
     print(f"[compare] failed checks: {bad}")
     return 1 if bad else 0
 

@@ -1,6 +1,7 @@
 """Seeded inputs of the kernel checks and measurements: the jittered seed
-lattice of a config, a ragged CSR engine of the coef contraction, and the
-DFSPH loop engine pinned for a run."""
+lattice of a config, a clustered cloud for the stencil walk's edge cases,
+a ragged CSR engine of the coef contraction, and the DFSPH loop engine
+pinned for a run."""
 
 from __future__ import annotations
 
@@ -74,6 +75,69 @@ def ragged_engine(n: int, dtype: torch.dtype, seed: int = 3,
         rng.uniform(0.0, 10.0, (n, 3)), rng.uniform(0.0, 2.0, n),
         rng.standard_normal((n, 3))))
     return eng, pos, k, v
+
+
+CLUSTER_H = 0.125        # support radius and cell edge: a power of two
+CLUSTER_BLOB_OCC = 200   # particles per cell inside the dense blob
+
+
+def clustered_inputs(n: int, seed: int, device="cuda") -> dict:
+    """A numpy-seeded cloud of about `n` particles that the seed lattices
+    do not exercise, cell-sorted, with random k, v and rho:
+
+    * a dense blob, a fifth of the particles at ~CLUSTER_BLOB_OCC a cell;
+    * a lattice of spacing h / 2 from a cell face: h is a power of two,
+      so its particles lie exactly on cell faces and its pairs two steps
+      apart sit at exactly r2 = h2 in f32;
+    * a sparse uniform rest of about one particle a cell: many cells stay
+      empty;
+    * eight particles outside the grid's box, in pairs within h of each
+      other, which clamp into edge cells.
+
+    Returns {grid, h, m, p, st, k, v, rho} in the keys of
+    `lattice_inputs`, with the grid, h and m in place of a scene."""
+    from cfd_taichi_tpu_torch.models import base
+    from cfd_taichi_tpu_torch.ops import neighbors as nb
+
+    h = CLUSTER_H
+    rng = np.random.default_rng(seed)
+    n_blob = n // 5
+    side = round((n // 5) ** (1.0 / 3.0))
+    n_uniform = max(n - n_blob - side**3 - 8, 0)
+    blob = h * (n_blob / CLUSTER_BLOB_OCC) ** (1.0 / 3.0)
+    # The box's shortest side (0.8 edge) holds the blob or the lattice with
+    # a margin; the uniform rest fills it at about one particle a cell.
+    edge = max(h * n_uniform ** (1.0 / 3.0), (blob + 3 * h) / 0.8,
+               (3 * h + side * h / 2) / 0.8)
+    box = np.array([1.25 * edge, edge, 0.8 * edge])
+    corner = rng.uniform(h, box - blob - h)
+    lattice = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
+                       -1).reshape(-1, 3) * (h / 2) + 2 * h
+    # Below the grid in x and z, above it in y and z (the grid reaches one
+    # cell past the box), each beside a partner within h.
+    anchors = rng.uniform(0.0, box, (4, 3))
+    anchors[0, 0], anchors[1, 2] = -3 * h, -0.5 * h
+    anchors[2, 1], anchors[3, 2] = box[1] + 6 * h, box[2] + 3 * h
+    outside = np.concatenate([anchors, anchors + h * np.array(
+        [[0.5, 0.3, 0.0], [0.0, 0.4, -0.2], [0.6, 0.0, 0.0],
+         [0.0, 0.0, 0.7]])])
+    pos = np.concatenate([
+        corner + rng.uniform(0.0, blob, (n_blob, 3)), lattice, outside,
+        rng.uniform(0.0, box, (n_uniform, 3))]).astype(np.float32)
+    grid = nb.grid_for_box((0.0, 0.0, 0.0), tuple(box), h)
+    m = 1000.0 * (h / 4) ** 3 * 8.0
+    scid, _, p, _ = base.sort_by_cells(
+        grid, torch.from_numpy(pos).to(device))
+    total = pos.shape[0]
+
+    def dev(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    return dict(grid=grid, h=h, m=m, p=p,
+                st=nb.csr_starts(scid, grid.num_cells),
+                k=dev(rng.uniform(0.0, 2.0, total)),
+                v=dev(rng.standard_normal((total, 3))),
+                rho=dev(rng.uniform(900.0, 1100.0, total)))
 
 
 @contextlib.contextmanager

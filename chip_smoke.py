@@ -23,8 +23,12 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 largest |x_i| |s_i| (it cancels). The coef contraction
                 also runs on ragged CSR engines (rows of 0, 1, G-1, G+1 and
                 100+ pairs for every lane-group width G in 4-32, random
-                sources, 1000 and 1003 rows), f32 and bf16. Kernel and
-                plain times: CUDA events, median of 10 after 3 warm-up
+                sources, 1000 and 1003 rows), f32 and bf16. coef_build
+                (f32 and bf16, nbr exactly) and viscosity also run on a
+                clustered cloud of 100k particles (perf/inputs.py: a blob
+                of ~200 a cell, empty cells, pairs at exactly r = h on
+                cell faces, particles clamped into edge cells). Kernel
+                and plain times: CUDA events, median of 10 after 3 warm-up
                 calls. Each kernel's bound (perf/bounds.py: the bytes and
                 f32 operations of the call's inputs at the H100's peaks)
                 and, for the coef contraction, the one PyTorch call that
@@ -75,6 +79,7 @@ TINY = {
     "fluid": {"start_pos": [0.15, 0.1, 0.15], "water_size": [0.3, 0.3, 0.3]},
 }
 CONFIGS = (("30k", "breaking_dam_30k.json"), ("1m", "breaking_dam_1m.json"))
+CLUSTERED_N = 100_000
 # Kernels each run must launch (and no plain version may run).
 COEF_PATH = ("fluid_terms", "boundary_terms", "viscosity", "coef_build",
              "coef_matvec", "coef_matvec_dot")
@@ -118,24 +123,20 @@ def compare(name: str, got, want, torch) -> float:
     return worst
 
 
-def compare_w(tag: str, got, want, torch) -> float:
-    """Stored coefficients: f32 to 1e-5 of the largest |w|. A bf16 w may
-    round a value that sits on a rounding boundary the other way, so slots
-    may differ by one ulp (2^-7 relative), in at most 1e-4 of them."""
-    a, b = got.float(), want.float()
-    err = float((a - b).abs().max())
-    if got.dtype == torch.float32:
-        tol = TOL * float(b.abs().max())
-        print(f"    {tag} w: max_abs_err {err:.3e}  tol {tol:.3e}")
-        check(err <= tol, f"{tag} w: error {err} above {tol}")
-        return err
-    n_diff = int((a != b).sum())
-    ulp_ok = bool(((a - b).abs() <= 2.0**-7 * b.abs()).all())
-    print(f"    {tag} w: {n_diff} of {b.numel()} bf16 slots differ (bound "
-          f"{int(1e-4 * b.numel())}), all within one ulp: {ulp_ok}")
-    check(ulp_ok and n_diff <= 1e-4 * b.numel(),
-          f"{tag} w: {n_diff} bf16 slots differ, within one ulp: {ulp_ok}")
-    return err
+def check_build(tag: str, eng, want) -> float:
+    """coef_build's engine against the plain build (perf/cases.py,
+    build_error): nbr exactly, f32 w to 1e-5 of scale, bf16 w within one
+    ulp in at most 1e-4 of the slots. Its max_abs_err on w."""
+    from cfd_taichi_tpu_torch.perf import cases
+
+    e = cases.build_error(eng, want)
+    off = (f", {e['w_off']} of {eng.w.numel()} bf16 slots one ulp off"
+           if "w_off" in e else "")
+    print(f"    {tag}: {e['nbr_bad']} of {eng.nbr.numel()} nbr slots differ "
+          f"(want 0); w max_abs_err {e['w_abs_err']:.3e}, over scale "
+          f"{e['w_err']:.3e}{off}")
+    check(e["ok"], f"{tag}: {e}")
+    return e["w_abs_err"]
 
 
 def compare_contraction(tag: str, got_sums, want_sums, got, want, pos,
@@ -159,12 +160,7 @@ def compare_contraction(tag: str, got_sums, want_sums, got, want, pos,
 def check_case(case, pos, torch) -> float:
     """Compare a case's kernel with its plain version; its max_abs_err."""
     if case.name == "coef_build":
-        eng, want = case.kern(), case.plain()
-        bad = int((eng.nbr != want.nbr).sum())
-        print(f"    {case.key} nbr: {bad} of {eng.nbr.numel()} slots differ "
-              f"(want 0)")
-        check(bad == 0, f"{case.key}: {bad} nbr mismatches")
-        return compare_w(case.key, eng.w, want.w, torch)
+        return check_build(case.key, case.kern(), case.plain())
     if case.library:        # the coef contraction
         return compare_contraction(
             case.key, case.kern(lane_sums=True), case.plain(lane_sums=True),
@@ -188,6 +184,33 @@ def ragged_checks(torch) -> None:
                     f"{name} ragged", fn(eng, pos, arg, lane_sums=True),
                     plain(eng, pos, arg, lane_sums=True), fn(eng, pos, arg),
                     plain(eng, pos, arg), pos, dot, torch)
+
+
+def clustered_checks(torch) -> None:
+    """coef_build (f32 and bf16) and viscosity on the clustered cloud,
+    kernel against plain: a blob of ~200 particles a cell, empty cells,
+    pairs at exactly r = h on cell faces, particles clamped into edge
+    cells (perf/inputs.py)."""
+    from cfd_taichi_tpu_torch.ops import coef
+    from cfd_taichi_tpu_torch.ops import stencil as S
+    from cfd_taichi_tpu_torch.perf import cases, inputs
+
+    x = inputs.clustered_inputs(CLUSTERED_N, seed=5)
+    g, h, m, p, st = (x[key] for key in ("grid", "h", "m", "p", "st"))
+    occ = st[1:] - st[:-1]
+    off = coef.csr_offsets(S.fluid_terms(p, st, g, h, m).count)
+    print(f"[kernels] clustered cloud: {p.shape[0]} particles, "
+          f"{int(off[-1])} pairs, largest cell {int(occ.max())}, "
+          f"{int((occ > 100).sum())} cells over 100, "
+          f"{int((occ == 0).sum())} of {occ.numel()} cells empty")
+    for dtype in (torch.float32, torch.bfloat16):
+        check_build(f"coef_build clustered {dtype}",
+                    coef.build_coef(p, st, g, h, m, off, dtype),
+                    coef.build_coef_plain(p, st, g, h, m, off, dtype))
+    compare("viscosity clustered",
+            S.viscosity(p, st, g, h, m, x["v"], x["rho"], **cases.VISC),
+            S.viscosity_plain(p, st, g, h, m, x["v"], x["rho"], **cases.VISC),
+            torch)
 
 
 def record(results: dict, case, key: str, err: float) -> None:
@@ -226,6 +249,7 @@ def phase_kernels(torch, results: dict) -> None:
         del x
         torch.cuda.empty_cache()
     ragged_checks(torch)
+    clustered_checks(torch)
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,8 @@ magnitude and integer counts exactly; stepped positions agree to the
 repo's engine-equivalence bar, atol 5e-6. The coef contraction's final
 form cancels (x_i s0 - s), so it is held to 1e-5 of the largest
 |x_i| |s_i| and its four lane sums to 1e-5 of each lane's largest value;
-the stored pair slots compare exactly.
+the stored pair slots compare exactly, and bf16 w within one ulp in at
+most 1e-4 of the slots (perf/cases.py, build_error).
 """
 
 import copy
@@ -29,7 +30,7 @@ from cfd_taichi_tpu_torch.models import base
 from cfd_taichi_tpu_torch.ops import coef
 from cfd_taichi_tpu_torch.ops import neighbors as nb
 from cfd_taichi_tpu_torch.ops import stencil
-from cfd_taichi_tpu_torch.perf import inputs
+from cfd_taichi_tpu_torch.perf import cases, inputs
 
 TINY = {
     "scene": {"box_min": [0.0, 0.0, 0.0], "box_max": [0.6, 0.8, 0.6],
@@ -169,3 +170,33 @@ def test_coef_kernels_on_ragged_engines(cuda, dtype, n):
         np.testing.assert_allclose(fn(eng, pos, x).cpu().numpy(),
                                    fn(cpu, pos.cpu(), x.cpu()).numpy(),
                                    rtol=0, atol=1e-5 * scale)
+
+
+@pytest.fixture
+def clustered(cuda):
+    """The clustered cloud (a blob of ~200 a cell, empty cells, pairs at
+    exactly r = h on cell faces, particles clamped into edge cells) and
+    its CSR offsets."""
+    x = inputs.clustered_inputs(20_000, seed=5, device=cuda)
+    return x, coef.csr_offsets(stencil.fluid_terms(
+        x["p"], x["st"], x["grid"], x["h"], x["m"]).count)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_coef_build_on_the_clustered_cloud(clustered, dtype):
+    x, off = clustered
+    args = (x["p"], x["st"], x["grid"], x["h"], x["m"], off, dtype)
+    err = cases.build_error(coef.build_coef(*args),
+                            coef.build_coef_plain(*args))
+    assert err["ok"], err
+
+
+@pytest.mark.cuda
+def test_viscosity_on_the_clustered_cloud(clustered):
+    x, _ = clustered
+    args = (x["p"], x["st"], x["grid"], x["h"], x["m"], x["v"], x["rho"])
+    want = stencil.viscosity_plain(*args, **VISC).cpu().numpy()
+    np.testing.assert_allclose(
+        stencil.viscosity(*args, **VISC).cpu().numpy(), want, rtol=0,
+        atol=1e-5 * np.abs(want).max())

@@ -1,0 +1,169 @@
+"""The stencil walk's edge cases on the clustered cloud of
+`cfd_taichi_tpu_torch.perf.inputs.clustered_inputs`, on the CPU:
+
+* a dense blob of ~200 particles a cell (rows of hundreds of pairs);
+* empty cells;
+* a lattice on cell faces whose pairs sit at exactly r2 = h2 in f32;
+* particles outside the grid's box, clamped into edge cells, in pairs.
+
+The seed lattices of the scenes have none of these. The plain versions of
+the walk kernels (coef_build, viscosity) are held to O(N^2) references:
+`build_coef_plain`'s pair set to the brute-force pair mask (and its row
+counts to the JAX package's brute force), its rows to the kernels' walk
+order, its w and `viscosity_plain` to numpy sums over all pairs. The CUDA
+kernels are held to these plain versions on the same cloud in
+tests/test_torch_cuda.py and chip_smoke.py.
+
+Tolerances: the numpy references take the f32 pair test of the kernels
+(r2 <= f32(h)^2) and sum their terms in f64, so the f32 plain sums agree
+to 1e-5 of the output's largest value; pair sets and slots compare
+exactly.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cfd_taichi_tpu.ops import neighbors as jnb
+from cfd_taichi_tpu.ops.vec import V3
+from cfd_taichi_tpu_torch.ops import coef
+from cfd_taichi_tpu_torch.ops import neighbors as nb
+from cfd_taichi_tpu_torch.ops import stencil
+from cfd_taichi_tpu_torch.ops.smoothing import CubicConstants
+from cfd_taichi_tpu_torch.perf import inputs
+
+VISC = dict(c_s=13.0, alpha=0.08, eps=0.01)
+CLOUDS = {"n1500": (1500, 5), "n2400": (2400, 11)}
+
+
+@pytest.fixture(scope="module", params=sorted(CLOUDS))
+def cloud(request):
+    n, seed = CLOUDS[request.param]
+    x = inputs.clustered_inputs(n, seed=seed, device="cpu")
+    off = coef.csr_offsets(stencil.fluid_terms(
+        x["p"], x["st"], x["grid"], x["h"], x["m"]).count)
+    return dict(x, off=off, pos=x["p"].numpy())
+
+
+def _engine(c, dtype=torch.float32):
+    return coef.build_coef_plain(c["p"], c["st"], c["grid"], c["h"], c["m"],
+                                 c["off"], dtype)
+
+
+def _rows(eng):
+    return np.repeat(np.arange(eng.n), np.diff(eng.offsets.numpy()))
+
+
+def _pair_blocks(pos, h, rows=256):
+    """(row slice, x_ij (Q, N, 3) f32, r2 (Q, N) f32, pair mask) over
+    blocks of query rows: the kernels' pair test, j != i."""
+    h32 = np.float32(h)
+    n = pos.shape[0]
+    for lo in range(0, n, rows):
+        d = pos[lo:lo + rows, None, :] - pos[None, :, :]
+        r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] \
+            + d[..., 2] * d[..., 2]
+        mask = r2 <= h32 * h32
+        q = np.arange(lo, lo + d.shape[0])
+        mask[np.arange(d.shape[0]), q] = False
+        yield slice(lo, lo + d.shape[0]), d, r2, mask
+
+
+def _grad_coeff(r2, h):
+    """c(r) of grad W = c(r) x_ij in f64, with the kernels' q guards."""
+    c = CubicConstants.of(h)
+    r = np.sqrt(np.maximum(r2.astype(np.float64), 1e-24))
+    q = r / c.h
+    coeff = np.where(q <= 0.5, c.kg6 * (3.0 * q * q - 2.0 * q),
+                     c.kgm6 * (1.0 - q) ** 2)
+    coeff = np.where((q > 1e-5) & (q <= 1.0), coeff, 0.0)
+    return coeff / (c.h * np.maximum(r, 1e-12))
+
+
+def test_clustered_cloud_has_the_edge_cases(cloud):
+    grid, st, pos, h = cloud["grid"], cloud["st"], cloud["pos"], cloud["h"]
+    occ = (st[1:] - st[:-1]).numpy()
+    assert occ.max() > 100
+    assert (occ == 0).mean() > 0.3
+    raw = np.floor(pos * np.float32(1.0 / h))
+    outside = ((raw < 0) | (raw >= np.asarray(grid.dims))).any(axis=1)
+    assert outside.sum() == 8
+    on_face = (raw == pos * np.float32(1.0 / h)).all(axis=1)
+    assert on_face.sum() >= 27
+    exact = 0
+    for rows, _, r2, mask in _pair_blocks(pos, h):
+        exact += int((mask & (r2 == np.float32(h) ** 2)).sum())
+        # every particle outside the grid has a partner within h
+        assert mask[outside[rows]].any(axis=1).all()
+    assert exact > 100
+
+
+def test_build_coef_pair_set_matches_brute_force(cloud):
+    eng = _engine(cloud)
+    rows, nbr = _rows(eng), eng.nbr.numpy()
+    order = np.lexsort((nbr, rows))
+    mask, count = nb.brute_force_neighbors(cloud["p"], cloud["p"],
+                                           cloud["h"], exclude_self=True)
+    want_rows, want_nbr = np.nonzero(mask.numpy())
+    np.testing.assert_array_equal(rows[order], want_rows)
+    np.testing.assert_array_equal(nbr[order], want_nbr)
+    n = cloud["pos"].shape[0]
+    jpos = V3.from_rows(cloud["pos"])
+    jax_count = jnb.brute_force_neighbors(jpos, jnp.arange(n), jpos,
+                                          cloud["h"], K=1,
+                                          exclude_self=True).count
+    np.testing.assert_array_equal(np.diff(eng.offsets.numpy()),
+                                  np.asarray(jax_count))
+    np.testing.assert_array_equal(count.numpy(), np.asarray(jax_count))
+
+
+def test_build_coef_walk_order_on_the_clustered_cloud(cloud):
+    """Every row lists its pairs as the kernels' walk does: stencil runs in
+    walk order (mid axis outer, slow inner), ascending slots in a run."""
+    eng = _engine(cloud)
+    grid = cloud["grid"]
+    fast, mid, slow = grid.axes_by_stride
+    rows, nbr = _rows(eng), eng.nbr.numpy().astype(np.int64)
+    cells = nb.cell_coords(cloud["p"], grid).numpy()
+    src = cells[nbr] - cells[rows]
+    assert np.abs(src).max() <= 1
+    run = (src[:, mid] + 1) * 3 + (src[:, slow] + 1)
+    n = cloud["pos"].shape[0]
+    key = (rows.astype(np.int64) * 9 + run) * n + nbr
+    assert np.all(np.diff(key) > 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_build_coef_w_matches_numpy_reference(cloud, dtype):
+    eng = _engine(cloud, dtype)
+    pos, h, m = cloud["pos"], cloud["h"], cloud["m"]
+    d = pos[_rows(eng)] - pos[eng.nbr.numpy()]
+    r2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+    want = np.float32(m) * _grad_coeff(r2, h)
+    # The f32 bar, 1e-5 of scale, and bf16's rounding on top: half an ulp
+    # of each value, 2^-8 relative.
+    rtol = 0.0 if dtype == torch.float32 else 2.0**-8
+    np.testing.assert_allclose(eng.w.float().numpy(), want, rtol=rtol,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_viscosity_plain_matches_numpy_reference(cloud):
+    pos, h, m = cloud["pos"], cloud["h"], cloud["m"]
+    vel, rho = cloud["v"].numpy(), cloud["rho"].numpy()
+    nu, q2e = stencil._viscosity_constants(h, VISC["c_s"], VISC["alpha"],
+                                           VISC["eps"])
+    want = np.zeros(pos.shape, np.float64)
+    for rows, d, r2, mask in _pair_blocks(pos, h):
+        shear = (d.astype(np.float64)
+                 * (vel[rows, None, :] - vel[None, :, :])).sum(axis=-1)
+        pi = -(nu / (rho[rows, None] + rho[None, :]).astype(np.float64)) \
+            * shear / (r2 + q2e)
+        term = np.where(mask & (shear < 0.0),
+                        -m * pi * _grad_coeff(r2, h), 0.0)
+        want[rows] = m * (term[..., None] * d).sum(axis=1)
+    got = stencil.viscosity_plain(cloud["p"], cloud["st"], cloud["grid"], h,
+                                  m, cloud["v"], cloud["rho"], **VISC)
+    assert np.abs(want).max() > 0.0
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
