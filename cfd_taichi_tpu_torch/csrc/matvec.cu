@@ -10,11 +10,18 @@
 // The coefficients are recomputed from positions on every call, so nothing
 // per pair is stored. As in JAX, the reference's (k_i + k_j) > 1e-5 pair
 // guard is dropped (bandmat.py:40-46).
-// Bound on the card: like K1, the serial per-thread walk of ~27 x
-// occupancy candidates (positions plus k or v), not DRAM bandwidth or
-// FLOPs. Recomputing the coefficients keeps no band in memory, which at
-// 1M saves the gigabytes the TPU engines stored and streamed on every
-// loop iteration.
+// Bound on the card: f32 operations by perf/bounds.py, far below what the
+// walk of ~27 x occupancy candidates takes. As measured for this form of
+// walk on an NVIDIA H100 80GB HBM3 (PERF.md section 6): at breaking_dam_1m
+// the card is full and the warps' instruction slots set the time, because
+// the pair term sits in the candidate loop and the warp runs it for about
+// every candidate, though one in eight is a pair; at 30k particles and on
+// dense cells a thread's serial walk waits on its loads. fluid_terms left
+// this form for the queued walk (stencil.cuh), which these two kernels are
+// to take next. Design so far: one thread per query, sums in registers, no
+// atomics; recomputing the coefficients keeps no band in memory, at the
+// price of a walk per loop iteration, so the stored-coefficient engine
+// (ops/coef.py) carries every scene whose pair store fits its budget.
 #include "stencil.cuh"
 
 __global__ void __launch_bounds__(kThreads)

@@ -4,11 +4,14 @@
 // like cfd_taichi_tpu/ops/neighbors.py:98-108), then visits the 27-cell
 // stencil as 9 contiguous runs of the source CSR table: the fast axis has
 // stride 1, so the three cells of one stencil row are adjacent in the
-// sorted order. fluid_terms, boundary_terms and matvec run one thread per
-// cell-sorted query over the runs; coef_build and viscosity run a group of
-// kGroupWalk lanes per query (group_walk below). Sums stay in f32
-// registers and each query's row is written by its own thread or group,
-// so there are no atomics and every run gives bit-identical results.
+// sorted order. matvec runs one thread per cell-sorted query over the
+// runs with its pair term in the candidate loop; fluid_terms and
+// boundary_terms run one thread per query that queues its hits and takes
+// the pair term out of that loop (queued_walk below); coef_build and
+// viscosity run a group of kGroupWalk lanes per query (group_walk below).
+// Sums stay in f32 registers and each query's row is written by its own
+// thread or group, so there are no atomics and every run gives
+// bit-identical results.
 //
 // Built with -fmad=false: r2 = dx*dx + dy*dy + dz*dz must round like the
 // plain PyTorch and JAX versions, because the seed lattice has many pairs
@@ -90,8 +93,126 @@ __device__ __forceinline__ float pair_r(float r2) {
 }
 
 constexpr int kThreads = 128;
+constexpr unsigned kFullWarp = 0xffffffffu;
 
 inline int grid_blocks(int n) { return (n + kThreads - 1) / kThreads; }
+
+__device__ __forceinline__ float dist2(float dx, float dy, float dz) {
+  return dx * dx + dy * dy + dz * dz;
+}
+
+// ---------------------------------------------------------------------------
+// The queued walk: one thread per query, the pair term out of the
+// candidate loop.
+//
+// About one candidate in eight is a pair, so with 32 lanes nearly every
+// candidate is a pair on some lane: a pair term behind `if (r2 <= h2)` in
+// the candidate loop is run by the warp about once a candidate, seven
+// or eight times more often than pairs exist. Here the candidate loop
+// only tests: kChunk candidates at a time, their pos loads clamped and
+// independent, so all of them are in flight together, and a hit's source
+// slot j goes into a queue of the thread's own in shared memory
+// (queue[depth][thread]: a warp's lanes fall in 32 different banks
+// whatever their depths). After a chunk the warp votes: when some lane
+// could not take another chunk's hits, every lane drains its queue through
+// the caller's pair function, the warp looping as often as its fullest
+// lane holds hits. The warp then runs the pair term about (most hits on
+// a lane) times a drain, not once a candidate, and no ballot, rank or
+// exchange between lanes is needed: the queue is private.
+//
+// A thread's hits leave the queue in the order they went in, the walk
+// order (dm outer, ds inner, ascending j), so its sums are added exactly
+// as a thread that ran the pair term in the candidate loop would add them:
+// the results are bit-equal to that form's.
+//
+// The whole warp walks together: a run takes the most chunks any lane of
+// the warp needs, so every lane reaches every vote. A lane whose candidate
+// lies past its run's end, is the query itself, or which has no query
+// (live == false) takes part with hit = false. (So a stencil row that one
+// lane could skip, being farther than h from its query, saves nothing
+// unless all 32 lanes skip it: measured, no gain.)
+//
+// The constants, as measured on an NVIDIA H100 80GB HBM3 (PERF.md section
+// 6). A queue that holds a lattice query's ~28-45 pairs drains about
+// once, at the end, on lanes that are mostly full; a shorter one drains
+// mid-walk on part-filled lanes: fluid_terms at breaking_dam_1m took 484
+// us at 32 hits a thread, 413 at 40, 414 at 48. Left alone, ptxas cuts
+// the registers to what the shared memory's block count allows (40 at 13
+// blocks) and then cannot keep a chunk's loads in flight: 8 blocks an SM
+// give it up to 64 (27 against 38 us at 30k particles, where a walk
+// waits on its loads). Chunks of 6 waste fewer slots behind the warp's
+// longest run of ~24-27 candidates than chunks of 8 (413 against 424 us);
+// two terms a drain turn hide a little of each other's latency (3 %).
+// ---------------------------------------------------------------------------
+
+constexpr int kChunk = 6;        // candidates tested between two votes
+constexpr int kDrainUnroll = 2;  // hits a thread's drain turn works on
+constexpr int kQueuedBlocks = 8;  // blocks an SM must hold: caps registers
+
+// Walk the query at (xi, yi, zi) (any values where !live) over the 27-cell
+// stencil of the cell-sorted sources spos[0..ns) with CSR table starts.
+// Every lane of the warp must call it. pair(j, dx, dy, dz, r2, take) is
+// called with take = true once per source j within h, in walk order, and
+// with take = false (on source 0) where a drain turn has no hit left for
+// the lane: it computes its terms in either case, so that the turn's
+// kDrainUnroll terms overlap, and adds them only under take. self is the
+// query's own slot where the sources are the queries, else -1. kQueueDepth
+// is the hits a thread can hold, 4 bytes each in shared memory.
+template <int kQueueDepth, typename PairFn>
+__device__ __forceinline__ void queued_walk(const float* __restrict__ spos,
+                                            int ns,
+                                            const int* __restrict__ starts,
+                                            const StencilParams& p, bool live,
+                                            int self, float xi, float yi,
+                                            float zi, PairFn&& pair) {
+  static_assert(kChunk >= 1 && kChunk < kQueueDepth,
+                "a queue must take a chunk's hits after a vote let it pass");
+  __shared__ int queue[kQueueDepth * kThreads];
+  int* const q = queue + threadIdx.x;
+  const float h2 = p.h2;
+  int held = 0;
+
+  auto drain = [&]() {
+    const int most = __reduce_max_sync(kFullWarp, held);
+    for (int d = 0; d < most; d += kDrainUnroll) {
+#pragma unroll
+      for (int u = 0; u < kDrainUnroll; ++u) {
+        const bool take = d + u < held;
+        const int j = take ? q[(d + u) * kThreads] : 0;
+        const float dx = xi - __ldg(spos + 3 * j);
+        const float dy = yi - __ldg(spos + 3 * j + 1);
+        const float dz = zi - __ldg(spos + 3 * j + 2);
+        pair(j, dx, dy, dz, dist2(dx, dy, dz), take);
+      }
+    }
+    held = 0;
+  };
+
+  int c[3];
+  cell_of(xi, yi, zi, p, c);
+  for (int dm = -1; dm <= 1; ++dm) {
+    for (int ds = -1; ds <= 1; ++ds) {
+      int lo = 0, hi = 0;
+      if (!live || !stencil_run(c, dm, ds, starts, p, lo, hi)) lo = hi = 0;
+      const int most = __reduce_max_sync(kFullWarp, hi - lo);
+      for (int t = 0; t < most; t += kChunk) {
+#pragma unroll
+        for (int u = 0; u < kChunk; ++u) {
+          const int j = lo + t + u;
+          const int jl = min(j, ns - 1);
+          const float dx = xi - __ldg(spos + 3 * jl);
+          const float dy = yi - __ldg(spos + 3 * jl + 1);
+          const float dz = zi - __ldg(spos + 3 * jl + 2);
+          const bool hit = (j < hi) & (j != self) & (dist2(dx, dy, dz) <= h2);
+          if (hit) q[held * kThreads] = j;
+          held += hit;
+        }
+        if (__any_sync(kFullWarp, held > kQueueDepth - kChunk)) drain();
+      }
+    }
+  }
+  drain();
+}
 
 // ---------------------------------------------------------------------------
 // The group walk: kGroupWalk consecutive lanes of a warp share one query.
@@ -169,10 +290,6 @@ struct alignas(16) QueuedHit {
   int j;
   float dx, dy, dz;
 };
-
-__device__ __forceinline__ float dist2(float dx, float dy, float dz) {
-  return dx * dx + dy * dy + dz * dz;
-}
 
 // Walk query g.i (at xi, yi, zi; any values where !g.live) over the
 // 27-cell stencil. Every lane of the warp must call it. pairs(const Pair&,

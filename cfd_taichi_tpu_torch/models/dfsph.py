@@ -168,7 +168,8 @@ def prepare(scene: Scene, state: base.SimState) -> _Pre:
     ft = stencil.fluid_terms(pos, starts, grid, h, m)
     bt = (stencil.boundary_terms(pos, scene.boundary_pos,
                                  scene.boundary_volume,
-                                 scene.boundary_starts, grid, h, RHO_0)
+                                 scene.boundary_starts, grid, h, RHO_0,
+                                 scene.boundary_near)
           if scene.akinci else None)
     rho, alpha, S, tension = dense_pre_terms(scene, ft, bt)
 

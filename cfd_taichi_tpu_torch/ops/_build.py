@@ -50,8 +50,8 @@ _PP = ctypes.POINTER(StencilParams)
 # C entry points and their argument types (the trailing _P is the stream).
 _SIGNATURES = {
     "fluid_terms_launch": (_P, _P, _I, _PP, _F, _P, _P, _P, _P, _P, _P),
-    "boundary_terms_launch": (_P, _I, _P, _P, _P, _PP, _F, _P, _P, _P, _P,
-                              _P),
+    "boundary_terms_launch": (_P, _I, _P, _P, _P, _P, _I, _PP, _F, _P, _P, _P,
+                              _P, _P),
     "matvec_launch": (_P, _P, _I, _PP, _F, _P, _P, _P),
     "matvec_dot_launch": (_P, _P, _I, _PP, _F, _P, _P, _P),
     "viscosity_launch": (_P, _P, _I, _PP, _F, _F, _F, _P, _P, _P, _P),

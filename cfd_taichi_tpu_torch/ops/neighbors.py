@@ -90,6 +90,20 @@ def csr_starts(sorted_cid: torch.Tensor, num_cells: int) -> torch.Tensor:
                               out_int32=True)
 
 
+def stencil_counts(starts: torch.Tensor, grid: GridSpec) -> torch.Tensor:
+    """(num_cells,) int32, by linear cell id: the sources of the CSR table
+    `starts` that lie in the cell's 27-cell stencil, cells beyond the grid
+    holding none. 0 says that a query of the cell has no candidate."""
+    fast, mid, slow = grid.axes_by_stride
+    occ = (starts[1:] - starts[:-1]).reshape(
+        grid.dims[slow], grid.dims[mid], grid.dims[fast])
+    pad = torch.nn.functional.pad(occ, (1, 1, 1, 1, 1, 1))
+    a, b, c = occ.shape
+    box = sum(pad[i:i + a, j:j + b, k:k + c]
+              for i in range(3) for j in range(3) for k in range(3))
+    return box.reshape(-1).to(torch.int32)
+
+
 class CellTable(NamedTuple):
     """Cell-sorted source set: `order` maps sorted slots to input rows."""
     order: torch.Tensor   # (Ns,) int64

@@ -4,12 +4,16 @@ Each pass has three parts:
 
 * a hand-written CUDA kernel (`csrc/*.cu`, built by ops/_build.py) that
   walks each cell-sorted query's 27-cell stencil of the source CSR table
-  and sums in registers: one thread per query in fluid_terms,
-  boundary_terms and matvec / matvec_dot, a group of lanes per query in
-  viscosity and coef_build (`csrc/stencil.cuh`, group_walk). The walk of
-  ~27 x occupancy candidates, not DRAM bandwidth or FLOPs, sets their
-  time; the note atop each `.cu` file says what bounds it and what its
-  design does about that;
+  and sums in registers: one thread per query in matvec / matvec_dot, one
+  thread per query that queues its hits and runs the pair term outside
+  the candidate loop in fluid_terms and boundary_terms (`csrc/stencil.cuh`,
+  queued_walk), a group of lanes per query in viscosity and coef_build
+  (group_walk). The walk of ~27 x occupancy candidates, not DRAM bandwidth
+  or FLOPs, sets their time: as measured on an NVIDIA H100 80GB HBM3
+  (PERF.md section 6), the warps' instruction slots at breaking_dam_1m,
+  where the card is full, and the latency of a thread's serial loads at
+  30k particles and on dense cells. The note atop each `.cu` file says what
+  bounds it and what its design does about that;
 * a plain PyTorch version of the same function, `*_plain`, which walks the
   same stencil as (Q, 27 * max_occupancy) masked candidates, chunked over
   queries so that it fits at 1M particles;
@@ -35,7 +39,8 @@ from typing import Iterator, NamedTuple
 import torch
 
 from cfd_taichi_tpu_torch.ops import _build
-from cfd_taichi_tpu_torch.ops.neighbors import GridSpec, cell_coords
+from cfd_taichi_tpu_torch.ops.neighbors import (GridSpec, cell_coords,
+                                                  stencil_counts)
 from cfd_taichi_tpu_torch.ops.smoothing import (CubicConstants,
                                                 cubic_grad_coeff, cubic_w,
                                                 f32)
@@ -174,19 +179,26 @@ def fluid_terms(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
 
 def boundary_terms(pos: torch.Tensor, bpos: torch.Tensor, bvol: torch.Tensor,
                    bstarts: torch.Tensor, grid: GridSpec, h: float,
-                   rho0: float) -> BoundaryTerms:
+                   rho0: float, bnear: torch.Tensor | None = None
+                   ) -> BoundaryTerms:
     """K2: Akinci boundary sums of each fluid query over the cell-sorted
-    boundary shell (replaces bandmat.dense_boundary_terms)."""
+    boundary shell (replaces bandmat.dense_boundary_terms). `bnear` is the
+    static shell's `stencil_counts(bstarts, grid)` (Scene.boundary_near),
+    with which the kernel lets interior queries skip the walk; it is made
+    here where the caller has none. The plain version walks without it."""
     if not _on_cuda("boundary_terms", pos):
         return boundary_terms_plain(pos, bpos, bvol, bstarts, grid, h, rho0)
     n, nb = pos.shape[0], bpos.shape[0]
     _check("pos", pos, torch.float32, (n, 3), pos.device)
     _check_pos_starts(bpos, bstarts, grid)
     _check("bvol", bvol, torch.float32, (nb,), pos.device)
+    if bnear is None:
+        bnear = stencil_counts(bstarts, grid)
+    _check("bnear", bnear, torch.int32, (grid.num_cells,), pos.device)
     out = BoundaryTerms(rho=pos.new_empty(n), s=pos.new_empty(n, 3),
                         qsum=pos.new_empty(n), g2=pos.new_empty(n))
-    _launch("boundary_terms", pos.device, pos, n, bpos, bvol, bstarts,
-            ctypes.byref(_params(grid, h)), f32(rho0), *out)
+    _launch("boundary_terms", pos.device, pos, n, bpos, bvol, bstarts, bnear,
+            nb, ctypes.byref(_params(grid, h)), f32(rho0), *out)
     return out
 
 

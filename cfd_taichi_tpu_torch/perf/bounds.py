@@ -31,7 +31,8 @@ from typing import NamedTuple
 
 import torch
 
-from cfd_taichi_tpu_torch.ops.neighbors import GridSpec, cell_coords
+from cfd_taichi_tpu_torch.ops.neighbors import (GridSpec, cell_id,
+                                                  stencil_counts)
 from cfd_taichi_tpu_torch.ops.stencil import count_pairs
 
 HBM_BYTES_PER_S = 3.35e12
@@ -67,15 +68,8 @@ def candidates(qpos: torch.Tensor, starts: torch.Tensor,
                grid: GridSpec) -> int:
     """Source slots in the 27-cell stencils of all queries: the distance
     tests of a stencil walk over the CSR table `starts`."""
-    fast, mid, slow = grid.axes_by_stride
-    occ = (starts[1:] - starts[:-1]).to(torch.int64)
-    occ = occ.reshape(grid.dims[slow], grid.dims[mid], grid.dims[fast])
-    pad = torch.nn.functional.pad(occ, (1, 1, 1, 1, 1, 1))
-    a, b, c = occ.shape
-    box = sum(pad[i:i + a, j:j + b, k:k + c]
-              for i in range(3) for j in range(3) for k in range(3))
-    cc = cell_coords(qpos, grid).to(torch.int64)
-    return int(box[cc[:, slow], cc[:, mid], cc[:, fast]].sum())
+    box = stencil_counts(starts, grid)
+    return int(box[cell_id(qpos, grid).long()].sum(dtype=torch.int64))
 
 
 def _pair_work(name: str, nbytes: int, cand: int, pairs: int) -> Work:
@@ -93,8 +87,10 @@ def stencil_work(name: str, n: int, n_cells: int, cand: int, pairs: int,
     nbytes = {
         # pos, starts; rho, count, s, qsum, tvec
         "fluid_terms": 3 * f + starts + 9 * f,
-        # pos; boundary pos, volume and starts; rho, s, qsum, g2
-        "boundary_terms": 3 * f + 16 * n_sources + starts + 6 * f,
+        # pos; boundary pos, volume, starts and the per-cell table of
+        # boundary particles near; rho, s, qsum, g2
+        "boundary_terms": (3 * f + 16 * n_sources + starts + 4 * n_cells
+                           + 6 * f),
         # pos, starts, k; out
         "matvec": 3 * f + starts + f + 3 * f,
         # pos, starts, v; out

@@ -75,7 +75,8 @@ def scene_cases(x: dict, pairs: int) -> Iterator[Case]:
     for name, kern, plain in (
             ("fluid_terms", lambda: S.fluid_terms(p, st, g, h, m),
              lambda: S.fluid_terms_plain(p, st, g, h, m)),
-            ("boundary_terms", lambda: S.boundary_terms(p, *bnd),
+            ("boundary_terms",
+             lambda: S.boundary_terms(p, *bnd, sc.boundary_near),
              lambda: S.boundary_terms_plain(p, *bnd)),
             ("matvec", lambda: S.matvec(p, st, g, h, m, k),
              lambda: S.matvec_plain(p, st, g, h, m, k)),
@@ -113,6 +114,20 @@ def scaled_error(got: torch.Tensor, want: torch.Tensor) -> float:
     """Largest |got - want| over the largest |want|."""
     return float((got - want).abs().max()) / max(float(want.abs().max()),
                                                   1e-30)
+
+
+def terms_error(got: tuple, want: tuple) -> float:
+    """fluid_terms' or boundary_terms' outputs against the plain
+    version's: the largest `scaled_error` of the float outputs, or inf
+    where an integer output (the pair count) differs anywhere."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        if not b.dtype.is_floating_point:
+            if not torch.equal(a, b):
+                return float("inf")
+            continue
+        worst = max(worst, scaled_error(a, b))
+    return worst
 
 
 def build_error(got: coef.CoefEngine, want: coef.CoefEngine) -> dict:

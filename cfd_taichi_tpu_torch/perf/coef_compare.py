@@ -2,12 +2,14 @@
 on one card:
 
     python -m cfd_taichi_tpu_torch.perf.coef_compare \\
-        [--kernel coef_matvec|coef_build|viscosity] \\
-        [--variant NAME=PATH ...] [--out PATH]
+        [--kernel coef_matvec|coef_build|viscosity|fluid_terms|
+                  boundary_terms] \\
+        [--variant NAME=PATH ...] [--bit-equal NAME] [--out PATH]
 
 `--kernel` picks the source: csrc/coef_matvec.cu (the default, both
-contractions), csrc/coef_build.cu or csrc/viscosity.cu. A variant's PATH
-is a source of that file, or a directory: its `.cu` of the kernel's name
+contractions), csrc/coef_build.cu, csrc/viscosity.cu, csrc/fluid_terms.cu
+or csrc/boundary_terms.cu. A variant's PATH is a source of that file, or
+a directory: its `.cu` of the kernel's name
 (else the tree's) is built beside its headers, which take the place of
 the tree's (`#include "..."` looks beside the source first; the headers
 it lacks come from the tree's csrc). For instance, the one-thread-per-query
@@ -21,21 +23,50 @@ coef_build of commit 3853c6a, and the tree's coef_build with 4-lane groups:
     python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel coef_build \\
         --variant pr3=build/pr3/coef_build.cu --variant g4=build/g4
 
+A source from before boundary_terms_launch took the per-cell table
+`bnear` and the boundary count needs the newer entry point put before it:
+
+    mkdir -p build/before
+    for f in stencil.cuh fluid_terms.cu boundary_terms.cu; do
+        git show a4d16de:cfd_taichi_tpu_torch/csrc/$f > build/before/$f
+    done
+    sed -i s/boundary_terms_launch/boundary_terms_before/ \\
+        build/before/boundary_terms.cu
+    cat >> build/before/boundary_terms.cu <<'END'
+    extern "C" int boundary_terms_launch(
+        const float* q, int n, const float* bp, const float* bv,
+        const int* bs, const int*, int, const StencilParams* p, float rho0,
+        float* rho, float* s, float* qs, float* g2, void* stream) {
+      return boundary_terms_before(q, n, bp, bv, bs, p, rho0, rho, s, qs,
+                                   g2, stream);
+    }
+    END
+    python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel \\
+        boundary_terms --variant before=build/before --bit-equal before
+
 Each source, the tree's ("tree") first, is built into its own library
 (build/compare/<kernel>/<name>/; one that does not build is reported and
 left out) and called through the port's wrappers with that library in
 place of the tree's. It is checked against the plain version on
-breaking_dam_1m's jittered lattice and, for the contraction, on two
-ragged engines of 1000 and 1003 rows (lane sums to 1e-5 of each lane's
-largest value), else on the clustered cloud of chip_smoke.py
+breaking_dam_1m's and breaking_dam_30k's jittered lattices and, for the
+contraction, on two ragged engines of 1000 and 1003 rows (lane sums to
+1e-5 of each lane's largest value), else on the clustered cloud of
+chip_smoke.py
 (perf/inputs.py; coef_build: nbr exactly, w as perf/cases.build_error
-says; viscosity: 1e-5 of the largest value). Then it is timed, the
+says; viscosity: 1e-5 of the largest value; fluid_terms and
+boundary_terms, the latter over the cloud's boundary set: count exactly,
+every sum to 1e-5 of its largest value). With `--bit-equal NAME` every
+output of every source is also compared bit for bit with that of variant
+NAME on the same inputs (the queued walk adds a query's terms in the
+order of the one-thread walk, so it must not differ at all); a
+difference of the tree's counts as a failed check. Then it is timed, the
 coef kernels in f32 and bf16 storage: on the 1M lattice (and the
 clustered cloud), CUDA events around 20 back-to-back calls, over the
 count, in 4 rounds that visit the sources forward and backward in turn
-(median of the rounds); and at 30k, torch.profiler's device time per
-launch. Prints one line per measurement and writes the whole as JSON
-(--out); exits 1 if a check failed.
+(median of the rounds), and torch.profiler's device time per launch
+(which alone times a kernel shorter than its call's host work, ~60 us);
+and at 30k, the device time per launch. Prints one line per measurement
+and writes the whole as JSON (--out); exits 1 if a check failed.
 """
 
 from __future__ import annotations
@@ -54,12 +85,14 @@ import torch
 
 from cfd_taichi_tpu_torch.ops import _build, coef
 from cfd_taichi_tpu_torch.ops import stencil as S
+from cfd_taichi_tpu_torch.ops.neighbors import stencil_counts
 from cfd_taichi_tpu_torch.perf import cases, inputs, timing
 
 COMPARE_DIR = _build.BUILD_DIR.parent / "compare"
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 SOURCES = {"coef_matvec": "coef_matvec.cu", "coef_build": "coef_build.cu",
-           "viscosity": "viscosity.cu"}
+           "viscosity": "viscosity.cu", "fluid_terms": "fluid_terms.cu",
+           "boundary_terms": "boundary_terms.cu"}
 CLUSTERED_N = 100_000
 ROUNDS = 4
 TOL = 1e-5
@@ -139,6 +172,19 @@ def entries(kernel: str, x: dict) -> list[Entry]:
     come from the tree's kernels."""
     g, h, m = _scene(x)
     p, st = x["p"], x["st"]
+    if kernel in ("fluid_terms", "boundary_terms"):
+        if kernel == "fluid_terms":
+            call = functools.partial(S.fluid_terms, p, st, g, h, m)
+            want = S.fluid_terms_plain(p, st, g, h, m)
+        else:
+            sc = x.get("sc")
+            bnd = ((sc.boundary_pos, sc.boundary_volume, sc.boundary_starts)
+                   if sc else (x["bp"], x["bvol"], x["bst"])) + (g, h, 1000.0)
+            call = functools.partial(S.boundary_terms, p, *bnd,
+                                     stencil_counts(bnd[2], g))
+            want = S.boundary_terms_plain(p, *bnd)
+        return [Entry("f32", kernel, call,
+                      lambda: cases.terms_error(call(), want))]
     if kernel == "viscosity":
         args = (p, st, g, h, m, x["v"], x["rho"])
         want = S.viscosity_plain(*args, **cases.VISC)
@@ -165,8 +211,26 @@ def entries(kernel: str, x: dict) -> list[Entry]:
     return out
 
 
-def run_checks(res: dict, libs: dict, case: str, ents: list[Entry]) -> None:
+def _tensors(out) -> list[torch.Tensor]:
+    return [out] if isinstance(out, torch.Tensor) else list(out)
+
+
+def run_checks(res: dict, libs: dict, case: str, ents: list[Entry],
+               bit_equal: str | None = None) -> None:
+    """Every entry of every library against the plain version and, with
+    `bit_equal`, against that library's outputs bit for bit."""
     for ent in ents:
+        if bit_equal:
+            with using(libs[bit_equal]):
+                ref = _tensors(ent.call())
+            for name, lib in libs.items():
+                with using(lib):
+                    got = _tensors(ent.call())
+                diff = sum(int((a != b).sum()) for a, b in zip(got, ref))
+                key = f"{name}/{case}/{ent.label}"
+                res.setdefault("bit_diff", {})[key] = diff
+                print(f"[bits] {key}: {diff} elements differ from "
+                      f"{bit_equal}'s")
         for name, lib in libs.items():
             with using(lib):
                 err = ent.check()
@@ -194,12 +258,28 @@ def time_rounds(res: dict, libs: dict, case: str,
                   f"(rounds {[round(t * 1e3, 2) for t in times[name]]})")
 
 
+def device_times(res: dict, libs: dict, case: str,
+                 ents: list[Entry]) -> None:
+    """torch.profiler's device time per launch: what a kernel takes where
+    a call's host work outlasts it and sets the event time."""
+    for ent in ents:
+        for name, lib in libs.items():
+            with using(lib):
+                us = timing.kernel_device_us(ent.call, ent.kernel)
+            res.setdefault(f"device_us_{case}", {})[f"{name}/{ent.label}"] = us
+            print(f"[{case}] {name:10s} {ent.label:20s} {us:9.2f} us on the "
+                  f"device")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=sorted(SOURCES),
                     default="coef_matvec")
     ap.add_argument("--variant", action="append", default=[],
                     metavar="NAME=PATH", help="another source of the kernel")
+    ap.add_argument("--bit-equal", default=None, metavar="NAME",
+                    help="also compare every output bit for bit with "
+                         "variant NAME's")
     ap.add_argument("--out", default=None,
                     help="JSON output (default build/perf/compare_<kernel>"
                          ".json)")
@@ -214,13 +294,15 @@ def main() -> int:
     for name, lib in libs.items():
         regs = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln]
         print(f"[compare] {name}: {regs}")
-    res: dict = {"card": timing.card(), "kernel": kernel, "check": {},
-                 "device_us_30k": {}}
+    res: dict = {"card": timing.card(), "kernel": kernel, "check": {}}
 
     x = inputs.lattice_inputs("breaking_dam_1m.json", seed=7)
     ents = entries(kernel, x)
-    run_checks(res, libs, "1m", ents)
+    if args.bit_equal and args.bit_equal not in libs:
+        raise SystemExit(f"--bit-equal {args.bit_equal}: no such source")
+    run_checks(res, libs, "1m", ents, args.bit_equal)
     time_rounds(res, libs, "1m", ents)
+    device_times(res, libs, "1m", ents)
     del x, ents
     torch.cuda.empty_cache()
 
@@ -232,18 +314,18 @@ def main() -> int:
                 {d: r[0] for d, r in rag.items()}, *rag["f32"][1:]))
     else:
         ents = entries(kernel, inputs.clustered_inputs(CLUSTERED_N, seed=5))
-        run_checks(res, libs, "clustered", ents)
+        run_checks(res, libs, "clustered", ents, args.bit_equal)
         time_rounds(res, libs, "clustered", ents)
+        device_times(res, libs, "clustered", ents)
         del ents
 
     x = inputs.lattice_inputs("breaking_dam_30k.json", seed=7)
-    for ent in entries(kernel, x):
-        for name, lib in libs.items():
-            with using(lib):
-                us = timing.kernel_device_us(ent.call, ent.kernel)
-            res["device_us_30k"][f"{name}/{ent.label}"] = us
-            print(f"[30k] {name:10s} {ent.label:20s} {us:8.2f} us")
+    ents = entries(kernel, x)
+    run_checks(res, libs, "30k", ents, args.bit_equal)
+    device_times(res, libs, "30k", ents)
     bad = [key for key, err in res["check"].items() if not err <= TOL]
+    bad += [f"bits:{key}" for key, diff in res.get("bit_diff", {}).items()
+            if diff and key.startswith("tree/")]
     out = Path(args.out or f"build/perf/compare_{kernel}.json")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(res, indent=1))

@@ -79,6 +79,7 @@ def ragged_engine(n: int, dtype: torch.dtype, seed: int = 3,
 
 CLUSTER_H = 0.125        # support radius and cell edge: a power of two
 CLUSTER_BLOB_OCC = 200   # particles per cell inside the dense blob
+CLUSTER_WALL_OCC = 50    # boundary particles per cell of the dense patch
 
 
 def clustered_inputs(n: int, seed: int, device="cuda") -> dict:
@@ -94,8 +95,23 @@ def clustered_inputs(n: int, seed: int, device="cuda") -> dict:
     * eight particles outside the grid's box, in pairs within h of each
       other, which clamp into edge cells.
 
+    Beside it a boundary cloud, cell-sorted on the same grid, with random
+    volumes, for the two-table walk of boundary_terms:
+
+    * a wall sheet one cell below the face lattice, on the same spacing:
+      it lies on cell faces, and its pairs with the lattice's lowest layer
+      sit at exactly r2 = h2;
+    * a dense patch of ~CLUSTER_WALL_OCC a cell, two cells thick, that
+      straddles the blob's lower face;
+    * four boundary particles outside the box, each within h of a fluid
+      particle outside, which clamp into edge cells;
+    * none elsewhere: most cells have no boundary particle near.
+
     Returns {grid, h, m, p, st, k, v, rho} in the keys of
-    `lattice_inputs`, with the grid, h and m in place of a scene."""
+    `lattice_inputs`, with the grid, h and m in place of a scene, and the
+    boundary cloud {bp, bvol, bst}. The boundary cloud draws from a
+    generator of its own: the fluid cloud of a seed does not depend on
+    it."""
     from cfd_taichi_tpu_torch.models import base
     from cfd_taichi_tpu_torch.ops import neighbors as nb
 
@@ -133,8 +149,20 @@ def clustered_inputs(n: int, seed: int, device="cuda") -> dict:
     def dev(a):
         return torch.from_numpy(a.astype(np.float32)).to(device)
 
+    brng = np.random.default_rng([seed, 1])
+    sheet = lattice[lattice[:, 2] == 2 * h] - np.array([0.0, 0.0, h])
+    n_patch = int(CLUSTER_WALL_OCC * 2 * (blob / h) ** 2)
+    patch = corner - np.array([0.0, 0.0, h]) + brng.uniform(
+        0.0, 1.0, (n_patch, 3)) * np.array([blob, blob, 2 * h])
+    bpos = dev(np.concatenate([
+        sheet, patch, anchors + h * brng.uniform(-0.3, 0.3, (4, 3))]))
+    btable = nb.build_cell_table(bpos, grid)
+    bvol = dev(brng.uniform(0.5, 1.5, bpos.shape[0]) * m / 1000.0)
+
     return dict(grid=grid, h=h, m=m, p=p,
                 st=nb.csr_starts(scid, grid.num_cells),
+                bp=bpos[btable.order], bvol=bvol[btable.order],
+                bst=btable.starts,
                 k=dev(rng.uniform(0.0, 2.0, total)),
                 v=dev(rng.standard_normal((total, 3))),
                 rho=dev(rng.uniform(900.0, 1100.0, total)))

@@ -71,7 +71,7 @@ class Simulation:
         if sc.akinci:
             rho = rho + stencil.boundary_terms(
                 pos, sc.boundary_pos, sc.boundary_volume, sc.boundary_starts,
-                sc.grid, sc.h, RHO_0).rho
+                sc.grid, sc.h, RHO_0, sc.boundary_near).rho
         return torch.empty_like(rho).index_put_((perm,), rho)
 
     def telemetry(self) -> dict:

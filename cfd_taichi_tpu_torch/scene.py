@@ -5,7 +5,8 @@ Counterpart of `cfd_taichi_tpu/scene.py:205-467` (reference
 ParticleSystem.py:31-127, 225-247) without the capacity ladder: the port's
 pair passes walk the CSR stencil (ops/stencil.py) and need no capacities.
 The boundary shell is static, so it is stored once in cell-sorted order
-together with its CSR offsets.
+together with its CSR offsets and the per-cell count of boundary particles
+near, which lets an interior query skip the boundary walk.
 """
 
 from __future__ import annotations
@@ -40,6 +41,9 @@ class Scene:
     boundary_pos: torch.Tensor      # (Nb, 3) f32, cell-sorted
     boundary_volume: torch.Tensor   # (Nb,) f32 V_b, same order
     boundary_starts: torch.Tensor   # (num_cells + 1,) int32 CSR offsets
+    # (num_cells,) int32: boundary particles in each cell's 27-cell stencil
+    # (0: a query of the cell has no boundary candidate).
+    boundary_near: torch.Tensor
 
     @property
     def device(self) -> torch.device:
@@ -86,7 +90,8 @@ def build_scene(cfg: SimConfig, device="cuda") -> Scene:
         fluid_vel0=tuple(float(c) for c in fl.initial_velocity),
         boundary_pos=bpos[btable.order],
         boundary_volume=bvol[btable.order],
-        boundary_starts=btable.starts)
+        boundary_starts=btable.starts,
+        boundary_near=nb.stencil_counts(btable.starts, grid))
 
 
 def _kernel_sum_np(pos_rows: np.ndarray, grid: nb.GridSpec,

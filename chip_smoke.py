@@ -24,10 +24,14 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 also runs on ragged CSR engines (rows of 0, 1, G-1, G+1 and
                 100+ pairs for every lane-group width G in 4-32, random
                 sources, 1000 and 1003 rows), f32 and bf16. coef_build
-                (f32 and bf16, nbr exactly) and viscosity also run on a
-                clustered cloud of 100k particles (perf/inputs.py: a blob
-                of ~200 a cell, empty cells, pairs at exactly r = h on
-                cell faces, particles clamped into edge cells). Kernel
+                (f32 and bf16, nbr exactly), viscosity, fluid_terms (count
+                exactly) and boundary_terms also run on a clustered cloud
+                of 100k particles (perf/inputs.py: a blob of ~200 a cell,
+                empty cells, pairs at exactly r = h on cell faces,
+                particles clamped into edge cells; boundary_terms over its
+                boundary cloud: a wall sheet on cell faces, a dense patch,
+                boundary particles clamped into edge cells, none near
+                most queries). Kernel
                 and plain times: CUDA events, median of 10 after 3 warm-up
                 calls. Each kernel's bound (perf/bounds.py: the bytes and
                 f32 operations of the call's inputs at the H100's peaks)
@@ -187,18 +191,22 @@ def ragged_checks(torch) -> None:
 
 
 def clustered_checks(torch) -> None:
-    """coef_build (f32 and bf16) and viscosity on the clustered cloud,
-    kernel against plain: a blob of ~200 particles a cell, empty cells,
-    pairs at exactly r = h on cell faces, particles clamped into edge
-    cells (perf/inputs.py)."""
+    """coef_build (f32 and bf16), viscosity, fluid_terms and
+    boundary_terms on the clustered cloud, kernel against plain: a blob of
+    ~200 particles a cell, empty cells, pairs at exactly r = h on cell
+    faces, particles clamped into edge cells; boundary_terms over the
+    cloud's boundary set, whose per-cell table of boundary particles near
+    the wrapper makes itself here (perf/inputs.py)."""
     from cfd_taichi_tpu_torch.ops import coef
     from cfd_taichi_tpu_torch.ops import stencil as S
+    from cfd_taichi_tpu_torch.ops.neighbors import cell_id, stencil_counts
     from cfd_taichi_tpu_torch.perf import cases, inputs
 
     x = inputs.clustered_inputs(CLUSTERED_N, seed=5)
     g, h, m, p, st = (x[key] for key in ("grid", "h", "m", "p", "st"))
     occ = st[1:] - st[:-1]
-    off = coef.csr_offsets(S.fluid_terms(p, st, g, h, m).count)
+    ft = S.fluid_terms(p, st, g, h, m)
+    off = coef.csr_offsets(ft.count)
     print(f"[kernels] clustered cloud: {p.shape[0]} particles, "
           f"{int(off[-1])} pairs, largest cell {int(occ.max())}, "
           f"{int((occ > 100).sum())} cells over 100, "
@@ -211,6 +219,14 @@ def clustered_checks(torch) -> None:
             S.viscosity(p, st, g, h, m, x["v"], x["rho"], **cases.VISC),
             S.viscosity_plain(p, st, g, h, m, x["v"], x["rho"], **cases.VISC),
             torch)
+    compare("fluid_terms clustered", ft, S.fluid_terms_plain(p, st, g, h, m),
+            torch)
+    bnd = (p, x["bp"], x["bvol"], x["bst"], g, h, 1000.0)
+    near = stencil_counts(x["bst"], g)[cell_id(p, g).long()] > 0
+    print(f"[kernels] clustered boundary cloud: {x['bp'].shape[0]} "
+          f"particles, near {int(near.sum())} of {p.shape[0]} queries")
+    compare("boundary_terms clustered", S.boundary_terms(*bnd),
+            S.boundary_terms_plain(*bnd), torch)
 
 
 def record(results: dict, case, key: str, err: float) -> None:

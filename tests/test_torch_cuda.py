@@ -200,3 +200,29 @@ def test_viscosity_on_the_clustered_cloud(clustered):
     np.testing.assert_allclose(
         stencil.viscosity(*args, **VISC).cpu().numpy(), want, rtol=0,
         atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+def test_fluid_terms_on_the_clustered_cloud(clustered):
+    x, _ = clustered
+    args = (x["p"], x["st"], x["grid"], x["h"], x["m"])
+    got, want = stencil.fluid_terms(*args), stencil.fluid_terms_plain(*args)
+    np.testing.assert_array_equal(got.count.cpu().numpy(),
+                                  want.count.cpu().numpy())
+    assert cases.terms_error(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["given", "made by the wrapper"])
+def test_boundary_terms_on_the_clustered_cloud(clustered, table):
+    """Over the cloud's boundary set (a wall sheet on cell faces, a dense
+    patch, particles clamped into edge cells, none near most queries),
+    with the per-cell table handed in or left to the wrapper."""
+    x, _ = clustered
+    args = (x["p"], x["bp"], x["bvol"], x["bst"], x["grid"], x["h"], 1000.0)
+    near = nb.stencil_counts(x["bst"], x["grid"]) if table == "given" \
+        else None
+    want = stencil.boundary_terms_plain(*args)
+    assert float(want.rho.max()) > 0.0 and int((want.rho == 0).sum()) > 0
+    assert cases.terms_error(stencil.boundary_terms(*args, near), want) \
+        <= 1e-5

@@ -6,13 +6,19 @@
 * a lattice on cell faces whose pairs sit at exactly r2 = h2 in f32;
 * particles outside the grid's box, clamped into edge cells, in pairs.
 
+and of its boundary cloud: a wall sheet on cell faces whose pairs with the
+fluid lattice sit at exactly r2 = h2, a dense patch beside the blob,
+boundary particles clamped into edge cells, and none anywhere else.
+
 The seed lattices of the scenes have none of these. The plain versions of
-the walk kernels (coef_build, viscosity) are held to O(N^2) references:
-`build_coef_plain`'s pair set to the brute-force pair mask (and its row
-counts to the JAX package's brute force), its rows to the kernels' walk
-order, its w and `viscosity_plain` to numpy sums over all pairs. The CUDA
-kernels are held to these plain versions on the same cloud in
-tests/test_torch_cuda.py and chip_smoke.py.
+the walk kernels (coef_build, viscosity, fluid_terms, boundary_terms) are
+held to O(N^2) references: `build_coef_plain`'s pair set to the brute-force
+pair mask (and its row counts to the JAX package's brute force), its rows
+to the kernels' walk order, its w, `viscosity_plain`, `fluid_terms_plain`
+and `boundary_terms_plain` to numpy sums over all pairs (the pair count
+exactly), and the per-cell table that lets boundary_terms skip interior
+queries to a direct count. The CUDA kernels are held to these plain
+versions on the same cloud in tests/test_torch_cuda.py and chip_smoke.py.
 
 Tolerances: the numpy references take the f32 pair test of the kernels
 (r2 <= f32(h)^2) and sum their terms in f64, so the f32 plain sums agree
@@ -167,3 +173,113 @@ def test_viscosity_plain_matches_numpy_reference(cloud):
     assert np.abs(want).max() > 0.0
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
+
+
+def _cubic_w(r2, h):
+    """W(r) in f64, with the kernels' q branches."""
+    c = CubicConstants.of(h)
+    q = np.sqrt(np.maximum(r2.astype(np.float64), 1e-24)) / c.h
+    w = np.where(q <= 0.5, c.kw * (6.0 * (q**3 - q**2) + 1.0),
+                 c.kw2 * (1.0 - q) ** 3)
+    return np.where(q <= 1.0, w, 0.0)
+
+
+def _assert_sums(got, want):
+    """Each float output to 1e-5 of the reference's largest value."""
+    for name, w in want.items():
+        assert np.abs(w).max() > 0.0, name
+        np.testing.assert_allclose(getattr(got, name).numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max(),
+                                   err_msg=name)
+
+
+def test_fluid_terms_plain_matches_numpy_reference(cloud):
+    pos, h, m = cloud["pos"], cloud["h"], cloud["m"]
+    n = pos.shape[0]
+    want = dict(rho=np.zeros(n), s=np.zeros((n, 3)), qsum=np.zeros(n),
+                tvec=np.zeros((n, 3)))
+    count = np.zeros(n, np.int32)
+    for rows, d, r2, mask in _pair_blocks(pos, h):
+        r = np.sqrt(np.maximum(r2.astype(np.float64), 1e-24))
+        w = np.where(mask, _cubic_w(r2, h), 0.0)
+        g = np.where(mask, m * _grad_coeff(r2, h), 0.0)
+        count[rows] = mask.sum(axis=1)
+        want["rho"][rows] = m * w.sum(axis=1)
+        want["s"][rows] = (g[..., None] * d).sum(axis=1)
+        want["qsum"][rows] = ((g * r) ** 2).sum(axis=1)
+        want["tvec"][rows] = (w[..., None] * d).sum(axis=1)
+    got = stencil.fluid_terms_plain(cloud["p"], cloud["st"], cloud["grid"],
+                                    h, m)
+    np.testing.assert_array_equal(got.count.numpy(), count)
+    _assert_sums(got, want)
+
+
+def _boundary_blocks(cloud, rows=256):
+    """(row slice, x_ib (Q, Nb, 3) f32, r2 f32, pair mask) of the fluid
+    queries against the boundary cloud: the kernels' pair test."""
+    pos, bp = cloud["pos"], cloud["bp"].numpy()
+    h32 = np.float32(cloud["h"])
+    for lo in range(0, pos.shape[0], rows):
+        d = pos[lo:lo + rows, None, :] - bp[None, :, :]
+        r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] \
+            + d[..., 2] * d[..., 2]
+        yield slice(lo, lo + d.shape[0]), d, r2, r2 <= h32 * h32
+
+
+def test_boundary_cloud_has_the_edge_cases(cloud):
+    grid, h = cloud["grid"], cloud["h"]
+    bp = cloud["bp"].numpy()
+    occ = (cloud["bst"][1:] - cloud["bst"][:-1]).numpy()
+    assert occ.max() >= 30
+    assert (occ == 0).mean() > 0.8
+    raw = np.floor(bp * np.float32(1.0 / h))
+    outside = ((raw < 0) | (raw >= np.asarray(grid.dims))).any(axis=1)
+    assert outside.sum() == 4
+    exact, partners = 0, np.zeros(bp.shape[0], np.int64)
+    for _, _, r2, mask in _boundary_blocks(cloud):
+        exact += int((mask & (r2 == np.float32(h) ** 2)).sum())
+        partners += mask.sum(axis=0)
+    assert exact >= 25
+    # every boundary particle outside the grid has a fluid partner within h
+    assert (partners[outside] > 0).all()
+
+
+def test_boundary_terms_plain_matches_numpy_reference(cloud):
+    pos, h = cloud["pos"], cloud["h"]
+    rho0, n = 1000.0, pos.shape[0]
+    wb = rho0 * cloud["bvol"].numpy().astype(np.float64)
+    want = dict(rho=np.zeros(n), s=np.zeros((n, 3)), qsum=np.zeros(n),
+                g2=np.zeros(n))
+    for rows, d, r2, mask in _boundary_blocks(cloud):
+        r = np.sqrt(np.maximum(r2.astype(np.float64), 1e-24))
+        gc = np.where(mask, _grad_coeff(r2, h), 0.0)
+        w = np.where(mask, _cubic_w(r2, h), 0.0)
+        want["rho"][rows] = (wb * w).sum(axis=1)
+        want["s"][rows] = ((wb * gc)[..., None] * d).sum(axis=1)
+        want["qsum"][rows] = ((wb * gc * r) ** 2).sum(axis=1)
+        want["g2"][rows] = (wb * gc * gc * r2).sum(axis=1)
+    got = stencil.boundary_terms_plain(
+        cloud["p"], cloud["bp"], cloud["bvol"], cloud["bst"], cloud["grid"],
+        h, rho0)
+    _assert_sums(got, want)
+
+
+def test_boundary_near_table_matches_direct_count(cloud):
+    """`stencil_counts` of the boundary table: per cell, the boundary
+    particles whose cell lies within one cell on every axis; no query
+    within h of a boundary particle sits in a cell that holds 0."""
+    grid = cloud["grid"]
+    near = nb.stencil_counts(cloud["bst"], grid).numpy()
+    assert near.dtype == np.int32 and near.shape == (grid.num_cells,)
+    bcell = nb.cell_coords(cloud["bp"], grid).numpy()
+    cells = np.stack(np.meshgrid(*[np.arange(d) for d in grid.dims],
+                                 indexing="ij"), -1).reshape(-1, 3)
+    direct = (np.abs(cells[:, None, :] - bcell[None, :, :]).max(axis=2)
+              <= 1).sum(axis=1)
+    np.testing.assert_array_equal(near[cells @ np.asarray(grid.strides)],
+                                  direct)
+    assert (near == 0).mean() > 0.5
+    qnear = near[nb.cell_id(cloud["p"], grid).numpy()]
+    for rows, _, _, mask in _boundary_blocks(cloud):
+        assert (qnear[rows][mask.any(axis=1)] > 0).all()
+    assert (qnear == 0).any() and (qnear > 0).any()
