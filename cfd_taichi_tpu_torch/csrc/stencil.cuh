@@ -4,10 +4,9 @@
 // like cfd_taichi_tpu/ops/neighbors.py:98-108), then visits the 27-cell
 // stencil as 9 contiguous runs of the source CSR table: the fast axis has
 // stride 1, so the three cells of one stencil row are adjacent in the
-// sorted order. matvec runs one thread per cell-sorted query over the
-// runs with its pair term in the candidate loop; fluid_terms and
-// boundary_terms run one thread per query that queues its hits and takes
-// the pair term out of that loop (queued_walk below); coef_build and
+// sorted order. fluid_terms, boundary_terms, matvec and matvec_dot run one
+// thread per cell-sorted query that queues its hits and takes the pair
+// term out of the candidate loop (queued_walk below); coef_build and
 // viscosity run a group of kGroupWalk lanes per query (group_walk below).
 // Sums stay in f32 registers and each query's row is written by its own
 // thread or group, so there are no atomics and every run gives
@@ -143,6 +142,8 @@ __device__ __forceinline__ float dist2(float dx, float dy, float dz) {
 // waits on its loads). Chunks of 6 waste fewer slots behind the warp's
 // longest run of ~24-27 candidates than chunks of 8 (413 against 424 us);
 // two terms a drain turn hide a little of each other's latency (3 %).
+// matvec and matvec_dot, whose pair term is lighter, take chunks of 8
+// (kWalkChunk; matvec.cu says what they measured).
 // ---------------------------------------------------------------------------
 
 constexpr int kChunk = 6;        // candidates tested between two votes
@@ -157,15 +158,17 @@ constexpr int kQueuedBlocks = 8;  // blocks an SM must hold: caps registers
 // the lane: it computes its terms in either case, so that the turn's
 // kDrainUnroll terms overlap, and adds them only under take. self is the
 // query's own slot where the sources are the queries, else -1. kQueueDepth
-// is the hits a thread can hold, 4 bytes each in shared memory.
-template <int kQueueDepth, typename PairFn>
+// is the hits a thread can hold, 4 bytes each in shared memory; kWalkChunk
+// the candidates tested between two votes, for a kernel whose pair term
+// leaves room for more loads in flight than kChunk.
+template <int kQueueDepth, int kWalkChunk = kChunk, typename PairFn>
 __device__ __forceinline__ void queued_walk(const float* __restrict__ spos,
                                             int ns,
                                             const int* __restrict__ starts,
                                             const StencilParams& p, bool live,
                                             int self, float xi, float yi,
                                             float zi, PairFn&& pair) {
-  static_assert(kChunk >= 1 && kChunk < kQueueDepth,
+  static_assert(kWalkChunk >= 1 && kWalkChunk < kQueueDepth,
                 "a queue must take a chunk's hits after a vote let it pass");
   __shared__ int queue[kQueueDepth * kThreads];
   int* const q = queue + threadIdx.x;
@@ -195,9 +198,9 @@ __device__ __forceinline__ void queued_walk(const float* __restrict__ spos,
       int lo = 0, hi = 0;
       if (!live || !stencil_run(c, dm, ds, starts, p, lo, hi)) lo = hi = 0;
       const int most = __reduce_max_sync(kFullWarp, hi - lo);
-      for (int t = 0; t < most; t += kChunk) {
+      for (int t = 0; t < most; t += kWalkChunk) {
 #pragma unroll
-        for (int u = 0; u < kChunk; ++u) {
+        for (int u = 0; u < kWalkChunk; ++u) {
           const int j = lo + t + u;
           const int jl = min(j, ns - 1);
           const float dx = xi - __ldg(spos + 3 * jl);
@@ -207,7 +210,7 @@ __device__ __forceinline__ void queued_walk(const float* __restrict__ spos,
           if (hit) q[held * kThreads] = j;
           held += hit;
         }
-        if (__any_sync(kFullWarp, held > kQueueDepth - kChunk)) drain();
+        if (__any_sync(kFullWarp, held > kQueueDepth - kWalkChunk)) drain();
       }
     }
   }

@@ -4,11 +4,11 @@ Each pass has three parts:
 
 * a hand-written CUDA kernel (`csrc/*.cu`, built by ops/_build.py) that
   walks each cell-sorted query's 27-cell stencil of the source CSR table
-  and sums in registers: one thread per query in matvec / matvec_dot, one
-  thread per query that queues its hits and runs the pair term outside
-  the candidate loop in fluid_terms and boundary_terms (`csrc/stencil.cuh`,
-  queued_walk), a group of lanes per query in viscosity and coef_build
-  (group_walk). The walk of ~27 x occupancy candidates, not DRAM bandwidth
+  and sums in registers: one thread per query that queues its hits and
+  runs the pair term outside the candidate loop in fluid_terms,
+  boundary_terms, matvec and matvec_dot (`csrc/stencil.cuh`, queued_walk),
+  a group of lanes per query in viscosity and coef_build (group_walk).
+  The walk of ~27 x occupancy candidates, not DRAM bandwidth
   or FLOPs, sets their time: as measured on an NVIDIA H100 80GB HBM3
   (PERF.md section 6), the warps' instruction slots at breaking_dam_1m,
   where the card is full, and the latency of a thread's serial loads at

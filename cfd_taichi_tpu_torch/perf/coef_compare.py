@@ -3,12 +3,13 @@ on one card:
 
     python -m cfd_taichi_tpu_torch.perf.coef_compare \\
         [--kernel coef_matvec|coef_build|viscosity|fluid_terms|
-                  boundary_terms] \\
+                  boundary_terms|matvec] \\
         [--variant NAME=PATH ...] [--bit-equal NAME] [--out PATH]
 
 `--kernel` picks the source: csrc/coef_matvec.cu (the default, both
-contractions), csrc/coef_build.cu, csrc/viscosity.cu, csrc/fluid_terms.cu
-or csrc/boundary_terms.cu. A variant's PATH is a source of that file, or
+contractions), csrc/coef_build.cu, csrc/viscosity.cu, csrc/fluid_terms.cu,
+csrc/boundary_terms.cu or csrc/matvec.cu (both recompute products, matvec
+and matvec_dot). A variant's PATH is a source of that file, or
 a directory: its `.cu` of the kernel's name
 (else the tree's) is built beside its headers, which take the place of
 the tree's (`#include "..."` looks beside the source first; the headers
@@ -44,6 +45,19 @@ A source from before boundary_terms_launch took the per-cell table
     python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel \\
         boundary_terms --variant before=build/before --bit-equal before
 
+The recompute products before they took the queued walk (pair term in the
+candidate loop), and the tree's with a queue of 32 hits a thread:
+
+    mkdir -p build/mv_before build/mv_q32
+    for f in stencil.cuh matvec.cu; do
+        git show 245dfac:cfd_taichi_tpu_torch/csrc/$f > build/mv_before/$f
+    done
+    sed 's/kMatvecQueue = [0-9]*;/kMatvecQueue = 32;/' \\
+        cfd_taichi_tpu_torch/csrc/matvec.cu > build/mv_q32/matvec.cu
+    python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel matvec \\
+        --variant before=build/mv_before --variant q32=build/mv_q32 \\
+        --bit-equal before
+
 Each source, the tree's ("tree") first, is built into its own library
 (build/compare/<kernel>/<name>/; one that does not build is reported and
 left out) and called through the port's wrappers with that library in
@@ -53,7 +67,8 @@ contraction, on two ragged engines of 1000 and 1003 rows (lane sums to
 1e-5 of each lane's largest value), else on the clustered cloud of
 chip_smoke.py
 (perf/inputs.py; coef_build: nbr exactly, w as perf/cases.build_error
-says; viscosity: 1e-5 of the largest value; fluid_terms and
+says; viscosity, matvec and matvec_dot: 1e-5 of the largest value;
+fluid_terms and
 boundary_terms, the latter over the cloud's boundary set: count exactly,
 every sum to 1e-5 of its largest value). With `--bit-equal NAME` every
 output of every source is also compared bit for bit with that of variant
@@ -92,7 +107,7 @@ COMPARE_DIR = _build.BUILD_DIR.parent / "compare"
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 SOURCES = {"coef_matvec": "coef_matvec.cu", "coef_build": "coef_build.cu",
            "viscosity": "viscosity.cu", "fluid_terms": "fluid_terms.cu",
-           "boundary_terms": "boundary_terms.cu"}
+           "boundary_terms": "boundary_terms.cu", "matvec": "matvec.cu"}
 CLUSTERED_N = 100_000
 ROUNDS = 4
 TOL = 1e-5
@@ -185,6 +200,17 @@ def entries(kernel: str, x: dict) -> list[Entry]:
             want = S.boundary_terms_plain(p, *bnd)
         return [Entry("f32", kernel, call,
                       lambda: cases.terms_error(call(), want))]
+    if kernel == "matvec":
+        out = []
+        for name, fn, plain, arg in (
+                ("matvec", S.matvec, S.matvec_plain, x["k"]),
+                ("matvec_dot", S.matvec_dot, S.matvec_dot_plain, x["v"])):
+            call = functools.partial(fn, p, st, g, h, m, arg)
+            want = plain(p, st, g, h, m, arg)
+            out.append(Entry(name, name, call,
+                             lambda call=call, want=want:
+                             cases.scaled_error(call(), want)))
+        return out
     if kernel == "viscosity":
         args = (p, st, g, h, m, x["v"], x["rho"])
         want = S.viscosity_plain(*args, **cases.VISC)

@@ -3,8 +3,9 @@ checkpoints.
 
 Counterpart of `cfd_taichi_tpu/runner.py` (reference main.py:47-211): the
 same JSON configs, frame structure (iter_cnt fluid steps per frame) and
-stopping rules (sim time > 4 s, frame cap). PLY/GIF export and
-`--color-by` are not ported yet (ROADMAP.md, queue 1).
+stopping rules (sim time > `max_sim_time`, frame cap), `--profile-dir`
+and `check_nan`. PLY/GIF export and `--color-by` are not ported yet
+(ROADMAP.md, queue 1): `run` refuses a config that asks for either export.
 
     python -m cfd_taichi_tpu_torch.runner --config configs/dfsph_basic.json \
         --frames 20 --device cuda
@@ -36,7 +37,8 @@ MAX_SIM_TIME = 4.0       # reference main.py:205
 class Simulation:
     """Owns the scene, the solver state and the step function."""
 
-    def __init__(self, cfg: SimConfig, device="cuda"):
+    def __init__(self, cfg: SimConfig, check_nan: bool = False,
+                 device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         self.scene = build_scene(cfg, device=self.device)
@@ -45,6 +47,7 @@ class Simulation:
         self.state = self.solver.init_state(self.scene)
         self.iter_cnt = cfg.solver.iter_cnt
         self.timer = telemetry.StepTimer()
+        self.check_nan = check_nan
 
     def step(self):
         """One fluid solver step."""
@@ -55,6 +58,11 @@ class Simulation:
         """One frame: iter_cnt fluid steps (reference main.py:165-173)."""
         for _ in range(self.iter_cnt):
             self.step()
+        if self.check_nan:
+            f = self.state.fluid
+            bad = int(telemetry.check_valid(f.pos, f.vel, f.acc))
+            if bad:
+                raise FloatingPointError(f"{bad} particles went NaN/Inf")
 
     @property
     def t(self) -> float:
@@ -90,8 +98,14 @@ class Simulation:
 
 
 def run(cfg: SimConfig, frames: int | None = None, output_dir: str = "./output",
-        checkpoint_every: int = 0, resume: str | None = None,
-        quiet: bool = False, device="cuda") -> Simulation:
+        profile_dir: str | None = None, checkpoint_every: int = 0,
+        resume: str | None = None, quiet: bool = False,
+        max_sim_time: float = MAX_SIM_TIME, device="cuda") -> Simulation:
+    for flag in ("is_output_ply", "is_output_gif"):
+        if getattr(cfg.scene, flag):
+            raise NotImplementedError(
+                f"scene.{flag} is set, but frame export is not ported yet: "
+                f"this run would write no frames")
     sim = Simulation(cfg, device=device)
     if resume:
         sim.state = io_utils.load_checkpoint(resume, device=sim.device)
@@ -99,23 +113,25 @@ def run(cfg: SimConfig, frames: int | None = None, output_dir: str = "./output",
     os.makedirs(output_dir, exist_ok=True)
     frame_limit = frames if frames is not None else MAX_FRAMES
 
-    frame_cnt = 0
-    while frame_cnt < frame_limit:
-        if cfg.scene.is_simulate:
-            sim.frame()
-        frame_cnt += 1
-        if not quiet and frame_cnt % 20 == 0:
-            stats = sim.telemetry()
-            print(f"frame {frame_cnt}  t={stats['t']:.4f}  dt={stats['dt']:.2e}  "
-                  f"steps/s={stats['steps_per_sec']:.2f}  "
-                  f"rho_avg={stats['rho_avg']:.1f}")
-        t = sim.t
-        if checkpoint_every and frame_cnt % checkpoint_every == 0:
-            io_utils.save_checkpoint(
-                os.path.join(output_dir, f"ckpt_{frame_cnt:06d}.npz"),
-                sim.state, meta={"frame": frame_cnt, "t": t})
-        if t > MAX_SIM_TIME:  # main.py:205-206
-            break
+    with telemetry.profile_trace(profile_dir):
+        frame_cnt = 0
+        while frame_cnt < frame_limit:
+            if cfg.scene.is_simulate:
+                sim.frame()
+            frame_cnt += 1
+            if not quiet and frame_cnt % 20 == 0:
+                stats = sim.telemetry()
+                print(f"frame {frame_cnt}  t={stats['t']:.4f}  "
+                      f"dt={stats['dt']:.2e}  "
+                      f"steps/s={stats['steps_per_sec']:.2f}  "
+                      f"rho_avg={stats['rho_avg']:.1f}")
+            t = sim.t
+            if checkpoint_every and frame_cnt % checkpoint_every == 0:
+                io_utils.save_checkpoint(
+                    os.path.join(output_dir, f"ckpt_{frame_cnt:06d}.npz"),
+                    sim.state, meta={"frame": frame_cnt, "t": t})
+            if t > max_sim_time:  # main.py:205-206
+                break
 
     if not quiet:
         print("Final telemetry:", json.dumps(sim.telemetry()))
@@ -128,6 +144,9 @@ def main(argv=None):
                         help="scene config json file")  # main.py:13-15 parity
     parser.add_argument("--frames", type=int, default=None)
     parser.add_argument("--output-dir", type=str, default="./output")
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="write a torch.profiler Chrome trace of the "
+                             "run into this directory")
     parser.add_argument("--checkpoint-every", type=int, default=0)
     parser.add_argument("--resume", type=str, default=None)
     parser.add_argument("--quiet", action="store_true")
@@ -139,8 +158,8 @@ def main(argv=None):
     cfg = read_config(args.config)
     t0 = time.time()
     run(cfg, frames=args.frames, output_dir=args.output_dir,
-        checkpoint_every=args.checkpoint_every, resume=args.resume,
-        quiet=args.quiet, device=args.device)
+        profile_dir=args.profile_dir, checkpoint_every=args.checkpoint_every,
+        resume=args.resume, quiet=args.quiet, device=args.device)
     print(f"Simulation time: {time.time() - t0}")  # main.py:211 parity
 
 

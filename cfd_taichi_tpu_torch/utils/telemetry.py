@@ -1,11 +1,15 @@
-"""Observability: steps/sec counter, NaN/Inf validation, density statistics.
+"""Observability: steps/sec counter, NaN/Inf validation, density statistics
+and a torch.profiler trace scope.
 
-Counterpart of `cfd_taichi_tpu/utils/telemetry.py:20-95` (reference
-main.py:89-124, solver_base.py:145-164 and the solvers' residual prints).
+Counterpart of `cfd_taichi_tpu/utils/telemetry.py:20-107` (reference
+main.py:22, 89-124, 174-176, solver_base.py:145-164 and the solvers'
+residual prints).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 
 import numpy as np
@@ -78,3 +82,23 @@ def density_stats(rho, rho_0: float = 1000.0) -> dict:
         "avg_pos_err": float(err.sum() / pos_cnt) if pos_cnt else 0.0,
         "avg_err_pct": float(np.abs(rho - rho_0).mean() / rho_0 * 100.0),
     }
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str | None):
+    """torch.profiler trace scope (counterpart of Taichi's kernel profiler,
+    main.py:22,174-176): writes `trace.json`, a Chrome trace of the host
+    and, where a card is present, its kernels, into `log_dir`. No-op when
+    log_dir is None."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

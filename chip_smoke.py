@@ -24,8 +24,9 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 also runs on ragged CSR engines (rows of 0, 1, G-1, G+1 and
                 100+ pairs for every lane-group width G in 4-32, random
                 sources, 1000 and 1003 rows), f32 and bf16. coef_build
-                (f32 and bf16, nbr exactly), viscosity, fluid_terms (count
-                exactly) and boundary_terms also run on a clustered cloud
+                (f32 and bf16, nbr exactly), viscosity, matvec, matvec_dot,
+                fluid_terms (count exactly) and boundary_terms also run on
+                a clustered cloud
                 of 100k particles (perf/inputs.py: a blob of ~200 a cell,
                 empty cells, pairs at exactly r = h on cell faces,
                 particles clamped into edge cells; boundary_terms over its
@@ -191,8 +192,9 @@ def ragged_checks(torch) -> None:
 
 
 def clustered_checks(torch) -> None:
-    """coef_build (f32 and bf16), viscosity, fluid_terms and
-    boundary_terms on the clustered cloud, kernel against plain: a blob of
+    """coef_build (f32 and bf16), viscosity, matvec, matvec_dot,
+    fluid_terms and boundary_terms on the clustered cloud, kernel against
+    plain: a blob of
     ~200 particles a cell, empty cells, pairs at exactly r = h on cell
     faces, particles clamped into edge cells; boundary_terms over the
     cloud's boundary set, whose per-cell table of boundary particles near
@@ -219,6 +221,10 @@ def clustered_checks(torch) -> None:
             S.viscosity(p, st, g, h, m, x["v"], x["rho"], **cases.VISC),
             S.viscosity_plain(p, st, g, h, m, x["v"], x["rho"], **cases.VISC),
             torch)
+    compare("matvec clustered", S.matvec(p, st, g, h, m, x["k"]),
+            S.matvec_plain(p, st, g, h, m, x["k"]), torch)
+    compare("matvec_dot clustered", S.matvec_dot(p, st, g, h, m, x["v"]),
+            S.matvec_dot_plain(p, st, g, h, m, x["v"]), torch)
     compare("fluid_terms clustered", ft, S.fluid_terms_plain(p, st, g, h, m),
             torch)
     bnd = (p, x["bp"], x["bvol"], x["bst"], g, h, 1000.0)

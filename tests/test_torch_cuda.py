@@ -226,3 +226,46 @@ def test_boundary_terms_on_the_clustered_cloud(clustered, table):
     assert float(want.rho.max()) > 0.0 and int((want.rho == 0).sum()) > 0
     assert cases.terms_error(stencil.boundary_terms(*args, near), want) \
         <= 1e-5
+
+
+def _recompute_products(x):
+    """[(kernel output, plain output)] of matvec and matvec_dot on `x`."""
+    args = (x["p"], x["st"], x["grid"], x["h"], x["m"])
+    return [(stencil.matvec(*args, x["k"]),
+             stencil.matvec_plain(*args, x["k"])),
+            (stencil.matvec_dot(*args, x["v"]),
+             stencil.matvec_dot_plain(*args, x["v"]))]
+
+
+@pytest.mark.cuda
+def test_recompute_products_on_the_clustered_cloud(clustered):
+    """Queries of hundreds of pairs drain their queues several times."""
+    x, off = clustered
+    assert int((off[1:] - off[:-1]).max()) > 100
+    for got, want in _recompute_products(x):
+        assert float(want.abs().max()) > 0.0
+        assert cases.scaled_error(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 129])
+def test_recompute_products_with_one_live_lane(cuda, n):
+    """n = 1 and n = 129: the last warp holds one query and 31 lanes
+    without one, which must walk along to every vote."""
+    x = inputs.clustered_inputs(2000, seed=5, device=cuda)
+    scid, _, p, _ = base.sort_by_cells(x["grid"], x["p"][-n:].clone())
+    few = dict(x, p=p, st=nb.csr_starts(scid, x["grid"].num_cells),
+               k=x["k"][:n].contiguous(), v=x["v"][:n].contiguous())
+    for got, want in _recompute_products(few):
+        assert got.shape == want.shape and bool(torch.isfinite(got).all())
+        np.testing.assert_allclose(
+            got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+            atol=1e-5 * max(float(want.abs().max()), 1e-30))
+
+
+@pytest.mark.cuda
+def test_recompute_products_repeat_bit_for_bit(clustered):
+    x, _ = clustered
+    args = (x["p"], x["st"], x["grid"], x["h"], x["m"])
+    for fn, arg in ((stencil.matvec, x["k"]), (stencil.matvec_dot, x["v"])):
+        assert torch.equal(fn(*args, arg), fn(*args, arg))

@@ -12,9 +12,11 @@ boundary particles clamped into edge cells, and none anywhere else.
 
 The seed lattices of the scenes have none of these. The plain versions of
 the walk kernels (coef_build, viscosity, fluid_terms, boundary_terms) are
+and of the recompute engine's two products (matvec, matvec_dot) are
 held to O(N^2) references: `build_coef_plain`'s pair set to the brute-force
 pair mask (and its row counts to the JAX package's brute force), its rows
-to the kernels' walk order, its w, `viscosity_plain`, `fluid_terms_plain`
+to the kernels' walk order, its w, `viscosity_plain`, `fluid_terms_plain`,
+`matvec_plain`, `matvec_dot_plain`
 and `boundary_terms_plain` to numpy sums over all pairs (the pair count
 exactly), and the per-cell table that lets boundary_terms skip interior
 queries to a direct count. The CUDA kernels are held to these plain
@@ -212,6 +214,34 @@ def test_fluid_terms_plain_matches_numpy_reference(cloud):
                                     h, m)
     np.testing.assert_array_equal(got.count.numpy(), count)
     _assert_sums(got, want)
+
+
+def _matvec_reference(cloud, op):
+    """f64 sums over all pairs: matvec's sum_j m gc x_ij k_j (N, 3) or
+    matvec_dot's sum_j m gc x_ij . v_j (N,)."""
+    pos, h, m = cloud["pos"], cloud["h"], cloud["m"]
+    k, v = cloud["k"].numpy().astype(np.float64), cloud["v"].numpy()
+    n = pos.shape[0]
+    want = np.zeros((n, 3) if op == "matvec" else n)
+    for rows, d, r2, mask in _pair_blocks(pos, h):
+        a = np.where(mask, m * _grad_coeff(r2, h), 0.0)[..., None] * d
+        want[rows] = (a * k[None, :, None]).sum(axis=1) if op == "matvec" \
+            else (a * v[None, :, :]).sum(axis=(1, 2))
+    return want
+
+
+@pytest.mark.parametrize("op", ["matvec", "matvec_dot"])
+def test_recompute_products_plain_match_numpy_reference(cloud, op):
+    """The recompute engine's operators on rows of hundreds of pairs, empty
+    cells, pairs at r = h and an n that is no multiple of a block."""
+    want = _matvec_reference(cloud, op)
+    assert cloud["pos"].shape[0] % 128 != 0 and np.abs(want).max() > 0.0
+    args = (cloud["p"], cloud["st"], cloud["grid"], cloud["h"], cloud["m"])
+    got = stencil.matvec_plain(*args, cloud["k"]) if op == "matvec" \
+        else stencil.matvec_dot_plain(*args, cloud["v"])
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
 
 
 def _boundary_blocks(cloud, rows=256):
