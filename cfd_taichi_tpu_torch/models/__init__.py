@@ -4,8 +4,9 @@
 
 import importlib
 
-_PORTED = {"dfsph": "cfd_taichi_tpu_torch.models.dfsph"}
-_NOT_PORTED = ("wcsph", "pbf", "pcisph", "iisph")
+_PORTED = {name: f"cfd_taichi_tpu_torch.models.{name}"
+           for name in ("dfsph", "wcsph", "iisph")}
+_NOT_PORTED = ("pbf", "pcisph")
 
 
 def get_solver(name: str):

@@ -15,8 +15,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from cfd_taichi_tpu_torch.ops import neighbors as nb
+from cfd_taichi_tpu_torch.ops import stencil
 from cfd_taichi_tpu_torch.ops.smoothing import f32
-from cfd_taichi_tpu_torch.scene import Scene
+from cfd_taichi_tpu_torch.scene import RHO_0, Scene
 
 ARTIFICIAL_FRICTION = 0.9999  # global velocity damping (solver_base.py:37)
 V_DECAY = 0.5                 # clamp-boundary velocity decay (solver_base.py:18)
@@ -70,6 +71,34 @@ def sort_by_cells(grid: nb.GridSpec, pos: torch.Tensor, extras: tuple = ()):
     base.py:306-319`). Returns (sorted cell ids, perm, pos_s, extras_s)."""
     scid, perm = torch.sort(nb.cell_id(pos, grid), stable=True)
     return scid, perm, pos[perm], tuple(e[perm] for e in extras)
+
+
+def one_shot_terms(scene: Scene, pos: torch.Tensor, starts: torch.Tensor
+                   ) -> tuple[stencil.FluidTerms, stencil.BoundaryTerms | None]:
+    """The one-shot fluid sums of the cell-sorted `pos` with CSR `starts`,
+    and the Akinci boundary sums on a scene with walls (else None)."""
+    grid, h = scene.grid, scene.h
+    ft = stencil.fluid_terms(pos, starts, grid, h, scene.particle_m)
+    bt = (stencil.boundary_terms(pos, scene.boundary_pos,
+                                 scene.boundary_volume,
+                                 scene.boundary_starts, grid, h, RHO_0,
+                                 scene.boundary_near)
+          if scene.akinci else None)
+    return ft, bt
+
+
+def sorted_density(scene: Scene, pos: torch.Tensor):
+    """Cell sort of `pos` and its density rho = 0.001 + sum_f m W +
+    sum_b rho0 V_b W (reference solver_base.py:41-72), self excluded.
+    Returns (perm, sorted pos, CSR starts, rho in sorted order, the
+    boundary sums or None)."""
+    scid, perm, pos_s, _ = sort_by_cells(scene.grid, pos)
+    starts = nb.csr_starts(scid, scene.grid.num_cells)
+    ft, bt = one_shot_terms(scene, pos_s, starts)
+    rho = f32(DENSITY_EPS) + ft.rho
+    if bt is not None:
+        rho = rho + bt.rho
+    return perm, pos_s, starts, rho, bt
 
 
 def gravity_acc(scene: Scene) -> torch.Tensor:

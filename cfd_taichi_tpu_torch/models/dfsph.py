@@ -77,7 +77,7 @@ def init_state(scene: Scene) -> base.SimState:
     return base.init_sim_state(scene, extra=(warm_k,))
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Row dot product of (N, 3) tensors, summed x + y + z like V3.dot."""
     return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
 
@@ -90,10 +90,10 @@ def dense_pre_terms(scene: Scene, ft: stencil.FluidTerms,
     the fluid one: a reference quirk (dfsph_solver.py:32-51), kept."""
     rho = f32(base.DENSITY_EPS) + ft.rho
     S = ft.s
-    denom = _dot(S, S) + ft.qsum
+    denom = dot(S, S) + ft.qsum
     if bt is not None:
         rho = rho + bt.rho
-        denom = denom + bt.qsum + _dot(bt.s, bt.s)
+        denom = denom + bt.qsum + dot(bt.s, bt.s)
         S = S + bt.s
     alpha = torch.where(torch.abs(denom) < f32(1e-6), torch.zeros_like(rho),
                         rho / denom)
@@ -116,7 +116,7 @@ def loop_operators(matvec: Callable, matvec_dot: Callable, S: torch.Tensor,
         return S * k_over_rho[:, None] + matvec(k_over_rho)
 
     def vel_dot_terms(v):
-        return _dot(v, S) - matvec_dot(v)
+        return dot(v, S) - matvec_dot(v)
 
     def rho_derivative(v):
         dr = vel_dot_terms(v)
@@ -156,23 +156,14 @@ class _Pre(NamedTuple):
     ext_force_fn: Callable   # vel -> (N, 3) tension + viscosity
 
 
-def prepare(scene: Scene, state: base.SimState) -> _Pre:
-    """Cell sort plus the one-shot pair passes of a step."""
-    fluid = state.fluid
-    (warm_k,) = state.extra
+def loop_engine(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
+                ft: stencil.FluidTerms) -> tuple[Callable, Callable]:
+    """(matvec, matvec_dot) of a step's loops over the cell-sorted `pos`:
+    the stored-coefficient engine when its pair store fits
+    `COEF_BYTE_BUDGET` in `COEF_DTYPE`, else the recompute kernels. The
+    counterpart of JAX's `build_dense_engine` (`cfd_taichi_tpu/models/
+    dfsph.py:332`), which DFSPH and IISPH share."""
     grid, h, m = scene.grid, scene.h, scene.particle_m
-    scid, _, pos, (vel, warm_s, oid, acc) = base.sort_by_cells(
-        grid, fluid.pos, (fluid.vel, warm_k, fluid.oid, fluid.acc))
-    starts = nb.csr_starts(scid, grid.num_cells)
-
-    ft = stencil.fluid_terms(pos, starts, grid, h, m)
-    bt = (stencil.boundary_terms(pos, scene.boundary_pos,
-                                 scene.boundary_volume,
-                                 scene.boundary_starts, grid, h, RHO_0,
-                                 scene.boundary_near)
-          if scene.akinci else None)
-    rho, alpha, S, tension = dense_pre_terms(scene, ft, bt)
-
     # The one host read of the prepare: the pair count sizes nbr and w.
     # (The loops read a residual every iteration anyway; an upper bound
     # from the count maximum would need a read too.) Summed in int64, so
@@ -182,11 +173,24 @@ def prepare(scene: Scene, state: base.SimState) -> _Pre:
         eng = coef.build_coef(pos, starts, grid, h, m,
                               coef.csr_offsets(ft.count), COEF_DTYPE,
                               n_pairs=n_pairs)
-        mv = functools.partial(coef.coef_matvec, eng, pos)
-        mvd = functools.partial(coef.coef_matvec_dot, eng, pos)
-    else:
-        mv = functools.partial(stencil.matvec, pos, starts, grid, h, m)
-        mvd = functools.partial(stencil.matvec_dot, pos, starts, grid, h, m)
+        return (functools.partial(coef.coef_matvec, eng, pos),
+                functools.partial(coef.coef_matvec_dot, eng, pos))
+    return (functools.partial(stencil.matvec, pos, starts, grid, h, m),
+            functools.partial(stencil.matvec_dot, pos, starts, grid, h, m))
+
+
+def prepare(scene: Scene, state: base.SimState) -> _Pre:
+    """Cell sort plus the one-shot pair passes of a step."""
+    fluid = state.fluid
+    (warm_k,) = state.extra
+    grid, h, m = scene.grid, scene.h, scene.particle_m
+    scid, _, pos, (vel, warm_s, oid, acc) = base.sort_by_cells(
+        grid, fluid.pos, (fluid.vel, warm_k, fluid.oid, fluid.acc))
+    starts = nb.csr_starts(scid, grid.num_cells)
+
+    ft, bt = base.one_shot_terms(scene, pos, starts)
+    rho, alpha, S, tension = dense_pre_terms(scene, ft, bt)
+    mv, mvd = loop_engine(scene, pos, starts, ft)
 
     def ext_force_fn(v):
         return tension + stencil.viscosity(pos, starts, grid, h, m, v, rho,
@@ -236,7 +240,7 @@ def _finish_step(scene: Scene, state: base.SimState,
     # Reference quirk kept: gravity joins the force and is divided by m.
     force_ext = base.gravity_acc(scene) + pre.ext_force_fn(vel)
     vel_adv = vel + force_ext * true_div(dt, f32(scene.particle_m))
-    max_vel = torch.sqrt(_dot(vel_adv, vel_adv)).max()
+    max_vel = torch.sqrt(dot(vel_adv, vel_adv)).max()
     cfl_dt = f32(0.4 * (2.0 * scene.particle_radius)) / max_vel * f32(0.2)
     dt = torch.clamp(cfl_dt, min=f32(MIN_DT), max=f32(MAX_DT))
     dt2 = dt * dt

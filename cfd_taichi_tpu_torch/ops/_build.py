@@ -55,6 +55,8 @@ _SIGNATURES = {
     "matvec_launch": (_P, _P, _I, _PP, _F, _P, _P, _P),
     "matvec_dot_launch": (_P, _P, _I, _PP, _F, _P, _P, _P),
     "viscosity_launch": (_P, _P, _I, _PP, _F, _F, _F, _P, _P, _P, _P),
+    "wcsph_forces_launch": (_P, _P, _I, _PP, _F, _F, _F, _F, _P, _P, _P, _P,
+                            _P),
     "coef_build_launch": (_P, _P, _I, _PP, _F, _P, _P, _P, _I, _P),
     "coef_matvec_launch": (_P, _I, _P, _P, _P, _I, _P, _P, _I, _P),
     "coef_matvec_dot_launch": (_P, _I, _P, _P, _P, _I, _P, _P, _I, _P),

@@ -1,4 +1,6 @@
-"""The four pair passes of a DFSPH step over the cell-sorted CSR stencil.
+"""The pair passes of the solver steps over the cell-sorted CSR stencil:
+the one-shot sums and loop products of DFSPH and IISPH, and WCSPH's force
+pass.
 
 Each pass has three parts:
 
@@ -6,8 +8,9 @@ Each pass has three parts:
   walks each cell-sorted query's 27-cell stencil of the source CSR table
   and sums in registers: one thread per query that queues its hits and
   runs the pair term outside the candidate loop in fluid_terms,
-  boundary_terms, matvec and matvec_dot (`csrc/stencil.cuh`, queued_walk),
-  a group of lanes per query in viscosity and coef_build (group_walk).
+  boundary_terms, matvec, matvec_dot and wcsph_forces (`csrc/stencil.cuh`,
+  queued_walk), a group of lanes per query in viscosity and coef_build
+  (group_walk).
   The walk of ~27 x occupancy candidates, not DRAM bandwidth
   or FLOPs, sets their time: as measured on an NVIDIA H100 80GB HBM3
   (PERF.md section 6), the warps' instruction slots at breaking_dam_1m,
@@ -71,6 +74,8 @@ KERNELS = {k.name: k for k in (
            "cfd_taichi_tpu/ops/bandmat.py:1975"),
     Kernel("viscosity", _CSRC + "viscosity.cu",
            "cfd_taichi_tpu/ops/bandmat.py:975"),
+    Kernel("wcsph_forces", _CSRC + "wcsph_forces.cu",
+           "cfd_taichi_tpu/ops/bandmat.py:1867"),
     # The stored-coefficient engine (ops/coef.py).
     Kernel("coef_build", _CSRC + "coef_build.cu",
            "cfd_taichi_tpu/ops/bandmat.py:682"),
@@ -253,6 +258,33 @@ def _viscosity_constants(h: float, c_s: float, alpha: float, eps: float):
     return f32(2.0 * alpha * h * c_s), f32(f32(eps) * h2)
 
 
+def wcsph_forces(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
+                 h: float, m: float, vel: torch.Tensor, rho: torch.Tensor,
+                 p_over_rho2: torch.Tensor, c_s: float, alpha: float,
+                 tension_k: float, eps: float = 0.01) -> torch.Tensor:
+    """K5: (N, 3) WCSPH pair acceleration, the Tait pressure gradient with
+    p' = p / rho^2, Monaghan viscosity under compression and cohesion in
+    one coefficient per pair (replaces bandmat.dense_wcsph_forces)."""
+    if not _on_cuda("wcsph_forces", pos):
+        return wcsph_forces_plain(pos, starts, grid, h, m, vel, rho,
+                                  p_over_rho2, c_s, alpha, tension_k, eps)
+    n = _check_pos_starts(pos, starts, grid)
+    _check("vel", vel, torch.float32, (n, 3), pos.device)
+    _check("rho", rho, torch.float32, (n,), pos.device)
+    _check("p_over_rho2", p_over_rho2, torch.float32, (n,), pos.device)
+    out = pos.new_empty(n, 3)
+    nu_num, q2e_add = _viscosity_constants(h, c_s, alpha, eps)
+    _launch("wcsph_forces", pos.device, pos, starts, n,
+            ctypes.byref(_params(grid, h)), f32(m), nu_num, q2e_add,
+            _tension_mk(tension_k, m), vel, rho, p_over_rho2, out)
+    return out
+
+
+def _tension_mk(tension_k: float, m: float) -> float:
+    """The cohesion factor -f32(k) f32(m) in f32, as bandmat.py:1946."""
+    return f32(-f32(tension_k) * f32(m))
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions
 # ---------------------------------------------------------------------------
@@ -431,4 +463,32 @@ def viscosity_plain(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
         pi = -(nu_num / (rho[rows, None] + rho[pr.slot])) * shear \
             / (pr.r2 + q2e_add)
         out[rows] = _rowsum3(pr.valid & (shear < 0.0), pr, -mf * pi * gc) * mf
+    return out
+
+
+def wcsph_forces_plain(pos: torch.Tensor, starts: torch.Tensor,
+                       grid: GridSpec, h: float, m: float, vel: torch.Tensor,
+                       rho: torch.Tensor, p_over_rho2: torch.Tensor,
+                       c_s: float, alpha: float, tension_k: float,
+                       eps: float = 0.01) -> torch.Tensor:
+    KERNELS["wcsph_forces"].plain_calls += 1
+    mf = f32(m)
+    nu_num, q2e_add = _viscosity_constants(h, c_s, alpha, eps)
+    # A 0-d numerator: PyTorch computes `float / tensor` as a reciprocal
+    # times the float, which rounds unlike the kernel's and JAX's division.
+    nu = torch.full((), nu_num, dtype=torch.float32, device=pos.device)
+    mm, tmk = f32(-mf * mf), _tension_mk(tension_k, m)
+    out = pos.new_zeros(pos.shape[0], 3)
+    for rows, pr in _pair_chunks(pos, pos, starts, grid, h, exclude_self=True):
+        dx, dy, dz = pr.d
+        vij = vel[rows, None, :] - vel[pr.slot]
+        shear = dx * vij[..., 0] + dy * vij[..., 1] + dz * vij[..., 2]
+        gc = cubic_grad_coeff(pr.r, h)
+        pi = -(nu / (rho[rows, None] + rho[pr.slot])) * shear \
+            / (pr.r2 + q2e_add)
+        coeff = -mf * (p_over_rho2[rows, None] + p_over_rho2[pr.slot]) * gc
+        coeff = coeff + torch.where(shear < 0.0, mm * pi * gc,
+                                    torch.zeros_like(pi))
+        coeff = coeff + tmk * cubic_w(pr.r, h)
+        out[rows] = _rowsum3(pr.valid, pr, coeff)
     return out

@@ -47,6 +47,10 @@ PAIR_OPS = {
     "matvec": 27,          # r, m gc, three multiply-adds of x_ij k_j
     "matvec_dot": 27,      # r, m gc, three multiply-adds of x_ij v_j
     "viscosity": 9,        # the shear x_ij . v_ij and its sign test
+    # r, gc, W, the shear and its sign test, the pressure and cohesion
+    # coefficients, three multiply-adds; not the viscosity term, which
+    # only compressive pairs need
+    "wcsph_forces": 53,
     "coef_build": 18,      # r, m gc
 }
 
@@ -97,6 +101,8 @@ def stencil_work(name: str, n: int, n_cells: int, cand: int, pairs: int,
         "matvec_dot": 3 * f + starts + 3 * f + f,
         # pos, starts, vel, rho; out
         "viscosity": 3 * f + starts + 3 * f + f + 3 * f,
+        # pos, starts, vel, rho, p'; out
+        "wcsph_forces": 3 * f + starts + 3 * f + f + f + 3 * f,
     }[name]
     return _pair_work(name, nbytes, cand, pairs)
 
@@ -132,7 +138,8 @@ def scene_work(sc, pos: torch.Tensor, starts: torch.Tensor,
     cand = candidates(pos, starts, g)
     bstarts = sc.boundary_starts
     out = {name: stencil_work(name, n, cells, cand, pairs)
-           for name in ("fluid_terms", "matvec", "matvec_dot", "viscosity")}
+           for name in ("fluid_terms", "matvec", "matvec_dot", "viscosity",
+                        "wcsph_forces")}
     out["boundary_terms"] = stencil_work(
         "boundary_terms", n, cells, candidates(pos, bstarts, g),
         count_pairs(pos, sc.boundary_pos, bstarts, g, sc.h,

@@ -16,6 +16,7 @@ from cfd_taichi_tpu_torch.ops import stencil as S
 from cfd_taichi_tpu_torch.perf import bounds, timing
 
 VISC = dict(c_s=13.0, alpha=0.08)
+WCSPH = dict(c_s=10.0, alpha=0.08, tension_k=0.2)
 # (kernel, wrapper, plain version, key of its source in the inputs, dot)
 CONTRACTIONS = (
     ("coef_matvec", coef.coef_matvec, coef.coef_matvec_plain, "k", False),
@@ -66,8 +67,8 @@ def scene_cases(x: dict, pairs: int) -> Iterator[Case]:
     """The cases of lattice inputs `x` with `pairs` fluid pairs: the
     stencil passes, then for f32 and bf16 storage coef_build and the
     contraction pair on the engine it builds."""
-    sc, p, st, k, v, rho = (x[key] for key in
-                            ("sc", "p", "st", "k", "v", "rho"))
+    sc, p, st, k, v, rho, pr = (x[key] for key in
+                                ("sc", "p", "st", "k", "v", "rho", "pr"))
     g, h, m = sc.grid, sc.h, sc.particle_m
     work = bounds.scene_work(sc, p, st, pairs)
     bnd = (sc.boundary_pos, sc.boundary_volume, sc.boundary_starts, g, h,
@@ -84,7 +85,11 @@ def scene_cases(x: dict, pairs: int) -> Iterator[Case]:
              lambda: S.matvec_dot_plain(p, st, g, h, m, v)),
             ("viscosity",
              lambda: S.viscosity(p, st, g, h, m, v, rho, **VISC),
-             lambda: S.viscosity_plain(p, st, g, h, m, v, rho, **VISC))):
+             lambda: S.viscosity_plain(p, st, g, h, m, v, rho, **VISC)),
+            ("wcsph_forces",
+             lambda: S.wcsph_forces(p, st, g, h, m, v, rho, pr, **WCSPH),
+             lambda: S.wcsph_forces_plain(p, st, g, h, m, v, rho, pr,
+                                          **WCSPH))):
         yield Case(name, name, kern, plain, work[name])
     off = coef.csr_offsets(S.fluid_terms(p, st, g, h, m).count)
     for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):

@@ -1,7 +1,7 @@
 """Seeded inputs of the kernel checks and measurements: the jittered seed
 lattice of a config, a clustered cloud for the stencil walk's edge cases,
-a ragged CSR engine of the coef contraction, and the DFSPH loop engine
-pinned for a run."""
+a ragged CSR engine of the coef contraction, a compressed start state,
+and the loop engine of DFSPH and IISPH pinned for a run."""
 
 from __future__ import annotations
 
@@ -24,16 +24,30 @@ RAGGED_LENGTHS = (0, 1, 3, 5, 7, 9, 15, 17, 31, 33, 100, 141,
                   *range(20, 41))
 
 
-def dfsph_config(name: str) -> SimConfig:
-    """configs/<name> with the DFSPH solver."""
+def solver_config(name: str, solver: str = "dfsph") -> SimConfig:
+    """configs/<name> with the given solver."""
     cfg = read_config(str(CONFIGS / name))
     return dataclasses.replace(cfg, solver=dataclasses.replace(
-        cfg.solver, name="dfsph"))
+        cfg.solver, name=solver))
+
+
+SQUEEZE = 0.85
+
+
+def squeezed(state):
+    """`state` with the fluid block scaled by SQUEEZE about its centre:
+    from rest the self-excluded density sits under rho0, and squeezed so
+    the block's interior sits above it, so that pressure acts."""
+    pos = state.fluid.pos
+    mid = (pos.min(dim=0).values + pos.max(dim=0).values) / 2
+    return state._replace(fluid=state.fluid._replace(
+        pos=mid + SQUEEZE * (pos - mid)))
 
 
 def lattice_inputs(cfg_name: str, seed: int, device="cuda") -> dict:
     """The config's seed lattice with a 0.1 r jitter, cell-sorted, and
-    random k, v and rho, made with numpy from `seed`."""
+    random k, v, rho and positive p' (WCSPH's p / rho^2, `pr`), made with
+    numpy from `seed`."""
     from cfd_taichi_tpu_torch import build_scene
     from cfd_taichi_tpu_torch.models import base
     from cfd_taichi_tpu_torch.ops import neighbors as nb
@@ -41,7 +55,7 @@ def lattice_inputs(cfg_name: str, seed: int, device="cuda") -> dict:
     def dev(a):
         return torch.from_numpy(a.astype(np.float32)).to(device)
 
-    sc = build_scene(dfsph_config(cfg_name), device=device)
+    sc = build_scene(solver_config(cfg_name), device=device)
     rng = np.random.default_rng(seed)
     n, r = sc.n_fluid, sc.particle_radius
     pos = sc.fluid_pos0.cpu().numpy() + rng.uniform(
@@ -50,7 +64,8 @@ def lattice_inputs(cfg_name: str, seed: int, device="cuda") -> dict:
     return dict(sc=sc, p=p, st=nb.csr_starts(scid, sc.grid.num_cells),
                 k=dev(rng.uniform(0.0, 2.0, n)),
                 v=dev(rng.standard_normal((n, 3))),
-                rho=dev(rng.uniform(900.0, 1100.0, n)))
+                rho=dev(rng.uniform(900.0, 1100.0, n)),
+                pr=dev(rng.uniform(0.0, 0.05, n)))
 
 
 def ragged_engine(n: int, dtype: torch.dtype, seed: int = 3,
@@ -107,7 +122,7 @@ def clustered_inputs(n: int, seed: int, device="cuda") -> dict:
       particle outside, which clamp into edge cells;
     * none elsewhere: most cells have no boundary particle near.
 
-    Returns {grid, h, m, p, st, k, v, rho} in the keys of
+    Returns {grid, h, m, p, st, k, v, rho, pr} in the keys of
     `lattice_inputs`, with the grid, h and m in place of a scene, and the
     boundary cloud {bp, bvol, bst}. The boundary cloud draws from a
     generator of its own: the fluid cloud of a seed does not depend on
@@ -165,14 +180,15 @@ def clustered_inputs(n: int, seed: int, device="cuda") -> dict:
                 bst=btable.starts,
                 k=dev(rng.uniform(0.0, 2.0, total)),
                 v=dev(rng.standard_normal((total, 3))),
-                rho=dev(rng.uniform(900.0, 1100.0, total)))
+                rho=dev(rng.uniform(900.0, 1100.0, total)),
+                pr=dev(rng.uniform(0.0, 0.05, total)))
 
 
 @contextlib.contextmanager
 def engine(budget: float | None = None, dtype: torch.dtype | None = None):
-    """Pin the DFSPH loop engine: the coef byte budget (0 selects the
-    recompute kernels) and storage dtype of models/dfsph.py, restored on
-    exit."""
+    """Pin the loop engine of DFSPH and IISPH: the coef byte budget (0
+    selects the recompute kernels) and storage dtype of models/dfsph.py,
+    restored on exit."""
     from cfd_taichi_tpu_torch.models import dfsph
 
     saved = dfsph.COEF_BYTE_BUDGET, dfsph.COEF_DTYPE

@@ -1,5 +1,5 @@
-"""The kernel table of PERF.md and the step rates of both loop engines,
-measured on one card:
+"""The kernel table of PERF.md and the step rates of the ported solvers on
+their loop engines, measured on one card:
 
     python -m cfd_taichi_tpu_torch.perf.kernel_table [--out PATH]
 
@@ -14,13 +14,15 @@ measured on one card:
    device time per launch (torch.profiler, 20 launches) of the kernel and
    of each kernel the library call runs.
 2. First of all (a process that has run the profiler steps slower on the
-   host clock), after the kernel build and three untimed steps, DFSPH from
-   rest on the coef f32, recompute and coef bf16 engines: breaking_dam_1m
-   steps 6-15 and breaking_dam_30k steps 1-100, host clock around work
-   that ends in a synchronize, in the order coef, recompute, recompute,
-   coef (bf16 once), with kernel launches per step; last, 3 profiled 1M
-   steps per engine for device time by kernel and the busy share (device
-   time over wall time).
+   host clock), after the kernel build and three untimed steps, each
+   solver from rest: breaking_dam_1m steps 6-15 and breaking_dam_30k steps
+   1-100, host clock around work that ends in a synchronize, with kernel
+   launches per step. DFSPH on the coef f32, recompute and coef bf16
+   engines in the order coef, recompute, recompute, coef (bf16 once);
+   WCSPH, which has no loop engine; IISPH at 30k on the coef f32 and
+   recompute engines in the same alternation. Last, 3 profiled steps of
+   each run in `PROFILES` for device time by kernel and the busy share
+   (device time over wall time).
 
 Prints one line per number and writes them all as JSON (--out).
 """
@@ -92,22 +94,36 @@ def timed_steps(sim, steps: int) -> float:
 
 ORDER = ("coef_f32", "recompute", "recompute", "coef_f32", "coef_bf16")
 PINS = {"coef_f32": {}, "recompute": {"budget": 0},
-        "coef_bf16": {"dtype": torch.bfloat16}}
+        "coef_bf16": {"dtype": torch.bfloat16}, "-": {}}
+# (solver, config tag, loop engines in the order they run; "-": none)
+RATES = (("dfsph", "30k", ORDER), ("dfsph", "1m", ORDER),
+         ("wcsph", "30k", ("-",)), ("wcsph", "1m", ("-",)),
+         ("iisph", "30k", ORDER[:4]))
+PROFILES = (("dfsph", "1m", "recompute"), ("dfsph", "1m", "coef_f32"),
+            ("dfsph", "1m", "coef_bf16"), ("wcsph", "1m", "-"),
+            ("iisph", "30k", "coef_f32"))
+WINDOWS = {"30k": (0, 100), "1m": (5, 10)}   # (untimed steps, timed steps)
+
+
+def simulation(solver: str, tag: str):
+    from cfd_taichi_tpu_torch import Simulation
+
+    return Simulation(inputs.solver_config(dict(CONFIGS)[tag], solver),
+                      device="cuda")
 
 
 def engine_rates(res: dict) -> None:
-    """Host-clock rates of each engine. Taken before any profile: a
-    process that has run torch.profiler steps slower on the host clock.
-    Three untimed steps on each scene first take the one-time costs (the
-    kernel build, PyTorch's lazy set-up) out of the first window."""
-    from cfd_taichi_tpu_torch import Simulation
-
-    for tag, cfg_name in CONFIGS:
-        sim = Simulation(inputs.dfsph_config(cfg_name), device="cuda")
+    """Host-clock rates of each solver and engine. Taken before any
+    profile: a process that has run torch.profiler steps slower on the
+    host clock. Three untimed steps on each scene first take the one-time
+    costs (the kernel build, PyTorch's lazy set-up) out of the first
+    window."""
+    for solver, tag, engines in RATES:
+        sim = simulation(solver, tag)
         for _ in range(3):
             sim.step()
-        warm, steps = (0, 100) if tag == "30k" else (5, 10)
-        for engine in ORDER:
+        warm, steps = WINDOWS[tag]
+        for engine in engines:
             with inputs.engine(**PINS[engine]):
                 sim.state = sim.solver.init_state(sim.scene)
                 for _ in range(warm):
@@ -118,39 +134,42 @@ def engine_rates(res: dict) -> None:
                             for kk in S.KERNELS.values() if kk.launches}
                 diag = sim.state.diag.tolist()
             run = res.setdefault("rates", {}).setdefault(
-                f"{tag}/{engine}", {"steps_per_sec": []})
+                f"{solver}/{tag}/{engine}", {"steps_per_sec": []})
             run["steps_per_sec"].append(rate)
             run["launches_per_step"], run["last_diag"] = launches, diag
-            print(f"[rate] {tag} {engine:9s} steps {warm + 1}-{warm + steps}"
-                  f": {rate:.3f} steps/s  launches/step {launches}  last diag"
-                  f" {diag}")
+            print(f"[rate] {solver} {tag} {engine:9s} steps {warm + 1}-"
+                  f"{warm + steps}: {rate:.3f} steps/s  launches/step "
+                  f"{launches}  last diag {diag}")
         del sim
         torch.cuda.empty_cache()
 
 
 def step_profiles(res: dict) -> None:
-    """3 profiled breaking_dam_1m steps (6-8) per engine: device time by
-    kernel and the busy share."""
-    from cfd_taichi_tpu_torch import Simulation
-
-    sim = Simulation(inputs.dfsph_config("breaking_dam_1m.json"),
-                     device="cuda")
-    for engine in ORDER[2:]:
+    """3 profiled steps per run of `PROFILES` (1M steps 6-8, 30k steps
+    1-3): device time by kernel and the busy share."""
+    sims: dict = {}
+    for solver, tag, engine in PROFILES:
+        if (solver, tag) not in sims:
+            sims.clear()
+            torch.cuda.empty_cache()
+            sims[(solver, tag)] = simulation(solver, tag)
+        sim = sims[(solver, tag)]
         with inputs.engine(**PINS[engine]):
             sim.state = sim.solver.init_state(sim.scene)
-            for _ in range(5):
+            for _ in range(WINDOWS[tag][0]):
                 sim.step()
             found, wall = timing.profile_kernels(
                 lambda: [sim.step() for _ in range(3)])
         busy = sum(t for _, t in found.values()) / 1e6 / wall
         top = sorted(found.items(), key=lambda kv: -kv[1][1])[:12]
-        res.setdefault("profiles", {})[f"1m/{engine}"] = dict(
+        res.setdefault("profiles", {})[f"{solver}/{tag}/{engine}"] = dict(
             busy=busy, wall_s=wall, kernels={
                 name: dict(launches_per_step=c / 3, us_per_launch=t / c)
                 for name, (c, t) in top})
-        print(f"[profile] 1m {engine}: busy {busy:.3f} of {wall:.3f} s; "
-              + "; ".join(f"{name} {c / 3:.1f} x {t / c:.1f} us"
-                          for name, (c, t) in top))
+        print(f"[profile] {solver} {tag} {engine}: busy {busy:.3f} of "
+              f"{wall:.3f} s; " + "; ".join(
+                  f"{name} {c / 3:.1f} x {t / c:.1f} us"
+                  for name, (c, t) in top))
 
 
 def main() -> int:

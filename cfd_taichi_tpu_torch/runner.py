@@ -23,9 +23,6 @@ import torch
 from cfd_taichi_tpu_torch import models
 from cfd_taichi_tpu_torch.config import SimConfig, read_config
 from cfd_taichi_tpu_torch.models import base
-from cfd_taichi_tpu_torch.ops import neighbors as nb
-from cfd_taichi_tpu_torch.ops import stencil
-from cfd_taichi_tpu_torch.ops.smoothing import f32
 from cfd_taichi_tpu_torch.scene import RHO_0, build_scene
 from cfd_taichi_tpu_torch.utils import io as io_utils
 from cfd_taichi_tpu_torch.utils import telemetry
@@ -71,15 +68,8 @@ class Simulation:
     def density(self) -> torch.Tensor:
         """(N,) density in state order from the port's own fluid and
         boundary passes: 0.001 + sum_f m W + sum_b rho0 V_b W."""
-        sc = self.scene
-        scid, perm, pos, _ = base.sort_by_cells(sc.grid, self.state.fluid.pos)
-        starts = nb.csr_starts(scid, sc.grid.num_cells)
-        rho = f32(base.DENSITY_EPS) + stencil.fluid_terms(
-            pos, starts, sc.grid, sc.h, sc.particle_m).rho
-        if sc.akinci:
-            rho = rho + stencil.boundary_terms(
-                pos, sc.boundary_pos, sc.boundary_volume, sc.boundary_starts,
-                sc.grid, sc.h, RHO_0, sc.boundary_near).rho
+        perm, _, _, rho, _ = base.sorted_density(self.scene,
+                                                 self.state.fluid.pos)
         return torch.empty_like(rho).index_put_((perm,), rho)
 
     def telemetry(self) -> dict:

@@ -1,15 +1,16 @@
 """Checkpoints in the JAX package's leaf layout, and state carry-over.
 
-A checkpoint is an `.npz` of `leaf_0 ... leaf_30`, the leaves of the JAX
-package's `SimState` in `jax.tree_util.tree_flatten` order
+A checkpoint is an `.npz` of `leaf_0 ... leaf_<L-1>`, the leaves of the
+JAX package's `SimState` in `jax.tree_util.tree_flatten` order
 (`cfd_taichi_tpu/utils/io.py:140-161`), plus a `.json` sidecar. Either
 package can resume the other's checkpoint of a fluid-only scene, and
 `state_from_numpy` carries a JAX state's leaves into the port.
 
 Leaf layout: 0-2 pos x/y/z, 3-5 vel, 6-8 acc, 9 oid; 10-24 the rigid body
 (pos x/y/z, vertices x/y/z, vel, omega, alpha, acc, force x/y/z, centroid,
-inertia_inv); 25 dt, 26 t, 27 step_count, 28 warm_k (extra), 29 diag,
-30 overflow.
+inertia_inv); 25 dt, 26 t, 27 step_count; then the solver's E extra
+leaves (DFSPH's warm_k, IISPH's p_past, none for WCSPH); then diag and
+overflow. So L = 30 + E: 31 for DFSPH and IISPH, 30 for WCSPH.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import torch
 
 from cfd_taichi_tpu_torch.models import base
 
-NUM_LEAVES = 31
+BASE_LEAVES = 30     # the leaves of every solver's state, extras aside
+_EXTRA = 28          # index of the first extra leaf
 _RIGID_PARTICLE_LEAVES = (10, 11, 12, 13, 14, 15, 20, 21, 22)
 
 
@@ -30,9 +32,10 @@ def state_from_numpy(leaves, device="cuda") -> base.SimState:
     """Port state from the JAX `SimState` leaves (numpy arrays, flatten
     order). The scene must be fluid-only: the rigid leaves must be empty."""
     leaves = [np.asarray(a) for a in leaves]
-    if len(leaves) != NUM_LEAVES:
-        raise ValueError(f"expected {NUM_LEAVES} state leaves, got "
-                         f"{len(leaves)}")
+    n_extra = len(leaves) - BASE_LEAVES
+    if n_extra < 0:
+        raise ValueError(f"expected at least {BASE_LEAVES} state leaves, "
+                         f"got {len(leaves)}")
     for i in _RIGID_PARTICLE_LEAVES:
         if leaves[i].size:
             raise NotImplementedError(
@@ -51,9 +54,9 @@ def state_from_numpy(leaves, device="cuda") -> base.SimState:
         rigid=None,
         dt=t(leaves[25]), t=t(leaves[26]),
         step_count=t(leaves[27], torch.int32),
-        extra=(t(leaves[28]),),
-        diag=t(leaves[29]),
-        overflow=t(leaves[30], torch.int32))
+        extra=tuple(t(a) for a in leaves[_EXTRA:_EXTRA + n_extra]),
+        diag=t(leaves[_EXTRA + n_extra]),
+        overflow=t(leaves[_EXTRA + n_extra + 1], torch.int32))
 
 
 def state_to_numpy(state: base.SimState) -> list[np.ndarray]:
@@ -71,8 +74,9 @@ def state_to_numpy(state: base.SimState) -> list[np.ndarray]:
             + [n(f.vel[:, c]) for c in range(3)]
             + [n(f.acc[:, c]) for c in range(3)]
             + [n(f.oid)] + rigid
-            + [n(state.dt), n(state.t), n(state.step_count),
-               n(state.extra[0]), n(state.diag), n(state.overflow)])
+            + [n(state.dt), n(state.t), n(state.step_count)]
+            + [n(e) for e in state.extra]
+            + [n(state.diag), n(state.overflow)])
 
 
 def save_checkpoint(path: str, state: base.SimState, meta: dict | None = None):
@@ -85,7 +89,9 @@ def save_checkpoint(path: str, state: base.SimState, meta: dict | None = None):
 
 
 def load_checkpoint(path: str, device="cuda") -> base.SimState:
-    """Restore a state saved by either package's `save_checkpoint`."""
+    """Restore a state saved by either package's `save_checkpoint`: as many
+    leaves as the file holds, which says how many extras the solver had."""
     with np.load(path) as data:
-        leaves = [data[f"leaf_{i}"] for i in range(NUM_LEAVES)]
+        count = sum(1 for k in data.files if k.startswith("leaf_"))
+        leaves = [data[f"leaf_{i}"] for i in range(count)]
     return state_from_numpy(leaves, device=device)

@@ -12,7 +12,9 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 per source, all at once.
 3. kernels    - every kernel against its plain PyTorch version on the same
                 inputs (breaking_dam_30k and breaking_dam_1m seed lattices
-                with a numpy-seeded 0.1 r jitter, random v, k and rho):
+                with a numpy-seeded 0.1 r jitter, random v, k, rho and
+                positive p', so that wcsph_forces' pressure, viscosity
+                (both signs of shear) and cohesion terms all act):
                 integer outputs exactly, float outputs to 1e-5 x their
                 largest magnitude (same f32 pair terms summed in another
                 order). The coef kernels run with f32 and bf16 storage:
@@ -25,8 +27,8 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 100+ pairs for every lane-group width G in 4-32, random
                 sources, 1000 and 1003 rows), f32 and bf16. coef_build
                 (f32 and bf16, nbr exactly), viscosity, matvec, matvec_dot,
-                fluid_terms (count exactly) and boundary_terms also run on
-                a clustered cloud
+                wcsph_forces, fluid_terms (count exactly) and
+                boundary_terms also run on a clustered cloud
                 of 100k particles (perf/inputs.py: a blob of ~200 a cell,
                 empty cells, pairs at exactly r = h on cell faces,
                 particles clamped into edge cells; boundary_terms over its
@@ -42,8 +44,10 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 never calls it): perf/cases.py, which perf/kernel_table.py
                 shares.
 4. agree      - the TINY scene (tests/test_solvers.py:14-23) stepped 6 times
-                on the card and on the CPU: positions through oid to 5e-6,
-                dt to rtol 1e-5, equal iteration counts.
+                on the card and on the CPU, as DFSPH from rest and as WCSPH
+                and IISPH from TINY's block squeezed by 0.85 about its
+                centre (pressure acts): positions through oid to 5e-6, dt
+                to rtol 1e-5, equal iteration counts every step.
 5. main       - configs/breaking_dam_30k.json as DFSPH, 100 steps from rest
                 through Simulation.step on the default engine (stored
                 coefficients, f32). fluid_terms, boundary_terms, viscosity,
@@ -59,9 +63,21 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 last density residual <= 1.0.
 8. scale-bf16 - 1M and 30k with bf16 coefficient storage: iterations and
                 residual printed, positions finite.
+9. wcsph      - breaking_dam_30k as WCSPH, steps 1-100 from rest, and
+                breaking_dam_1m as WCSPH, steps 6-15: fluid_terms,
+                boundary_terms and wcsph_forces launched once a step and
+                no plain version; finite; every particle inside the box
+                +- 2r; density within (100, 2000) (tests/test_wcsph.py:
+                53-58).
+10. iisph     - configs/breaking_dam_30k.json as written (IISPH, on the
+                card by default), steps 1-50 from rest on the coef engine
+                and on the recompute engine: that engine's kernels
+                launched, no plain version, finite, at most 180 Jacobi
+                iterations a step. The 0.1 % contract is not required: the
+                reference's break on a rising residual may stop above it.
 
-Each run prints steps/s, iterations per step, the last density residual
-and peak device memory. The line before the last is {"kernels": [...]}
+Each run prints steps/s, iterations per step, the last residuals and
+peak device memory; the whole run's wall time comes before the JSON. The line before the last is {"kernels": [...]}
 (ms, plain_ms, bound_ms, library_ms at 30k; bound_us_1m, library_ms_1m
 and the other sizes and dtypes beside them), the last one {"ok": true,
 "device": {...}}.
@@ -90,6 +106,9 @@ COEF_PATH = ("fluid_terms", "boundary_terms", "viscosity", "coef_build",
              "coef_matvec", "coef_matvec_dot")
 RECOMPUTE_PATH = ("fluid_terms", "boundary_terms", "viscosity", "matvec",
                   "matvec_dot")
+WCSPH_PATH = ("fluid_terms", "boundary_terms", "wcsph_forces")
+# [agree]: (solver, whether to start from TINY's squeezed block)
+AGREE = (("dfsph", False), ("wcsph", True), ("iisph", True))
 
 
 class SmokeFailure(Exception):
@@ -193,7 +212,8 @@ def ragged_checks(torch) -> None:
 
 def clustered_checks(torch) -> None:
     """coef_build (f32 and bf16), viscosity, matvec, matvec_dot,
-    fluid_terms and boundary_terms on the clustered cloud, kernel against
+    wcsph_forces, fluid_terms and boundary_terms on the clustered cloud,
+    kernel against
     plain: a blob of
     ~200 particles a cell, empty cells, pairs at exactly r = h on cell
     faces, particles clamped into edge cells; boundary_terms over the
@@ -225,6 +245,9 @@ def clustered_checks(torch) -> None:
             S.matvec_plain(p, st, g, h, m, x["k"]), torch)
     compare("matvec_dot clustered", S.matvec_dot(p, st, g, h, m, x["v"]),
             S.matvec_dot_plain(p, st, g, h, m, x["v"]), torch)
+    wc = (p, st, g, h, m, x["v"], x["rho"], x["pr"])
+    compare("wcsph_forces clustered", S.wcsph_forces(*wc, **cases.WCSPH),
+            S.wcsph_forces_plain(*wc, **cases.WCSPH), torch)
     compare("fluid_terms clustered", ft, S.fluid_terms_plain(p, st, g, h, m),
             torch)
     bnd = (p, x["bp"], x["bvol"], x["bst"], g, h, 1000.0)
@@ -290,27 +313,35 @@ def phase_agree(torch) -> None:
 
     from cfd_taichi_tpu_torch import Simulation
     from cfd_taichi_tpu_torch.config import parse_config
+    from cfd_taichi_tpu_torch.perf import inputs
 
-    sims = {dev: Simulation(parse_config(copy.deepcopy(TINY)), device=dev)
-            for dev in ("cuda", "cpu")}
-    for step in range(1, 7):
-        for s in sims.values():
-            s.step()
-        a, b = (sims[d].state for d in ("cuda", "cpu"))
-        err = float(np.abs(oid_sorted(a) - oid_sorted(b)).max())
-        da, db = a.diag.cpu().tolist(), b.diag.cpu().tolist()
-        print(f"[agree] step {step}: pos err {err:.3e}  iters cuda "
-              f"{da[0]:.0f}/{da[2]:.0f} cpu {db[0]:.0f}/{db[2]:.0f}  dt "
-              f"{float(a.dt):.6e} / {float(b.dt):.6e}")
-        check(err <= 5e-6, f"TINY step {step}: cuda vs cpu pos err {err}")
-        check(abs(float(a.dt) - float(b.dt)) <= 1e-5 * float(b.dt),
-              f"TINY step {step}: dt differs")
-        check((da[0], da[2]) == (db[0], db[2]),
-              f"TINY step {step}: iteration counts differ")
+    for solver, squeeze in AGREE:
+        raw = copy.deepcopy(TINY)
+        raw["solver"]["name"] = solver
+        sims = {dev: Simulation(parse_config(raw), device=dev)
+                for dev in ("cuda", "cpu")}
+        if squeeze:
+            for s in sims.values():
+                s.state = inputs.squeezed(s.state)
+        for step in range(1, 7):
+            for s in sims.values():
+                s.step()
+            a, b = (sims[d].state for d in ("cuda", "cpu"))
+            err = float(np.abs(oid_sorted(a) - oid_sorted(b)).max())
+            da, db = a.diag.cpu().tolist(), b.diag.cpu().tolist()
+            print(f"[agree] {solver} step {step}: pos err {err:.3e}  iters "
+                  f"cuda {da[0]:.0f}/{da[2]:.0f} cpu {db[0]:.0f}/{db[2]:.0f}"
+                  f"  dt {float(a.dt):.6e} / {float(b.dt):.6e}")
+            tag = f"TINY {solver} step {step}"
+            check(err <= 5e-6, f"{tag}: cuda vs cpu pos err {err}")
+            check(abs(float(a.dt) - float(b.dt)) <= 1e-5 * float(b.dt),
+                  f"{tag}: dt differs")
+            check((da[0], da[2]) == (db[0], db[2]),
+                  f"{tag}: iteration counts differ")
 
 
 # ---------------------------------------------------------------------------
-# The DFSPH runs
+# The solver runs
 # ---------------------------------------------------------------------------
 
 def run_steps(sim, steps: int, torch):
@@ -336,10 +367,15 @@ def check_state(sim, tag: str) -> None:
     check(bad == 0, f"{tag}: {bad} non-finite particles")
 
 
-def iter_summary(diags) -> str:
-    div = [d[0] for d in diags]
+def iter_summary(solver: str, diags) -> str:
+    if solver == "wcsph":
+        return "no solver loop"
+    its = [d[0] for d in diags]
+    if solver == "iisph":
+        return (f"Jacobi iters mean {statistics.mean(its):.2f} max "
+                f"{max(its):.0f}; last residual {diags[-1][1]}")
     den = [d[2] for d in diags]
-    return (f"div iters mean {statistics.mean(div):.2f} max {max(div):.0f}; "
+    return (f"div iters mean {statistics.mean(its):.2f} max {max(its):.0f}; "
             f"density iters mean {statistics.mean(den):.2f} max "
             f"{max(den):.0f}; last step {diags[-1]}")
 
@@ -366,17 +402,17 @@ def drive(sim, tag: str, windows, path, torch) -> dict:
     counts = {k.name: (k.launches, k.plain_calls)
               for k in stencil.KERNELS.values()}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    residual = diags[-1][3]
-    print(f"[{tag}] {iter_summary(diags)}")
+    print(f"[{tag}] {iter_summary(sim.cfg.solver.name, diags)}")
     print(f"[{tag}] kernel (launches, plain calls): {counts}")
-    print(f"[{tag}] last density residual {residual}; peak device memory "
-          f"{peak:.3f} GiB")
+    print(f"[{tag}] last diag {diags[-1]}; peak device memory {peak:.3f} "
+          f"GiB")
     for name, (launches, plain) in counts.items():
         check(plain == 0, f"{tag}: plain version of {name} ran")
         check(launches > 0 or name not in path,
               f"{tag}: {name} never launched")
     check_state(sim, tag)
-    return dict(steps_per_sec=rates, last_diag=diags[-1], peak_gib=peak,
+    return dict(steps_per_sec=rates, last_diag=diags[-1],
+                max_diag=[max(col) for col in zip(*diags)], peak_gib=peak,
                 launches={k: c[0] for k, c in counts.items()})
 
 
@@ -385,7 +421,7 @@ def phase_main(torch, sims: dict, results: dict) -> None:
     from cfd_taichi_tpu_torch.perf import inputs
 
     sim = sims["30k"] = Simulation(
-        inputs.dfsph_config("breaking_dam_30k.json"), device="cuda")
+        inputs.solver_config("breaking_dam_30k.json"), device="cuda")
     run = drive(sim, "main", [100], COEF_PATH, torch)
     for name in ("matvec", "matvec_dot"):
         check(run["launches"][name] == 0,
@@ -406,7 +442,7 @@ def one_million(torch, sims: dict):
 
     if "1m" not in sims:
         t0 = time.perf_counter()
-        sims["1m"] = Simulation(inputs.dfsph_config("breaking_dam_1m.json"),
+        sims["1m"] = Simulation(inputs.solver_config("breaking_dam_1m.json"),
                                 device="cuda")
         print(f"[scale] breaking_dam_1m scene built in "
               f"{time.perf_counter() - t0:.1f} s")
@@ -451,6 +487,69 @@ def phase_scale_bf16(torch, sims: dict, results: dict) -> None:
             sims["30k"], "scale-bf16", [100], COEF_PATH, torch)
 
 
+def phase_wcsph(torch, results: dict) -> None:
+    """WCSPH at 30k (steps 1-100) and 1M (steps 6-15) from rest: its three
+    pair kernels once a step, and the state contained and sane."""
+    from cfd_taichi_tpu_torch import Simulation
+    from cfd_taichi_tpu_torch.perf import inputs
+
+    for tag, cfg_name, windows in (("30k", "breaking_dam_30k.json", [100]),
+                                   ("1m", "breaking_dam_1m.json", [5, 10])):
+        t0 = time.perf_counter()
+        sim = Simulation(inputs.solver_config(cfg_name, "wcsph"),
+                         device="cuda")
+        print(f"[wcsph] {cfg_name} scene built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        run = drive(sim, "wcsph", windows, WCSPH_PATH, torch)
+        for name, launches in run["launches"].items():
+            want = sum(windows) if name in WCSPH_PATH else 0
+            check(launches == want,
+                  f"wcsph {tag}: {name} launched {launches} times, not "
+                  f"{want}")
+        sc, pos = sim.scene, sim.state.fluid.pos
+        margin = 2.0 * sc.particle_radius
+        lo = torch.tensor(sc.box_min, device=pos.device) - margin
+        hi = torch.tensor(sc.box_max, device=pos.device) + margin
+        outside = int((~((pos >= lo) & (pos <= hi)).all(dim=1)).sum())
+        rho = sim.density()
+        lo_rho, hi_rho = float(rho.min()), float(rho.max())
+        print(f"[wcsph] {tag}: {outside} particles outside the box +- 2r; "
+              f"density min {lo_rho:.2f} max {hi_rho:.2f}")
+        check(outside == 0, f"wcsph {tag}: {outside} particles escaped")
+        check(100.0 < lo_rho and hi_rho < 2000.0,
+              f"wcsph {tag}: density range {lo_rho}, {hi_rho}")
+        if tag == "30k":
+            results["wcsph_forces"]["launches"] = \
+                run["launches"]["wcsph_forces"]
+        results["_runs"][f"{tag}_wcsph"] = run
+        del sim
+        torch.cuda.empty_cache()
+
+
+def phase_iisph(torch, results: dict) -> None:
+    """configs/breaking_dam_30k.json as written (IISPH), on the card by
+    default, steps 1-50 from rest on each loop engine."""
+    from cfd_taichi_tpu_torch import Simulation, read_config
+    from cfd_taichi_tpu_torch.perf import inputs
+
+    sim = Simulation(read_config(str(inputs.CONFIGS /
+                                     "breaking_dam_30k.json")))
+    check(sim.cfg.solver.name == "iisph" and sim.device.type == "cuda",
+          f"iisph: {sim.cfg.solver.name} on {sim.device}")
+    for engine, pins, path, idle in (
+            ("coef", {}, COEF_PATH, ("matvec", "matvec_dot")),
+            ("recompute", {"budget": 0}, RECOMPUTE_PATH,
+             ("coef_build", "coef_matvec", "coef_matvec_dot"))):
+        with inputs.engine(**pins):
+            run = drive(sim, f"iisph-{engine}", [50], path, torch)
+        for name in idle + ("wcsph_forces",):
+            check(run["launches"][name] == 0,
+                  f"iisph {engine}: {name} launched")
+        iters = run["max_diag"][0]
+        check(iters <= 180, f"iisph {engine}: {iters} Jacobi iterations")
+        results["_runs"][f"30k_iisph_{engine}"] = run
+
+
 def main() -> int:
     try:
         import torch
@@ -473,7 +572,7 @@ def main() -> int:
         print("[device] nvidia-smi name, power.limit:")
         print(smi)
 
-        t0 = time.perf_counter()
+        start = t0 = time.perf_counter()
         lib = _build.library()
         print(f"[build] {lib.path.name}: nvcc {lib.build_seconds:.1f} s, "
               f"ready in {time.perf_counter() - t0:.1f} s")
@@ -489,12 +588,15 @@ def main() -> int:
         phase_recompute(torch, sims, results)
         phase_scale(torch, sims, results)
         phase_scale_bf16(torch, sims, results)
+        phase_wcsph(torch, results)
+        phase_iisph(torch, results)
     except (SmokeFailure, RuntimeError, subprocess.SubprocessError,
             OSError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
 
     print("[runs] " + json.dumps(results.pop("_runs")))
+    print(f"[time] chip_smoke ran {time.perf_counter() - start:.1f} s")
     kernels = []
     for k in stencil.KERNELS.values():
         row = results[k.name]

@@ -60,6 +60,8 @@ def _all_outputs(sc, pos, starts, k, v, rho):
             stencil.matvec(pos, starts, g, h, m, k),
             stencil.matvec_dot(pos, starts, g, h, m, v),
             stencil.viscosity(pos, starts, g, h, m, v, rho, **VISC),
+            stencil.wcsph_forces(pos, starts, g, h, m, v, rho, 0.01 * k,
+                                 **cases.WCSPH),
             eng.nbr, eng.w,
             *coef.coef_matvec(eng, pos, k, lane_sums=True).unbind(1),
             *coef.coef_matvec_dot(eng, pos, v, lane_sums=True).unbind(1)]
@@ -102,8 +104,28 @@ def test_kernels_match_plain_versions(cuda):
 
 @pytest.mark.cuda
 def test_dfsph_steps_on_the_card_match_the_cpu(cuda):
-    sims = [Simulation(parse_config(copy.deepcopy(TINY)), device=dev)
+    _assert_card_matches_cpu(
+        [Simulation(parse_config(copy.deepcopy(TINY)), device=dev)
+         for dev in (cuda, "cpu")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["wcsph", "iisph"])
+def test_wcsph_and_iisph_steps_on_the_card_match_the_cpu(cuda, solver):
+    """From TINY's block squeezed by 0.85 about its centre, so that
+    pressure acts."""
+    raw = copy.deepcopy(TINY)
+    raw["solver"]["name"] = solver
+    sims = [Simulation(parse_config(raw), device=dev)
             for dev in (cuda, "cpu")]
+    for s in sims:
+        s.state = inputs.squeezed(s.state)
+    _assert_card_matches_cpu(sims)
+
+
+def _assert_card_matches_cpu(sims):
+    """Six steps of the card's and the CPU's simulation: positions through
+    oid, dt and iteration counts."""
     for _ in range(6):
         for s in sims:
             s.step()
@@ -269,3 +291,52 @@ def test_recompute_products_repeat_bit_for_bit(clustered):
     args = (x["p"], x["st"], x["grid"], x["h"], x["m"])
     for fn, arg in ((stencil.matvec, x["k"]), (stencil.matvec_dot, x["v"])):
         assert torch.equal(fn(*args, arg), fn(*args, arg))
+
+
+def _wcsph_pair(x):
+    """(kernel output, plain output) of wcsph_forces on inputs `x`, with
+    their positive p' (`pr`) and random velocities."""
+    args = (x["p"], x["st"], x["grid"], x["h"], x["m"], x["v"], x["rho"],
+            x["pr"])
+    return (stencil.wcsph_forces(*args, **cases.WCSPH),
+            stencil.wcsph_forces_plain(*args, **cases.WCSPH))
+
+
+@pytest.mark.cuda
+def test_wcsph_forces_on_the_30k_lattice(cuda):
+    x = inputs.lattice_inputs("breaking_dam_30k.json", seed=7, device=cuda)
+    sc = x["sc"]
+    got, want = _wcsph_pair(dict(x, grid=sc.grid, h=sc.h, m=sc.particle_m))
+    assert float(want.abs().max()) > 0.0
+    assert cases.scaled_error(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_wcsph_forces_on_the_clustered_cloud(clustered):
+    x, off = clustered
+    assert int((off[1:] - off[:-1]).max()) > 100
+    got, want = _wcsph_pair(x)
+    assert cases.scaled_error(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 129])
+def test_wcsph_forces_with_one_live_lane(cuda, n):
+    """n = 1 and n = 129: the last warp holds one query and 31 lanes
+    without one, which must walk along to every vote."""
+    x = inputs.clustered_inputs(2000, seed=5, device=cuda)
+    scid, _, p, _ = base.sort_by_cells(x["grid"], x["p"][-n:].clone())
+    few = dict(x, p=p, st=nb.csr_starts(scid, x["grid"].num_cells),
+               **{key: x[key][:n].contiguous() for key in ("v", "rho", "pr")})
+    got, want = _wcsph_pair(few)
+    assert got.shape == want.shape == (n, 3)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(
+        got.cpu().numpy(), want.cpu().numpy(), rtol=0,
+        atol=1e-5 * max(float(want.abs().max()), 1e-30))
+
+
+@pytest.mark.cuda
+def test_wcsph_forces_repeat_bit_for_bit(clustered):
+    x, _ = clustered
+    assert torch.equal(_wcsph_pair(x)[0], _wcsph_pair(x)[0])

@@ -163,8 +163,10 @@ def test_missing_config_exits_3(tmp_path):
 
 
 def test_unported_parts_raise_with_roadmap_pointer():
-    assert models.get_solver("dfsph").__name__.endswith("dfsph")
-    for name in ("wcsph", "pbf", "pcisph", "iisph"):
+    for name in ("dfsph", "wcsph", "iisph"):
+        assert models.get_solver(name).__name__ == \
+            f"cfd_taichi_tpu_torch.models.{name}"
+    for name in ("pbf", "pcisph"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             models.get_solver(name)
     with pytest.raises(ValueError, match="Unknown solver"):

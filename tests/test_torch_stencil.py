@@ -162,6 +162,8 @@ def test_cpu_tensors_take_the_plain_versions(case):
     stencil.matvec_dot(pos, starts, sc.grid, sc.h, sc.particle_m, v)
     stencil.viscosity(pos, starts, sc.grid, sc.h, sc.particle_m, v, rho,
                       **VISC)
+    stencil.wcsph_forces(pos, starts, sc.grid, sc.h, sc.particle_m, v, rho,
+                         k, tension_k=0.2, **VISC)
     eng = coef.build_coef(pos, starts, sc.grid, sc.h, sc.particle_m,
                           coef.csr_offsets(ft.count))
     coef.coef_matvec(eng, pos, k)

@@ -11,13 +11,14 @@ fluid lattice sit at exactly r2 = h2, a dense patch beside the blob,
 boundary particles clamped into edge cells, and none anywhere else.
 
 The seed lattices of the scenes have none of these. The plain versions of
-the walk kernels (coef_build, viscosity, fluid_terms, boundary_terms) are
-and of the recompute engine's two products (matvec, matvec_dot) are
-held to O(N^2) references: `build_coef_plain`'s pair set to the brute-force
-pair mask (and its row counts to the JAX package's brute force), its rows
-to the kernels' walk order, its w, `viscosity_plain`, `fluid_terms_plain`,
-`matvec_plain`, `matvec_dot_plain`
-and `boundary_terms_plain` to numpy sums over all pairs (the pair count
+the walk kernels (coef_build, viscosity, fluid_terms, boundary_terms,
+wcsph_forces) and of the recompute engine's two products (matvec,
+matvec_dot) are held to O(N^2) references: `build_coef_plain`'s pair set
+to the brute-force pair mask (and its row counts to the JAX package's
+brute force), its rows to the kernels' walk order, its w,
+`viscosity_plain`, `fluid_terms_plain`, `matvec_plain`,
+`matvec_dot_plain`, `wcsph_forces_plain` and `boundary_terms_plain` to
+numpy sums over all pairs (the pair count
 exactly), and the per-cell table that lets boundary_terms skip interior
 queries to a direct count. The CUDA kernels are held to these plain
 versions on the same cloud in tests/test_torch_cuda.py and chip_smoke.py.
@@ -42,6 +43,7 @@ from cfd_taichi_tpu_torch.ops.smoothing import CubicConstants
 from cfd_taichi_tpu_torch.perf import inputs
 
 VISC = dict(c_s=13.0, alpha=0.08, eps=0.01)
+WCSPH = dict(c_s=10.0, alpha=0.08, tension_k=0.2)
 CLOUDS = {"n1500": (1500, 5), "n2400": (2400, 11)}
 
 
@@ -240,6 +242,34 @@ def test_recompute_products_plain_match_numpy_reference(cloud, op):
     got = stencil.matvec_plain(*args, cloud["k"]) if op == "matvec" \
         else stencil.matvec_dot_plain(*args, cloud["v"])
     assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_wcsph_forces_plain_matches_numpy_reference(cloud):
+    """WCSPH's three pair terms in one coefficient: the pressure gradient
+    (positive p' from the cloud's k), viscosity under compression and
+    cohesion, summed in f64 over all pairs."""
+    pos, h, m = cloud["pos"], cloud["h"], cloud["m"]
+    vel, rho = cloud["v"].numpy(), cloud["rho"].numpy().astype(np.float64)
+    pr = 0.01 * cloud["k"]
+    prn = pr.numpy().astype(np.float64)
+    nu, q2e = stencil._viscosity_constants(h, WCSPH["c_s"], WCSPH["alpha"],
+                                           0.01)
+    want = np.zeros(pos.shape, np.float64)
+    for rows, d, r2, mask in _pair_blocks(pos, h):
+        d64 = d.astype(np.float64)
+        shear = (d64 * (vel[rows, None, :] - vel[None, :, :])).sum(axis=-1)
+        gc = _grad_coeff(r2, h)
+        pi = -(nu / (rho[rows, None] + rho[None, :])) * shear / (r2 + q2e)
+        coeff = (-m * (prn[rows, None] + prn[None, :]) * gc
+                 + np.where(shear < 0.0, -m * m * pi * gc, 0.0)
+                 - WCSPH["tension_k"] * m * _cubic_w(r2, h))
+        want[rows] = (np.where(mask, coeff, 0.0)[..., None] * d64).sum(axis=1)
+    got = stencil.wcsph_forces_plain(cloud["p"], cloud["st"], cloud["grid"],
+                                     h, m, cloud["v"], cloud["rho"], pr,
+                                     **WCSPH)
+    assert np.abs(want).max() > 0.0
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
 
