@@ -4,10 +4,10 @@
 // like cfd_taichi_tpu/ops/neighbors.py:98-108), then visits the 27-cell
 // stencil as 9 contiguous runs of the source CSR table: the fast axis has
 // stride 1, so the three cells of one stencil row are adjacent in the
-// sorted order. fluid_terms, boundary_terms, matvec, matvec_dot and
-// wcsph_forces run one thread per cell-sorted query that queues its hits
-// and takes the pair term out of the candidate loop (queued_walk_of
-// below); coef_build and
+// sorted order. fluid_terms, boundary_terms, matvec, matvec_dot,
+// wcsph_forces, pcisph_predict_rho, pbf_terms, pbf_lambda and pbf_xsph run
+// one thread per cell-sorted query that queues its hits and takes the pair
+// term out of the candidate loop (queued_walk_of below); coef_build and
 // viscosity run a group of kGroupWalk lanes per query (group_walk below).
 // Sums stay in f32 registers and each query's row is written by its own
 // thread or group, so there are no atomics and every run gives
@@ -75,6 +75,20 @@ __device__ __forceinline__ float cubic_w(float r, const StencilParams& p) {
   return (q <= 1.0f) ? w : 0.0f;
 }
 
+// cubic_w with q = r * inv_h, inv_h = f32(1) / f32(h): the product XLA
+// makes of JAX's r / h (ops/smoothing.py:cubic_w_mul).
+__device__ __forceinline__ float cubic_w_mul(float r, const StencilParams& p,
+                                             float inv_h) {
+  const float q = r * inv_h;
+  const float q2 = q * q;
+  const float q3 = q2 * q;
+  const float near_w = p.kw * (6.0f * (q3 - q2) + 1.0f);
+  const float omq = 1.0f - q;
+  const float far_w = p.kw2 * omq * omq * omq;
+  const float w = (q <= 0.5f) ? near_w : far_w;
+  return (q <= 1.0f) ? w : 0.0f;
+}
+
 // Gradient factor c(r), grad W = c(r) * x_ij, with the 1e-5 < q guard
 // (cfd_taichi_tpu/ops/smoothing.py:65-76).
 __device__ __forceinline__ float cubic_grad_coeff(float r,
@@ -86,6 +100,43 @@ __device__ __forceinline__ float cubic_grad_coeff(float r,
   float coeff = (q <= 0.5f) ? near_g : far_g;
   coeff = (q > 1e-5f && q <= 1.0f) ? coeff : 0.0f;
   return coeff / (p.h * fmaxf(r, 1e-12f));
+}
+
+// Constants of PBF's spiky and poly6 kernels, f32 on the host
+// (ops/smoothing.py:SpikyPoly6Constants, whose note says why they are
+// reciprocals); layout mirrors ops/_build.py:SpikyPoly6 (ctypes), 4 floats.
+struct SpikyPoly6 {
+  float inv_h;     // f32(1) / f32(h)
+  float inv_pih4;  // f32(1) / f32(pi h^4)
+  float inv_pih3;  // f32(1) / f32(pi h^3)
+  float kp6;       // f32(315 / (64 pi h^3))
+};
+
+// Spiky gradient factor c(r), grad W = c(r) * x_ij, zero unless 0 < q <= 1
+// (cfd_taichi_tpu/ops/smoothing.py:79-87).
+__device__ __forceinline__ float spiky_grad_coeff(float r,
+                                                  const SpikyPoly6& k) {
+  const float q = r * k.inv_h;
+  const float omq = 1.0f - q;
+  float coeff = -45.0f * omq * omq * k.inv_pih4;
+  coeff = (q > 0.0f && q <= 1.0f) ? coeff : 0.0f;
+  return coeff / fmaxf(r, 1e-12f);
+}
+
+// Spiky W = 15 (1-q)^3 / (pi h^3), q <= 1 (smoothing.py:90-95).
+__device__ __forceinline__ float spiky_w(float r, const SpikyPoly6& k) {
+  const float q = r * k.inv_h;
+  const float omq = 1.0f - q;
+  const float w = 15.0f * omq * omq * omq * k.inv_pih3;
+  return (q <= 1.0f) ? w : 0.0f;
+}
+
+// Poly6 W = 315 / (64 pi h^3) (1-q^2)^3, q <= 1 (smoothing.py:109-115).
+__device__ __forceinline__ float poly6_w(float r, const SpikyPoly6& k) {
+  const float q = r * k.inv_h;
+  const float t = 1.0f - q * q;
+  const float w = k.kp6 * t * t * t;
+  return (q <= 1.0f) ? w : 0.0f;
 }
 
 __device__ __forceinline__ float pair_r(float r2) {

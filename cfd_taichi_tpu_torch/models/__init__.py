@@ -5,16 +5,11 @@
 import importlib
 
 _PORTED = {name: f"cfd_taichi_tpu_torch.models.{name}"
-           for name in ("dfsph", "wcsph", "iisph")}
-_NOT_PORTED = ("pbf", "pcisph")
+           for name in ("dfsph", "wcsph", "iisph", "pcisph", "pbf")}
 
 
 def get_solver(name: str):
     if name in _PORTED:
         return importlib.import_module(_PORTED[name])
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"solver '{name}' is not ported to PyTorch yet: ROADMAP.md, "
-            f"queue 1 lists it")
     raise ValueError(f"Unknown solver '{name}'; available: "
-                     f"{sorted((*_PORTED, *_NOT_PORTED))}")
+                     f"{sorted(_PORTED)}")

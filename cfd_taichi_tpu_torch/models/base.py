@@ -87,6 +87,14 @@ def one_shot_terms(scene: Scene, pos: torch.Tensor, starts: torch.Tensor
     return ft, bt
 
 
+def walls(scene: Scene) -> stencil.Walls | None:
+    """The scene's Akinci boundary set, or None on a clamp scene."""
+    if not scene.akinci:
+        return None
+    return stencil.Walls(scene.boundary_pos, scene.boundary_volume,
+                         scene.boundary_starts, scene.boundary_near)
+
+
 def sorted_density(scene: Scene, pos: torch.Tensor):
     """Cell sort of `pos` and its density rho = 0.001 + sum_f m W +
     sum_b rho0 V_b W (reference solver_base.py:41-72), self excluded.

@@ -42,10 +42,17 @@ class StencilParams(ctypes.Structure):
                 ("kg6", ctypes.c_float), ("kgm6", ctypes.c_float)]
 
 
+class SpikyPoly6(ctypes.Structure):
+    """ctypes mirror of `struct SpikyPoly6` in csrc/stencil.cuh."""
+    _fields_ = [("inv_h", ctypes.c_float), ("inv_pih4", ctypes.c_float),
+                ("inv_pih3", ctypes.c_float), ("kp6", ctypes.c_float)]
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _PP = ctypes.POINTER(StencilParams)
+_SP = ctypes.POINTER(SpikyPoly6)
 
 # C entry points and their argument types (the trailing _P is the stream).
 _SIGNATURES = {
@@ -56,6 +63,14 @@ _SIGNATURES = {
     "matvec_dot_launch": (_P, _P, _I, _PP, _F, _P, _P, _P),
     "viscosity_launch": (_P, _P, _I, _PP, _F, _F, _F, _P, _P, _P, _P),
     "wcsph_forces_launch": (_P, _P, _P, _I, _PP, _F, _F, _F, _F, _P, _P),
+    "pcisph_predict_rho_launch": (_P, _P, _I, _PP, _F, _F, _P, _P, _P, _P,
+                                  _P, _I, _F, _P, _P),
+    "pbf_terms_launch": (_P, _P, _I, _PP, _SP, _F, _F, _F, _P, _P, _P, _P,
+                         _P),
+    "pbf_boundary_terms_launch": (_P, _I, _P, _P, _P, _P, _I, _PP, _SP, _F,
+                                  _F, _F, _P, _P, _P, _P, _P),
+    "pbf_lambda_launch": (_P, _P, _I, _PP, _SP, _P, _P, _P),
+    "pbf_xsph_launch": (_P, _P, _I, _PP, _SP, _P, _P, _P, _P),
     "coef_build_launch": (_P, _P, _I, _PP, _F, _P, _P, _P, _I, _P),
     "coef_matvec_launch": (_P, _I, _P, _P, _P, _I, _P, _P, _I, _P),
     "coef_matvec_dot_launch": (_P, _I, _P, _P, _P, _I, _P, _P, _I, _P),

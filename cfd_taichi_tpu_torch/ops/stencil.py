@@ -1,6 +1,6 @@
 """The pair passes of the solver steps over the cell-sorted CSR stencil:
-the one-shot sums and loop products of DFSPH and IISPH, and WCSPH's force
-pass.
+the one-shot sums and loop products of DFSPH and IISPH, WCSPH's force
+pass, PCISPH's predicted density and PBF's three passes.
 
 Each pass has three parts:
 
@@ -8,9 +8,9 @@ Each pass has three parts:
   walks each cell-sorted query's 27-cell stencil of the source CSR table
   and sums in registers: one thread per query that queues its hits and
   runs the pair term outside the candidate loop in fluid_terms,
-  boundary_terms, matvec, matvec_dot and wcsph_forces (`csrc/stencil.cuh`,
-  queued_walk), a group of lanes per query in viscosity and coef_build
-  (group_walk).
+  boundary_terms, matvec, matvec_dot, wcsph_forces, pcisph_predict_rho,
+  pbf_terms, pbf_lambda and pbf_xsph (`csrc/stencil.cuh`, queued_walk),
+  a group of lanes per query in viscosity and coef_build (group_walk).
   The walk of ~27 x occupancy candidates, not DRAM bandwidth
   or FLOPs, sets their time: as measured on an NVIDIA H100 80GB HBM3
   (PERF.md section 6), the warps' instruction slots at breaking_dam_1m,
@@ -26,6 +26,9 @@ Each pass has three parts:
 
 The pair set is every source j in the 27 cells around the query's clamped
 cell with r2 = |x_i - x_j|^2 <= f32(h)^2 (and j != i for fluid sources).
+Where a pass evaluates its term at other positions (PCISPH's predicted
+ones, PBF's updated ones), the pair set is still taken at the cell-sorted
+start-of-step positions and their CSR table, as JAX pins it.
 With no capacity anywhere this is exactly the JAX package's pair set when
 its block plans do not overflow (cfd_taichi_tpu/ops/bandmat.py:32-38).
 
@@ -45,8 +48,10 @@ from cfd_taichi_tpu_torch.ops import _build
 from cfd_taichi_tpu_torch.ops.neighbors import (GridSpec, cell_coords,
                                                   stencil_counts)
 from cfd_taichi_tpu_torch.ops.smoothing import (CubicConstants,
+                                                SpikyPoly6Constants,
                                                 cubic_grad_coeff, cubic_w,
-                                                f32)
+                                                cubic_w_mul, f32, poly6_w,
+                                                spiky_grad_coeff)
 
 _CSRC = "cfd_taichi_tpu_torch/csrc/"
 
@@ -76,6 +81,15 @@ KERNELS = {k.name: k for k in (
            "cfd_taichi_tpu/ops/bandmat.py:975"),
     Kernel("wcsph_forces", _CSRC + "wcsph_forces.cu",
            "cfd_taichi_tpu/ops/bandmat.py:1867"),
+    Kernel("pcisph_predict_rho", _CSRC + "pcisph_predict.cu",
+           "cfd_taichi_tpu/ops/bandmat.py:1626, :1674"),
+    # Two entry points, fluid and boundary, both counted here.
+    Kernel("pbf_terms", _CSRC + "pbf_terms.cu",
+           "cfd_taichi_tpu/ops/bandmat.py:1735-1792, :1811"),
+    Kernel("pbf_lambda", _CSRC + "pbf_lambda.cu",
+           "cfd_taichi_tpu/ops/bandmat.py:1794-1796"),
+    Kernel("pbf_xsph", _CSRC + "pbf_xsph.cu",
+           "cfd_taichi_tpu/ops/bandmat.py:1798-1806"),
     # The stored-coefficient engine (ops/coef.py).
     Kernel("coef_build", _CSRC + "coef_build.cu",
            "cfd_taichi_tpu/ops/bandmat.py:682"),
@@ -107,6 +121,26 @@ class BoundaryTerms(NamedTuple):
     s: torch.Tensor      # (N, 3) sum w_b gc x_ib
     qsum: torch.Tensor   # (N,)  sum (w_b gc r)^2
     g2: torch.Tensor     # (N,)  sum w_b gc^2 r^2
+
+
+class PbfTerms(NamedTuple):
+    """PBF's one-shot sums at the start-of-step positions, spiky_c the
+    spiky gradient factor, s_corr = -k (poly6 / w_ref)^4
+    (`cfd_taichi_tpu/ops/bandmat.py:1723-1732`)."""
+    rho: torch.Tensor     # (N,)  m sum poly6 (fluid), sum rho0 V_b poly6
+    gsum: torch.Tensor    # (N, 3) sum spiky_c x_ij
+    around: torch.Tensor  # (N,)  sum (r spiky_c)^2
+    ssum: torch.Tensor    # (N, 3) sum s_corr spiky_c x_ij
+
+
+class Walls(NamedTuple):
+    """A static boundary set, cell-sorted on the fluid's grid: positions,
+    volumes V_b, CSR offsets and the per-cell count of boundary particles
+    in each cell's stencil (`stencil_counts`; Scene.boundary_*)."""
+    pos: torch.Tensor     # (Nb, 3) f32
+    vol: torch.Tensor     # (Nb,) f32
+    starts: torch.Tensor  # (num_cells + 1,) int32
+    near: torch.Tensor    # (num_cells,) int32
 
 
 # ---------------------------------------------------------------------------
@@ -144,15 +178,17 @@ def _on_cuda(name: str, t: torch.Tensor) -> bool:
     raise ValueError(f"{name}: no kernel for device {t.device}")
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Launch `<name>_launch` on the device's current stream; tensors in
+def _launch(name: str, device: torch.device, *args,
+            entry: str | None = None) -> None:
+    """Launch `<entry>_launch` (`entry` defaults to the kernel's name) on
+    the device's current stream and count it under `name`; tensors in
     `args` are passed as their data pointers."""
     lib = _build.library()
     cargs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
              else a for a in args]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        lib.call(f"{name}_launch", *cargs, ctypes.c_void_p(stream))
+        lib.call(f"{entry or name}_launch", *cargs, ctypes.c_void_p(stream))
     KERNELS[name].launches += 1
 
 
@@ -321,6 +357,121 @@ def wcsph_forces_packed(rec: WcsphRecords, starts: torch.Tensor,
 def _tension_mk(tension_k: float, m: float) -> float:
     """The cohesion factor -f32(k) f32(m) in f32, as bandmat.py:1946."""
     return f32(-f32(tension_k) * f32(m))
+
+
+def _check_walls(walls: Walls, n_cells: int, device: torch.device) -> int:
+    nb = walls.pos.shape[0]
+    _check("walls.pos", walls.pos, torch.float32, (nb, 3), device)
+    _check("walls.vol", walls.vol, torch.float32, (nb,), device)
+    _check("walls.starts", walls.starts, torch.int32, (n_cells + 1,), device)
+    _check("walls.near", walls.near, torch.int32, (n_cells,), device)
+    return nb
+
+
+def pcisph_predict_rho(pos: torch.Tensor, starts: torch.Tensor,
+                       grid: GridSpec, h: float, m: float,
+                       pos_p: torch.Tensor, walls: Walls | None = None,
+                       rho0: float = 0.0) -> torch.Tensor:
+    """K6: (N,) PCISPH's predicted density m sum_j W(|x~_i - x~_j|) (+ on
+    walls sum_b rho0 V_b W(|x~_i - x_b|)) over the pairs valid at the
+    start-of-step `pos`, W (`cubic_w_mul`) at the predicted `pos_p`
+    (replaces bandmat.predicted_rho_op + boundary_predict_op)."""
+    if not _on_cuda("pcisph_predict_rho", pos):
+        return pcisph_predict_rho_plain(pos, starts, grid, h, m, pos_p,
+                                        walls, rho0)
+    n = _check_pos_starts(pos, starts, grid)
+    _check("pos_p", pos_p, torch.float32, (n, 3), pos.device)
+    bnd = (None, None, None, None, 0)
+    if walls is not None:
+        bnd = (*walls, _check_walls(walls, grid.num_cells, pos.device))
+    out = pos.new_empty(n)
+    _launch("pcisph_predict_rho", pos.device, pos, starts, n,
+            ctypes.byref(_params(grid, h)), SpikyPoly6Constants.of(h).inv_h,
+            f32(m), pos_p, *bnd, f32(rho0), out)
+    return out
+
+
+def _spiky_poly6(h: float) -> _build.SpikyPoly6:
+    return _build.SpikyPoly6(*SpikyPoly6Constants.of(h))
+
+
+def _s_corr_constants(w_ref: float, k_corr: float) -> tuple[float, float]:
+    """f32(1 / w_ref) and f32(-k), as bandmat.py:1785-1787."""
+    return f32(1.0 / w_ref), f32(-k_corr)
+
+
+def _pbf_out(pos: torch.Tensor) -> PbfTerms:
+    n = pos.shape[0]
+    return PbfTerms(rho=pos.new_empty(n), gsum=pos.new_empty(n, 3),
+                    around=pos.new_empty(n), ssum=pos.new_empty(n, 3))
+
+
+def pbf_terms(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
+              h: float, m: float, w_ref: float, k_corr: float) -> PbfTerms:
+    """K7, fluid entry: PBF's one-shot fluid-fluid sums at the start-of-
+    step positions (replaces the terms of bandmat.dense_pbf_ops)."""
+    if not _on_cuda("pbf_terms", pos):
+        return pbf_terms_plain(pos, starts, grid, h, m, w_ref, k_corr)
+    n = _check_pos_starts(pos, starts, grid)
+    out = _pbf_out(pos)
+    _launch("pbf_terms", pos.device, pos, starts, n,
+            ctypes.byref(_params(grid, h)), ctypes.byref(_spiky_poly6(h)),
+            f32(m), *_s_corr_constants(w_ref, k_corr), *out)
+    return out
+
+
+def pbf_boundary_terms(pos: torch.Tensor, walls: Walls, grid: GridSpec,
+                       h: float, rho0: float, w_ref: float,
+                       k_corr: float) -> PbfTerms:
+    """K7, boundary entry: the boundary's share of PBF's sums, rho =
+    sum rho0 V_b poly6 and the other three with the bare spiky factor
+    (replaces bandmat.pbf_boundary_terms). Counted under pbf_terms."""
+    if not _on_cuda("pbf_terms", pos):
+        return pbf_boundary_terms_plain(pos, walls, grid, h, rho0, w_ref,
+                                        k_corr)
+    n = pos.shape[0]
+    _check("pos", pos, torch.float32, (n, 3), pos.device)
+    nb = _check_walls(walls, grid.num_cells, pos.device)
+    out = _pbf_out(pos)
+    _launch("pbf_terms", pos.device, pos, n, *walls, nb,
+            ctypes.byref(_params(grid, h)),
+            ctypes.byref(_spiky_poly6(h)), f32(rho0),
+            *_s_corr_constants(w_ref, k_corr), *out,
+            entry="pbf_boundary_terms")
+    return out
+
+
+def pbf_lambda(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
+               h: float, lam: torch.Tensor) -> torch.Tensor:
+    """K8: (N, 3) sum_j lambda_j spiky_c x_ij at the start-of-step
+    positions (replaces lam_mv of bandmat.dense_pbf_ops)."""
+    if not _on_cuda("pbf_lambda", pos):
+        return pbf_lambda_plain(pos, starts, grid, h, lam)
+    n = _check_pos_starts(pos, starts, grid)
+    _check("lam", lam, torch.float32, (n,), pos.device)
+    out = pos.new_empty(n, 3)
+    _launch("pbf_lambda", pos.device, pos, starts, n,
+            ctypes.byref(_params(grid, h)), ctypes.byref(_spiky_poly6(h)),
+            lam, out)
+    return out
+
+
+def pbf_xsph(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
+             h: float, new_pos: torch.Tensor,
+             new_vel: torch.Tensor) -> torch.Tensor:
+    """K9: (N, 3) sum_j v'_j w - v'_i sum_j w, w = poly6(|x'_i - x'_j|) at
+    the updated positions, over the pairs valid at the start-of-step `pos`
+    (replaces xsph of bandmat.dense_pbf_ops)."""
+    if not _on_cuda("pbf_xsph", pos):
+        return pbf_xsph_plain(pos, starts, grid, h, new_pos, new_vel)
+    n = _check_pos_starts(pos, starts, grid)
+    _check("new_pos", new_pos, torch.float32, (n, 3), pos.device)
+    _check("new_vel", new_vel, torch.float32, (n, 3), pos.device)
+    out = pos.new_empty(n, 3)
+    _launch("pbf_xsph", pos.device, pos, starts, n,
+            ctypes.byref(_params(grid, h)), ctypes.byref(_spiky_poly6(h)),
+            new_pos, new_vel, out)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -529,4 +680,104 @@ def wcsph_forces_plain(pos: torch.Tensor, starts: torch.Tensor,
                                     torch.zeros_like(pi))
         coeff = coeff + tmk * cubic_w(pr.r, h)
         out[rows] = _rowsum3(pr.valid, pr, coeff)
+    return out
+
+
+def _pair_r(q: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """sqrt(max(|q_i - src_ij|^2, 1e-24)) of (Q, 3) query rows against
+    their (Q, W, 3) candidates, summed x + y + z like every JAX pass."""
+    d = q[:, None, :] - src
+    r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    return torch.sqrt(torch.clamp(r2, min=f32(1e-24)))
+
+
+def pcisph_predict_rho_plain(pos: torch.Tensor, starts: torch.Tensor,
+                             grid: GridSpec, h: float, m: float,
+                             pos_p: torch.Tensor, walls: Walls | None = None,
+                             rho0: float = 0.0) -> torch.Tensor:
+    KERNELS["pcisph_predict_rho"].plain_calls += 1
+    fluid = pos.new_zeros(pos.shape[0])
+    for rows, pr in _pair_chunks(pos, pos, starts, grid, h, exclude_self=True):
+        fluid[rows] = _rowsum(pr.valid, cubic_w_mul(
+            _pair_r(pos_p[rows], pos_p[pr.slot]), h))
+    rho = f32(m) * fluid
+    if walls is None:
+        return rho
+    wall = pos.new_zeros(pos.shape[0])
+    for rows, pr in _pair_chunks(pos, walls.pos, walls.starts, grid, h,
+                                 exclude_self=False):
+        w = cubic_w_mul(_pair_r(pos_p[rows], walls.pos[pr.slot]), h)
+        wall[rows] = _rowsum(pr.valid, (f32(rho0) * walls.vol[pr.slot]) * w)
+    return rho + wall
+
+
+def _pbf_sums(out: PbfTerms, rows: slice, pr: _Pairs, wrho, h: float,
+              w_ref: float, k_corr: float) -> None:
+    """PBF's four sums of a query chunk into `out`, each pair's density
+    term weighted by `wrho` (1, or rho0 V_b on the boundary)."""
+    inv_wref, neg_k = _s_corr_constants(w_ref, k_corr)
+    v = pr.valid
+    spiky = spiky_grad_coeff(pr.r, h)
+    poly = poly6_w(pr.r, h)
+    s = poly * inv_wref
+    s2 = s * s
+    sc = neg_k * s2 * s2 * spiky
+    rs = pr.r * spiky
+    out.rho[rows] = _rowsum(v, wrho * poly)
+    out.gsum[rows] = _rowsum3(v, pr, spiky)
+    out.around[rows] = _rowsum(v, rs * rs)
+    out.ssum[rows] = _rowsum3(v, pr, sc)
+
+
+def _pbf_zeros(pos: torch.Tensor) -> PbfTerms:
+    n = pos.shape[0]
+    return PbfTerms(rho=pos.new_zeros(n), gsum=pos.new_zeros(n, 3),
+                    around=pos.new_zeros(n), ssum=pos.new_zeros(n, 3))
+
+
+def pbf_terms_plain(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
+                    h: float, m: float, w_ref: float,
+                    k_corr: float) -> PbfTerms:
+    KERNELS["pbf_terms"].plain_calls += 1
+    out = _pbf_zeros(pos)
+    for rows, pr in _pair_chunks(pos, pos, starts, grid, h, exclude_self=True):
+        _pbf_sums(out, rows, pr, 1.0, h, w_ref, k_corr)
+    # The factor m comes after the sum, as JAX takes it.
+    return out._replace(rho=f32(m) * out.rho)
+
+
+def pbf_boundary_terms_plain(pos: torch.Tensor, walls: Walls, grid: GridSpec,
+                             h: float, rho0: float, w_ref: float,
+                             k_corr: float) -> PbfTerms:
+    KERNELS["pbf_terms"].plain_calls += 1
+    out = _pbf_zeros(pos)
+    for rows, pr in _pair_chunks(pos, walls.pos, walls.starts, grid, h,
+                                 exclude_self=False):
+        _pbf_sums(out, rows, pr, f32(rho0) * walls.vol[pr.slot], h, w_ref,
+                  k_corr)
+    return out
+
+
+def pbf_lambda_plain(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
+                     h: float, lam: torch.Tensor) -> torch.Tensor:
+    KERNELS["pbf_lambda"].plain_calls += 1
+    out = pos.new_zeros(pos.shape[0], 3)
+    for rows, pr in _pair_chunks(pos, pos, starts, grid, h, exclude_self=True):
+        out[rows] = _rowsum3(pr.valid, pr,
+                             lam[pr.slot] * spiky_grad_coeff(pr.r, h))
+    return out
+
+
+def pbf_xsph_plain(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
+                   h: float, new_pos: torch.Tensor,
+                   new_vel: torch.Tensor) -> torch.Tensor:
+    KERNELS["pbf_xsph"].plain_calls += 1
+    out = pos.new_zeros(pos.shape[0], 3)
+    for rows, pr in _pair_chunks(pos, pos, starts, grid, h, exclude_self=True):
+        w = poly6_w(_pair_r(new_pos[rows], new_pos[pr.slot]), h)
+        vj = new_vel[pr.slot]
+        sw = _rowsum(pr.valid, w)
+        sv = torch.stack([_rowsum(pr.valid, vj[..., a] * w)
+                          for a in range(3)], dim=1)
+        out[rows] = sv - new_vel[rows] * sw[:, None]
     return out

@@ -52,6 +52,17 @@ PAIR_OPS = {
     # only compressive pairs need
     "wcsph_forces": 53,
     "coef_build": 18,      # r, m gc
+    # the predicted distance (8), r, q, W, the sum; on the boundary also
+    # rho0 V_b and its product
+    "pcisph_predict_rho": 25,
+    "pcisph_predict_rho_walls": 27,
+    # r, spiky_c, poly6, s, s^2, s_corr, r spiky_c, the ten terms and sums;
+    # on the boundary also rho0 V_b
+    "pbf_terms": 40,
+    "pbf_boundary_terms": 41,
+    "pbf_lambda": 18,      # r, spiky_c, lambda_j spiky_c, three products
+    # the updated distance (8), r, poly6, three products, four sums
+    "pbf_xsph": 24,
 }
 
 
@@ -104,8 +115,33 @@ def stencil_work(name: str, n: int, n_cells: int, cand: int, pairs: int,
         # pos, starts, vel, rho, p'; out (the records that the wrapper
         # packs them into are its own layout, not the function's work)
         "wcsph_forces": 3 * f + starts + 3 * f + f + f + 3 * f,
+        # pos, starts, predicted pos; out
+        "pcisph_predict_rho": 3 * f + starts + 3 * f + f,
+        # pos, starts; rho, gsum, around, ssum
+        "pbf_terms": 3 * f + starts + 8 * f,
+        # pos, starts, lambda; out
+        "pbf_lambda": 3 * f + starts + f + 3 * f,
+        # pos, starts, updated pos and vel; out
+        "pbf_xsph": 3 * f + starts + 3 * f + 3 * f + 3 * f,
     }[name]
     return _pair_work(name, nbytes, cand, pairs)
+
+
+def walls_work(name: str, n: int, n_cells: int, cand: int, pairs: int,
+               n_sources: int) -> Work:
+    """The boundary walk of pcisph_predict_rho (`name` ..._walls: the
+    boundary set and tables; pos and out are the fluid walk's) or the
+    boundary entry of pbf_terms (pbf_boundary_terms: pos in, four sums
+    out)."""
+    nbytes = 16 * n_sources + 4 * (n_cells + 1) + 4 * n_cells
+    if name == "pbf_boundary_terms":
+        nbytes += 12 * n + 32 * n
+    return _pair_work(name, nbytes, cand, pairs)
+
+
+def combined(*works: Work) -> Work:
+    """The work of calls made together, as one."""
+    return Work(*(sum(w[i] for w in works) for i in range(3)))
 
 
 def coef_build_work(n: int, n_cells: int, cand: int, pairs: int,
@@ -140,11 +176,18 @@ def scene_work(sc, pos: torch.Tensor, starts: torch.Tensor,
     bstarts = sc.boundary_starts
     out = {name: stencil_work(name, n, cells, cand, pairs)
            for name in ("fluid_terms", "matvec", "matvec_dot", "viscosity",
-                        "wcsph_forces")}
-    out["boundary_terms"] = stencil_work(
-        "boundary_terms", n, cells, candidates(pos, bstarts, g),
-        count_pairs(pos, sc.boundary_pos, bstarts, g, sc.h,
-                    exclude_self=False), sc.boundary_pos.shape[0])
+                        "wcsph_forces", "pbf_lambda", "pbf_xsph")}
+    nb, bcand = sc.boundary_pos.shape[0], candidates(pos, bstarts, g)
+    bpairs = count_pairs(pos, sc.boundary_pos, bstarts, g, sc.h,
+                         exclude_self=False)
+    out["boundary_terms"] = stencil_work("boundary_terms", n, cells, bcand,
+                                         bpairs, nb)
+    # With walls, as the steps call them: the predicted density's two walks
+    # in one launch, pbf_terms' fluid and boundary entries.
+    for name, wname in (("pcisph_predict_rho", "pcisph_predict_rho_walls"),
+                        ("pbf_terms", "pbf_boundary_terms")):
+        out[name] = combined(stencil_work(name, n, cells, cand, pairs),
+                             walls_work(wname, n, cells, bcand, bpairs, nb))
     for sfx, wb in (("", 4), ("_bf16", 2)):
         out["coef_build" + sfx] = coef_build_work(n, cells, cand, pairs, wb)
         out["coef_matvec" + sfx] = coef_contraction_work(False, n, pairs, wb)

@@ -11,12 +11,14 @@ from typing import Callable, Iterator, NamedTuple
 
 import torch
 
+from cfd_taichi_tpu_torch.models import base, pbf
 from cfd_taichi_tpu_torch.ops import coef
 from cfd_taichi_tpu_torch.ops import stencil as S
 from cfd_taichi_tpu_torch.perf import bounds, timing
 
 VISC = dict(c_s=13.0, alpha=0.08)
 WCSPH = dict(c_s=10.0, alpha=0.08, tension_k=0.2)
+RHO0 = 1000.0
 # (kernel, wrapper, plain version, key of its source in the inputs, dot)
 CONTRACTIONS = (
     ("coef_matvec", coef.coef_matvec, coef.coef_matvec_plain, "k", False),
@@ -91,6 +93,7 @@ def scene_cases(x: dict, pairs: int) -> Iterator[Case]:
              lambda: S.wcsph_forces_plain(p, st, g, h, m, v, rho, pr,
                                           **WCSPH))):
         yield Case(name, name, kern, plain, work[name])
+    yield from solver_cases(p, st, g, h, m, base.walls(sc), x, work)
     off = coef.csr_offsets(S.fluid_terms(p, st, g, h, m).count)
     for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         yield Case("coef_build", "coef_build" + sfx,
@@ -106,6 +109,34 @@ def scene_cases(x: dict, pairs: int) -> Iterator[Case]:
                        work[name + sfx],
                        library_calls(eng, coef_lanes(dot, p, x[src])))
         del eng
+
+
+def solver_cases(p, st, g, h: float, m: float, walls: S.Walls, x: dict,
+                 work: dict) -> Iterator[Case]:
+    """The PCISPH and PBF kernels on cell-sorted `p` with CSR `st` and the
+    boundary set `walls`, as their steps call them on a scene with walls:
+    the predicted density at x["shifted"], pbf_terms' fluid and boundary
+    entries together, pbf_lambda of x["lam"], pbf_xsph at x["shifted"]
+    with velocities x["v"]. `work` by kernel name, or {} (no bound)."""
+    sp, lam, v = x["shifted"], x["lam"], x["v"]
+    wr, kc = pbf.w_ref(h), pbf.TENSION_K
+
+    def terms(fluid, boundary):
+        return lambda: (*fluid(p, st, g, h, m, wr, kc),
+                        *boundary(p, walls, g, h, RHO0, wr, kc))
+
+    for name, kern, plain in (
+            ("pcisph_predict_rho",
+             lambda: S.pcisph_predict_rho(p, st, g, h, m, sp, walls, RHO0),
+             lambda: S.pcisph_predict_rho_plain(p, st, g, h, m, sp, walls,
+                                                RHO0)),
+            ("pbf_terms", terms(S.pbf_terms, S.pbf_boundary_terms),
+             terms(S.pbf_terms_plain, S.pbf_boundary_terms_plain)),
+            ("pbf_lambda", lambda: S.pbf_lambda(p, st, g, h, lam),
+             lambda: S.pbf_lambda_plain(p, st, g, h, lam)),
+            ("pbf_xsph", lambda: S.pbf_xsph(p, st, g, h, sp, v),
+             lambda: S.pbf_xsph_plain(p, st, g, h, sp, v))):
+        yield Case(name, name, kern, plain, work.get(name))
 
 
 def lane_error(got: torch.Tensor, want: torch.Tensor) -> float:

@@ -44,10 +44,23 @@ def squeezed(state):
         pos=mid + SQUEEZE * (pos - mid)))
 
 
+SHIFT = 0.3   # the shifted positions' displacement, in particle radii
+
+
+def shifted(pos: torch.Tensor, r: float, rng) -> torch.Tensor:
+    """`pos` moved by a numpy-seeded displacement of ~SHIFT r (normal, SHIFT
+    r / sqrt(3) an axis): the predicted positions of PCISPH and the updated
+    ones of PBF's XSPH, whose pairs, pinned at `pos`, then cross r = h in
+    both directions."""
+    d = rng.standard_normal(tuple(pos.shape)) * (SHIFT * r / np.sqrt(3.0))
+    return pos + torch.from_numpy(d.astype(np.float32)).to(pos.device)
+
+
 def lattice_inputs(cfg_name: str, seed: int, device="cuda") -> dict:
     """The config's seed lattice with a 0.1 r jitter, cell-sorted, and
-    random k, v, rho and positive p' (WCSPH's p / rho^2, `pr`), made with
-    numpy from `seed`."""
+    random k, v, rho and positive p' (WCSPH's p / rho^2, `pr`), then the
+    shifted positions (`shifted`) and a negative lambda (PBF's, `lam`),
+    made with numpy from `seed` in that order."""
     from cfd_taichi_tpu_torch import build_scene
     from cfd_taichi_tpu_torch.models import base
     from cfd_taichi_tpu_torch.ops import neighbors as nb
@@ -61,11 +74,14 @@ def lattice_inputs(cfg_name: str, seed: int, device="cuda") -> dict:
     pos = sc.fluid_pos0.cpu().numpy() + rng.uniform(
         -0.1 * r, 0.1 * r, (n, 3)).astype(np.float32)
     scid, _, p, _ = base.sort_by_cells(sc.grid, dev(pos))
-    return dict(sc=sc, p=p, st=nb.csr_starts(scid, sc.grid.num_cells),
-                k=dev(rng.uniform(0.0, 2.0, n)),
-                v=dev(rng.standard_normal((n, 3))),
-                rho=dev(rng.uniform(900.0, 1100.0, n)),
-                pr=dev(rng.uniform(0.0, 0.05, n)))
+    x = dict(sc=sc, p=p, st=nb.csr_starts(scid, sc.grid.num_cells),
+             k=dev(rng.uniform(0.0, 2.0, n)),
+             v=dev(rng.standard_normal((n, 3))),
+             rho=dev(rng.uniform(900.0, 1100.0, n)),
+             pr=dev(rng.uniform(0.0, 0.05, n)))
+    x["shifted"] = shifted(p, r, rng)
+    x["lam"] = dev(rng.uniform(-1e-4, 0.0, n))
+    return x
 
 
 def ragged_engine(n: int, dtype: torch.dtype, seed: int = 3,
@@ -122,11 +138,11 @@ def clustered_inputs(n: int, seed: int, device="cuda") -> dict:
       particle outside, which clamp into edge cells;
     * none elsewhere: most cells have no boundary particle near.
 
-    Returns {grid, h, m, p, st, k, v, rho, pr} in the keys of
-    `lattice_inputs`, with the grid, h and m in place of a scene, and the
-    boundary cloud {bp, bvol, bst}. The boundary cloud draws from a
-    generator of its own: the fluid cloud of a seed does not depend on
-    it."""
+    Returns {grid, h, m, p, st, k, v, rho, pr, shifted, lam} in the keys
+    of `lattice_inputs`, with the grid, h and m in place of a scene (the
+    particle radius is h / 4), and the boundary cloud {bp, bvol, bst,
+    bnear}. The boundary cloud draws from a generator of its own: the fluid
+    cloud of a seed does not depend on it."""
     from cfd_taichi_tpu_torch.models import base
     from cfd_taichi_tpu_torch.ops import neighbors as nb
 
@@ -174,14 +190,17 @@ def clustered_inputs(n: int, seed: int, device="cuda") -> dict:
     btable = nb.build_cell_table(bpos, grid)
     bvol = dev(brng.uniform(0.5, 1.5, bpos.shape[0]) * m / 1000.0)
 
-    return dict(grid=grid, h=h, m=m, p=p,
-                st=nb.csr_starts(scid, grid.num_cells),
-                bp=bpos[btable.order], bvol=bvol[btable.order],
-                bst=btable.starts,
-                k=dev(rng.uniform(0.0, 2.0, total)),
-                v=dev(rng.standard_normal((total, 3))),
-                rho=dev(rng.uniform(900.0, 1100.0, total)),
-                pr=dev(rng.uniform(0.0, 0.05, total)))
+    x = dict(grid=grid, h=h, m=m, p=p,
+             st=nb.csr_starts(scid, grid.num_cells),
+             bp=bpos[btable.order], bvol=bvol[btable.order],
+             bst=btable.starts, bnear=nb.stencil_counts(btable.starts, grid),
+             k=dev(rng.uniform(0.0, 2.0, total)),
+             v=dev(rng.standard_normal((total, 3))),
+             rho=dev(rng.uniform(900.0, 1100.0, total)),
+             pr=dev(rng.uniform(0.0, 0.05, total)))
+    x["shifted"] = shifted(p, h / 4, rng)
+    x["lam"] = dev(rng.uniform(-1e-4, 0.0, total))
+    return x
 
 
 @contextlib.contextmanager

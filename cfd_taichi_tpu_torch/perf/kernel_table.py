@@ -19,9 +19,10 @@ their loop engines, measured on one card:
    1-100, host clock around work that ends in a synchronize, with kernel
    launches per step. DFSPH on the coef f32, recompute and coef bf16
    engines in the order coef, recompute, recompute, coef (bf16 once);
-   WCSPH, which has no loop engine; IISPH at 30k on the coef f32 and
-   recompute engines in the same alternation. Last, 3 profiled steps of
-   each run in `PROFILES` for device time by kernel and the busy share
+   WCSPH and PBF, which have no loop engine; IISPH at 30k and PCISPH at
+   30k and 1M on the coef f32 and recompute engines in the same
+   alternation. Last, 3 profiled steps of each run in `PROFILES` (PCISPH
+   and PBF at 1M among them) for device time by kernel and the busy share
    (device time over wall time); for WCSPH also the record build of
    wcsph_forces on the step's state (CUDA events, 20 calls).
 
@@ -53,7 +54,10 @@ def kernel_rows(res: dict, tag: str, cfg_name: str) -> None:
     print(f"[{tag}] n {x['sc'].n_fluid}, pairs {pairs}")
     for case in cases.scene_cases(x, pairs):
         row = cases.measure(case)
-        row["device_us"] = timing.kernel_device_us(case.kern, case.name)
+        # the kernel's time a launch, and all the call's kernels (pbf_terms'
+        # boundary entry, wcsph_forces' record build)
+        row["device_us"], row["call_device_us"] = timing.device_us(
+            case.kern, case.name)
         row["device_share"] = row["bound_ms"] * 1e3 / row["device_us"]
         lib = ""
         if case.library:
@@ -76,7 +80,8 @@ def kernel_rows(res: dict, tag: str, cfg_name: str) -> None:
             lib = (f"\n    lane sums {row['lane_sums_ms']:.4f} ms "
                    f"({row['lane_sums_us']:.2f} us device);{lib}")
         res.setdefault(case.key, {})[tag] = row
-        print(f"[{tag}] {case.key:20s} device {row['device_us']:9.2f} us  "
+        print(f"[{tag}] {case.key:20s} device {row['device_us']:9.2f} us "
+              f"(call {row['call_device_us']:9.2f})  "
               f"bound {row['bound_ms'] * 1e3:8.2f} us ({row['bound_by']}; "
               f"walk {row['walk_bound_ms'] * 1e3:.2f})  share "
               f"{row['device_share']:.3f}{lib}")
@@ -99,10 +104,13 @@ PINS = {"coef_f32": {}, "recompute": {"budget": 0},
 # (solver, config tag, loop engines in the order they run; "-": none)
 RATES = (("dfsph", "30k", ORDER), ("dfsph", "1m", ORDER),
          ("wcsph", "30k", ("-",)), ("wcsph", "1m", ("-",)),
-         ("iisph", "30k", ORDER[:4]))
+         ("iisph", "30k", ORDER[:4]),
+         ("pcisph", "30k", ORDER[:4]), ("pcisph", "1m", ORDER[:4]),
+         ("pbf", "30k", ("-",)), ("pbf", "1m", ("-",)))
 PROFILES = (("dfsph", "1m", "recompute"), ("dfsph", "1m", "coef_f32"),
             ("dfsph", "1m", "coef_bf16"), ("wcsph", "1m", "-"),
-            ("iisph", "30k", "coef_f32"))
+            ("iisph", "30k", "coef_f32"), ("pcisph", "1m", "coef_f32"),
+            ("pbf", "1m", "-"))
 WINDOWS = {"30k": (0, 100), "1m": (5, 10)}   # (untimed steps, timed steps)
 
 

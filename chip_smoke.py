@@ -34,7 +34,12 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 particles clamped into edge cells; boundary_terms over its
                 boundary cloud: a wall sheet on cell faces, a dense patch,
                 boundary particles clamped into edge cells, none near
-                most queries); wcsph_forces is timed there too. Kernel
+                most queries); wcsph_forces is timed there too.
+                pcisph_predict_rho, pbf_terms (its fluid and boundary
+                entries together), pbf_lambda and pbf_xsph run at 30k, 1M
+                and on the clustered cloud, with walls, their predicted or
+                updated positions the inputs' shifted by ~0.3 r (pairs
+                cross r = h both ways) and a random negative lambda. Kernel
                 and plain times: CUDA events, median of 10 after 3 warm-up
                 calls. Each kernel's bound (perf/bounds.py: the bytes and
                 f32 operations of the call's inputs at the H100's peaks)
@@ -44,12 +49,12 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 never calls it): perf/cases.py, which perf/kernel_table.py
                 shares.
 4. agree      - the TINY scene (tests/test_solvers.py:14-23) stepped 6 times
-                on the card and on the CPU, as DFSPH from rest and as WCSPH
-                and IISPH from TINY's block squeezed by 0.85 about its
-                centre (pressure acts): positions through oid to 5e-6
-                (WCSPH 6.0e-8 and IISPH 9.0e-8, what the same kernels gave
-                before), dt to rtol 1e-5, equal iteration counts every
-                step.
+                on the card and on the CPU, as DFSPH from rest and as WCSPH,
+                IISPH, PCISPH and PBF from TINY's block squeezed by 0.85
+                about its centre (pressure acts): positions through oid to
+                5e-6 (WCSPH 6.0e-8 and IISPH 9.0e-8, what the same kernels
+                gave before), dt to rtol 1e-5, equal iteration counts every
+                step; the errors are printed.
 5. main       - configs/breaking_dam_30k.json as DFSPH, 100 steps from rest
                 through Simulation.step on the default engine (stored
                 coefficients, f32). fluid_terms, boundary_terms, viscosity,
@@ -66,16 +71,27 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
 7. scale      - configs/breaking_dam_1m.json as DFSPH on the default
                 engine, steps 1-5 and 6-15: coef kernels launched, finite,
                 last density residual <= 1.0.
-8. scale-bf16 - 1M and 30k with bf16 coefficient storage: iterations and
+8. pcisph     - breaking_dam_30k as PCISPH, steps 1-100 from rest, and
+                breaking_dam_1m as PCISPH, steps 6-15, on the scenes that
+                main and scale built: fluid_terms, boundary_terms,
+                viscosity, coef_build, coef_matvec and pcisph_predict_rho
+                launched and no plain version; finite; every particle
+                inside the box +- 2r; the last residual <= 1.0 unless the
+                step hit 80 iterations; iterations a step printed.
+9. pbf        - the same runs as PBF: pbf_terms, pbf_lambda and pbf_xsph
+                launched (pbf_terms twice a step: fluid and boundary
+                entries) and no plain version; finite; inside the box +-
+                2r.
+10. scale-bf16 - 1M and 30k with bf16 coefficient storage: iterations and
                 residual printed, positions finite.
-9. wcsph      - breaking_dam_30k as WCSPH, steps 1-100 from rest, and
+11. wcsph     - breaking_dam_30k as WCSPH, steps 1-100 from rest, and
                 breaking_dam_1m as WCSPH, steps 6-15: fluid_terms,
                 boundary_terms and wcsph_forces launched once a step and
                 no plain version; finite; every particle inside the box
                 +- 2r; density within (100, 2000) (tests/test_wcsph.py:
                 53-58), and its range, to two decimals, the one the
                 kernels gave before (WCSPH_RHO).
-10. iisph     - configs/breaking_dam_30k.json as written (IISPH, on the
+12. iisph     - configs/breaking_dam_30k.json as written (IISPH, on the
                 card by default), steps 1-50 from rest on the coef engine
                 and on the recompute engine: that engine's kernels
                 launched, no plain version, finite, at most 180 Jacobi
@@ -116,12 +132,15 @@ COEF_PATH = ("fluid_terms", "boundary_terms", "viscosity", "coef_build",
 RECOMPUTE_PATH = ("fluid_terms", "boundary_terms", "viscosity", "matvec",
                   "matvec_dot")
 WCSPH_PATH = ("fluid_terms", "boundary_terms", "wcsph_forces")
+PCISPH_PATH = COEF_PATH[:5] + ("pcisph_predict_rho",)
+PBF_PATH = ("pbf_terms", "pbf_lambda", "pbf_xsph")
 # [agree]: (solver, whether to start from TINY's squeezed block, the
 # largest card-vs-CPU position error allowed over its 6 steps: the bar
 # 5e-6, or what the same kernels gave before, 5.960e-08 and 8.941e-08 on
-# an H100 80GB HBM3, so that a kernel that moves it shows)
+# an H100 80GB HBM3, so that a kernel that moves it shows; PCISPH and
+# PBF, new, gave 6.855e-07 and 1.788e-07 there at first)
 AGREE = (("dfsph", False, 5e-6), ("wcsph", True, 6.0e-8),
-         ("iisph", True, 9.0e-8))
+         ("iisph", True, 9.0e-8), ("pcisph", True, 5e-6), ("pbf", True, 5e-6))
 # [wcsph]: the density range after the run, as printed (%.2f), that the
 # kernels gave before; the same arithmetic in the same order repeats it.
 WCSPH_RHO = {"30k": ("293.99", "693.86"), "1m": ("289.52", "684.12")}
@@ -233,9 +252,8 @@ def ragged_checks(torch) -> None:
 
 def clustered_checks(torch, results: dict) -> None:
     """coef_build (f32 and bf16), viscosity, matvec, matvec_dot,
-    wcsph_forces, fluid_terms and boundary_terms on the clustered cloud,
-    kernel against
-    plain: a blob of
+    wcsph_forces, fluid_terms, boundary_terms and the PCISPH and PBF
+    kernels on the clustered cloud, kernel against plain: a blob of
     ~200 particles a cell, empty cells, pairs at exactly r = h on cell
     faces, particles clamped into edge cells; boundary_terms over the
     cloud's boundary set, whose per-cell table of boundary particles near
@@ -285,6 +303,10 @@ def clustered_checks(torch, results: dict) -> None:
           f"particles, near {int(near.sum())} of {p.shape[0]} queries")
     compare("boundary_terms clustered", S.boundary_terms(*bnd),
             S.boundary_terms_plain(*bnd), torch)
+    walls = S.Walls(x["bp"], x["bvol"], x["bst"], x["bnear"])
+    for case in cases.solver_cases(p, st, g, h, m, walls, x, {}):
+        results[case.name]["max_abs_err_clustered"] = compare(
+            f"{case.name} clustered", case.kern(), case.plain(), torch)
 
 
 def record(results: dict, case, key: str, err: float) -> None:
@@ -397,12 +419,13 @@ def check_state(sim, tag: str) -> None:
 
 
 def iter_summary(solver: str, diags) -> str:
-    if solver == "wcsph":
+    if solver in ("wcsph", "pbf"):
         return "no solver loop"
     its = [d[0] for d in diags]
-    if solver == "iisph":
-        return (f"Jacobi iters mean {statistics.mean(its):.2f} max "
-                f"{max(its):.0f}; last residual {diags[-1][1]}")
+    if solver in ("iisph", "pcisph"):
+        return (f"iters a step {[int(i) for i in its]}; mean "
+                f"{statistics.mean(its):.2f} max {max(its):.0f}; last "
+                f"residual {diags[-1][1]}")
     den = [d[2] for d in diags]
     return (f"div iters mean {statistics.mean(its):.2f} max {max(its):.0f}; "
             f"density iters mean {statistics.mean(den):.2f} max "
@@ -443,6 +466,7 @@ def drive(sim, tag: str, windows, path, torch) -> dict:
     return dict(steps_per_sec=rates, last_diag=diags[-1],
                 max_diag=[max(col) for col in zip(*diags)],
                 mean_diag=[statistics.mean(col) for col in zip(*diags)],
+                total_diag=[sum(col) for col in zip(*diags)],
                 peak_gib=peak,
                 launches={k: c[0] for k, c in counts.items()})
 
@@ -515,6 +539,64 @@ def phase_scale(torch, sims: dict, results: dict) -> None:
     results["_runs"]["1m_coef_f32"] = run
 
 
+def with_solver(sim, solver: str):
+    """A Simulation on `sim`'s scene, which does not depend on the solver,
+    that steps `solver` (`drive` starts it from rest)."""
+    import dataclasses
+
+    from cfd_taichi_tpu_torch import models
+
+    other = copy.copy(sim)
+    other.cfg = dataclasses.replace(sim.cfg, solver=dataclasses.replace(
+        sim.cfg.solver, name=solver))
+    other.solver = models.get_solver(solver)
+    return other
+
+
+def outside_box(sim, torch) -> int:
+    """Particles outside the box grown by 2r."""
+    sc, pos = sim.scene, sim.state.fluid.pos
+    margin = 2.0 * sc.particle_radius
+    lo = torch.tensor(sc.box_min, device=pos.device) - margin
+    hi = torch.tensor(sc.box_max, device=pos.device) + margin
+    return int((~((pos >= lo) & (pos <= hi)).all(dim=1)).sum())
+
+
+def phase_solver(torch, sims: dict, results: dict, solver: str) -> None:
+    """PCISPH or PBF from rest at 30k (steps 1-100) and 1M (steps 6-15) on
+    the scenes that main and scale built: the path's kernels launched as
+    often as the step calls them, no other kernel and no plain version,
+    the state finite and contained; PCISPH's last residual within its
+    threshold unless the step hit its iteration cap."""
+    from cfd_taichi_tpu_torch.models import pcisph
+
+    path = PCISPH_PATH if solver == "pcisph" else PBF_PATH
+    for tag, windows in (("30k", [100]), ("1m", [5, 10])):
+        sim = with_solver(sims[tag], solver)
+        run = drive(sim, solver, windows, path, torch)
+        steps, diag = sum(windows), run["last_diag"]
+        iters = round(run["total_diag"][0])
+        want = dict.fromkeys(path, steps)
+        if solver == "pcisph":
+            want.update(coef_matvec=iters, pcisph_predict_rho=iters + steps)
+            check(diag[1] <= 1.0 or diag[0] == pcisph.MAX_ITER,
+                  f"{solver} {tag}: residual {diag[1]} after {diag[0]} "
+                  f"iterations")
+        else:
+            want["pbf_terms"] = 2 * steps   # fluid and boundary entries
+        for name, launches in run["launches"].items():
+            check(launches == want.get(name, 0),
+                  f"{solver} {tag}: {name} launched {launches} times, not "
+                  f"{want.get(name, 0)}")
+        outside = outside_box(sim, torch)
+        print(f"[{solver}] {tag}: {outside} particles outside the box +- 2r")
+        check(outside == 0, f"{solver} {tag}: {outside} particles escaped")
+        if tag == "30k":
+            for name in path[-1:] if solver == "pcisph" else path:
+                results[name]["launches"] = run["launches"][name]
+        results["_runs"][f"{tag}_{solver}"] = run
+
+
 def phase_scale_bf16(torch, sims: dict, results: dict) -> None:
     from cfd_taichi_tpu_torch.perf.inputs import engine
 
@@ -547,11 +629,7 @@ def phase_wcsph(torch, results: dict) -> None:
             check(launches == want,
                   f"wcsph {tag}: {name} launched {launches} times, not "
                   f"{want}")
-        sc, pos = sim.scene, sim.state.fluid.pos
-        margin = 2.0 * sc.particle_radius
-        lo = torch.tensor(sc.box_min, device=pos.device) - margin
-        hi = torch.tensor(sc.box_max, device=pos.device) + margin
-        outside = int((~((pos >= lo) & (pos <= hi)).all(dim=1)).sum())
+        outside = outside_box(sim, torch)
         rho = sim.density()
         lo_rho, hi_rho = float(rho.min()), float(rho.max())
         print(f"[wcsph] {tag}: {outside} particles outside the box +- 2r; "
@@ -635,6 +713,8 @@ def main() -> int:
         phase_main(torch, sims, results)
         phase_recompute(torch, sims, results)
         phase_scale(torch, sims, results)
+        for solver in ("pcisph", "pbf"):
+            phase_solver(torch, sims, results, solver)
         phase_scale_bf16(torch, sims, results)
         phase_wcsph(torch, results)
         phase_iisph(torch, results)

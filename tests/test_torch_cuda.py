@@ -26,7 +26,7 @@ import torch
 
 from cfd_taichi_tpu_torch import Simulation, build_scene
 from cfd_taichi_tpu_torch.config import parse_config
-from cfd_taichi_tpu_torch.models import base
+from cfd_taichi_tpu_torch.models import base, pbf
 from cfd_taichi_tpu_torch.ops import coef
 from cfd_taichi_tpu_torch.ops import neighbors as nb
 from cfd_taichi_tpu_torch.ops import stencil
@@ -62,6 +62,12 @@ def _all_outputs(sc, pos, starts, k, v, rho):
             stencil.viscosity(pos, starts, g, h, m, v, rho, **VISC),
             stencil.wcsph_forces(pos, starts, g, h, m, v, rho, 0.01 * k,
                                  **cases.WCSPH),
+            stencil.pcisph_predict_rho(pos, starts, g, h, m, pos + 0.01 * v,
+                                       base.walls(sc), 1000.0),
+            *stencil.pbf_terms(pos, starts, g, h, m, pbf.w_ref(h),
+                               pbf.TENSION_K),
+            stencil.pbf_lambda(pos, starts, g, h, -1e-5 * k),
+            stencil.pbf_xsph(pos, starts, g, h, pos + 0.01 * v, v),
             eng.nbr, eng.w,
             *coef.coef_matvec(eng, pos, k, lane_sums=True).unbind(1),
             *coef.coef_matvec_dot(eng, pos, v, lane_sums=True).unbind(1)]
@@ -114,6 +120,20 @@ def test_dfsph_steps_on_the_card_match_the_cpu(cuda):
 def test_wcsph_and_iisph_steps_on_the_card_match_the_cpu(cuda, solver):
     """From TINY's block squeezed by 0.85 about its centre, so that
     pressure acts."""
+    raw = copy.deepcopy(TINY)
+    raw["solver"]["name"] = solver
+    sims = [Simulation(parse_config(raw), device=dev)
+            for dev in (cuda, "cpu")]
+    for s in sims:
+        s.state = inputs.squeezed(s.state)
+    _assert_card_matches_cpu(sims)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["pcisph", "pbf"])
+def test_pcisph_and_pbf_steps_on_the_card_match_the_cpu(cuda, solver):
+    """From TINY's block squeezed by 0.85 about its centre: PCISPH's loop
+    iterates, PBF's constraint acts."""
     raw = copy.deepcopy(TINY)
     raw["solver"]["name"] = solver
     sims = [Simulation(parse_config(raw), device=dev)
@@ -364,3 +384,75 @@ def test_wcsph_forces_refuses_a_record_it_cannot_load(clustered, fault):
     got = stencil.wcsph_forces_packed(rec, x["st"], x["grid"], x["h"],
                                       x["m"], **cases.WCSPH)
     assert torch.equal(got, _wcsph_pair(x)[0])
+
+
+def _solver_cases(x, walls):
+    """perf/cases.py's PCISPH and PBF kernel calls on inputs `x` (shifted
+    positions, lambda, velocities) with the boundary set `walls`."""
+    return list(cases.solver_cases(x["p"], x["st"], x["grid"], x["h"],
+                                   x["m"], walls, x, {}))
+
+
+def _assert_case_matches_plain(case):
+    got, want = case.kern(), case.plain()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want, strict=True):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        np.testing.assert_allclose(
+            a.cpu().numpy(), b.cpu().numpy(), rtol=0,
+            atol=1e-5 * max(float(b.abs().max()), 1e-30), err_msg=case.name)
+
+
+def _walls(x):
+    return stencil.Walls(x["bp"], x["bvol"], x["bst"], x["bnear"])
+
+
+@pytest.mark.cuda
+def test_pcisph_and_pbf_kernels_on_the_30k_lattice(cuda):
+    x = inputs.lattice_inputs("breaking_dam_30k.json", seed=7, device=cuda)
+    sc = x["sc"]
+    x = dict(x, grid=sc.grid, h=sc.h, m=sc.particle_m)
+    for case in _solver_cases(x, base.walls(sc)):
+        _assert_case_matches_plain(case)
+
+
+@pytest.mark.cuda
+def test_pcisph_and_pbf_kernels_on_the_clustered_cloud(clustered):
+    """Pairs cross r = h both ways between the start and the shifted
+    positions; queries of hundreds of pairs; a boundary sheet on cell faces
+    and a dense boundary patch."""
+    x, off = clustered
+    assert int((off[1:] - off[:-1]).max()) > 100
+    p, q = x["p"], x["shifted"]
+    near = torch.cdist(q[:2000], q) <= x["h"]
+    valid = torch.cdist(p[:2000], p) <= x["h"]
+    assert bool((near & ~valid).any()) and bool((valid & ~near).any())
+    for case in _solver_cases(x, _walls(x)):
+        _assert_case_matches_plain(case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 129])
+def test_pcisph_and_pbf_kernels_with_one_live_lane(cuda, n):
+    """n = 1 and n = 129: the last warp holds one query and 31 lanes
+    without one, which must walk along to every vote."""
+    x = inputs.clustered_inputs(2000, seed=5, device=cuda)
+    keys = ("v", "shifted", "lam")
+    scid, _, p, rows = base.sort_by_cells(
+        x["grid"], x["p"][-n:].clone(), tuple(x[key][-n:] for key in keys))
+    few = dict(x, p=p, st=nb.csr_starts(scid, x["grid"].num_cells),
+               **dict(zip(keys, rows)))
+    for case in _solver_cases(few, _walls(x)):
+        _assert_case_matches_plain(case)
+
+
+@pytest.mark.cuda
+def test_pcisph_and_pbf_kernels_repeat_bit_for_bit(clustered):
+    x, _ = clustered
+    for case in _solver_cases(x, _walls(x)):
+        first, again = case.kern(), case.kern()
+        first = first if isinstance(first, tuple) else (first,)
+        again = again if isinstance(again, tuple) else (again,)
+        assert all(torch.equal(a, b) for a, b in zip(first, again)), \
+            case.name

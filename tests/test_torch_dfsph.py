@@ -163,12 +163,9 @@ def test_missing_config_exits_3(tmp_path):
 
 
 def test_unported_parts_raise_with_roadmap_pointer():
-    for name in ("dfsph", "wcsph", "iisph"):
+    for name in ("dfsph", "wcsph", "iisph", "pcisph", "pbf"):
         assert models.get_solver(name).__name__ == \
             f"cfd_taichi_tpu_torch.models.{name}"
-    for name in ("pbf", "pcisph"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            models.get_solver(name)
     with pytest.raises(ValueError, match="Unknown solver"):
         models.get_solver("nope")
     raw = copy.deepcopy(TINY)

@@ -168,6 +168,11 @@ def test_cpu_tensors_take_the_plain_versions(case):
                           coef.csr_offsets(ft.count))
     coef.coef_matvec(eng, pos, k)
     coef.coef_matvec_dot(eng, pos, v)
+    stencil.pcisph_predict_rho(pos, starts, sc.grid, sc.h, sc.particle_m,
+                               pos + 0.01 * v, base.walls(sc), 1000.0)
+    stencil.pbf_terms(pos, starts, sc.grid, sc.h, sc.particle_m, 1e3, 1e-7)
+    stencil.pbf_lambda(pos, starts, sc.grid, sc.h, -1e-5 * k)
+    stencil.pbf_xsph(pos, starts, sc.grid, sc.h, pos + 0.01 * v, v)
     for kern in stencil.KERNELS.values():
         assert (kern.launches, kern.plain_calls) == (0, 1), kern.name
 
@@ -176,5 +181,17 @@ def test_wrappers_reject_other_devices(case):
     meta = torch.empty((4, 3), device="meta")
     starts = torch.empty((case["sc"].grid.num_cells + 1,), dtype=torch.int32,
                          device="meta")
-    with pytest.raises(ValueError, match="no kernel for device"):
-        stencil.fluid_terms(meta, starts, case["sc"].grid, 0.1, 0.1)
+    grid = case["sc"].grid
+    walls = stencil.Walls(meta, meta[:, 0], starts, starts[1:])
+    for call in (
+            lambda: stencil.fluid_terms(meta, starts, grid, 0.1, 0.1),
+            lambda: stencil.pcisph_predict_rho(meta, starts, grid, 0.1, 0.1,
+                                               meta, walls, 1000.0),
+            lambda: stencil.pbf_terms(meta, starts, grid, 0.1, 0.1, 1e3,
+                                      1e-7),
+            lambda: stencil.pbf_boundary_terms(meta, walls, grid, 0.1,
+                                               1000.0, 1e3, 1e-7),
+            lambda: stencil.pbf_lambda(meta, starts, grid, 0.1, meta[:, 0]),
+            lambda: stencil.pbf_xsph(meta, starts, grid, 0.1, meta, meta)):
+        with pytest.raises(ValueError, match="no kernel for device"):
+            call()
