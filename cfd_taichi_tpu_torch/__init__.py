@@ -4,9 +4,11 @@ SPH fluid simulation for NVIDIA Hopper GPUs. The JAX package
 `cfd_taichi_tpu` beside it is the reference the port is tested against;
 this package imports neither it nor JAX.
 
-Ported so far: the single-device DFSPH step of a fluid-only scene with
-Akinci boundary particles. Its pair passes are hand-written CUDA kernels
-(csrc/, bound in ops/stencil.py) over a cell-sorted CSR table, with plain
+Ported so far: the single-device steps of the five pressure solvers
+(DFSPH, WCSPH, IISPH, PCISPH, PBF) on scenes with Akinci boundary
+particles or the clamp boundary, and a rigid body coupled both ways to
+DFSPH. Their pair passes are hand-written CUDA kernels (csrc/, bound in
+ops/stencil.py and ops/rigid.py) over cell-sorted CSR tables, with plain
 PyTorch versions for CPU tensors.
 """
 

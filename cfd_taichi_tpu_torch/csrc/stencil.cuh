@@ -5,10 +5,12 @@
 // stencil as 9 contiguous runs of the source CSR table: the fast axis has
 // stride 1, so the three cells of one stencil row are adjacent in the
 // sorted order. fluid_terms, boundary_terms, matvec, matvec_dot,
-// wcsph_forces, pcisph_predict_rho, pbf_terms, pbf_lambda and pbf_xsph run
-// one thread per cell-sorted query that queues its hits and takes the pair
-// term out of the candidate loop (queued_walk_of below); coef_build and
-// viscosity run a group of kGroupWalk lanes per query (group_walk below).
+// wcsph_forces, pcisph_predict_rho, pbf_terms, pbf_lambda, pbf_xsph and
+// the four fluid-rigid kernels (rigid_terms.cu, rigid_viscosity.cu,
+// rigid_side_force.cu) run one thread per query that queues its hits and
+// takes the pair term out of the candidate loop (queued_walk_of below);
+// coef_build and viscosity run a group of kGroupWalk lanes per query
+// (group_walk below).
 // Sums stay in f32 registers and each query's row is written by its own
 // thread or group, so there are no atomics and every run gives
 // bit-identical results.
@@ -94,6 +96,21 @@ __device__ __forceinline__ float cubic_w_mul(float r, const StencilParams& p,
 __device__ __forceinline__ float cubic_grad_coeff(float r,
                                                   const StencilParams& p) {
   const float q = r / p.h;
+  const float near_g = p.kg6 * (3.0f * q * q - 2.0f * q);
+  const float omq = 1.0f - q;
+  const float far_g = p.kgm6 * omq * omq;
+  float coeff = (q <= 0.5f) ? near_g : far_g;
+  coeff = (q > 1e-5f && q <= 1.0f) ? coeff : 0.0f;
+  return coeff / (p.h * fmaxf(r, 1e-12f));
+}
+
+// cubic_grad_coeff with q = r * inv_h, as cubic_w_mul; the division by
+// h max(r, 1e-12) stays a division, as in JAX (ops/smoothing.py:
+// cubic_grad_coeff_mul). The fluid-rigid kernels take it.
+__device__ __forceinline__ float cubic_grad_coeff_mul(float r,
+                                                      const StencilParams& p,
+                                                      float inv_h) {
+  const float q = r * inv_h;
   const float near_g = p.kg6 * (3.0f * q * q - 2.0f * q);
   const float omq = 1.0f - q;
   const float far_g = p.kgm6 * omq * omq;

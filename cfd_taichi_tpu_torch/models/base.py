@@ -1,8 +1,8 @@
 """Shared solver state and step plumbing.
 
 Counterpart of `cfd_taichi_tpu/models/base.py` (reference solver_base.py):
-the state tuples, their initialization, the per-step cell sort with its CSR
-offsets, and the small shared operators. Vectors are (N, 3) float32
+the state tuples (a rigid body's among them), their initialization, the
+per-step cell sort with its CSR offsets, and the small shared operators. Vectors are (N, 3) float32
 tensors; the JAX package's component split (ops/vec.py) only served TPU
 tiling. Fluid state is kept in cell-sorted order across steps, and `oid`
 gives every particle its stable seeding-order identity.
@@ -10,7 +10,7 @@ gives every particle its stable seeding-order identity.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -31,11 +31,25 @@ class FluidState(NamedTuple):
     oid: torch.Tensor   # (N,) int32 seeding-order id of each slot
 
 
+class RigidBodyState(NamedTuple):
+    """One rigid body (`cfd_taichi_tpu/models/base.py:64-80`): per-particle
+    positions and the fluid's forces on them, in the voxels' original
+    order, and the body's dynamics once (the reference replicates them per
+    particle, rigid_solver.py:96-97, 128). Zero-sized without a body."""
+    pos: torch.Tensor          # (Nr, 3) f32 particle positions, world frame
+    vertices: torch.Tensor     # (V, 3) f32 mesh vertices, world frame
+    vel: torch.Tensor          # (3,) linear velocity
+    omega: torch.Tensor        # (3,) angular velocity
+    alpha: torch.Tensor        # (3,) angular acceleration
+    acc: torch.Tensor          # (3,) linear acceleration
+    force: torch.Tensor        # (Nr, 3) fluid forces accumulated in a step
+    centroid: torch.Tensor     # (3,)
+    inertia_inv: torch.Tensor  # (3, 3)
+
+
 class SimState(NamedTuple):
     fluid: FluidState
-    # Rigid body state. Rigid coupling is not ported yet (ROADMAP.md), so
-    # this is always None; the field keeps the JAX state's layout.
-    rigid: Optional[object]
+    rigid: RigidBodyState      # zero-sized tensors when there is no body
     dt: torch.Tensor          # () f32 on the device (adaptive in DFSPH)
     t: torch.Tensor           # () f32 simulated time
     step_count: torch.Tensor  # () int32
@@ -47,6 +61,60 @@ class SimState(NamedTuple):
     overflow: torch.Tensor
 
 
+def empty_rigid(device) -> RigidBodyState:
+    """The body of a scene without one (`empty_rigid` of the JAX package)."""
+    z3 = torch.zeros(3, dtype=torch.float32, device=device)
+    z0 = torch.zeros(0, 3, dtype=torch.float32, device=device)
+    return RigidBodyState(pos=z0, vertices=z0.clone(), vel=z3,
+                          omega=z3.clone(), alpha=z3.clone(), acc=z3.clone(),
+                          force=z0.clone(), centroid=z3.clone(),
+                          inertia_inv=torch.zeros(3, 3, dtype=torch.float32,
+                                                  device=device))
+
+
+def init_rigid_state(scene: Scene) -> RigidBodyState:
+    """The body as built, at rest, with no force yet."""
+    if scene.rigid0 is None:
+        return empty_rigid(scene.device)
+    r = scene.rigid0
+    z3 = torch.zeros(3, dtype=torch.float32, device=scene.device)
+    return RigidBodyState(
+        pos=r.pos.clone(), vertices=r.vertices.clone(), vel=z3,
+        omega=z3.clone(), alpha=z3.clone(), acc=z3.clone(),
+        force=torch.zeros_like(r.pos), centroid=r.centroid.clone(),
+        inertia_inv=r.inertia_inv.clone())
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a x b over the last axis of broadcastable (..., 3) tensors, each
+    component the JAX package's expression (`ops/vec.py` V3.cross)."""
+    ax, ay, az = a.unbind(dim=-1)
+    bx, by, bz = b.unbind(dim=-1)
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz,
+                        ax * by - ay * bx], dim=-1)
+
+
+def rigid_contact_vel(rigid: RigidBodyState, dt: torch.Tensor,
+                      include_alpha: bool,
+                      include_acc: bool = True) -> torch.Tensor:
+    """(Nr, 3) contact velocity v + a dt + (omega [+ alpha dt]) x (x_j -
+    centroid) of each rigid particle (`cfd_taichi_tpu/models/base.py:
+    494-506`; reference dfsph_solver.py:163-170, 288-294)."""
+    om = rigid.omega + rigid.alpha * dt if include_alpha else rigid.omega
+    lin = rigid.vel + rigid.acc * dt if include_acc else rigid.vel
+    return lin + cross(om, rigid.pos - rigid.centroid)
+
+
+def refuse_rigid(scene: Scene, solver: str) -> None:
+    """Raise on a scene whose rigid body takes part in the step: only
+    DFSPH couples a body so far, and a solver must not step the fluid as
+    if the body were not there."""
+    if scene.coupled:
+        raise NotImplementedError(
+            f"{solver} with an active rigid body is not ported yet (DFSPH "
+            f"is): ROADMAP.md, queue 1, 'Two-way rigid coupling'")
+
+
 def init_sim_state(scene: Scene, extra: tuple = ()) -> SimState:
     n, dev = scene.n_fluid, scene.device
     vel0 = torch.tensor(scene.fluid_vel0, dtype=torch.float32,
@@ -56,7 +124,7 @@ def init_sim_state(scene: Scene, extra: tuple = ()) -> SimState:
             pos=scene.fluid_pos0.clone(), vel=vel0,
             acc=torch.zeros(n, 3, dtype=torch.float32, device=dev),
             oid=torch.arange(n, dtype=torch.int32, device=dev)),
-        rigid=None,
+        rigid=init_rigid_state(scene),
         dt=torch.tensor(scene.dt0, dtype=torch.float32, device=dev),
         t=torch.zeros((), dtype=torch.float32, device=dev),
         step_count=torch.zeros((), dtype=torch.int32, device=dev),

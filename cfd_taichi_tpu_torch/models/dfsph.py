@@ -1,8 +1,9 @@
 """DFSPH: divergence-free SPH with warm start and adaptive CFL timestep.
 
 Counterpart of `cfd_taichi_tpu/models/dfsph.py` (reference
-dfsph_solver.py:1-445) for fluid-only scenes. The one-shot pair sums are
-CSR-stencil passes of ops/stencil.py. The two loop matvecs run on one of
+dfsph_solver.py:1-445), its dense path: fluid-only scenes, and scenes with
+a rigid body coupled both ways. The one-shot pair sums are CSR-stencil
+passes of ops/stencil.py. The two loop matvecs run on one of
 two engines, chosen per step by the JAX package's policy (store when it
 fits, recompute beyond that; `cfd_taichi_tpu/models/dfsph.py:101-114`):
 
@@ -13,6 +14,15 @@ fits, recompute beyond that; `cfd_taichi_tpu/models/dfsph.py:101-114`):
 * the recompute engine (stencil.matvec / matvec_dot, the counterpart of
   the JAX window engine, bandmat.py:508-616): every iteration recomputes
   the coefficients from positions and stores nothing per pair.
+
+A rigid body enters as JAX's dense coupled path has it
+(`cfd_taichi_tpu/models/dfsph.py:499-583, 686-790`; ops/rigid.py): its
+step-constant sums fold into the fluid's before the alpha factor, the
+solid viscosity joins the external force, the loop-constant contact dot
+C_s joins both loops' density rate, the body's speed joins the CFL
+velocity, and in a two-way coupled scene each density iteration adds the
+fluid's reaction to the body's per-particle force. The body moves in
+models/rigid.step, after the fluid step.
 
 The two pressure loops run on the host, as the reference's do
 (dfsph_solver.py:221-233, 393-416): each iteration reads its residual
@@ -31,6 +41,7 @@ import torch
 from cfd_taichi_tpu_torch.models import base
 from cfd_taichi_tpu_torch.ops import coef
 from cfd_taichi_tpu_torch.ops import neighbors as nb
+from cfd_taichi_tpu_torch.ops import rigid as rigid_ops
 from cfd_taichi_tpu_torch.ops import stencil
 from cfd_taichi_tpu_torch.ops.smoothing import f32, true_div
 from cfd_taichi_tpu_torch.scene import RHO_0, Scene
@@ -83,14 +94,22 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def dense_pre_terms(scene: Scene, ft: stencil.FluidTerms,
-                    bt: stencil.BoundaryTerms | None):
+                    bt: stencil.BoundaryTerms | None,
+                    rt: rigid_ops.RigidTerms | None = None):
     """rho, the alpha factor, the self-side loop coefficient S and the
     tension force from the one-shot sums (`cfd_taichi_tpu/models/
-    dfsph.py:470-496`). The boundary vector sum is squared separately from
-    the fluid one: a reference quirk (dfsph_solver.py:32-51), kept."""
+    dfsph.py:470-496`). The rigid sums `rt` of a coupled scene fold into
+    the fluid's before the square (a pair is fluid or solid, as the
+    reference's alpha_terms sums them). The boundary vector sum is squared
+    separately from the fluid one: a reference quirk (dfsph_solver.py:
+    32-51), kept."""
     rho = f32(base.DENSITY_EPS) + ft.rho
-    S = ft.s
-    denom = dot(S, S) + ft.qsum
+    S, qsum = ft.s, ft.qsum
+    if rt is not None:
+        rho = rho + rt.rho
+        S = S + rt.s
+        qsum = qsum + rt.qsum
+    denom = dot(S, S) + qsum
     if bt is not None:
         rho = rho + bt.rho
         denom = denom + bt.qsum + dot(bt.s, bt.s)
@@ -103,23 +122,26 @@ def dense_pre_terms(scene: Scene, ft: stencil.FluidTerms,
 
 def loop_operators(matvec: Callable, matvec_dot: Callable, S: torch.Tensor,
                    counts: torch.Tensor):
-    """The DFSPH loop algebra (`cfd_taichi_tpu/models/dfsph.py:174-222`)
-    for a fluid-only scene:
+    """The DFSPH loop algebra (`cfd_taichi_tpu/models/dfsph.py:174-222`):
 
       stiff_vel_delta(k) = k S + matvec(k)     velocity change per unit dt
-      rho_derivative(v) -> (dr, avg)           clamped density rate and its
+      rho_derivative(v, c_s) -> (dr, avg)      clamped density rate and its
                                                positive average
-      rho_adv_residual(rho, dt, v) -> (rho_adv, avg)   clamped predicted
-                                               density and its average
+      rho_adv_residual(rho, dt, v, c_s) -> (rho_adv, avg)   clamped
+                                               predicted density and its
+                                               average
+    c_s is the loop-constant solid contact dot of a coupled scene, which
+    the density rate subtracts, or None (fluid-only: nothing subtracted).
     """
     def stiff_vel_delta(k_over_rho):
         return S * k_over_rho[:, None] + matvec(k_over_rho)
 
-    def vel_dot_terms(v):
-        return dot(v, S) - matvec_dot(v)
+    def vel_dot_terms(v, c_s):
+        d = dot(v, S) - matvec_dot(v)
+        return d if c_s is None else d - c_s
 
-    def rho_derivative(v):
-        dr = vel_dot_terms(v)
+    def rho_derivative(v, c_s=None):
+        dr = vel_dot_terms(v, c_s)
         dr = torch.where(counts < MIN_NEIGHBORS, torch.zeros_like(dr),
                          torch.clamp(dr, min=0.0))
         sel = dr > 0.0
@@ -128,8 +150,8 @@ def loop_operators(matvec: Callable, matvec_dot: Callable, S: torch.Tensor,
         avg = torch.where(cnt > 0, tot / cnt, torch.zeros_like(tot))
         return dr, avg
 
-    def rho_adv_residual(rho, dt, v_adv):
-        d = vel_dot_terms(v_adv)
+    def rho_adv_residual(rho, dt, v_adv, c_s=None):
+        d = vel_dot_terms(v_adv, c_s)
         rho_adv = torch.clamp(rho + dt * d, min=RHO_0)
         uncl = rho_adv != RHO_0
         cnt = uncl.sum()
@@ -154,6 +176,12 @@ class _Pre(NamedTuple):
     mv: Callable             # matvec
     mvd: Callable            # matvec_dot
     ext_force_fn: Callable   # vel -> (N, 3) tension + viscosity
+    # (include_alpha, dt) -> (N,) the solid contact dot C_s; None without
+    # a coupled body
+    cs_fn: Callable | None = None
+    # (k_over_rho, force) -> the body's (Nr, 3) force plus the fluid's
+    # reaction; None unless the coupling is two-way
+    scatter_fn: Callable | None = None
 
 
 def loop_engine(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
@@ -179,9 +207,23 @@ def loop_engine(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
             functools.partial(stencil.matvec_dot, pos, starts, grid, h, m))
 
 
+def rho_quirk(rho: torch.Tensor, oid: torch.Tensor,
+              n_rigid: int) -> torch.Tensor:
+    """(Nr,) the density the solid viscosity reads for rigid particle j:
+    the reference's quirk (solver_base.py:187, 199), the fluid density at
+    index j of the seeding order (through `oid`), j clipped to the fluid's
+    last index (`cfd_taichi_tpu/models/dfsph.py:548-551`; ROADMAP.md
+    section 3)."""
+    rho_orig = torch.zeros_like(rho).index_put_((oid.long(),), rho)
+    return rho_orig[torch.arange(n_rigid, device=rho.device).clamp(
+        max=rho.shape[0] - 1)]
+
+
 def prepare(scene: Scene, state: base.SimState) -> _Pre:
-    """Cell sort plus the one-shot pair passes of a step."""
-    fluid = state.fluid
+    """Cell sort plus the one-shot pair passes of a step; on a coupled
+    scene also the body's cell table, its solid sums and the closures of
+    the solid terms (`cfd_taichi_tpu/models/dfsph.py:499-583`)."""
+    fluid, rigid = state.fluid, state.rigid
     (warm_k,) = state.extra
     grid, h, m = scene.grid, scene.h, scene.particle_m
     scid, _, pos, (vel, warm_s, oid, acc) = base.sort_by_cells(
@@ -189,16 +231,42 @@ def prepare(scene: Scene, state: base.SimState) -> _Pre:
     starts = nb.csr_starts(scid, grid.num_cells)
 
     ft, bt = base.one_shot_terms(scene, pos, starts)
-    rho, alpha, S, tension = dense_pre_terms(scene, ft, bt)
+    table = rt = None
+    if scene.coupled:
+        # The body moved in the last rigid step: sort it anew.
+        table = rigid_ops.rigid_table(grid, rigid.pos, scene.rigid_volume)
+        rt = rigid_ops.rigid_terms(pos, table, grid, h, RHO_0)
+    rho, alpha, S, tension = dense_pre_terms(scene, ft, bt, rt)
     mv, mvd = loop_engine(scene, pos, starts, ft)
 
     def ext_force_fn(v):
-        return tension + stencil.viscosity(pos, starts, grid, h, m, v, rho,
-                                           VISCOSITY_C_S, VISCOSITY_ALPHA)
+        visc = stencil.viscosity(pos, starts, grid, h, m, v, rho,
+                                 VISCOSITY_C_S, VISCOSITY_ALPHA)
+        if table is not None:
+            visc = visc + rigid_ops.rigid_viscosity(
+                pos, table, grid, h, RHO_0, m, v, rho,
+                rho_quirk(rho, oid, scene.n_rigid), rigid.vel,
+                VISCOSITY_C_S, VISCOSITY_ALPHA)
+        return tension + visc
+
+    cs_fn = scatter_fn = None
+    if table is not None:
+        def cs_fn(include_alpha, dt):
+            return rigid_ops.rigid_contact_dot(
+                pos, table, grid, h, RHO_0,
+                base.rigid_contact_vel(rigid, dt, include_alpha))
+
+        if scene.fs_couple:
+            def scatter_fn(k_over_rho, force):
+                # Each fluid-rigid pair charged once, from the rigid side.
+                return rigid_ops.rigid_side_force(
+                    rigid.pos, scene.rigid_volume, pos, starts, grid, h,
+                    RHO_0, k_over_rho * f32(m), force)
 
     return _Pre(pos=pos, oid=oid, vel=vel, acc=acc, warm_k=warm_s, rho=rho,
                 alpha=alpha, count=ft.count, S=S, mv=mv, mvd=mvd,
-                ext_force_fn=ext_force_fn)
+                ext_force_fn=ext_force_fn, cs_fn=cs_fn,
+                scatter_fn=scatter_fn)
 
 
 def step(scene: Scene, state: base.SimState) -> base.SimState:
@@ -214,6 +282,7 @@ def _finish_step(scene: Scene, state: base.SimState,
     dt = state.dt
     vel, warm_k = pre.vel, pre.warm_k
     rho, alpha = pre.rho, pre.alpha
+    rigid = state.rigid
     stiff_vel_delta, rho_derivative, rho_adv_residual = loop_operators(
         pre.mv, pre.mvd, pre.S, pre.count)
 
@@ -221,7 +290,8 @@ def _finish_step(scene: Scene, state: base.SimState,
     # Warm start with the previous step's dt.
     vel = vel - stiff_vel_delta((warm_k / dt) / rho) * dt
     warm_k = torch.zeros_like(warm_k)
-    dr, avg_t = rho_derivative(vel)
+    cs_div = pre.cs_fn(False, dt) if pre.cs_fn is not None else None
+    dr, avg_t = rho_derivative(vel, cs_div)
     avg = np.float32(avg_t.item())
     it, stop = 0, False
     while ((it < MIN_ITER_DIV or avg > DIV_THRESHOLD)
@@ -229,7 +299,7 @@ def _finish_step(scene: Scene, state: base.SimState,
         k_over_rho = (dr * alpha / dt) / rho
         vel = vel - stiff_vel_delta(k_over_rho) * dt
         warm_k = warm_k + dr * alpha    # sum_up_stiff (dfsph_solver.py:381)
-        dr, new_avg_t = rho_derivative(vel)
+        dr, new_avg_t = rho_derivative(vel, cs_div)
         new_avg = np.float32(new_avg_t.item())
         stop = bool(np.abs(new_avg - avg) < np.float32(STALL_EPS))
         avg = new_avg
@@ -241,18 +311,30 @@ def _finish_step(scene: Scene, state: base.SimState,
     force_ext = base.gravity_acc(scene) + pre.ext_force_fn(vel)
     vel_adv = vel + force_ext * true_div(dt, f32(scene.particle_m))
     max_vel = torch.sqrt(dot(vel_adv, vel_adv)).max()
+    if scene.coupled:
+        # The body's fastest particle joins the CFL velocity.
+        spin = base.cross(rigid.omega, rigid.pos - rigid.centroid)
+        max_vel = max_vel + (torch.sqrt((rigid.vel * rigid.vel).sum())
+                             + torch.sqrt(dot(spin, spin))).max()
     cfl_dt = f32(0.4 * (2.0 * scene.particle_radius)) / max_vel * f32(0.2)
     dt = torch.clamp(cfl_dt, min=f32(MIN_DT), max=f32(MAX_DT))
     dt2 = dt * dt
 
     # --- density solve (dfsph_solver.py:221-233) ----------------------------
+    # The contact dot with alpha dt, at the new dt; the body's force
+    # gathers the fluid's reaction once an iteration (dfsph_solver.py:
+    # 204-212).
+    cs_den = pre.cs_fn(True, dt) if pre.cs_fn is not None else None
+    rigid_force = rigid.force
     den_thresh = np.float32(DENSITY_THRESHOLD * RHO_0 * 0.01)
     avg = np.float32(np.inf)
     it = 0
     while ((it < MIN_ITER_DENSITY or avg - np.float32(RHO_0) > den_thresh)
            and it < MAX_ITER_DENSITY):
-        rho_adv, avg_t = rho_adv_residual(rho, dt, vel_adv)
+        rho_adv, avg_t = rho_adv_residual(rho, dt, vel_adv, cs_den)
         k_over_rho = ((rho_adv - RHO_0) * alpha / dt2) / rho
+        if pre.scatter_fn is not None:
+            rigid_force = pre.scatter_fn(k_over_rho, rigid_force)
         vel_adv = vel_adv - stiff_vel_delta(k_over_rho) * dt
         avg = np.float32(avg_t.item())   # residual before this update
         it += 1
@@ -270,6 +352,7 @@ def _finish_step(scene: Scene, state: base.SimState,
     return state._replace(
         fluid=base.FluidState(pos=new_pos, vel=new_vel, acc=pre.acc,
                               oid=pre.oid),
+        rigid=rigid._replace(force=rigid_force),
         dt=dt,
         t=state.t + dt,
         step_count=state.step_count + 1,

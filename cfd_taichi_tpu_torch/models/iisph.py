@@ -49,6 +49,7 @@ TENSION_K = 0.5
 
 
 def init_state(scene: Scene) -> base.SimState:
+    base.refuse_rigid(scene, "IISPH")
     p_past = torch.zeros(scene.n_fluid, dtype=torch.float32,
                          device=scene.device)
     return base.init_sim_state(scene, extra=(p_past,))
@@ -131,6 +132,7 @@ def jacobi_loop(d_ij_of: Callable, r_sum_of: Callable, residual_of: Callable,
 
 
 def step(scene: Scene, state: base.SimState) -> base.SimState:
+    base.refuse_rigid(scene, "IISPH")
     fluid, dt = state.fluid, state.dt
     (p_past,) = state.extra
     grid, m = scene.grid, scene.particle_m

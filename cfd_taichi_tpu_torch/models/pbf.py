@@ -44,6 +44,7 @@ S_CORR_FACTOR = 0.3       # pbf_solver.py:21
 
 
 def init_state(scene: Scene) -> base.SimState:
+    base.refuse_rigid(scene, "PBF")
     return base.init_sim_state(scene, extra=())
 
 
@@ -54,6 +55,7 @@ def w_ref(h: float) -> float:
 
 
 def step(scene: Scene, state: base.SimState) -> base.SimState:
+    base.refuse_rigid(scene, "PBF")
     fluid, dt = state.fluid, state.dt
     grid, h, m = scene.grid, scene.h, scene.particle_m
     scid, _, pos, (vel_s, oid, acc) = base.sort_by_cells(

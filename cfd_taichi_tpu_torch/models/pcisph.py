@@ -73,6 +73,7 @@ def stiffness(scene: Scene) -> torch.Tensor:
 
 
 def init_state(scene: Scene) -> base.SimState:
+    base.refuse_rigid(scene, "PCISPH")
     return base.init_sim_state(scene, extra=(stiffness(scene),))
 
 
@@ -86,6 +87,7 @@ def positive_avg(err: torch.Tensor) -> torch.Tensor:
 
 
 def step(scene: Scene, state: base.SimState) -> base.SimState:
+    base.refuse_rigid(scene, "PCISPH")
     fluid, dt = state.fluid, state.dt
     (delta,) = state.extra
     grid, h, m = scene.grid, scene.h, scene.particle_m

@@ -38,6 +38,7 @@ WCSPH_DAMPING = 0.9998  # wcsph_solver.py:51
 
 
 def init_state(scene: Scene) -> base.SimState:
+    base.refuse_rigid(scene, "WCSPH")
     return base.init_sim_state(scene, extra=())
 
 
@@ -47,6 +48,7 @@ def tait_pressure(rho: torch.Tensor) -> torch.Tensor:
 
 
 def step(scene: Scene, state: base.SimState) -> base.SimState:
+    base.refuse_rigid(scene, "WCSPH")
     fluid, dt = state.fluid, state.dt
     perm, pos, starts, rho, bt = base.sorted_density(scene, fluid.pos)
     vel, oid = fluid.vel[perm], fluid.oid[perm]

@@ -71,6 +71,14 @@ _SIGNATURES = {
                                   _F, _F, _P, _P, _P, _P, _P),
     "pbf_lambda_launch": (_P, _P, _I, _PP, _SP, _P, _P, _P),
     "pbf_xsph_launch": (_P, _P, _I, _PP, _SP, _P, _P, _P, _P),
+    "rigid_terms_launch": (_P, _I, _P, _P, _P, _I, _PP, _F, _F, _P, _P, _P,
+                           _P, _P),
+    "rigid_contact_dot_launch": (_P, _I, _P, _P, _P, _P, _I, _PP, _F, _F,
+                                 _P, _P, _P),
+    "rigid_viscosity_launch": (_P, _I, _P, _P, _P, _P, _I, _PP, _F, _F, _F,
+                               _F, _F, _P, _P, _P, _P, _P, _P),
+    "rigid_side_force_launch": (_P, _P, _I, _P, _P, _I, _PP, _F, _F, _P, _P,
+                                _P, _P),
     "coef_build_launch": (_P, _P, _I, _PP, _F, _P, _P, _P, _I, _P),
     "coef_matvec_launch": (_P, _I, _P, _P, _P, _I, _P, _P, _I, _P),
     "coef_matvec_dot_launch": (_P, _I, _P, _P, _P, _I, _P, _P, _I, _P),

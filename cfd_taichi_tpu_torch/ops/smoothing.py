@@ -83,7 +83,19 @@ def cubic_grad_coeff(r: torch.Tensor, h: float) -> torch.Tensor:
     """Scalar factor c(r) with grad W = c(r) * x_ij, zero unless
     1e-5 < q <= 1 (the reference's lower bound on q)."""
     c = CubicConstants.of(h)
-    q = true_div(r, c.h)
+    return _cubic_grad_coeff_of_q(true_div(r, c.h), r, c)
+
+
+def cubic_grad_coeff_mul(r: torch.Tensor, h: float) -> torch.Tensor:
+    """cubic_grad_coeff with q = r * (f32(1) / f32(h)), as cubic_w_mul;
+    the division by h max(r, 1e-12) stays a division, as in JAX. The
+    fluid-rigid passes (ops/rigid.py) take it."""
+    return _cubic_grad_coeff_of_q(r * SpikyPoly6Constants.of(h).inv_h, r,
+                                  CubicConstants.of(h))
+
+
+def _cubic_grad_coeff_of_q(q: torch.Tensor, r: torch.Tensor,
+                           c: CubicConstants) -> torch.Tensor:
     near = c.kg6 * (3.0 * q * q - 2.0 * q)
     omq = 1.0 - q
     far = c.kgm6 * omq * omq

@@ -9,7 +9,8 @@ Each pass has three parts:
   and sums in registers: one thread per query that queues its hits and
   runs the pair term outside the candidate loop in fluid_terms,
   boundary_terms, matvec, matvec_dot, wcsph_forces, pcisph_predict_rho,
-  pbf_terms, pbf_lambda and pbf_xsph (`csrc/stencil.cuh`, queued_walk),
+  pbf_terms, pbf_lambda, pbf_xsph and the fluid-rigid passes of
+  ops/rigid.py (`csrc/stencil.cuh`, queued_walk),
   a group of lanes per query in viscosity and coef_build (group_walk).
   The walk of ~27 x occupancy candidates, not DRAM bandwidth
   or FLOPs, sets their time: as measured on an NVIDIA H100 80GB HBM3
@@ -32,9 +33,9 @@ start-of-step positions and their CSR table, as JAX pins it.
 With no capacity anywhere this is exactly the JAX package's pair set when
 its block plans do not overflow (cfd_taichi_tpu/ops/bandmat.py:32-38).
 
-`KERNELS` counts launches and plain calls of these passes and of the
-stored-coefficient engine's (ops/coef.py), so a run can show which path
-carried it.
+`KERNELS` counts launches and plain calls of these passes, of the
+stored-coefficient engine's (ops/coef.py) and of the fluid-rigid passes
+(ops/rigid.py), so a run can show which path carried it.
 """
 
 from __future__ import annotations
@@ -90,6 +91,15 @@ KERNELS = {k.name: k for k in (
            "cfd_taichi_tpu/ops/bandmat.py:1794-1796"),
     Kernel("pbf_xsph", _CSRC + "pbf_xsph.cu",
            "cfd_taichi_tpu/ops/bandmat.py:1798-1806"),
+    # The fluid-rigid passes (ops/rigid.py).
+    Kernel("rigid_terms", _CSRC + "rigid_terms.cu",
+           "cfd_taichi_tpu/ops/rigid_dense.py:63, :143"),
+    Kernel("rigid_contact_dot", _CSRC + "rigid_terms.cu",
+           "cfd_taichi_tpu/ops/rigid_dense.py:161"),
+    Kernel("rigid_viscosity", _CSRC + "rigid_viscosity.cu",
+           "cfd_taichi_tpu/ops/rigid_dense.py:202"),
+    Kernel("rigid_side_force", _CSRC + "rigid_side_force.cu",
+           "cfd_taichi_tpu/ops/rigid_dense.py:255, :281"),
     # The stored-coefficient engine (ops/coef.py).
     Kernel("coef_build", _CSRC + "coef_build.cu",
            "cfd_taichi_tpu/ops/bandmat.py:682"),

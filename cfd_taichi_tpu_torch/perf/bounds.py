@@ -31,9 +31,9 @@ from typing import NamedTuple
 
 import torch
 
-from cfd_taichi_tpu_torch.ops.neighbors import (GridSpec, cell_id,
-                                                  stencil_counts)
-from cfd_taichi_tpu_torch.ops.stencil import count_pairs
+from cfd_taichi_tpu_torch.ops.neighbors import (GridSpec, cell_coords,
+                                                  cell_id, stencil_counts)
+from cfd_taichi_tpu_torch.ops.stencil import _pair_chunks, count_pairs
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -63,6 +63,16 @@ PAIR_OPS = {
     "pbf_lambda": 18,      # r, spiky_c, lambda_j spiky_c, three products
     # the updated distance (8), r, poly6, three products, four sums
     "pbf_xsph": 24,
+    # r, w_s, W, gc, w_s gc, its r and c^2 r^2 products, rho, s (3), qsum,
+    # g2
+    "rigid_terms": 47,
+    # r, gc, w_s gc, x_ij . v_r, the product and the sum
+    "rigid_contact_dot": 26,
+    # the shear (v_i - v_body) . x_ij and its sign test; not the viscosity
+    # term, which only compressive pairs need (as "viscosity")
+    "rigid_viscosity": 6,
+    # r, rho0 V_j gc, the r <= h test, three products and sums
+    "rigid_side_force": 29,
 }
 
 
@@ -137,6 +147,57 @@ def walls_work(name: str, n: int, n_cells: int, cand: int, pairs: int,
     if name == "pbf_boundary_terms":
         nbytes += 12 * n + 32 * n
     return _pair_work(name, nbytes, cand, pairs)
+
+
+def stencil_cells(qpos: torch.Tensor, grid: GridSpec) -> int:
+    """Distinct cells in the union of the queries' 27-cell stencils: the
+    CSR offsets a walk from these queries needs."""
+    off = torch.tensor([(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
+                        for c in (-1, 0, 1)], dtype=torch.int32,
+                       device=qpos.device)
+    cells = cell_coords(qpos, grid)[:, None, :] + off
+    dims = torch.tensor(grid.dims, dtype=torch.int32, device=qpos.device)
+    strides = torch.tensor(grid.strides, dtype=torch.int32,
+                           device=qpos.device)
+    inb = ((cells >= 0) & (cells < dims)).all(dim=-1)
+    return int(torch.unique((cells * strides).sum(dim=-1)[inb]).numel())
+
+
+def rigid_work(x: dict) -> dict[str, Work]:
+    """Work of the four fluid-rigid kernels on coupled inputs `x`
+    (perf/inputs.coupled_inputs): n cell-sorted fluid queries against the
+    body's table for three of them, and the body's Nr particles against the
+    fluid's table for the reaction, whose function needs only the fluid
+    rows within h of the body (their positions and u) and the offsets of
+    the cells its stencils cover."""
+    g, p, t = x["grid"], x["p"], x["table"]
+    n, nr, cells = p.shape[0], t.pos.shape[0], g.num_cells
+    pairs = count_pairs(p, t.pos, t.starts, g, x["h"], exclude_self=False)
+    cand = candidates(p, t.starts, g)
+    table = 16 * nr + 4 * (cells + 1)     # sorted pos and V_j, offsets
+    f = 4 * n
+    nbytes = {
+        # pos; rho, s, qsum, g2
+        "rigid_terms": 3 * f + table + 6 * f,
+        # pos, lid, v_r; out
+        "rigid_contact_dot": 3 * f + table + 4 * nr + 12 * nr + f,
+        # pos, lid, vel, rho, rho_q, the body's velocity; out
+        "rigid_viscosity": (3 * f + table + 4 * nr + 3 * f + f + 4 * nr
+                            + 12 + 3 * f),
+    }
+    out = {name: _pair_work(name, b, cand, pairs)
+           for name, b in nbytes.items()}
+    partners = torch.zeros(n, dtype=torch.bool, device=p.device)
+    for _, pr in _pair_chunks(x["rpos"], p, x["st"], g, x["h"],
+                              exclude_self=False):
+        partners[pr.slot[pr.valid]] = True
+    # the body's pos, V_j and force in, force out; the partners' pos and
+    # u; the offsets of the cells of the body's stencils
+    side = (40 * nr + 16 * int(partners.sum())
+            + 8 * stencil_cells(x["rpos"], g))
+    out["rigid_side_force"] = _pair_work(
+        "rigid_side_force", side, candidates(x["rpos"], x["st"], g), pairs)
+    return out
 
 
 def combined(*works: Work) -> Work:

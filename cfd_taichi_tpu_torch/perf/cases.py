@@ -13,6 +13,7 @@ import torch
 
 from cfd_taichi_tpu_torch.models import base, pbf
 from cfd_taichi_tpu_torch.ops import coef
+from cfd_taichi_tpu_torch.ops import rigid as R
 from cfd_taichi_tpu_torch.ops import stencil as S
 from cfd_taichi_tpu_torch.perf import bounds, timing
 
@@ -136,6 +137,31 @@ def solver_cases(p, st, g, h: float, m: float, walls: S.Walls, x: dict,
              lambda: S.pbf_lambda_plain(p, st, g, h, lam)),
             ("pbf_xsph", lambda: S.pbf_xsph(p, st, g, h, sp, v),
              lambda: S.pbf_xsph_plain(p, st, g, h, sp, v))):
+        yield Case(name, name, kern, plain, work.get(name))
+
+
+def rigid_cases(x: dict, work: dict | None = None) -> Iterator[Case]:
+    """The four fluid-rigid kernels on coupled inputs `x` (perf/inputs.
+    coupled_inputs), as a coupled DFSPH step calls them: the solid sums,
+    the contact dot of x["v_r"], the solid viscosity and the reaction of
+    x["u"] on x["force"]. `work` by kernel name (bounds.rigid_work), or
+    None. No one PyTorch call computes any of them."""
+    g, h, m, p, t = (x[k] for k in ("grid", "h", "m", "p", "table"))
+    work = work or {}
+    visc = (p, t, g, h, RHO0, m, x["v"], x["rho"], x["rho_quirk"],
+            x["body_vel"], VISC["c_s"], VISC["alpha"])
+    side = (x["rpos"], x["rvol"], p, x["st"], g, h, RHO0, x["u"],
+            x["force"])
+    for name, kern, plain in (
+            ("rigid_terms", lambda: R.rigid_terms(p, t, g, h, RHO0),
+             lambda: R.rigid_terms_plain(p, t, g, h, RHO0)),
+            ("rigid_contact_dot",
+             lambda: R.rigid_contact_dot(p, t, g, h, RHO0, x["v_r"]),
+             lambda: R.rigid_contact_dot_plain(p, t, g, h, RHO0, x["v_r"])),
+            ("rigid_viscosity", lambda: R.rigid_viscosity(*visc),
+             lambda: R.rigid_viscosity_plain(*visc)),
+            ("rigid_side_force", lambda: R.rigid_side_force(*side),
+             lambda: R.rigid_side_force_plain(*side))):
         yield Case(name, name, kern, plain, work.get(name))
 
 

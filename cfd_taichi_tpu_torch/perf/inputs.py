@@ -1,7 +1,9 @@
 """Seeded inputs of the kernel checks and measurements: the jittered seed
 lattice of a config, a clustered cloud for the stencil walk's edge cases,
-a ragged CSR engine of the coef contraction, a compressed start state,
-and the loop engine of DFSPH and IISPH pinned for a run."""
+a ragged CSR engine of the coef contraction, a rigid body in a fluid
+block for the fluid-rigid passes, a compressed start state, the
+half-immersed variant of configs/torus_flush.json, and the loop engine of
+DFSPH and IISPH pinned for a run."""
 
 from __future__ import annotations
 
@@ -82,6 +84,118 @@ def lattice_inputs(cfg_name: str, seed: int, device="cuda") -> dict:
     x["shifted"] = shifted(p, r, rng)
     x["lam"] = dev(rng.uniform(-1e-4, 0.0, n))
     return x
+
+
+# builtin:cube1 scale of the body in each config's block: ~3,200 voxels
+# at 30k (coupling_demo's body, configs/coupling_demo.json), ~40k at 1M.
+BODY_SCALE = {"breaking_dam_30k.json": 1.0, "breaking_dam_1m.json": 2.3}
+BODY_RHO = 5000.0   # coupling_demo's body density
+
+
+def body_scene(cfg_name: str, device="cuda"):
+    """The config's scene as DFSPH with a builtin:cube1 body of
+    BODY_SCALE[cfg_name] (voxelized at the scene's pitch 2r, density
+    BODY_RHO) centred in the fluid block, and the seed lattice's fluid in
+    the body's voxel cubes taken out (`Scene.n_fluid` and `fluid_pos0` are
+    what is left), so that the body starts in water it does not overlap."""
+    from cfd_taichi_tpu_torch import build_scene
+    from cfd_taichi_tpu_torch import geometry as geo
+    from cfd_taichi_tpu_torch.config import SolidConfig
+
+    cfg = solver_config(cfg_name)
+    r = cfg.scene.particle_radius
+    pitch = np.float32(2.0 * r)
+    scale = BODY_SCALE[cfg_name]
+    vox = geo.voxelize_mesh(*geo.load_mesh("builtin:cube1", scale=scale),
+                            pitch=float(pitch))
+    centre = (np.asarray(cfg.fluid.start_pos, np.float32)
+              + np.asarray(cfg.fluid.water_size, np.float32) / 2)
+    offset = centre - (vox.min(axis=0) + vox.max(axis=0)) / 2
+    cfg = dataclasses.replace(cfg, solid=SolidConfig(
+        mesh="builtin:cube1", voxel_radius=r, rho_0=BODY_RHO, scale=scale,
+        pos_offset=tuple(float(c) for c in offset), active=True))
+    sc = build_scene(cfg, device=device)
+    vox = sc.rigid0.pos.cpu().numpy()
+    fluid = sc.fluid_pos0.cpu().numpy()
+    lo = vox.min(axis=0) - pitch / 2
+    dims = np.rint((vox.max(axis=0) - vox.min(axis=0)) / pitch).astype(
+        np.int64) + 1
+    occ = np.zeros(tuple(dims), bool)
+    occ[tuple(np.rint((vox - lo) / pitch - 0.5).astype(np.int64).T)] = True
+    cell = np.floor((fluid - lo) / pitch).astype(np.int64)
+    inb = ((cell >= 0) & (cell < dims)).all(axis=1)
+    inside = np.zeros(len(fluid), bool)
+    inside[inb] = occ[tuple(cell[inb].T)]
+    keep = torch.from_numpy(~inside).to(sc.fluid_pos0.device)
+    return dataclasses.replace(sc, n_fluid=int(keep.sum()),
+                               fluid_pos0=sc.fluid_pos0[keep])
+
+
+def body_inputs(cfg_name: str, seed: int, device="cuda") -> dict:
+    """`coupled_inputs` of `body_scene`: its fluid with a 0.1 r jitter and
+    its body as built."""
+    return coupled_inputs(body_scene(cfg_name, device), seed, device)
+
+
+def coupled_inputs(sc, seed: int, device="cuda") -> dict:
+    """Inputs of the fluid-rigid passes on coupled scene `sc`: its fluid
+    with a 0.1 r jitter, cell-sorted (`p`, `st`), its body as built in
+    original order (`rpos`, `rvol`) and cell-sorted (`table`), and, made
+    with numpy from `seed` in this order after the jitter, random rigid
+    velocities `v_r`, fluid velocities `v`, densities `rho`, the quirk's
+    densities `rho_quirk`, a body velocity `body_vel`, the reaction's `u`
+    (k / rho m of a density iteration's size) and a start force
+    `force`."""
+    from cfd_taichi_tpu_torch.models import base
+    from cfd_taichi_tpu_torch.ops import neighbors as nb
+    from cfd_taichi_tpu_torch.ops import rigid
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            device)
+
+    rng = np.random.default_rng(seed)
+    n, nr, r = sc.n_fluid, sc.n_rigid, sc.particle_radius
+    fluid = sc.fluid_pos0.cpu().numpy() + rng.uniform(
+        -0.1 * r, 0.1 * r, (n, 3)).astype(np.float32)
+    scid, _, p, _ = base.sort_by_cells(sc.grid, dev(fluid))
+    x = dict(sc=sc, grid=sc.grid, h=sc.h, m=sc.particle_m, p=p,
+             st=nb.csr_starts(scid, sc.grid.num_cells),
+             rpos=sc.rigid0.pos.contiguous(), rvol=sc.rigid_volume)
+    x["table"] = rigid.rigid_table(sc.grid, x["rpos"], x["rvol"])
+    x.update(v_r=dev(rng.standard_normal((nr, 3))),
+             v=dev(rng.standard_normal((n, 3))),
+             rho=dev(rng.uniform(900.0, 1100.0, n)),
+             rho_quirk=dev(rng.uniform(900.0, 1100.0, nr)),
+             body_vel=dev(rng.standard_normal(3)),
+             u=dev(rng.standard_normal(n) * 1e-4),
+             force=dev(rng.standard_normal((nr, 3))))
+    return x
+
+
+def torus_inputs(seed: int, device="cuda") -> dict:
+    """`coupled_inputs` of the half-immersed torus scene
+    (`torus_immersed`): its seed lattice with a 0.1 r jitter and its body
+    as built."""
+    from cfd_taichi_tpu_torch import build_scene
+
+    return coupled_inputs(build_scene(torus_immersed(), device=device), seed,
+                          device)
+
+
+# The torus's offset in `torus_immersed`: its middle height at the water
+# surface (y 1.3) and its width inside the block, which the torus of
+# configs/torus_flush.json (pos_offset [1.25, 0.1, 0.35]) starts beside.
+TORUS_IMMERSED_OFFSET = (0.114, 1.204, 0.164)
+
+
+def torus_immersed() -> SimConfig:
+    """configs/torus_flush.json with the torus moved to start half immersed
+    in the water block (TORUS_IMMERSED_OFFSET), so that the coupling acts
+    from the first steps."""
+    cfg = read_config(str(CONFIGS / "torus_flush.json"))
+    return dataclasses.replace(cfg, solid=dataclasses.replace(
+        cfg.solid, pos_offset=TORUS_IMMERSED_OFFSET))
 
 
 def ragged_engine(n: int, dtype: torch.dtype, seed: int = 3,

@@ -25,6 +25,13 @@ their loop engines, measured on one card:
    and PBF at 1M among them) for device time by kernel and the busy share
    (device time over wall time); for WCSPH also the record build of
    wcsph_forces on the step's state (CUDA events, 20 calls).
+3. The coupled DFSPH step (a fluid step and a rigid step) on
+   configs/torus_flush.json as written and on a body in water
+   (perf/inputs.body_scene: breaking_dam_30k's block with a ~3,200-voxel
+   box at its centre), steps 1-100 from rest on the coef f32 engine: the
+   rate with the other rates, then 3 profiled steps (steps 101-103) with
+   the other profiles. The four fluid-rigid kernels' rows of step 1 run on
+   perf/inputs.body_inputs at 30k and 1M.
 
 Prints one line per number and writes them all as JSON (--out).
 """
@@ -40,7 +47,7 @@ import torch
 
 from cfd_taichi_tpu_torch.ops import _build
 from cfd_taichi_tpu_torch.ops import stencil as S
-from cfd_taichi_tpu_torch.perf import cases, inputs, timing
+from cfd_taichi_tpu_torch.perf import bounds, cases, inputs, timing
 
 CONFIGS = (("30k", "breaking_dam_30k.json"), ("1m", "breaking_dam_1m.json"))
 
@@ -52,7 +59,9 @@ def kernel_rows(res: dict, tag: str, cfg_name: str) -> None:
     x = inputs.lattice_inputs(cfg_name, seed=7)
     pairs = cases.fluid_pairs(x)
     print(f"[{tag}] n {x['sc'].n_fluid}, pairs {pairs}")
-    for case in cases.scene_cases(x, pairs):
+    rigid = inputs.body_inputs(cfg_name, seed=3)
+    for case in [*cases.scene_cases(x, pairs),
+                 *cases.rigid_cases(rigid, bounds.rigid_work(rigid))]:
         row = cases.measure(case)
         # the kernel's time a launch, and all the call's kernels (pbf_terms'
         # boundary entry, wcsph_forces' record build)
@@ -153,6 +162,75 @@ def engine_rates(res: dict) -> None:
         torch.cuda.empty_cache()
 
 
+COUPLED = ("torus_flush", "body_30k")
+COUPLED_STEPS = 100
+
+
+def coupled_simulation(tag: str):
+    """configs/torus_flush.json, or breaking_dam_30k's block with a body in
+    it (perf/inputs.body_scene), as coupled DFSPH on the card."""
+    from cfd_taichi_tpu_torch import Simulation, read_config
+
+    if tag == "torus_flush":
+        return Simulation(read_config(str(inputs.CONFIGS /
+                                          "torus_flush.json")))
+    cfg = inputs.solver_config(dict(CONFIGS)["30k"])
+    return Simulation(cfg, scene=inputs.body_scene(dict(CONFIGS)["30k"]))
+
+
+def coupled_step(sim) -> None:
+    sim.step()
+    sim.rigid_step()
+
+
+def coupled_rates(res: dict) -> dict:
+    """Host-clock rate of the coupled step, steps 1-100 from rest (after 3
+    untimed steps), with launches per step. Returns the simulations, which
+    `coupled_profiles` continues."""
+    sims = {}
+    for tag in COUPLED:
+        sim = sims[tag] = coupled_simulation(tag)
+        for _ in range(3):
+            coupled_step(sim)
+        sim.state = sim.solver.init_state(sim.scene)
+        S.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(COUPLED_STEPS):
+            coupled_step(sim)
+        torch.cuda.synchronize()
+        rate = COUPLED_STEPS / (time.perf_counter() - t0)
+        launches = {kk.name: kk.launches / COUPLED_STEPS
+                    for kk in S.KERNELS.values() if kk.launches}
+        res.setdefault("rates", {})[f"dfsph-rigid/{tag}/coef_f32"] = dict(
+            steps_per_sec=[rate], launches_per_step=launches,
+            last_diag=sim.state.diag.tolist(), n_fluid=sim.scene.n_fluid,
+            n_rigid=sim.scene.n_rigid)
+        print(f"[rate] dfsph-rigid {tag} coef_f32 steps 1-{COUPLED_STEPS}: "
+              f"{rate:.3f} steps/s  launches/step {launches}  last diag "
+              f"{sim.state.diag.tolist()}")
+    return sims
+
+
+def coupled_profiles(res: dict, sims: dict) -> None:
+    """3 profiled coupled steps of each simulation of `coupled_rates`."""
+    for tag, sim in sims.items():
+        found, wall = timing.profile_kernels(
+            lambda: [coupled_step(sim) for _ in range(3)])
+        busy = sum(t for _, t in found.values()) / 1e6 / wall
+        top = sorted(found.items(), key=lambda kv: -kv[1][1])[:14]
+        res.setdefault("profiles", {})[f"dfsph-rigid/{tag}/coef_f32"] = \
+            dict(busy=busy, wall_s=wall,
+                 device_ms_per_step=sum(t for _, t in found.values())
+                 / 3e3, kernels={
+                     name: dict(launches_per_step=c / 3, us_per_launch=t / c)
+                     for name, (c, t) in top})
+        print(f"[profile] dfsph-rigid {tag} coef_f32: busy {busy:.3f} of "
+              f"{wall:.3f} s; " + "; ".join(
+                  f"{name} {c / 3:.1f} x {t / c:.1f} us"
+                  for name, (c, t) in top))
+
+
 def step_profiles(res: dict) -> None:
     """3 profiled steps per run of `PROFILES` (1M steps 6-8, 30k steps
     1-3): device time by kernel and the busy share."""
@@ -201,9 +279,11 @@ def main() -> int:
     lib = _build.library()
     print(f"[table] kernels built in {lib.build_seconds:.1f} s")
     engine_rates(res)
+    coupled = coupled_rates(res)
     for tag, cfg_name in CONFIGS:
         kernel_rows(res, tag, cfg_name)
     step_profiles(res)
+    coupled_profiles(res, coupled)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(res, indent=1))
     return 0

@@ -2,13 +2,16 @@
 checkpoints.
 
 Counterpart of `cfd_taichi_tpu/runner.py` (reference main.py:47-211): the
-same JSON configs, frame structure (iter_cnt fluid steps per frame) and
+same JSON configs, frame structure (iter_cnt fluid steps, then iter_cnt
+rigid-body steps where a body takes part, per frame) and
 stopping rules (sim time > `max_sim_time`, frame cap), `--profile-dir`
 and `check_nan`. PLY/GIF export and `--color-by` are not ported yet
 (ROADMAP.md, queue 1): `run` refuses a config that asks for either export.
 
     python -m cfd_taichi_tpu_torch.runner --config configs/dfsph_basic.json \
         --frames 20 --device cuda
+    python -m cfd_taichi_tpu_torch.runner --config configs/torus_flush.json \
+        --frames 20 --device cuda      # a torus in water (DFSPH, coupled)
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import torch
 from cfd_taichi_tpu_torch import models
 from cfd_taichi_tpu_torch.config import SimConfig, read_config
 from cfd_taichi_tpu_torch.models import base
+from cfd_taichi_tpu_torch.models import rigid as rigid_mod
+from cfd_taichi_tpu_torch.ops import rigid as rigid_ops
 from cfd_taichi_tpu_torch.scene import RHO_0, build_scene
 from cfd_taichi_tpu_torch.utils import io as io_utils
 from cfd_taichi_tpu_torch.utils import telemetry
@@ -35,31 +40,50 @@ class Simulation:
     """Owns the scene, the solver state and the step function."""
 
     def __init__(self, cfg: SimConfig, check_nan: bool = False,
-                 device="cuda"):
+                 device="cuda", scene=None):
+        """`scene`: one built beforehand on `device` (e.g. perf/inputs.
+        body_scene), else build_scene(cfg)."""
         self.cfg = cfg
         self.device = torch.device(device)
-        self.scene = build_scene(cfg, device=self.device)
+        self.scene = scene if scene is not None else build_scene(
+            cfg, device=self.device)
         self.solver = models.get_solver(cfg.solver.name)
         print(f"\033[32m[Solver]: {cfg.solver.name}\033[0m")  # solver_base.py:39
         self.state = self.solver.init_state(self.scene)
         self.iter_cnt = cfg.solver.iter_cnt
         self.timer = telemetry.StepTimer()
         self.check_nan = check_nan
+        # An inactive body (solid.active false) is built and left alone.
+        self.rigid_enabled = self.scene.has_rigid and self.scene.rigid_active
 
     def step(self):
         """One fluid solver step."""
         self.state = self.solver.step(self.scene, self.state)
         self.timer.tick(1)
 
+    def rigid_step(self):
+        """One rigid-body step under the fluid's forces, with the dt the
+        last fluid step chose (`cfd_taichi_tpu/runner.py:61-65`)."""
+        if self.rigid_enabled:
+            self.state = self.state._replace(rigid=rigid_mod.step(
+                self.scene, self.state.rigid, self.state.dt))
+
     def frame(self):
-        """One frame: iter_cnt fluid steps (reference main.py:165-173)."""
+        """One frame: iter_cnt fluid steps, then iter_cnt rigid steps
+        (reference main.py:165-173)."""
         for _ in range(self.iter_cnt):
             self.step()
+        for _ in range(self.iter_cnt):
+            self.rigid_step()
         if self.check_nan:
             f = self.state.fluid
             bad = int(telemetry.check_valid(f.pos, f.vel, f.acc))
             if bad:
                 raise FloatingPointError(f"{bad} particles went NaN/Inf")
+            bad = int(telemetry.rigid_invalid(self.state.rigid))
+            if bad:
+                raise FloatingPointError(
+                    f"the rigid body went NaN/Inf ({bad} bad values)")
 
     @property
     def t(self) -> float:
@@ -67,9 +91,16 @@ class Simulation:
 
     def density(self) -> torch.Tensor:
         """(N,) density in state order from the port's own fluid and
-        boundary passes: 0.001 + sum_f m W + sum_b rho0 V_b W."""
-        perm, _, _, rho, _ = base.sorted_density(self.scene,
-                                                 self.state.fluid.pos)
+        boundary passes: 0.001 + sum_f m W + sum_b rho0 V_b W, and + sum_s
+        rho0 V_s W over a body coupled both ways, as the JAX package's
+        density counts it (`cfd_taichi_tpu/models/base.py:481-491`)."""
+        sc = self.scene
+        perm, pos, _, rho, _ = base.sorted_density(sc, self.state.fluid.pos)
+        if sc.coupled and sc.fs_couple:
+            table = rigid_ops.rigid_table(sc.grid, self.state.rigid.pos,
+                                          sc.rigid_volume)
+            rho = rho + rigid_ops.rigid_terms(pos, table, sc.grid, sc.h,
+                                              RHO_0).rho
         return torch.empty_like(rho).index_put_((perm,), rho)
 
     def telemetry(self) -> dict:
@@ -81,6 +112,9 @@ class Simulation:
         out["t"] = self.t
         out["nan_particles"] = int(telemetry.check_valid(f.pos, f.vel, f.acc))
         out["window_overflow"] = int(self.state.overflow)
+        if self.scene.has_rigid:
+            out["rigid_invalid"] = int(telemetry.rigid_invalid(
+                self.state.rigid))
         diag = self.state.diag.cpu().tolist()
         out["solver_iters"] = [round(diag[0], 1), round(diag[2], 1)]
         out["solver_residuals"] = [round(diag[1], 4), round(diag[3], 4)]

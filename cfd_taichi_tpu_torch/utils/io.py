@@ -3,14 +3,17 @@
 A checkpoint is an `.npz` of `leaf_0 ... leaf_<L-1>`, the leaves of the
 JAX package's `SimState` in `jax.tree_util.tree_flatten` order
 (`cfd_taichi_tpu/utils/io.py:140-161`), plus a `.json` sidecar. Either
-package can resume the other's checkpoint of a fluid-only scene, and
-`state_from_numpy` carries a JAX state's leaves into the port.
+package can resume the other's checkpoint, with or without a rigid body,
+and `state_from_numpy` carries a JAX state's leaves into the port.
 
 Leaf layout: 0-2 pos x/y/z, 3-5 vel, 6-8 acc, 9 oid; 10-24 the rigid body
 (pos x/y/z, vertices x/y/z, vel, omega, alpha, acc, force x/y/z, centroid,
 inertia_inv); 25 dt, 26 t, 27 step_count; then the solver's E extra
 leaves (DFSPH's warm_k, IISPH's p_past, none for WCSPH); then diag and
-overflow. So L = 30 + E: 31 for DFSPH and IISPH, 30 for WCSPH.
+overflow. So L = 30 + E: 31 for DFSPH and IISPH, 30 for WCSPH. A scene
+without a body holds the JAX package's `empty_rigid()` there: six and
+three empty vectors, four zero 3-vectors, a zero centroid and a zero
+3 x 3 matrix.
 """
 
 from __future__ import annotations
@@ -24,23 +27,18 @@ import torch
 from cfd_taichi_tpu_torch.models import base
 
 BASE_LEAVES = 30     # the leaves of every solver's state, extras aside
+_RIGID = 10          # index of the first rigid leaf
 _EXTRA = 28          # index of the first extra leaf
-_RIGID_PARTICLE_LEAVES = (10, 11, 12, 13, 14, 15, 20, 21, 22)
 
 
 def state_from_numpy(leaves, device="cuda") -> base.SimState:
     """Port state from the JAX `SimState` leaves (numpy arrays, flatten
-    order). The scene must be fluid-only: the rigid leaves must be empty."""
+    order), a rigid body's included."""
     leaves = [np.asarray(a) for a in leaves]
     n_extra = len(leaves) - BASE_LEAVES
     if n_extra < 0:
         raise ValueError(f"expected at least {BASE_LEAVES} state leaves, "
                          f"got {len(leaves)}")
-    for i in _RIGID_PARTICLE_LEAVES:
-        if leaves[i].size:
-            raise NotImplementedError(
-                f"state leaf {i} holds rigid particles: rigid coupling is "
-                f"not ported yet (ROADMAP.md, queue 1)")
 
     def t(a, dtype=torch.float32):
         return torch.tensor(a, dtype=dtype, device=device)
@@ -48,10 +46,15 @@ def state_from_numpy(leaves, device="cuda") -> base.SimState:
     def rows(i):
         return t(np.stack(leaves[i:i + 3], axis=-1))
 
+    r = _RIGID
     return base.SimState(
         fluid=base.FluidState(pos=rows(0), vel=rows(3), acc=rows(6),
                               oid=t(leaves[9], torch.int32)),
-        rigid=None,
+        rigid=base.RigidBodyState(
+            pos=rows(r), vertices=rows(r + 3), vel=t(leaves[r + 6]),
+            omega=t(leaves[r + 7]), alpha=t(leaves[r + 8]),
+            acc=t(leaves[r + 9]), force=rows(r + 10),
+            centroid=t(leaves[r + 13]), inertia_inv=t(leaves[r + 14])),
         dt=t(leaves[25]), t=t(leaves[26]),
         step_count=t(leaves[27], torch.int32),
         extra=tuple(t(a) for a in leaves[_EXTRA:_EXTRA + n_extra]),
@@ -60,19 +63,18 @@ def state_from_numpy(leaves, device="cuda") -> base.SimState:
 
 
 def state_to_numpy(state: base.SimState) -> list[np.ndarray]:
-    """The inverse of `state_from_numpy`: JAX leaf order, with an empty
-    rigid body laid out as the JAX package's `empty_rigid()`."""
+    """The inverse of `state_from_numpy`: JAX leaf order."""
     def n(x):
         return x.detach().cpu().numpy()
 
-    f = state.fluid
-    z0 = np.zeros((0,), np.float32)
-    z3 = np.zeros((3,), np.float32)
-    rigid = ([z0] * 6 + [z3] * 4 + [z0] * 3
-             + [z3, np.zeros((3, 3), np.float32)])
-    return ([n(f.pos[:, c]) for c in range(3)]
-            + [n(f.vel[:, c]) for c in range(3)]
-            + [n(f.acc[:, c]) for c in range(3)]
+    def cols(x):
+        return [n(x[:, c]) for c in range(3)]
+
+    f, r = state.fluid, state.rigid
+    rigid = (cols(r.pos) + cols(r.vertices)
+             + [n(r.vel), n(r.omega), n(r.alpha), n(r.acc)]
+             + cols(r.force) + [n(r.centroid), n(r.inertia_inv)])
+    return (cols(f.pos) + cols(f.vel) + cols(f.acc)
             + [n(f.oid)] + rigid
             + [n(state.dt), n(state.t), n(state.step_count)]
             + [n(e) for e in state.extra]

@@ -69,6 +69,12 @@ def check_valid(pos: torch.Tensor, vel: torch.Tensor,
     return bad.sum()
 
 
+def rigid_invalid(rigid) -> torch.Tensor:
+    """Count of NaN/Inf values in a rigid body's state (models/base.
+    RigidBodyState): its particles, forces and body quantities."""
+    return sum((~torch.isfinite(t)).sum() for t in rigid)
+
+
 def density_stats(rho, rho_0: float = 1000.0) -> dict:
     """Residual telemetry matching the reference's per-step prints
     (dfsph_solver.py:233,416)."""

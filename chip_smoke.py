@@ -41,7 +41,16 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 updated positions the inputs' shifted by ~0.3 r (pairs
                 cross r = h both ways) and a random negative lambda. Kernel
                 and plain times: CUDA events, median of 10 after 3 warm-up
-                calls. Each kernel's bound (perf/bounds.py: the bytes and
+                calls. The four fluid-rigid kernels (rigid_terms,
+                rigid_contact_dot, rigid_viscosity, rigid_side_force) run
+                on a body in water (perf/inputs.body_inputs: the 30k and
+                1M blocks, jittered, with a builtin:cube1 body of ~3,200
+                and ~40k voxels at their centre, the fluid in its voxels
+                taken out) and on the half-immersed torus scene
+                (perf/inputs.torus_inputs), with random rigid and fluid
+                velocities, densities and u, to 1e-5 of scale;
+                rigid_side_force must also repeat bit for bit over two
+                launches. Each kernel's bound (perf/bounds.py: the bytes and
                 f32 operations of the call's inputs at the H100's peaks)
                 and, for the coef contraction, the one PyTorch call that
                 computes its lane sums (torch.sparse CSR @ dense lanes,
@@ -54,7 +63,11 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 about its centre (pressure acts): positions through oid to
                 5e-6 (WCSPH 6.0e-8 and IISPH 9.0e-8, what the same kernels
                 gave before), dt to rtol 1e-5, equal iteration counts every
-                step; the errors are printed.
+                step; the errors are printed. Then the coupled scene of
+                tests/test_rigid.py:12-21 (RIGID_CFG) as DFSPH with the body
+                in the water, squeezed by 0.97 about its mean, 4 steps with
+                a rigid step after each: positions to 5e-6, equal counts,
+                the centroid to 1e-5.
 5. main       - configs/breaking_dam_30k.json as DFSPH, 100 steps from rest
                 through Simulation.step on the default engine (stored
                 coefficients, f32). fluid_terms, boundary_terms, viscosity,
@@ -91,7 +104,22 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 +- 2r; density within (100, 2000) (tests/test_wcsph.py:
                 53-58), and its range, to two decimals, the one the
                 kernels gave before (WCSPH_RHO).
-12. iisph     - configs/breaking_dam_30k.json as written (IISPH, on the
+12. rigid     - configs/torus_flush.json as written (DFSPH, a torus beside
+                the water), 200 steps, each a fluid step and a rigid step
+                (Simulation.step, Simulation.rigid_step), and its variant
+                with the torus moved to start half immersed in the water
+                (perf/inputs.torus_immersed; the offset is printed), 24
+                steps: the four fluid-rigid kernels launched as often as
+                the step calls them (rigid_terms and rigid_viscosity once a
+                step, rigid_contact_dot twice, rigid_side_force once a
+                density iteration) beside the coef path's, no plain
+                version; the reaction force non-zero in the variant's first
+                three steps; fluid and body finite and inside the box +-
+                2r; the last density residual <= 1.0 unless the step hit
+                the 500-iteration cap. Prints steps/s, device time a step
+                and busy share (3 profiled steps), peak memory, iterations
+                a step, max |F| and the centroid's path.
+13. iisph     - configs/breaking_dam_30k.json as written (IISPH, on the
                 card by default), steps 1-50 from rest on the coef engine
                 and on the recompute engine: that engine's kernels
                 launched, no plain version, finite, at most 180 Jacobi
@@ -141,6 +169,27 @@ PBF_PATH = ("pbf_terms", "pbf_lambda", "pbf_xsph")
 # PBF, new, gave 6.855e-07 and 1.788e-07 there at first)
 AGREE = (("dfsph", False, 5e-6), ("wcsph", True, 6.0e-8),
          ("iisph", True, 9.0e-8), ("pcisph", True, 5e-6), ("pbf", True, 5e-6))
+# [agree]: RIGID_CFG (tests/test_rigid.py:12-21) as DFSPH with the body in
+# the water, squeezed by 0.97 about its mean, 4 steps with rigid steps
+RIGID_CFG = {
+    "scene": {"box_min": [0, 0, 0], "box_max": [0.8, 1.0, 0.8],
+              "particle_radius": 0.025, "gravity": 9.8},
+    "solver": {"name": "dfsph", "delta_time": 4e-4, "iter_cnt": 1,
+               "boundary_handle": True, "fs_couple": True},
+    "fluid": {"start_pos": [0.1, 0.05, 0.1], "water_size": [0.6, 0.25, 0.6]},
+    "solid": {"mesh": "builtin:cube1", "voxel_radius": 0.025,
+              "rho_0": 500, "scale": 0.18, "pos_offset": [0.4, 0.28, 0.4],
+              "attitude_offset": [0.0, 0.0, 0.0], "fill": True,
+              "active": True},
+}
+RIGID_PATH = ("rigid_terms", "rigid_contact_dot", "rigid_viscosity",
+              "rigid_side_force")
+# [rigid]: (tag, steps) of torus_flush as written and its half-immersed
+# variant. The variant's voxels overlap ~250 fluid particles, whose
+# pressure throws them out: in both packages two of them leave the box
+# +- 2r after 30 steps (the JAX package at step 33 on the CPU, the port
+# at step 40 or before on an H100), so its run stops at 24.
+RIGID_RUNS = (("torus_flush", 200), ("immersed", 24))
 # [wcsph]: the density range after the run, as printed (%.2f), that the
 # kernels gave before; the same arithmetic in the same order repeats it.
 WCSPH_RHO = {"30k": ("293.99", "693.86"), "1m": ("289.52", "684.12")}
@@ -344,8 +393,36 @@ def phase_kernels(torch, results: dict) -> None:
                    check_case(case, x["p"], torch))
         del x
         torch.cuda.empty_cache()
+    rigid_checks(torch, results)
     ragged_checks(torch)
     clustered_checks(torch, results)
+
+
+def rigid_checks(torch, results: dict) -> None:
+    """The four fluid-rigid kernels against their plain versions on a body
+    in water at 30k and 1M and on the half-immersed torus scene, timed;
+    rigid_side_force repeats bit for bit."""
+    from cfd_taichi_tpu_torch.perf import bounds, cases, inputs
+
+    for tag, make in (
+            ("30k", lambda: inputs.body_inputs("breaking_dam_30k.json", 3)),
+            ("1m", lambda: inputs.body_inputs("breaking_dam_1m.json", 3)),
+            ("torus", lambda: inputs.torus_inputs(3))):
+        x = make()
+        work = bounds.rigid_work(x)
+        print(f"[kernels] body in water, {tag}: {x['p'].shape[0]} fluid "
+              f"particles, {x['rpos'].shape[0]} rigid particles")
+        for case in cases.rigid_cases(x, work):
+            record(results, case, tag,
+                   compare(f"{case.name} {tag}", case.kern(), case.plain(),
+                           torch))
+            if case.name == "rigid_side_force":
+                same = torch.equal(case.kern(), case.kern())
+                print(f"    rigid_side_force {tag}: two launches bit-equal "
+                      f"{same}")
+                check(same, f"rigid_side_force {tag}: launches differ")
+        del x
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -389,6 +466,41 @@ def phase_agree(torch) -> None:
                   f"{tag}: dt differs")
             check((da[0], da[2]) == (db[0], db[2]),
                   f"{tag}: iteration counts differ")
+    agree_coupled(torch)
+
+
+def agree_coupled(torch) -> None:
+    """RIGID_CFG as DFSPH, squeezed by 0.97 about its mean, 4 fluid steps
+    each with its rigid step, on the card and on the CPU."""
+    import numpy as np
+
+    from cfd_taichi_tpu_torch import Simulation
+    from cfd_taichi_tpu_torch.config import parse_config
+
+    sims = {dev: Simulation(parse_config(copy.deepcopy(RIGID_CFG)),
+                            device=dev) for dev in ("cuda", "cpu")}
+    pos = sims["cpu"].state.fluid.pos
+    mid = pos.mean(dim=0)
+    pos = mid + (pos - mid) * 0.97
+    for dev, s in sims.items():
+        s.state = s.state._replace(fluid=s.state.fluid._replace(
+            pos=pos.to(dev)))
+    for step in range(1, 5):
+        for s in sims.values():
+            s.step()
+            s.rigid_step()
+        a, b = (sims[d].state for d in ("cuda", "cpu"))
+        err = float(np.abs(oid_sorted(a) - oid_sorted(b)).max())
+        cerr = float((a.rigid.centroid.cpu() - b.rigid.centroid).abs().max())
+        da, db = a.diag.cpu().tolist(), b.diag.cpu().tolist()
+        print(f"[agree] coupled dfsph step {step}: pos err {err:.3e}  "
+              f"centroid err {cerr:.3e}  iters cuda {da[0]:.0f}/{da[2]:.0f} "
+              f"cpu {db[0]:.0f}/{db[2]:.0f}")
+        tag = f"RIGID_CFG dfsph step {step}"
+        check(err <= 5e-6, f"{tag}: cuda vs cpu pos err {err}")
+        check(cerr <= 1e-5, f"{tag}: cuda vs cpu centroid err {cerr}")
+        check((da[0], da[2]) == (db[0], db[2]),
+              f"{tag}: iteration counts differ")
 
 
 # ---------------------------------------------------------------------------
@@ -648,6 +760,106 @@ def phase_wcsph(torch, results: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def phase_rigid(torch, results: dict) -> None:
+    """configs/torus_flush.json and its half-immersed variant on the card,
+    each step a fluid step and a rigid step."""
+    from cfd_taichi_tpu_torch import Simulation, read_config
+    from cfd_taichi_tpu_torch.models import dfsph
+    from cfd_taichi_tpu_torch.ops import stencil
+    from cfd_taichi_tpu_torch.perf import inputs, timing
+
+    for tag, steps in RIGID_RUNS:
+        if tag == "immersed":
+            cfg = inputs.torus_immersed()
+            print(f"[rigid] immersed: torus_flush with solid.pos_offset "
+                  f"{list(cfg.solid.pos_offset)}")
+        else:
+            cfg = read_config(str(inputs.CONFIGS / "torus_flush.json"))
+        sim = Simulation(cfg)
+        check(sim.scene.coupled and sim.device.type == "cuda",
+              f"rigid {tag}: not a coupled scene on the card")
+
+        def one():
+            sim.step()
+            force = sim.state.rigid.force.abs().max()
+            sim.rigid_step()
+            return force
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stencil.reset_counts()
+        diags, forces, path = [], [], []
+        t0 = time.perf_counter()
+        for k in range(steps):
+            forces.append(one())
+            diags.append(sim.state.diag)
+            if k % (steps // 8) == 0 or k == steps - 1:
+                path.append(sim.state.rigid.centroid)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k.name: (k.launches, k.plain_calls)
+                  for k in stencil.KERNELS.values()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        diags = [d.tolist() for d in diags]
+        forces = [float(f) for f in forces]
+        den = round(sum(d[2] for d in diags))
+        print(f"[rigid] {tag}: n={sim.scene.n_fluid} rigid="
+              f"{sim.scene.n_rigid}: {steps} steps (fluid + rigid) in "
+              f"{wall:.3f} s = {steps / wall:.3f} steps/s; peak device "
+              f"memory {peak:.3f} GiB")
+        print(f"[rigid] {tag}: {iter_summary('dfsph', diags)}")
+        print(f"[rigid] {tag}: kernel (launches, plain calls): {counts}")
+        print(f"[rigid] {tag}: max |F| first steps "
+              f"{[f'{f:.4e}' for f in forces[:3]]}, over the run "
+              f"{max(forces):.4e}")
+        print(f"[rigid] {tag}: centroid path "
+              f"{[[round(c, 4) for c in p.tolist()] for p in path]}")
+        want = dict(rigid_terms=steps, rigid_contact_dot=2 * steps,
+                    rigid_viscosity=steps, rigid_side_force=den)
+        for name, (launches, plain) in counts.items():
+            check(plain == 0, f"rigid {tag}: plain version of {name} ran")
+            if name in want:
+                check(launches == want[name],
+                      f"rigid {tag}: {name} launched {launches} times, not "
+                      f"{want[name]}")
+            elif name in COEF_PATH:
+                check(launches > 0, f"rigid {tag}: {name} never launched")
+        if tag == "immersed":
+            check(min(forces[:3]) > 0.0,
+                  f"rigid {tag}: no reaction force in the first steps")
+        check_state(sim, f"rigid {tag}")
+        bad = int(sum((~torch.isfinite(t)).sum() for t in sim.state.rigid))
+        check(bad == 0, f"rigid {tag}: {bad} non-finite body values")
+        outside = outside_box(sim, torch)
+        margin = 2.0 * sim.scene.particle_radius
+        rp = sim.state.rigid.pos
+        lo = torch.tensor(sim.scene.box_min, device=rp.device) - margin
+        hi = torch.tensor(sim.scene.box_max, device=rp.device) + margin
+        body_out = int((~((rp >= lo) & (rp <= hi)).all(dim=1)).sum())
+        print(f"[rigid] {tag}: {outside} fluid and {body_out} body particles "
+              f"outside the box +- 2r")
+        check(outside == 0 and body_out == 0, f"rigid {tag}: escaped")
+        last = diags[-1]
+        check(last[3] <= 1.0 or last[2] == dfsph.MAX_ITER_DENSITY,
+              f"rigid {tag}: density residual {last[3]} after {last[2]} "
+              f"iterations")
+        found, pwall = timing.profile_kernels(
+            lambda: [one() for _ in range(3)])
+        dev_ms = sum(t for _, t in found.values()) / 1e3 / 3
+        print(f"[rigid] {tag}: device time {dev_ms:.3f} ms a step, busy "
+              f"{dev_ms * 3 / 1e3 / pwall:.3f} of {pwall:.3f} s (3 "
+              f"profiled steps)")
+        if tag == "torus_flush":
+            for name in RIGID_PATH:
+                results[name]["launches"] = counts[name][0]
+        results["_runs"][f"rigid_{tag}"] = dict(
+            steps_per_sec=steps / wall, device_ms_per_step=dev_ms,
+            busy=dev_ms * 3 / 1e3 / pwall, peak_gib=peak,
+            mean_diag=[statistics.mean(c) for c in zip(*diags)],
+            last_diag=last, max_force=max(forces),
+            launches={k: c[0] for k, c in counts.items()})
+
+
 def phase_iisph(torch, results: dict) -> None:
     """configs/breaking_dam_30k.json as written (IISPH), on the card by
     default, steps 1-50 from rest on each loop engine."""
@@ -717,6 +929,7 @@ def main() -> int:
             phase_solver(torch, sims, results, solver)
         phase_scale_bf16(torch, sims, results)
         phase_wcsph(torch, results)
+        phase_rigid(torch, results)
         phase_iisph(torch, results)
     except (SmokeFailure, RuntimeError, subprocess.SubprocessError,
             OSError) as e:

@@ -25,10 +25,12 @@ import pytest
 import torch
 
 from cfd_taichi_tpu_torch import Simulation, build_scene
+from cfd_taichi_tpu_torch import geometry as geo
 from cfd_taichi_tpu_torch.config import parse_config
 from cfd_taichi_tpu_torch.models import base, pbf
 from cfd_taichi_tpu_torch.ops import coef
 from cfd_taichi_tpu_torch.ops import neighbors as nb
+from cfd_taichi_tpu_torch.ops import rigid
 from cfd_taichi_tpu_torch.ops import stencil
 from cfd_taichi_tpu_torch.perf import cases, inputs
 
@@ -39,6 +41,18 @@ TINY = {
     "fluid": {"start_pos": [0.15, 0.1, 0.15], "water_size": [0.3, 0.3, 0.3]},
 }
 VISC = dict(c_s=13.0, alpha=0.08)
+# tests/test_rigid.py:12-21 as DFSPH, the body in the water
+RIGID_CFG = {
+    "scene": {"box_min": [0, 0, 0], "box_max": [0.8, 1.0, 0.8],
+              "particle_radius": 0.025, "gravity": 9.8},
+    "solver": {"name": "dfsph", "delta_time": 4e-4, "iter_cnt": 1,
+               "boundary_handle": True, "fs_couple": True},
+    "fluid": {"start_pos": [0.1, 0.05, 0.1], "water_size": [0.6, 0.25, 0.6]},
+    "solid": {"mesh": "builtin:cube1", "voxel_radius": 0.025,
+              "rho_0": 500, "scale": 0.18, "pos_offset": [0.4, 0.28, 0.4],
+              "attitude_offset": [0.0, 0.0, 0.0], "fill": True,
+              "active": True},
+}
 
 
 @pytest.fixture
@@ -70,7 +84,31 @@ def _all_outputs(sc, pos, starts, k, v, rho):
             stencil.pbf_xsph(pos, starts, g, h, pos + 0.01 * v, v),
             eng.nbr, eng.w,
             *coef.coef_matvec(eng, pos, k, lane_sums=True).unbind(1),
-            *coef.coef_matvec_dot(eng, pos, v, lane_sums=True).unbind(1)]
+            *coef.coef_matvec_dot(eng, pos, v, lane_sums=True).unbind(1),
+            *_body_outputs(sc, pos, starts, v, rho)]
+
+
+def _body_outputs(sc, pos, starts, v, rho):
+    """The four fluid-rigid wrappers once, for a 24-voxel box body in
+    TINY's block with numpy-seeded volumes and velocities."""
+    dev = pos.device
+    rng = np.random.default_rng(13)
+    vox = np.ascontiguousarray(geo.voxelize_mesh(
+        *geo.load_mesh("builtin:cube1", scale=0.18), pitch=0.05)
+        + np.float32([0.25, 0.2, 0.25]))
+    nr = vox.shape[0]
+    rpos, rvol, v_r, rq, force = (
+        torch.tensor(a, dtype=torch.float32, device=dev) for a in
+        (vox, rng.uniform(1e-4, 2e-4, nr), rng.standard_normal((nr, 3)),
+         rng.uniform(900.0, 1100.0, nr), rng.standard_normal((nr, 3))))
+    table = rigid.rigid_table(sc.grid, rpos, rvol)
+    g, h, m = sc.grid, sc.h, sc.particle_m
+    return [*rigid.rigid_terms(pos, table, g, h, 1000.0),
+            rigid.rigid_contact_dot(pos, table, g, h, 1000.0, v_r),
+            rigid.rigid_viscosity(pos, table, g, h, 1000.0, m, v, rho, rq,
+                                  v_r[0].contiguous(), **VISC),
+            rigid.rigid_side_force(rpos, rvol, pos, starts, g, h, 1000.0,
+                                   1e-4 * rho, force)]
 
 
 def _tiny_inputs(dev, seed=11):
@@ -456,3 +494,93 @@ def test_pcisph_and_pbf_kernels_repeat_bit_for_bit(clustered):
         again = again if isinstance(again, tuple) else (again,)
         assert all(torch.equal(a, b) for a, b in zip(first, again)), \
             case.name
+
+
+def _rigid_cases(x):
+    return list(cases.rigid_cases(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["30k", "torus"])
+def test_rigid_kernels_match_plain_versions(cuda, where):
+    """The four fluid-rigid kernels on a body in water (the 30k block with
+    a ~3,200-voxel box at its centre) and on the half-immersed torus."""
+    x = (inputs.body_inputs("breaking_dam_30k.json", seed=3, device=cuda)
+         if where == "30k" else inputs.torus_inputs(seed=3, device=cuda))
+    stencil.reset_counts()
+    for case in _rigid_cases(x):
+        _assert_case_matches_plain(case)
+    for name in ("rigid_terms", "rigid_contact_dot", "rigid_viscosity",
+                 "rigid_side_force"):
+        assert stencil.KERNELS[name].launches == 1, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 129])
+def test_rigid_kernels_with_one_live_lane(cuda, n):
+    """n fluid queries and n rigid particles: the last warp of each launch
+    holds one live lane."""
+    x = inputs.torus_inputs(seed=3, device=cuda)
+    near = rigid.rigid_terms(x["p"], x["table"], x["grid"], x["h"],
+                             1000.0).rho > 0
+    keys = ("v", "rho", "u")
+    scid, _, p, rows = base.sort_by_cells(
+        x["grid"], x["p"][near][:n].clone(),
+        tuple(x[key][near][:n] for key in keys))
+    few = dict(x, p=p, st=nb.csr_starts(scid, x["grid"].num_cells),
+               **dict(zip(keys, rows)))
+    for key in ("rpos", "rvol", "v_r", "rho_quirk", "force"):
+        few[key] = x[key][:n].contiguous()
+    few["table"] = rigid.rigid_table(x["grid"], few["rpos"], few["rvol"])
+    for case in _rigid_cases(few):
+        _assert_case_matches_plain(case)
+
+
+@pytest.mark.cuda
+def test_rigid_kernels_repeat_bit_for_bit(cuda):
+    x = inputs.body_inputs("breaking_dam_30k.json", seed=3, device=cuda)
+    for case in _rigid_cases(x):
+        first, again = case.kern(), case.kern()
+        first = first if isinstance(first, tuple) else (first,)
+        again = again if isinstance(again, tuple) else (again,)
+        assert all(torch.equal(a, b) for a, b in zip(first, again)), \
+            case.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("squeeze,steps", [(0.97, 4), (0.85, 1)])
+def test_coupled_dfsph_steps_on_the_card_match_the_cpu(cuda, squeeze, steps):
+    """RIGID_CFG as DFSPH, its block squeezed about its mean, with a rigid
+    step after each fluid step: positions through oid to 5e-6, equal
+    iteration counts, the centroid to 1e-5 and the body's largest force
+    component (sampled before the rigid step) to rtol 1e-5."""
+    sims = [Simulation(parse_config(copy.deepcopy(RIGID_CFG)), device=dev)
+            for dev in (cuda, "cpu")]
+    pos = sims[1].state.fluid.pos
+    mid = pos.mean(dim=0)
+    pos = mid + (pos - mid) * squeeze
+    for s in sims:
+        s.state = s.state._replace(fluid=s.state.fluid._replace(
+            pos=pos.to(s.device)))
+    stencil.reset_counts()
+    for _ in range(steps):
+        forces = []
+        for s in sims:
+            s.step()
+            forces.append(float(s.state.rigid.force.abs().max()))
+            s.rigid_step()
+        a, b = (s.state for s in sims)
+        pa = a.fluid.pos.cpu().numpy()[np.argsort(a.fluid.oid.cpu().numpy())]
+        pb = b.fluid.pos.numpy()[np.argsort(b.fluid.oid.numpy())]
+        np.testing.assert_allclose(pa, pb, atol=5e-6)
+        np.testing.assert_array_equal(a.diag.cpu().numpy()[[0, 2]],
+                                      b.diag.numpy()[[0, 2]])
+        np.testing.assert_allclose(a.rigid.centroid.cpu().numpy(),
+                                   b.rigid.centroid.numpy(), atol=1e-5)
+        np.testing.assert_allclose(forces[0], forces[1], rtol=1e-5)
+    if squeeze < 0.9:
+        assert forces[0] > 0
+    for name in ("rigid_terms", "rigid_contact_dot", "rigid_viscosity",
+                 "rigid_side_force"):
+        kern = stencil.KERNELS[name]
+        assert kern.launches > 0 and kern.launches == kern.plain_calls, name

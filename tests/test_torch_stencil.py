@@ -31,6 +31,7 @@ from cfd_taichi_tpu_torch.config import parse_config
 from cfd_taichi_tpu_torch.models import base
 from cfd_taichi_tpu_torch.ops import coef
 from cfd_taichi_tpu_torch.ops import neighbors as nb
+from cfd_taichi_tpu_torch.ops import rigid
 from cfd_taichi_tpu_torch.ops import stencil
 
 TINY = {
@@ -173,6 +174,17 @@ def test_cpu_tensors_take_the_plain_versions(case):
     stencil.pbf_terms(pos, starts, sc.grid, sc.h, sc.particle_m, 1e3, 1e-7)
     stencil.pbf_lambda(pos, starts, sc.grid, sc.h, -1e-5 * k)
     stencil.pbf_xsph(pos, starts, sc.grid, sc.h, pos + 0.01 * v, v)
+    # the fluid-rigid passes, with the first 24 fluid particles, moved by
+    # 0.01, standing in for a body
+    rpos = pos[:24] + 0.01
+    rvol = torch.full((24,), 1e-4)
+    table = rigid.rigid_table(sc.grid, rpos, rvol)
+    rigid.rigid_terms(pos, table, sc.grid, sc.h, 1000.0)
+    rigid.rigid_contact_dot(pos, table, sc.grid, sc.h, 1000.0, v[:24])
+    rigid.rigid_viscosity(pos, table, sc.grid, sc.h, 1000.0, sc.particle_m,
+                          v, rho, rho[:24], v[0], **VISC)
+    rigid.rigid_side_force(rpos, rvol, pos, starts, sc.grid, sc.h, 1000.0,
+                           k, v[:24])
     for kern in stencil.KERNELS.values():
         assert (kern.launches, kern.plain_calls) == (0, 1), kern.name
 
