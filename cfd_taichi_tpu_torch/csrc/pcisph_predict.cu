@@ -6,8 +6,8 @@
 // predicted ones:
 //   rho~[i] = m sum_j W(|x~_i - x~_j|)            j != i, |x_i - x_j|^2 <= h2
 //           + sum_b (rho0 V_b) W(|x~_i - x_b|)    |x_i - x_b|^2 <= h2 (walls)
-// with r = sqrt(max(d2, 1e-24)) and W the cubic spline with q = r *
-// f32(1/h), as XLA computes JAX's r / h (cubic_w_mul). The pair set is
+// with r = sqrt(max(d2, 1e-24)) and W the cubic spline (cubic_w, q = r *
+// f32(1/h), as XLA computes JAX's r / h). The pair set is
 // the start-of-step one (the reference iterates the start-of-step grid,
 // pcisph_solver.py:135-154), W is taken at the predicted distance: a pair
 // valid at the start but beyond h at x~ gives W = 0, a pair within h at x~
@@ -43,7 +43,6 @@ struct PredictSum {
   float wscale;      // rho0 on the boundary
   float xi, yi, zi;  // the query's predicted position
   const StencilParams* p;
-  float inv_h;
   float sum;
 
   __device__ __forceinline__ void operator()(int j, const XyzRows::Record&,
@@ -52,7 +51,7 @@ struct PredictSum {
     const float dx = xi - __ldg(tpos + 3 * j);
     const float dy = yi - __ldg(tpos + 3 * j + 1);
     const float dz = zi - __ldg(tpos + 3 * j + 2);
-    const float w = cubic_w_mul(pair_r(dist2(dx, dy, dz)), *p, inv_h);
+    const float w = cubic_w(pair_r(dist2(dx, dy, dz)), *p);
     const float t = vol ? (wscale * __ldg(vol + j)) * w : w;
     if (take) sum += t;
   }
@@ -61,7 +60,7 @@ struct PredictSum {
 __global__ void __launch_bounds__(kThreads, kQueuedBlocks)
 pcisph_predict_rho_kernel(const float* __restrict__ pos,
                           const int* __restrict__ starts, int n,
-                          StencilParams p, float inv_h, float m,
+                          StencilParams p, float m,
                           const float* __restrict__ pos_p,
                           const float* __restrict__ bpos,
                           const float* __restrict__ bvol,
@@ -71,7 +70,7 @@ pcisph_predict_rho_kernel(const float* __restrict__ pos,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < n;
   float xi = 0.f, yi = 0.f, zi = 0.f;
-  PredictSum acc{pos_p, nullptr, 0.f, 0.f, 0.f, 0.f, &p, inv_h, 0.f};
+  PredictSum acc{pos_p, nullptr, 0.f, 0.f, 0.f, 0.f, &p, 0.f};
   if (live) {
     xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
     acc.xi = pos_p[3 * i], acc.yi = pos_p[3 * i + 1];
@@ -105,7 +104,7 @@ pcisph_predict_rho_kernel(const float* __restrict__ pos,
 
 extern "C" int pcisph_predict_rho_launch(const float* pos, const int* starts,
                                          int n, const StencilParams* p,
-                                         float inv_h, float m,
+                                         float m,
                                          const float* pos_p,
                                          const float* bpos, const float* bvol,
                                          const int* bstarts, const int* bnear,
@@ -114,7 +113,7 @@ extern "C" int pcisph_predict_rho_launch(const float* pos, const int* starts,
   if (n > 0) {
     pcisph_predict_rho_kernel<<<grid_blocks(n), kThreads, 0,
                                 (cudaStream_t)stream>>>(
-        pos, starts, n, *p, inv_h, m, pos_p, bpos, bvol, bstarts, bnear, nb,
+        pos, starts, n, *p, m, pos_p, bpos, bvol, bstarts, bnear, nb,
         rho0, rho);
   }
   return (int)cudaGetLastError();

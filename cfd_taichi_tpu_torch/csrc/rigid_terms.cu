@@ -13,8 +13,8 @@
 //   rigid_contact_dot: sum w_s c (x_ij . v_r[lid_j])
 // where v_r holds a velocity per rigid particle in its original order and
 // lid_j is the original index of sorted slot j. W and c take q = r *
-// f32(1/h), the product XLA makes of JAX's r / h (cubic_w_mul,
-// cubic_grad_coeff_mul).
+// f32(1/h), the product XLA makes of JAX's r / h (cubic_w,
+// cubic_grad_coeff, stencil.cuh).
 //
 // Bound on the card: the bytes of the fluid positions and the outputs
 // (perf/bounds.py), a few microseconds at 1M particles; only fluid near the
@@ -37,7 +37,7 @@ constexpr int kRigidChunk = 8;   // candidates tested between two votes
 struct RigidSums {
   const float* vol;
   const StencilParams* p;
-  float inv_h, rho0;
+  float rho0;
   float rho, sx, sy, sz, qsum, g2;
 
   __device__ __forceinline__ void operator()(int j, const XyzRows::Record&,
@@ -45,8 +45,8 @@ struct RigidSums {
                                              float r2, bool take) {
     const float r = pair_r(r2);
     const float ws = rho0 * __ldg(vol + j);
-    const float wk = cubic_w_mul(r, *p, inv_h);
-    const float gc = cubic_grad_coeff_mul(r, *p, inv_h);
+    const float wk = cubic_w(r, *p);
+    const float gc = cubic_grad_coeff(r, *p);
     const float wg = ws * gc;
     const float wr = wg * r;
     const float g2t = wg * gc * r * r;
@@ -66,15 +66,14 @@ struct ContactDot {
   const int* lid;
   const float* v_r;
   const StencilParams* p;
-  float inv_h, rho0;
+  float rho0;
   float sum;
 
   __device__ __forceinline__ void operator()(int j, const XyzRows::Record&,
                                              float dx, float dy, float dz,
                                              float r2, bool take) {
     const float r = pair_r(r2);
-    const float wg = (rho0 * __ldg(vol + j)) * cubic_grad_coeff_mul(r, *p,
-                                                                    inv_h);
+    const float wg = (rho0 * __ldg(vol + j)) * cubic_grad_coeff(r, *p);
     const int l = __ldg(lid + j);
     const float t = wg * (dx * __ldg(v_r + 3 * l) +
                           dy * __ldg(v_r + 3 * l + 1) +
@@ -88,14 +87,14 @@ rigid_terms_kernel(const float* __restrict__ pos, int n,
                    const float* __restrict__ rpos,
                    const float* __restrict__ rvol,
                    const int* __restrict__ rstarts, int nr, StencilParams p,
-                   float inv_h, float rho0, float* __restrict__ rho,
+                   float rho0, float* __restrict__ rho,
                    float* __restrict__ s, float* __restrict__ qsum,
                    float* __restrict__ g2) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < n;
   float xi = 0.f, yi = 0.f, zi = 0.f;
   if (live) xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
-  RigidSums acc{rvol, &p, inv_h, rho0, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  RigidSums acc{rvol, &p, rho0, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   queued_walk_of<kRigidQueue, kRigidChunk, kDrainUnroll>(
       XyzRows{rpos}, nr, rstarts, p, live, -1, xi, yi, zi, acc);
   if (live) {
@@ -114,14 +113,14 @@ rigid_contact_dot_kernel(const float* __restrict__ pos, int n,
                          const float* __restrict__ rvol,
                          const int* __restrict__ rlid,
                          const int* __restrict__ rstarts, int nr,
-                         StencilParams p, float inv_h, float rho0,
+                         StencilParams p, float rho0,
                          const float* __restrict__ v_r,
                          float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < n;
   float xi = 0.f, yi = 0.f, zi = 0.f;
   if (live) xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
-  ContactDot acc{rvol, rlid, v_r, &p, inv_h, rho0, 0.f};
+  ContactDot acc{rvol, rlid, v_r, &p, rho0, 0.f};
   queued_walk_of<kRigidQueue, kRigidChunk, kDrainUnroll>(
       XyzRows{rpos}, nr, rstarts, p, live, -1, xi, yi, zi, acc);
   if (live) out[i] = acc.sum;
@@ -129,13 +128,13 @@ rigid_contact_dot_kernel(const float* __restrict__ pos, int n,
 
 extern "C" int rigid_terms_launch(const float* pos, int n, const float* rpos,
                                   const float* rvol, const int* rstarts,
-                                  int nr, const StencilParams* p, float inv_h,
+                                  int nr, const StencilParams* p,
                                   float rho0, float* rho, float* s,
                                   float* qsum, float* g2, void* stream) {
   if (n > 0) {
     rigid_terms_kernel<<<grid_blocks(n), kThreads, 0,
                          (cudaStream_t)stream>>>(pos, n, rpos, rvol, rstarts,
-                                                 nr, *p, inv_h, rho0, rho, s,
+                                                 nr, *p, rho0, rho, s,
                                                  qsum, g2);
   }
   return (int)cudaGetLastError();
@@ -145,13 +144,13 @@ extern "C" int rigid_contact_dot_launch(const float* pos, int n,
                                         const float* rpos, const float* rvol,
                                         const int* rlid, const int* rstarts,
                                         int nr, const StencilParams* p,
-                                        float inv_h, float rho0,
+                                        float rho0,
                                         const float* v_r, float* out,
                                         void* stream) {
   if (n > 0) {
     rigid_contact_dot_kernel<<<grid_blocks(n), kThreads, 0,
                                (cudaStream_t)stream>>>(
-        pos, n, rpos, rvol, rlid, rstarts, nr, *p, inv_h, rho0, v_r, out);
+        pos, n, rpos, rvol, rlid, rstarts, nr, *p, rho0, v_r, out);
   }
   return (int)cudaGetLastError();
 }

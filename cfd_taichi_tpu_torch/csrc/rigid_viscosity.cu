@@ -13,7 +13,7 @@
 // quirk: rho_q, a fluid density read at the rigid particle's own index
 // (models/dfsph.py makes the table), through lid_j, the original index of
 // sorted slot j. W's gradient takes q = r * f32(1/h), as XLA computes
-// JAX's r / h (cubic_grad_coeff_mul).
+// JAX's r / h (cubic_grad_coeff, stencil.cuh).
 //
 // Bound on the card: the bytes of the fluid positions, velocities,
 // densities and the output (perf/bounds.py). As for rigid_terms, the
@@ -36,7 +36,7 @@ struct SolidViscosity {
   const int* lid;
   const float* rho_q;
   const StencilParams* p;
-  float inv_h, rho0, nu_num, q2e_add;
+  float rho0, nu_num, q2e_add;
   float vx, vy, vz, rho_i;  // v_i - v_body and rho_i of the query
   float fx, fy, fz;
 
@@ -44,7 +44,7 @@ struct SolidViscosity {
                                              float dx, float dy, float dz,
                                              float r2, bool take) {
     const float r = pair_r(r2);
-    const float gc = cubic_grad_coeff_mul(r, *p, inv_h);
+    const float gc = cubic_grad_coeff(r, *p);
     const float wsv = rho0 * __ldg(vol + j);
     const float shear = vx * dx + vy * dy + vz * dz;
     const float rho_j = __ldg(rho_q + __ldg(lid + j));
@@ -64,7 +64,7 @@ rigid_viscosity_kernel(const float* __restrict__ pos, int n,
                        const float* __restrict__ rvol,
                        const int* __restrict__ rlid,
                        const int* __restrict__ rstarts, int nr,
-                       StencilParams p, float inv_h, float rho0, float m,
+                       StencilParams p, float rho0, float m,
                        float nu_num, float q2e_add,
                        const float* __restrict__ vel,
                        const float* __restrict__ rho,
@@ -74,7 +74,7 @@ rigid_viscosity_kernel(const float* __restrict__ pos, int n,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < n;
   float xi = 0.f, yi = 0.f, zi = 0.f;
-  SolidViscosity acc{rvol, rlid, rho_q, &p, inv_h, rho0, nu_num, q2e_add,
+  SolidViscosity acc{rvol, rlid, rho_q, &p, rho0, nu_num, q2e_add,
                      0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (live) {
     xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
@@ -95,13 +95,13 @@ rigid_viscosity_kernel(const float* __restrict__ pos, int n,
 extern "C" int rigid_viscosity_launch(
     const float* pos, int n, const float* rpos, const float* rvol,
     const int* rlid, const int* rstarts, int nr, const StencilParams* p,
-    float inv_h, float rho0, float m, float nu_num, float q2e_add,
+    float rho0, float m, float nu_num, float q2e_add,
     const float* vel, const float* rho, const float* rho_q,
     const float* body_vel, float* out, void* stream) {
   if (n > 0) {
     rigid_viscosity_kernel<<<grid_blocks(n), kThreads, 0,
                              (cudaStream_t)stream>>>(
-        pos, n, rpos, rvol, rlid, rstarts, nr, *p, inv_h, rho0, m, nu_num,
+        pos, n, rpos, rvol, rlid, rstarts, nr, *p, rho0, m, nu_num,
         q2e_add, vel, rho, rho_q, body_vel, out);
   }
   return (int)cudaGetLastError();

@@ -23,14 +23,15 @@
 
 #include <cuda_runtime.h>
 
-// Layout mirrors ops/_build.py:StencilParams (ctypes): 9 ints, 7 floats.
+// Layout mirrors ops/_build.py:StencilParams (ctypes): 9 ints, 8 floats.
 struct StencilParams {
   int dims[3];     // cells per axis
   int strides[3];  // linearization strides; strides[fast] == 1
   int fast, mid, slow;
-  float inv_cell;  // f32(1 / h)
+  float inv_cell;  // f32(1 / cell size): the grid's, not the kernel's
   float h;         // support radius
   float h2;        // f32(h) * f32(h)
+  float inv_h;     // f32(1) / f32(h), the cubic kernel's q = r * inv_h
   float kw;        // f32(8 / (pi h^3))
   float kw2;       // f32(2 * 8 / (pi h^3))
   float kg6;       // f32(6 * 48 / (pi h^3))
@@ -65,23 +66,11 @@ __device__ __forceinline__ bool stencil_run(const int c[3], int dm, int ds,
   return true;
 }
 
-// Cubic spline W (cfd_taichi_tpu/ops/smoothing.py:23-38).
+// Cubic spline W (cfd_taichi_tpu/ops/smoothing.py:23-38), q = r * inv_h
+// with inv_h = f32(1) / f32(h): the product XLA makes of JAX's jitted r / h
+// (ops/smoothing.py's note).
 __device__ __forceinline__ float cubic_w(float r, const StencilParams& p) {
-  const float q = r / p.h;
-  const float q2 = q * q;
-  const float q3 = q2 * q;
-  const float near_w = p.kw * (6.0f * (q3 - q2) + 1.0f);
-  const float omq = 1.0f - q;
-  const float far_w = p.kw2 * omq * omq * omq;
-  const float w = (q <= 0.5f) ? near_w : far_w;
-  return (q <= 1.0f) ? w : 0.0f;
-}
-
-// cubic_w with q = r * inv_h, inv_h = f32(1) / f32(h): the product XLA
-// makes of JAX's r / h (ops/smoothing.py:cubic_w_mul).
-__device__ __forceinline__ float cubic_w_mul(float r, const StencilParams& p,
-                                             float inv_h) {
-  const float q = r * inv_h;
+  const float q = r * p.inv_h;
   const float q2 = q * q;
   const float q3 = q2 * q;
   const float near_w = p.kw * (6.0f * (q3 - q2) + 1.0f);
@@ -92,25 +81,11 @@ __device__ __forceinline__ float cubic_w_mul(float r, const StencilParams& p,
 }
 
 // Gradient factor c(r), grad W = c(r) * x_ij, with the 1e-5 < q guard
-// (cfd_taichi_tpu/ops/smoothing.py:65-76).
+// (cfd_taichi_tpu/ops/smoothing.py:65-76), q = r * inv_h as in cubic_w;
+// the division by h max(r, 1e-12) stays a division, as in JAX.
 __device__ __forceinline__ float cubic_grad_coeff(float r,
                                                   const StencilParams& p) {
-  const float q = r / p.h;
-  const float near_g = p.kg6 * (3.0f * q * q - 2.0f * q);
-  const float omq = 1.0f - q;
-  const float far_g = p.kgm6 * omq * omq;
-  float coeff = (q <= 0.5f) ? near_g : far_g;
-  coeff = (q > 1e-5f && q <= 1.0f) ? coeff : 0.0f;
-  return coeff / (p.h * fmaxf(r, 1e-12f));
-}
-
-// cubic_grad_coeff with q = r * inv_h, as cubic_w_mul; the division by
-// h max(r, 1e-12) stays a division, as in JAX (ops/smoothing.py:
-// cubic_grad_coeff_mul). The fluid-rigid kernels take it.
-__device__ __forceinline__ float cubic_grad_coeff_mul(float r,
-                                                      const StencilParams& p,
-                                                      float inv_h) {
-  const float q = r * inv_h;
+  const float q = r * p.inv_h;
   const float near_g = p.kg6 * (3.0f * q * q - 2.0f * q);
   const float omq = 1.0f - q;
   const float far_g = p.kgm6 * omq * omq;

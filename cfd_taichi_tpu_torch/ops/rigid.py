@@ -33,7 +33,7 @@ Pairs are those with r2 <= f32(h)^2 at the start-of-step positions, r =
 sqrt(max(r2, 1e-24)) (`_geom0`, rigid_dense.py:118-127); the reaction
 also needs r <= h, as JAX's list does (rigid_dense.py:272). W and c take
 q = r * f32(1/h), the product XLA makes of JAX's jitted r / h
-(smoothing.cubic_w_mul, cubic_grad_coeff_mul).
+(smoothing.cubic_w, cubic_grad_coeff).
 """
 
 from __future__ import annotations
@@ -45,9 +45,8 @@ import torch
 
 from cfd_taichi_tpu_torch.ops import neighbors as nb
 from cfd_taichi_tpu_torch.ops.smoothing import (CubicConstants,
-                                                SpikyPoly6Constants,
-                                                cubic_grad_coeff_mul,
-                                                cubic_w_mul, f32)
+                                                cubic_grad_coeff, cubic_w,
+                                                f32)
 from cfd_taichi_tpu_torch.ops.stencil import (KERNELS, _check, _launch,
                                               _on_cuda, _pair_chunks,
                                               _params, _rowsum, _rowsum3)
@@ -76,10 +75,6 @@ def rigid_table(grid: nb.GridSpec, pos: torch.Tensor,
     table = nb.build_cell_table(pos, grid)
     return RigidTable(pos=pos[table.order], vol=vol[table.order],
                       lid=table.order.to(torch.int32), starts=table.starts)
-
-
-def _inv_h(h: float) -> float:
-    return SpikyPoly6Constants.of(h).inv_h
 
 
 def _check_table(t: RigidTable, grid: nb.GridSpec,
@@ -118,8 +113,8 @@ def rigid_terms(pos: torch.Tensor, table: RigidTable, grid: nb.GridSpec,
     out = RigidTerms(rho=pos.new_empty(n), s=pos.new_empty(n, 3),
                      qsum=pos.new_empty(n), g2=pos.new_empty(n))
     _launch("rigid_terms", pos.device, pos, n, table.pos, table.vol,
-            table.starts, nr, ctypes.byref(_params(grid, h)), _inv_h(h),
-            f32(rho0), *out)
+            table.starts, nr, ctypes.byref(_params(grid, h)), f32(rho0),
+            *out)
     return out
 
 
@@ -138,7 +133,7 @@ def rigid_contact_dot(pos: torch.Tensor, table: RigidTable,
     out = pos.new_empty(n)
     _launch("rigid_contact_dot", pos.device, pos, n, table.pos, table.vol,
             table.lid, table.starts, nr, ctypes.byref(_params(grid, h)),
-            _inv_h(h), f32(rho0), v_r, out)
+            f32(rho0), v_r, out)
     return out
 
 
@@ -165,7 +160,7 @@ def rigid_viscosity(pos: torch.Tensor, table: RigidTable, grid: nb.GridSpec,
     out = pos.new_empty(n, 3)
     _launch("rigid_viscosity", pos.device, pos, n, table.pos, table.vol,
             table.lid, table.starts, nr, ctypes.byref(_params(grid, h)),
-            _inv_h(h), f32(rho0), f32(m),
+            f32(rho0), f32(m),
             *_rigid_viscosity_constants(h, c_s, alpha, eps), vel, rho,
             rho_quirk, body_vel, out)
     return out
@@ -191,7 +186,7 @@ def rigid_side_force(rpos: torch.Tensor, rvol: torch.Tensor,
     _check("force", force, torch.float32, (nr, 3), rpos.device)
     out = torch.empty_like(force)
     _launch("rigid_side_force", rpos.device, rpos, rvol, nr, pos, starts, n,
-            ctypes.byref(_params(grid, h)), _inv_h(h), f32(rho0), u, force,
+            ctypes.byref(_params(grid, h)), f32(rho0), u, force,
             out)
     return out
 
@@ -207,7 +202,7 @@ def _solid_pairs(pos: torch.Tensor, table: RigidTable, grid: nb.GridSpec,
     for rows, pr in _pair_chunks(pos, table.pos, table.starts, grid, h,
                                  exclude_self=False):
         yield (rows, pr, f32(rho0) * table.vol[pr.slot],
-               cubic_grad_coeff_mul(pr.r, h))
+               cubic_grad_coeff(pr.r, h))
 
 
 def rigid_terms_plain(pos: torch.Tensor, table: RigidTable,
@@ -221,7 +216,7 @@ def rigid_terms_plain(pos: torch.Tensor, table: RigidTable,
         v = pr.valid
         wg = ws * gc
         wr = wg * pr.r
-        out.rho[rows] = _rowsum(v, ws * cubic_w_mul(pr.r, h))
+        out.rho[rows] = _rowsum(v, ws * cubic_w(pr.r, h))
         out.s[rows] = _rowsum3(v, pr, wg)
         out.qsum[rows] = _rowsum(v, wr * wr)
         out.g2[rows] = _rowsum(v, wg * gc * pr.r * pr.r)
@@ -275,7 +270,7 @@ def rigid_side_force_plain(rpos: torch.Tensor, rvol: torch.Tensor,
     hf = CubicConstants.of(h).h
     for rows, pr in _pair_chunks(rpos, pos, starts, grid, h,
                                  exclude_self=False):
-        coeff = (f32(rho0) * rvol[rows, None]) * cubic_grad_coeff_mul(pr.r, h)
+        coeff = (f32(rho0) * rvol[rows, None]) * cubic_grad_coeff(pr.r, h)
         ui = u[pr.slot]
         valid = pr.valid & (pr.r <= hf)
         # x_i - x_j: the chunks' d is query (rigid) minus source (fluid).

@@ -8,6 +8,13 @@ in double and then rounded once to f32. `CubicConstants` and
 `SpikyPoly6Constants` do the same rounding, so the plain versions here,
 the CUDA kernels (which receive the same f32 values, csrc/stencil.cuh)
 and the JAX package evaluate identical f32 expressions.
+
+XLA computes JAX's jitted `r / h` for a constant h as r * (1 / h), the
+reciprocal taken in f32, so every kernel here takes q = r * f32(1/h). (By
+division q lies 1/8 ulp low on average at h = 0.1, and the cubic W then
+equals JAX's on 83.5 % of radii instead of 93.2 %:
+tests/test_torch_smoothing.py.) What is left between the two is XLA's FMA
+contraction on the CPU, a few ulp.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ class CubicConstants(NamedTuple):
     """f32-rounded constants of the cubic spline for support radius h."""
     h: float      # support radius
     h2: float     # f32(h) * f32(h), the pair cutoff r2 <= h2
+    inv_h: float  # f32(1) / f32(h): q = r * inv_h (module note)
     kw: float     # 8 / (pi h^3)
     kw2: float    # 2 * 8 / (pi h^3)   (far branch of W)
     kg6: float    # 6 * 48 / (pi h^3)  (near branch of grad W)
@@ -40,7 +48,8 @@ class CubicConstants(NamedTuple):
         kw = 8.0 / (_PI * h**3)
         kg = 48.0 / (_PI * h**3)
         hf = np.float32(h)
-        return CubicConstants(h=f32(h), h2=float(hf * hf), kw=f32(kw),
+        return CubicConstants(h=f32(h), h2=float(hf * hf),
+                              inv_h=float(np.float32(1.0) / hf), kw=f32(kw),
                               kw2=f32(2.0 * kw), kg6=f32(6.0 * kg),
                               kgm6=f32(-6.0 * kg))
 
@@ -55,21 +64,10 @@ def true_div(t: torch.Tensor, x: float) -> torch.Tensor:
 
 
 def cubic_w(r: torch.Tensor, h: float) -> torch.Tensor:
-    """W(q) = k(6(q^3-q^2)+1) for q <= 0.5, 2k(1-q)^3 for q <= 1, else 0."""
+    """W(q) = k(6(q^3-q^2)+1) for q <= 0.5, 2k(1-q)^3 for q <= 1, else 0,
+    with q = r * f32(1/h)."""
     c = CubicConstants.of(h)
-    return _cubic_w_of_q(true_div(r, c.h), c)
-
-
-def cubic_w_mul(r: torch.Tensor, h: float) -> torch.Tensor:
-    """cubic_w with q = r * (f32(1) / f32(h)), the product XLA makes of
-    JAX's jitted r / h (see SpikyPoly6Constants). PCISPH's predicted
-    density takes it: q by division lies 1/8 ulp low on average for h =
-    0.1, which moved the loop's residual 3e-5 off JAX's."""
-    return _cubic_w_of_q(r * SpikyPoly6Constants.of(h).inv_h,
-                         CubicConstants.of(h))
-
-
-def _cubic_w_of_q(q: torch.Tensor, c: CubicConstants) -> torch.Tensor:
+    q = r * c.inv_h
     q2 = q * q
     q3 = q2 * q
     near = c.kw * (6.0 * (q3 - q2) + 1.0)
@@ -81,21 +79,10 @@ def _cubic_w_of_q(q: torch.Tensor, c: CubicConstants) -> torch.Tensor:
 
 def cubic_grad_coeff(r: torch.Tensor, h: float) -> torch.Tensor:
     """Scalar factor c(r) with grad W = c(r) * x_ij, zero unless
-    1e-5 < q <= 1 (the reference's lower bound on q)."""
+    1e-5 < q <= 1 (the reference's lower bound on q), q = r * f32(1/h);
+    the division by h max(r, 1e-12) stays a division, as in JAX."""
     c = CubicConstants.of(h)
-    return _cubic_grad_coeff_of_q(true_div(r, c.h), r, c)
-
-
-def cubic_grad_coeff_mul(r: torch.Tensor, h: float) -> torch.Tensor:
-    """cubic_grad_coeff with q = r * (f32(1) / f32(h)), as cubic_w_mul;
-    the division by h max(r, 1e-12) stays a division, as in JAX. The
-    fluid-rigid passes (ops/rigid.py) take it."""
-    return _cubic_grad_coeff_of_q(r * SpikyPoly6Constants.of(h).inv_h, r,
-                                  CubicConstants.of(h))
-
-
-def _cubic_grad_coeff_of_q(q: torch.Tensor, r: torch.Tensor,
-                           c: CubicConstants) -> torch.Tensor:
+    q = r * c.inv_h
     near = c.kg6 * (3.0 * q * q - 2.0 * q)
     omq = 1.0 - q
     far = c.kgm6 * omq * omq
@@ -111,8 +98,7 @@ class SpikyPoly6Constants(NamedTuple):
     `x / c` for a constant c as x * (1 / c), the reciprocal taken in f32,
     so these kernels take q = r * inv_h and multiply by the reciprocal of
     pi h^4 (pi h^3): spiky's factor then equals JAX's bit for bit on the
-    CPU. (The cubic constants above keep the division of the port's
-    earlier kernels; ROADMAP.md section 3.)"""
+    CPU."""
     inv_h: float     # f32(1) / f32(h)
     inv_pih4: float  # f32(1) / f32(pi h^4), the spiky gradient's divisor
     inv_pih3: float  # f32(1) / f32(pi h^3), spiky W's divisor

@@ -51,7 +51,7 @@ from cfd_taichi_tpu_torch.ops.neighbors import (GridSpec, cell_coords,
 from cfd_taichi_tpu_torch.ops.smoothing import (CubicConstants,
                                                 SpikyPoly6Constants,
                                                 cubic_grad_coeff, cubic_w,
-                                                cubic_w_mul, f32, poly6_w,
+                                                f32, poly6_w,
                                                 spiky_grad_coeff)
 
 _CSRC = "cfd_taichi_tpu_torch/csrc/"
@@ -164,8 +164,8 @@ def _params(grid: GridSpec, h: float) -> _build.StencilParams:
     c = CubicConstants.of(h)
     return _build.StencilParams(
         (ctypes.c_int * 3)(*grid.dims), (ctypes.c_int * 3)(*grid.strides),
-        fast, mid, slow, f32(1.0 / grid.cell), c.h, c.h2, c.kw, c.kw2,
-        c.kg6, c.kgm6)
+        fast, mid, slow, f32(1.0 / grid.cell), c.h, c.h2, c.inv_h, c.kw,
+        c.kw2, c.kg6, c.kgm6)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -384,7 +384,7 @@ def pcisph_predict_rho(pos: torch.Tensor, starts: torch.Tensor,
                        rho0: float = 0.0) -> torch.Tensor:
     """K6: (N,) PCISPH's predicted density m sum_j W(|x~_i - x~_j|) (+ on
     walls sum_b rho0 V_b W(|x~_i - x_b|)) over the pairs valid at the
-    start-of-step `pos`, W (`cubic_w_mul`) at the predicted `pos_p`
+    start-of-step `pos`, W at the predicted `pos_p`
     (replaces bandmat.predicted_rho_op + boundary_predict_op)."""
     if not _on_cuda("pcisph_predict_rho", pos):
         return pcisph_predict_rho_plain(pos, starts, grid, h, m, pos_p,
@@ -396,8 +396,8 @@ def pcisph_predict_rho(pos: torch.Tensor, starts: torch.Tensor,
         bnd = (*walls, _check_walls(walls, grid.num_cells, pos.device))
     out = pos.new_empty(n)
     _launch("pcisph_predict_rho", pos.device, pos, starts, n,
-            ctypes.byref(_params(grid, h)), SpikyPoly6Constants.of(h).inv_h,
-            f32(m), pos_p, *bnd, f32(rho0), out)
+            ctypes.byref(_params(grid, h)), f32(m), pos_p, *bnd, f32(rho0),
+            out)
     return out
 
 
@@ -708,7 +708,7 @@ def pcisph_predict_rho_plain(pos: torch.Tensor, starts: torch.Tensor,
     KERNELS["pcisph_predict_rho"].plain_calls += 1
     fluid = pos.new_zeros(pos.shape[0])
     for rows, pr in _pair_chunks(pos, pos, starts, grid, h, exclude_self=True):
-        fluid[rows] = _rowsum(pr.valid, cubic_w_mul(
+        fluid[rows] = _rowsum(pr.valid, cubic_w(
             _pair_r(pos_p[rows], pos_p[pr.slot]), h))
     rho = f32(m) * fluid
     if walls is None:
@@ -716,7 +716,7 @@ def pcisph_predict_rho_plain(pos: torch.Tensor, starts: torch.Tensor,
     wall = pos.new_zeros(pos.shape[0])
     for rows, pr in _pair_chunks(pos, walls.pos, walls.starts, grid, h,
                                  exclude_self=False):
-        w = cubic_w_mul(_pair_r(pos_p[rows], walls.pos[pr.slot]), h)
+        w = cubic_w(_pair_r(pos_p[rows], walls.pos[pr.slot]), h)
         wall[rows] = _rowsum(pr.valid, (f32(rho0) * walls.vol[pr.slot]) * w)
     return rho + wall
 

@@ -114,6 +114,7 @@ def _run_both(solver, steps=None):
 @pytest.mark.slow
 def test_wcsph_30k_matches_jax_step_for_step():
     rows = _run_both("wcsph")
+    print(f"wcsph: largest pos err {max(r['err'] for r in rows):.3e}")
     for r in rows:
         assert r["finite"], r["step"]
         assert r["err"] <= 5e-6, (r["step"], r["err"])
@@ -128,6 +129,8 @@ def test_wcsph_30k_matches_jax_step_for_step():
 @pytest.mark.slow
 def test_dfsph_30k_matches_jax_step_for_step():
     rows = _run_both("dfsph")
+    print("dfsph pos err at steps 1-3, 10, 30, 200: " + ", ".join(
+        f"{rows[k - 1]['err']:.3e}" for k in (1, 2, 3, 10, 30, len(rows))))
     for r in rows:
         k, (got, want) = r["step"], r["diag"]
         assert r["finite"], k

@@ -374,6 +374,8 @@ def test_dfsph_coef_steps_match_jax_coef_engine(dtype, jax_coef_runs,
         got = _pos_by_oid(sim.state.fluid.pos.numpy(),
                           sim.state.fluid.oid.numpy())
         diag = sim.state.diag.numpy()
+        print(f"parity dfsph coef {dtype} step {step}: pos err "
+              f"{np.abs(got - snap['pos']).max():.3e}")
         assert snap["overflow"] == 0
         if dtype == "f32":
             np.testing.assert_allclose(got, snap["pos"], atol=1e-5)

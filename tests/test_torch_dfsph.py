@@ -108,6 +108,8 @@ def _port_sim(scene="walls"):
 
 def _assert_step_matches(state, snap):
     got = _pos_by_oid(state.fluid.pos.numpy(), state.fluid.oid.numpy())
+    print(f"parity dfsph step {int(state.step_count)}: pos err "
+          f"{np.abs(got - snap['pos']).max():.3e}")
     np.testing.assert_allclose(got, snap["pos"], atol=5e-6)
     np.testing.assert_allclose(float(state.dt), snap["dt"], rtol=1e-5)
     diag = state.diag.numpy()

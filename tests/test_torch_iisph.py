@@ -122,6 +122,8 @@ def _port_sim(scene="walls"):
 def _assert_step_matches(state, snap, tag):
     assert snap["overflow"] == 0
     got = _pos_by_oid(state.fluid.pos.numpy(), state.fluid.oid.numpy())
+    print(f"parity iisph {tag}: pos err "
+          f"{np.abs(got - snap['pos']).max():.3e}")
     np.testing.assert_allclose(got, snap["pos"], atol=5e-6, err_msg=tag)
     assert state.diag.numpy()[0] == snap["diag"][0], tag
 

@@ -221,9 +221,12 @@ def test_pcisph_steps_match_jax(scene, engine, jax_runs, monkeypatch):
         sim.step()
         assert snap["overflow"] == 0
         got = _by_oid(sim.state.fluid.pos.numpy(), sim.state.fluid.oid)
+        diag = sim.state.diag.numpy()
+        print(f"parity pcisph {scene} {engine} step {k}: pos err "
+              f"{np.abs(got - snap['pos']).max():.3e}, residual err "
+              f"{abs(diag[1] - snap['diag'][1]):.3e}")
         np.testing.assert_allclose(got, snap["pos"], atol=5e-6,
                                    err_msg=f"step {k}")
-        diag = sim.state.diag.numpy()
         assert diag[0] == snap["diag"][0], (k, diag, snap["diag"])
         if engine == "recompute":
             assert abs(diag[1] - snap["diag"][1]) <= RHO_ULP, (

@@ -276,6 +276,8 @@ def test_wcsph_steps_match_jax(scene, start, jax_runs):
         assert snap["overflow"] == 0
         got = _pos_by_oid(sim.state.fluid.pos.numpy(),
                           sim.state.fluid.oid.numpy())
+        print(f"parity wcsph {scene} {start} step {k}: pos err "
+              f"{np.abs(got - snap['pos']).max():.3e}")
         np.testing.assert_allclose(got, snap["pos"], atol=5e-6,
                                    err_msg=f"step {k}")
         assert float(sim.state.dt) == snap["dt"]
