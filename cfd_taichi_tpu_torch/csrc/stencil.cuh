@@ -24,6 +24,8 @@
 #include <cuda_runtime.h>
 
 // Layout mirrors ops/_build.py:StencilParams (ctypes): 9 ints, 8 floats.
+// inv_h comes last, so that a kernel built against an older copy of this
+// header (perf/coef_compare.py's variants) reads the fields it knows.
 struct StencilParams {
   int dims[3];     // cells per axis
   int strides[3];  // linearization strides; strides[fast] == 1
@@ -31,11 +33,11 @@ struct StencilParams {
   float inv_cell;  // f32(1 / cell size): the grid's, not the kernel's
   float h;         // support radius
   float h2;        // f32(h) * f32(h)
-  float inv_h;     // f32(1) / f32(h), the cubic kernel's q = r * inv_h
   float kw;        // f32(8 / (pi h^3))
   float kw2;       // f32(2 * 8 / (pi h^3))
   float kg6;       // f32(6 * 48 / (pi h^3))
   float kgm6;      // f32(-6 * 48 / (pi h^3))
+  float inv_h;     // f32(1) / f32(h), the cubic kernel's q = r * inv_h
 };
 
 __device__ __forceinline__ void cell_of(float x, float y, float z,

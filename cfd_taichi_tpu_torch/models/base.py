@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from cfd_taichi_tpu_torch.ops import neighbors as nb
+from cfd_taichi_tpu_torch.ops import rigid as rigid_ops
 from cfd_taichi_tpu_torch.ops import stencil
 from cfd_taichi_tpu_torch.ops.smoothing import f32
 from cfd_taichi_tpu_torch.scene import RHO_0, Scene
@@ -105,14 +106,51 @@ def rigid_contact_vel(rigid: RigidBodyState, dt: torch.Tensor,
     return lin + cross(om, rigid.pos - rigid.centroid)
 
 
-def refuse_rigid(scene: Scene, solver: str) -> None:
-    """Raise on a scene whose rigid body takes part in the step: only
-    DFSPH couples a body so far, and a solver must not step the fluid as
-    if the body were not there."""
-    if scene.coupled:
-        raise NotImplementedError(
-            f"{solver} with an active rigid body is not ported yet (DFSPH "
-            f"is): ROADMAP.md, queue 1, 'Two-way rigid coupling'")
+def body_terms(scene: Scene, rigid: RigidBodyState, pos: torch.Tensor
+               ) -> tuple[rigid_ops.RigidTable | None,
+                          rigid_ops.RigidTerms | None]:
+    """The body's cell table, sorted anew each step (the body moved in the
+    last rigid step), and its solid sums at the cell-sorted fluid `pos`;
+    (None, None) on a scene without a coupled body."""
+    if not scene.coupled:
+        return None, None
+    table = rigid_ops.rigid_table(scene.grid, rigid.pos, scene.rigid_volume)
+    return table, rigid_ops.rigid_terms(pos, table, scene.grid, scene.h,
+                                        RHO_0)
+
+
+def rho_quirk(rho: torch.Tensor, oid: torch.Tensor,
+              n_rigid: int) -> torch.Tensor:
+    """(Nr,) the density the solid viscosity reads for rigid particle j:
+    the reference's quirk (solver_base.py:187, 199), the fluid density at
+    index j of the seeding order (through `oid`), j clipped to the fluid's
+    last index (`cfd_taichi_tpu/models/dfsph.py:548-551`; ROADMAP.md
+    section 3)."""
+    rho_orig = torch.zeros_like(rho).index_put_((oid.long(),), rho)
+    return rho_orig[torch.arange(n_rigid, device=rho.device).clamp(
+        max=rho.shape[0] - 1)]
+
+
+def solid_viscosity(scene: Scene, rigid: RigidBodyState,
+                    table: rigid_ops.RigidTable, pos: torch.Tensor,
+                    vel: torch.Tensor, rho: torch.Tensor, oid: torch.Tensor,
+                    c_s: float, alpha: float) -> torch.Tensor:
+    """(N, 3) the solid branch of the solver's viscosity: the body's
+    linear velocity and the rho quirk on the rigid side."""
+    return rigid_ops.rigid_viscosity(
+        pos, table, scene.grid, scene.h, RHO_0, scene.particle_m, vel, rho,
+        rho_quirk(rho, oid, scene.n_rigid), rigid.vel, c_s, alpha)
+
+
+def body_reaction(scene: Scene, rigid: RigidBodyState, pos: torch.Tensor,
+                  starts: torch.Tensor, u: torch.Tensor,
+                  force: torch.Tensor) -> torch.Tensor:
+    """The body's (Nr, 3) `force` plus the fluid's reaction of the per-fluid
+    scalar `u` (already scaled by m), each fluid-rigid pair charged once
+    from the rigid side."""
+    return rigid_ops.rigid_side_force(rigid.pos, scene.rigid_volume, pos,
+                                      starts, scene.grid, scene.h, RHO_0, u,
+                                      force)
 
 
 def init_sim_state(scene: Scene, extra: tuple = ()) -> SimState:

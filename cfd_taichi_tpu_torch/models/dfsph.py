@@ -207,18 +207,6 @@ def loop_engine(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
             functools.partial(stencil.matvec_dot, pos, starts, grid, h, m))
 
 
-def rho_quirk(rho: torch.Tensor, oid: torch.Tensor,
-              n_rigid: int) -> torch.Tensor:
-    """(Nr,) the density the solid viscosity reads for rigid particle j:
-    the reference's quirk (solver_base.py:187, 199), the fluid density at
-    index j of the seeding order (through `oid`), j clipped to the fluid's
-    last index (`cfd_taichi_tpu/models/dfsph.py:548-551`; ROADMAP.md
-    section 3)."""
-    rho_orig = torch.zeros_like(rho).index_put_((oid.long(),), rho)
-    return rho_orig[torch.arange(n_rigid, device=rho.device).clamp(
-        max=rho.shape[0] - 1)]
-
-
 def prepare(scene: Scene, state: base.SimState) -> _Pre:
     """Cell sort plus the one-shot pair passes of a step; on a coupled
     scene also the body's cell table, its solid sums and the closures of
@@ -231,11 +219,7 @@ def prepare(scene: Scene, state: base.SimState) -> _Pre:
     starts = nb.csr_starts(scid, grid.num_cells)
 
     ft, bt = base.one_shot_terms(scene, pos, starts)
-    table = rt = None
-    if scene.coupled:
-        # The body moved in the last rigid step: sort it anew.
-        table = rigid_ops.rigid_table(grid, rigid.pos, scene.rigid_volume)
-        rt = rigid_ops.rigid_terms(pos, table, grid, h, RHO_0)
+    table, rt = base.body_terms(scene, rigid, pos)
     rho, alpha, S, tension = dense_pre_terms(scene, ft, bt, rt)
     mv, mvd = loop_engine(scene, pos, starts, ft)
 
@@ -243,10 +227,9 @@ def prepare(scene: Scene, state: base.SimState) -> _Pre:
         visc = stencil.viscosity(pos, starts, grid, h, m, v, rho,
                                  VISCOSITY_C_S, VISCOSITY_ALPHA)
         if table is not None:
-            visc = visc + rigid_ops.rigid_viscosity(
-                pos, table, grid, h, RHO_0, m, v, rho,
-                rho_quirk(rho, oid, scene.n_rigid), rigid.vel,
-                VISCOSITY_C_S, VISCOSITY_ALPHA)
+            visc = visc + base.solid_viscosity(scene, rigid, table, pos, v,
+                                               rho, oid, VISCOSITY_C_S,
+                                               VISCOSITY_ALPHA)
         return tension + visc
 
     cs_fn = scatter_fn = None
@@ -258,10 +241,8 @@ def prepare(scene: Scene, state: base.SimState) -> _Pre:
 
         if scene.fs_couple:
             def scatter_fn(k_over_rho, force):
-                # Each fluid-rigid pair charged once, from the rigid side.
-                return rigid_ops.rigid_side_force(
-                    rigid.pos, scene.rigid_volume, pos, starts, grid, h,
-                    RHO_0, k_over_rho * f32(m), force)
+                return base.body_reaction(scene, rigid, pos, starts,
+                                          k_over_rho * f32(m), force)
 
     return _Pre(pos=pos, oid=oid, vel=vel, acc=acc, warm_k=warm_s, rho=rho,
                 alpha=alpha, count=ft.count, S=S, mv=mv, mvd=mvd,

@@ -1,8 +1,8 @@
 """IISPH: implicit incompressible SPH, a relaxed Jacobi pressure solve.
 
 Counterpart of `cfd_taichi_tpu/models/iisph.py` (reference
-iisph_solver.py:1-349) for fluid-only scenes, as its dense step
-(`_step_dense`, `cfd_taichi_tpu/models/iisph.py:284-401`): every pair sum
+iisph_solver.py:1-349), as its dense step (`_step_dense`,
+`cfd_taichi_tpu/models/iisph.py:284-401`): every pair sum
 reduces to the one-shot passes the port has (fluid_terms, boundary_terms,
 viscosity) and to the DFSPH loop engine's two products
 (`dfsph.loop_engine`: the stored-coefficient kernels when the pair store
@@ -22,6 +22,14 @@ post-update p against the pre-update r_sum, the reference's hard-coded
 1000 in it, and the break on any rise of the residual from the second
 iteration on (which may stop the loop above its 0.1 % contract, as the
 reference does).
+
+A rigid body enters as JAX's dense coupled path has it (`cfd_taichi_tpu/
+models/iisph.py:327-383`; ops/rigid.py, as in models/dfsph.py): its sums
+fold into rho, S_all and g2 before the walls' (so S_s joins d_ii, a_ii and
+r_sum), its viscosity branch the advection force, the contact dot of the
+body's velocity (alpha dt included) rho_adv, and in a two-way coupled
+scene the fluid's reaction u = p m / rho^2 of the solved pressure the
+body's force, once a step.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch
 from cfd_taichi_tpu_torch.models import base
 from cfd_taichi_tpu_torch.models.dfsph import dot, loop_engine
 from cfd_taichi_tpu_torch.ops import neighbors as nb
+from cfd_taichi_tpu_torch.ops import rigid as rigid_ops
 from cfd_taichi_tpu_torch.ops import stencil
 from cfd_taichi_tpu_torch.ops.smoothing import f32, true_div
 from cfd_taichi_tpu_torch.scene import RHO_0, Scene
@@ -49,20 +58,25 @@ TENSION_K = 0.5
 
 
 def init_state(scene: Scene) -> base.SimState:
-    base.refuse_rigid(scene, "IISPH")
     p_past = torch.zeros(scene.n_fluid, dtype=torch.float32,
                          device=scene.device)
     return base.init_sim_state(scene, extra=(p_past,))
 
 
 def dense_pre_terms(scene: Scene, ft: stencil.FluidTerms,
-                    bt: stencil.BoundaryTerms | None):
-    """rho, the self-side sum S_f + S_b, the boundary g2 sum and the
-    tension force from the one-shot sums (`cfd_taichi_tpu/models/
-    iisph.py:169-189`)."""
+                    bt: stencil.BoundaryTerms | None,
+                    rt: rigid_ops.RigidTerms | None = None):
+    """rho, the self-side sum S_f (+ S_s) + S_b, the solid and boundary g2
+    sum and the tension force from the one-shot sums (`cfd_taichi_tpu/
+    models/iisph.py:169-189`): the rigid sums `rt` of a coupled scene
+    before the walls', in JAX's order."""
     rho = f32(base.DENSITY_EPS) + ft.rho
     S_all = ft.s
     g2_sb = torch.zeros_like(rho)
+    if rt is not None:
+        rho = rho + rt.rho
+        S_all = S_all + rt.s
+        g2_sb = g2_sb + rt.g2
     if bt is not None:
         rho = rho + bt.rho
         S_all = S_all + bt.s
@@ -132,8 +146,7 @@ def jacobi_loop(d_ij_of: Callable, r_sum_of: Callable, residual_of: Callable,
 
 
 def step(scene: Scene, state: base.SimState) -> base.SimState:
-    base.refuse_rigid(scene, "IISPH")
-    fluid, dt = state.fluid, state.dt
+    fluid, rigid, dt = state.fluid, state.rigid, state.dt
     (p_past,) = state.extra
     grid, m = scene.grid, scene.particle_m
     dt2 = dt * dt
@@ -142,18 +155,29 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
     starts = nb.csr_starts(scid, grid.num_cells)
 
     ft, bt = base.one_shot_terms(scene, pos, starts)
-    rho, S_all, g2_sb, tension = dense_pre_terms(scene, ft, bt)
+    table, rt = base.body_terms(scene, rigid, pos)
+    rho, S_all, g2_sb, tension = dense_pre_terms(scene, ft, bt, rt)
     inv_rho2 = torch.reciprocal(rho * rho)
     mv, mvd = loop_engine(scene, pos, starts, ft)
 
     # --- predict advection (iisph_solver.py:36-75) ---------------------------
     viscosity = stencil.viscosity(pos, starts, grid, scene.h, m, vel, rho,
                                   VISCOSITY_C_S, VISCOSITY_ALPHA)
+    if table is not None:
+        viscosity = viscosity + base.solid_viscosity(
+            scene, rigid, table, pos, vel, rho, oid, VISCOSITY_C_S,
+            VISCOSITY_ALPHA)
     f_adv = base.gravity_acc(scene) + tension + viscosity
     v_adv = vel + f_adv * true_div(dt, f32(m))
 
     d_ii = S_all * (-dt2 * inv_rho2)[:, None]
     rho_adv = rho + dt * (dot(v_adv, S_all) - mvd(v_adv))
+    if table is not None:
+        # The solid velocity term of rho_adv, the body's contact velocity
+        # with alpha dt (iisph_solver.py:325-334).
+        rho_adv = rho_adv - dt * rigid_ops.rigid_contact_dot(
+            pos, table, grid, scene.h, RHO_0,
+            base.rigid_contact_vel(rigid, dt, include_alpha=True))
     a_ii = (dot(d_ii, S_all)
             - dt2 * f32(m) * inv_rho2 * (true_div(ft.qsum, f32(m)) + g2_sb))
 
@@ -168,6 +192,12 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
     # --- integration (iisph_solver.py:150-206) ------------------------------
     m_over_dt2 = torch.full_like(dt2, f32(m)) / dt2
     f_press = (d_ij + d_ii * p_iter[:, None]) * m_over_dt2
+    rigid_force = rigid.force
+    if table is not None and scene.fs_couple:
+        # compute_rigid_force (iisph_solver.py:150-160), once a step
+        rigid_force = base.body_reaction(scene, rigid, pos, starts,
+                                         p_iter * inv_rho2 * f32(m),
+                                         rigid_force)
     new_vel = ((v_adv + f_press * true_div(dt, f32(m)))
                * f32(base.ARTIFICIAL_FRICTION))
     new_pos = pos + new_vel * dt
@@ -179,6 +209,7 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
     return state._replace(
         # acc is the previous step's, in sorted order, as JAX returns it.
         fluid=base.FluidState(pos=new_pos, vel=new_vel, acc=acc, oid=oid),
+        rigid=rigid._replace(force=rigid_force),
         t=state.t + dt,
         step_count=state.step_count + 1,
         extra=(p_iter,),

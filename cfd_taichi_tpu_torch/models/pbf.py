@@ -1,8 +1,10 @@
 """PBF: position-based fluids (Macklin & Mueller), one constraint pass.
 
 Counterpart of `cfd_taichi_tpu/models/pbf.py` (reference pbf_solver.py:
-1-187) for fluid-only scenes, as its dense step (`_step_dense`,
-`cfd_taichi_tpu/models/pbf.py:57-141`):
+1-187), as its dense step (`_step_dense`, `cfd_taichi_tpu/models/pbf.py:
+57-141`). Like JAX's, it has no rigid coupling: the fluid steps as if a
+body were not there, and the body falls or rests under gravity alone in
+its own step (`cfd_taichi_tpu/models/pbf.py:21, 53`). The step:
 
 * predicted positions from gravity (pbf_solver.py:26-30);
 * density by poly6, C = max(rho / rho0 - 1, 0), lambda = -C / (|grad C_i|^2
@@ -44,7 +46,6 @@ S_CORR_FACTOR = 0.3       # pbf_solver.py:21
 
 
 def init_state(scene: Scene) -> base.SimState:
-    base.refuse_rigid(scene, "PBF")
     return base.init_sim_state(scene, extra=())
 
 
@@ -55,7 +56,6 @@ def w_ref(h: float) -> float:
 
 
 def step(scene: Scene, state: base.SimState) -> base.SimState:
-    base.refuse_rigid(scene, "PBF")
     fluid, dt = state.fluid, state.dt
     grid, h, m = scene.grid, scene.h, scene.particle_m
     scid, _, pos, (vel_s, oid, acc) = base.sort_by_cells(

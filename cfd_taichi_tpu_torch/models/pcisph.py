@@ -1,8 +1,9 @@
 """PCISPH: predictive-corrective incompressible SPH.
 
 Counterpart of `cfd_taichi_tpu/models/pcisph.py` (reference
-pcisph_solver.py:1-241) for fluid-only scenes, as its dense step
-(`_step_dense`, `cfd_taichi_tpu/models/pcisph.py:170-333`):
+pcisph_solver.py:1-241), as its dense step (`_step_dense`,
+`cfd_taichi_tpu/models/pcisph.py:170-333`), on fluid-only scenes and on
+scenes with a rigid body:
 
 * the stiffness delta, once at init, from the particle with the most fluid
   neighbours (the first such in cell-sorted order, as `jnp.argmax` takes
@@ -20,6 +21,13 @@ pcisph_solver.py:1-241) for fluid-only scenes, as its dense step
   with -0.5 decay on clamp scenes, then the density at the predicted
   positions over the start-of-step pair set (`stencil.pcisph_predict_rho`)
   less rho0;
+* a rigid body enters as JAX's dense coupled path has it (`cfd_taichi_tpu/
+  models/pcisph.py:212-287`; ops/rigid.py, as in models/dfsph.py): its
+  density sum joins the fluid's after the walls', its viscosity branch the
+  external force, the pressure force gains -S_s u with u = p m / rho^2,
+  the predicted density a third walk over the body (which keeps its
+  positions through the step), and in a two-way coupled scene each
+  iteration adds the fluid's reaction u to the body's force;
 * the loop p <- max(p + err delta, 0) while the average positive density
   error exceeds 0.1 % of rho0, 1 to 80 iterations; integration with 0.9999
   damping.
@@ -73,7 +81,6 @@ def stiffness(scene: Scene) -> torch.Tensor:
 
 
 def init_state(scene: Scene) -> base.SimState:
-    base.refuse_rigid(scene, "PCISPH")
     return base.init_sim_state(scene, extra=(stiffness(scene),))
 
 
@@ -87,8 +94,7 @@ def positive_avg(err: torch.Tensor) -> torch.Tensor:
 
 
 def step(scene: Scene, state: base.SimState) -> base.SimState:
-    base.refuse_rigid(scene, "PCISPH")
-    fluid, dt = state.fluid, state.dt
+    fluid, rigid, dt = state.fluid, state.rigid, state.dt
     (delta,) = state.extra
     grid, h, m = scene.grid, scene.h, scene.particle_m
     scid, _, pos, (vel, oid, acc) = base.sort_by_cells(
@@ -99,6 +105,9 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
     rho = f32(base.DENSITY_EPS) + ft.rho
     if bt is not None:
         rho = rho + bt.rho
+    table, rt = base.body_terms(scene, rigid, pos)
+    if rt is not None:
+        rho = rho + rt.rho
     inv_rho2 = torch.reciprocal(rho * rho)
     mv, _ = loop_engine(scene, pos, starts, ft)
     walls = base.walls(scene)
@@ -107,15 +116,28 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
     tension = ft.tvec * f32(-TENSION_K * m)
     viscosity = stencil.viscosity(pos, starts, grid, h, m, vel, rho,
                                   VISCOSITY_C_S, VISCOSITY_ALPHA)
+    if table is not None:
+        viscosity = viscosity + base.solid_viscosity(
+            scene, rigid, table, pos, vel, rho, oid, VISCOSITY_C_S,
+            VISCOSITY_ALPHA)
     ext_force = base.gravity_acc(scene) + tension + viscosity
     dt_over_m = true_div(dt, f32(m))
 
-    def press_force_of(p):
-        """(pcisph_solver.py:109-119, 169-198)"""
+    def press_force_of(p, rigid_force):
+        """The pressure force and the body's force with the fluid's
+        reaction (pcisph_solver.py:109-119, 169-198)."""
         f = (ft.s * p[:, None] + mv(p)) * f32(-m / RHO_0**2)
+        if rt is not None:
+            # Solid pairs: -S_s u, with the reaction of the same u charged
+            # once a pair from the rigid side.
+            u = p * inv_rho2 * f32(m)
+            f = f - rt.s * u[:, None]
+            if scene.fs_couple:
+                rigid_force = base.body_reaction(scene, rigid, pos, starts,
+                                                 u, rigid_force)
         if bt is not None:
             f = f + bt.s * (-m * p * inv_rho2)[:, None]
-        return f
+        return f, rigid_force
 
     def predict(press_force):
         """Density error at the predicted positions (pcisph_solver.py:
@@ -127,18 +149,19 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
                                          margin=scene.particle_radius,
                                          decay_mul=-base.V_DECAY)
         return stencil.pcisph_predict_rho(pos, starts, grid, h, m, pos_p,
-                                          walls, RHO_0) - RHO_0
+                                          walls, RHO_0, table) - RHO_0
 
     # --- predictive-corrective loop (pcisph_solver.py:47-70) ----------------
     err_thresh = np.float32(RHO_0 * RHO_MAX_ERR_PERCENT * 0.01)
     p = torch.zeros_like(rho)
     press_force = torch.zeros_like(pos)
+    rigid_force = rigid.force
     rho_err = predict(press_force)
     res = np.float32(positive_avg(rho_err).item())
     it = 0
     while (res > err_thresh or it < MIN_ITER) and it < MAX_ITER:
         p = torch.clamp(p + rho_err * delta, min=0.0)
-        press_force = press_force_of(p)
+        press_force, rigid_force = press_force_of(p, rigid_force)
         rho_err = predict(press_force)
         res = np.float32(positive_avg(rho_err).item())
         it += 1
@@ -155,6 +178,7 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
     return state._replace(
         # acc is the previous step's, in sorted order, as JAX returns it.
         fluid=base.FluidState(pos=new_pos, vel=new_vel, acc=acc, oid=oid),
+        rigid=rigid._replace(force=rigid_force),
         t=state.t + dt,
         step_count=state.step_count + 1,
         extra=(delta,),

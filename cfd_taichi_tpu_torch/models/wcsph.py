@@ -1,8 +1,8 @@
 """WCSPH: weakly compressible SPH with the Tait equation of state.
 
 Counterpart of `cfd_taichi_tpu/models/wcsph.py` (reference
-wcsph_solver.py:1-144) for fluid-only scenes, as its dense step
-(`_step_dense`, `cfd_taichi_tpu/models/wcsph.py:58-153`):
+wcsph_solver.py:1-144), as its dense step (`_step_dense`,
+`cfd_taichi_tpu/models/wcsph.py:58-153`):
 
 * Tait pressure p = B ((rho/rho0)^gamma - 1), gamma 7, B 70000, with
   rho clamped to rho0 from below (wcsph_solver.py:21-22, 86-90);
@@ -12,10 +12,17 @@ wcsph_solver.py:1-144) for fluid-only scenes, as its dense step
   which is -p' times boundary_terms' row sum s (wcsph_solver.py:92-100);
 * semi-implicit Euler with 0.9998 damping, and on clamp scenes the box
   clamp at a diameter's margin with -0.5 velocity decay
-  (wcsph_solver.py:49-63).
+  (wcsph_solver.py:49-63);
+* a rigid body as JAX's dense coupled path has it (`cfd_taichi_tpu/models/
+  wcsph.py:96-136`; ops/rigid.py): its density sum after the walls', the
+  solid pressure acceleration -p' S_s and viscosity branch, and in a
+  two-way coupled scene the fluid's reaction u = p' m on the body's force
+  (wcsph_solver.py:102-129).
 
 No loop and no host read: a step is the cell sort, three pair passes
-(fluid_terms, boundary_terms on walls, wcsph_forces) and elementwise work.
+(fluid_terms, boundary_terms on walls, wcsph_forces), with a body its
+three passes (rigid_terms, rigid_viscosity, rigid_side_force) and
+elementwise work.
 rho is fluid_terms' sum m W over pairs j != i, the sum JAX's
 `dense_rho_count` takes (self excluded, bandmat.py:1201).
 """
@@ -38,7 +45,6 @@ WCSPH_DAMPING = 0.9998  # wcsph_solver.py:51
 
 
 def init_state(scene: Scene) -> base.SimState:
-    base.refuse_rigid(scene, "WCSPH")
     return base.init_sim_state(scene, extra=())
 
 
@@ -48,19 +54,33 @@ def tait_pressure(rho: torch.Tensor) -> torch.Tensor:
 
 
 def step(scene: Scene, state: base.SimState) -> base.SimState:
-    base.refuse_rigid(scene, "WCSPH")
-    fluid, dt = state.fluid, state.dt
+    fluid, rigid, dt = state.fluid, state.rigid, state.dt
+    grid, h, m = scene.grid, scene.h, scene.particle_m
     perm, pos, starts, rho, bt = base.sorted_density(scene, fluid.pos)
     vel, oid = fluid.vel[perm], fluid.oid[perm]
+    table, rt = base.body_terms(scene, rigid, pos)
+    if rt is not None:
+        rho = rho + rt.rho
 
     # --- pressure phase (reference wcsph_solver.py:32-38) -------------------
     p = tait_pressure(rho)
     p_over_rho2 = p / (rho * rho)
     acc = base.gravity_acc(scene) + stencil.wcsph_forces(
-        pos, starts, scene.grid, scene.h, scene.particle_m, vel, rho,
-        p_over_rho2, VISCOSITY_C_S, VISCOSITY_ALPHA, TENSION_K)
+        pos, starts, grid, h, m, vel, rho, p_over_rho2, VISCOSITY_C_S,
+        VISCOSITY_ALPHA, TENSION_K)
     if bt is not None:
         acc = acc - bt.s * p_over_rho2[:, None]
+    rigid_force = rigid.force
+    if table is not None:
+        # The solid pressure term -p' S_s, the solid viscosity and the
+        # reaction p' m (wcsph_solver.py:117-129).
+        acc = acc - rt.s * p_over_rho2[:, None]
+        acc = acc + base.solid_viscosity(scene, rigid, table, pos, vel, rho,
+                                         oid, VISCOSITY_C_S, VISCOSITY_ALPHA)
+        if scene.fs_couple:
+            rigid_force = base.body_reaction(scene, rigid, pos, starts,
+                                             p_over_rho2 * f32(m),
+                                             rigid_force)
 
     # --- kinematic phase (reference wcsph_solver.py:40-63) ------------------
     new_vel = (vel + acc * dt) * f32(WCSPH_DAMPING)
@@ -72,6 +92,7 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
 
     return state._replace(
         fluid=base.FluidState(pos=new_pos, vel=new_vel, acc=acc, oid=oid),
+        rigid=rigid._replace(force=rigid_force),
         t=state.t + dt,
         step_count=state.step_count + 1)
 

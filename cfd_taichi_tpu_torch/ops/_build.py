@@ -38,8 +38,9 @@ class StencilParams(ctypes.Structure):
                 ("fast", ctypes.c_int), ("mid", ctypes.c_int),
                 ("slow", ctypes.c_int), ("inv_cell", ctypes.c_float),
                 ("h", ctypes.c_float), ("h2", ctypes.c_float),
-                ("inv_h", ctypes.c_float), ("kw", ctypes.c_float), ("kw2", ctypes.c_float),
-                ("kg6", ctypes.c_float), ("kgm6", ctypes.c_float)]
+                ("kw", ctypes.c_float), ("kw2", ctypes.c_float),
+                ("kg6", ctypes.c_float), ("kgm6", ctypes.c_float),
+                ("inv_h", ctypes.c_float)]
 
 
 class SpikyPoly6(ctypes.Structure):
@@ -64,7 +65,7 @@ _SIGNATURES = {
     "viscosity_launch": (_P, _P, _I, _PP, _F, _F, _F, _P, _P, _P, _P),
     "wcsph_forces_launch": (_P, _P, _P, _I, _PP, _F, _F, _F, _F, _P, _P),
     "pcisph_predict_rho_launch": (_P, _P, _I, _PP, _F, _P, _P, _P, _P, _P,
-                                  _I, _F, _P, _P),
+                                  _I, _P, _P, _P, _I, _F, _P, _P),
     "pbf_terms_launch": (_P, _P, _I, _PP, _SP, _F, _F, _F, _P, _P, _P, _P,
                          _P),
     "pbf_boundary_terms_launch": (_P, _I, _P, _P, _P, _P, _I, _PP, _SP, _F,

@@ -41,7 +41,7 @@ stored-coefficient engine's (ops/coef.py) and of the fluid-rigid passes
 from __future__ import annotations
 
 import ctypes
-from typing import Iterator, NamedTuple
+from typing import TYPE_CHECKING, Iterator, NamedTuple
 
 import torch
 
@@ -53,6 +53,9 @@ from cfd_taichi_tpu_torch.ops.smoothing import (CubicConstants,
                                                 cubic_grad_coeff, cubic_w,
                                                 f32, poly6_w,
                                                 spiky_grad_coeff)
+
+if TYPE_CHECKING:
+    from cfd_taichi_tpu_torch.ops.rigid import RigidTable
 
 _CSRC = "cfd_taichi_tpu_torch/csrc/"
 
@@ -84,6 +87,10 @@ KERNELS = {k.name: k for k in (
            "cfd_taichi_tpu/ops/bandmat.py:1867"),
     Kernel("pcisph_predict_rho", _CSRC + "pcisph_predict.cu",
            "cfd_taichi_tpu/ops/bandmat.py:1626, :1674"),
+    # The body's walk of pcisph_predict_rho: its launches (and plain
+    # calls) that walk a rigid table, counted here as well.
+    Kernel("pcisph_predict_rho_rigid", _CSRC + "pcisph_predict.cu",
+           "cfd_taichi_tpu/ops/rigid_dense.py:179"),
     # Two entry points, fluid and boundary, both counted here.
     Kernel("pbf_terms", _CSRC + "pbf_terms.cu",
            "cfd_taichi_tpu/ops/bandmat.py:1735-1792, :1811"),
@@ -164,8 +171,8 @@ def _params(grid: GridSpec, h: float) -> _build.StencilParams:
     c = CubicConstants.of(h)
     return _build.StencilParams(
         (ctypes.c_int * 3)(*grid.dims), (ctypes.c_int * 3)(*grid.strides),
-        fast, mid, slow, f32(1.0 / grid.cell), c.h, c.h2, c.inv_h, c.kw,
-        c.kw2, c.kg6, c.kgm6)
+        fast, mid, slow, f32(1.0 / grid.cell), c.h, c.h2, c.kw, c.kw2,
+        c.kg6, c.kgm6, c.inv_h)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -381,23 +388,36 @@ def _check_walls(walls: Walls, n_cells: int, device: torch.device) -> int:
 def pcisph_predict_rho(pos: torch.Tensor, starts: torch.Tensor,
                        grid: GridSpec, h: float, m: float,
                        pos_p: torch.Tensor, walls: Walls | None = None,
-                       rho0: float = 0.0) -> torch.Tensor:
-    """K6: (N,) PCISPH's predicted density m sum_j W(|x~_i - x~_j|) (+ on
-    walls sum_b rho0 V_b W(|x~_i - x_b|)) over the pairs valid at the
-    start-of-step `pos`, W at the predicted `pos_p`
-    (replaces bandmat.predicted_rho_op + boundary_predict_op)."""
+                       rho0: float = 0.0, body: "RigidTable | None" = None
+                       ) -> torch.Tensor:
+    """K6: (N,) PCISPH's predicted density m sum_j W(|x~_i - x~_j|) (+ with
+    a rigid body's cell-sorted `body` table sum_s rho0 V_s W(|x~_i - x_s|),
+    + on walls sum_b rho0 V_b W(|x~_i - x_b|)) over the pairs valid at the
+    start-of-step `pos`, W at the predicted `pos_p`, the body and walls
+    where they stand (replaces bandmat.predicted_rho_op +
+    rigid_dense.predict_rho_op + boundary_predict_op)."""
     if not _on_cuda("pcisph_predict_rho", pos):
         return pcisph_predict_rho_plain(pos, starts, grid, h, m, pos_p,
-                                        walls, rho0)
+                                        walls, rho0, body)
     n = _check_pos_starts(pos, starts, grid)
     _check("pos_p", pos_p, torch.float32, (n, 3), pos.device)
     bnd = (None, None, None, None, 0)
     if walls is not None:
         bnd = (*walls, _check_walls(walls, grid.num_cells, pos.device))
+    rig = (None, None, None, 0)
+    if body is not None:
+        nr = body.pos.shape[0]
+        _check("body pos", body.pos, torch.float32, (nr, 3), pos.device)
+        _check("body vol", body.vol, torch.float32, (nr,), pos.device)
+        _check("body starts", body.starts, torch.int32,
+               (grid.num_cells + 1,), pos.device)
+        rig = (body.pos, body.vol, body.starts, nr)
     out = pos.new_empty(n)
     _launch("pcisph_predict_rho", pos.device, pos, starts, n,
-            ctypes.byref(_params(grid, h)), f32(m), pos_p, *bnd, f32(rho0),
-            out)
+            ctypes.byref(_params(grid, h)), f32(m), pos_p, *bnd, *rig,
+            f32(rho0), out)
+    if body is not None:
+        KERNELS["pcisph_predict_rho_rigid"].launches += 1
     return out
 
 
@@ -701,24 +721,41 @@ def _pair_r(q: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.clamp(r2, min=f32(1e-24)))
 
 
+def _predict_solid(pos: torch.Tensor, pos_p: torch.Tensor,
+                   spos: torch.Tensor, svol: torch.Tensor,
+                   sstarts: torch.Tensor, grid: GridSpec, h: float,
+                   rho0: float) -> torch.Tensor:
+    """(N,) sum_s rho0 V_s W(|x~_i - x_s|) over the solid particles `spos`
+    (cell-sorted, CSR `sstarts`) within h of the start-of-step `pos`."""
+    out = pos.new_zeros(pos.shape[0])
+    for rows, pr in _pair_chunks(pos, spos, sstarts, grid, h,
+                                 exclude_self=False):
+        w = cubic_w(_pair_r(pos_p[rows], spos[pr.slot]), h)
+        out[rows] = _rowsum(pr.valid, (f32(rho0) * svol[pr.slot]) * w)
+    return out
+
+
 def pcisph_predict_rho_plain(pos: torch.Tensor, starts: torch.Tensor,
                              grid: GridSpec, h: float, m: float,
                              pos_p: torch.Tensor, walls: Walls | None = None,
-                             rho0: float = 0.0) -> torch.Tensor:
+                             rho0: float = 0.0,
+                             body: "RigidTable | None" = None
+                             ) -> torch.Tensor:
     KERNELS["pcisph_predict_rho"].plain_calls += 1
     fluid = pos.new_zeros(pos.shape[0])
     for rows, pr in _pair_chunks(pos, pos, starts, grid, h, exclude_self=True):
         fluid[rows] = _rowsum(pr.valid, cubic_w(
             _pair_r(pos_p[rows], pos_p[pr.slot]), h))
     rho = f32(m) * fluid
-    if walls is None:
-        return rho
-    wall = pos.new_zeros(pos.shape[0])
-    for rows, pr in _pair_chunks(pos, walls.pos, walls.starts, grid, h,
-                                 exclude_self=False):
-        w = cubic_w(_pair_r(pos_p[rows], walls.pos[pr.slot]), h)
-        wall[rows] = _rowsum(pr.valid, (f32(rho0) * walls.vol[pr.slot]) * w)
-    return rho + wall
+    # JAX's order: fluid, body, walls (models/pcisph.py:281-286).
+    if body is not None:
+        KERNELS["pcisph_predict_rho_rigid"].plain_calls += 1
+        rho = rho + _predict_solid(pos, pos_p, body.pos, body.vol,
+                                   body.starts, grid, h, rho0)
+    if walls is not None:
+        rho = rho + _predict_solid(pos, pos_p, walls.pos, walls.vol,
+                                   walls.starts, grid, h, rho0)
+    return rho
 
 
 def _pbf_sums(out: PbfTerms, rows: slice, pr: _Pairs, wrho, h: float,

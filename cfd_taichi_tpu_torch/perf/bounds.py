@@ -73,6 +73,9 @@ PAIR_OPS = {
     "rigid_viscosity": 6,
     # r, rho0 V_j gc, the r <= h test, three products and sums
     "rigid_side_force": 29,
+    # the predicted distance (8), r, q, W, rho0 V_s and its product, the
+    # sum (as the boundary walk)
+    "pcisph_predict_rho_rigid": 27,
 }
 
 
@@ -164,12 +167,15 @@ def stencil_cells(qpos: torch.Tensor, grid: GridSpec) -> int:
 
 
 def rigid_work(x: dict) -> dict[str, Work]:
-    """Work of the four fluid-rigid kernels on coupled inputs `x`
+    """Work of the fluid-rigid kernels on coupled inputs `x`
     (perf/inputs.coupled_inputs): n cell-sorted fluid queries against the
     body's table for three of them, and the body's Nr particles against the
     fluid's table for the reaction, whose function needs only the fluid
     rows within h of the body (their positions and u) and the offsets of
-    the cells its stencils cover."""
+    the cells its stencils cover; and PCISPH's predicted density as the
+    coupled step launches it, its fluid and wall walks (`scene_work`'s)
+    with the body's walk: the body's table and its pairs' terms beside the
+    bytes of x~ and the output that the fluid walk counts."""
     g, p, t = x["grid"], x["p"], x["table"]
     n, nr, cells = p.shape[0], t.pos.shape[0], g.num_cells
     pairs = count_pairs(p, t.pos, t.starts, g, x["h"], exclude_self=False)
@@ -197,6 +203,18 @@ def rigid_work(x: dict) -> dict[str, Work]:
             + 8 * stencil_cells(x["rpos"], g))
     out["rigid_side_force"] = _pair_work(
         "rigid_side_force", side, candidates(x["rpos"], x["st"], g), pairs)
+    sc, st = x["sc"], x["st"]
+    walks = [stencil_work("pcisph_predict_rho", n, cells,
+                          candidates(p, st, g),
+                          count_pairs(p, p, st, g, x["h"], exclude_self=True)),
+             _pair_work("pcisph_predict_rho_rigid", table, cand, pairs)]
+    if sc.akinci:
+        bst, nb = sc.boundary_starts, sc.boundary_pos.shape[0]
+        walks.append(walls_work(
+            "pcisph_predict_rho_walls", n, cells, candidates(p, bst, g),
+            count_pairs(p, sc.boundary_pos, bst, g, x["h"],
+                        exclude_self=False), nb))
+    out["pcisph_predict_rho_rigid"] = combined(*walks)
     return out
 
 

@@ -20,6 +20,9 @@ from cfd_taichi_tpu_torch.perf import bounds, timing
 VISC = dict(c_s=13.0, alpha=0.08)
 WCSPH = dict(c_s=10.0, alpha=0.08, tension_k=0.2)
 RHO0 = 1000.0
+# The device kernel of a case whose name is not its kernel's: the body's
+# walk runs inside pcisph_predict_rho's launch.
+DEVICE_KERNEL = {"pcisph_predict_rho_rigid": "pcisph_predict_rho"}
 # (kernel, wrapper, plain version, key of its source in the inputs, dot)
 CONTRACTIONS = (
     ("coef_matvec", coef.coef_matvec, coef.coef_matvec_plain, "k", False),
@@ -141,13 +144,17 @@ def solver_cases(p, st, g, h: float, m: float, walls: S.Walls, x: dict,
 
 
 def rigid_cases(x: dict, work: dict | None = None) -> Iterator[Case]:
-    """The four fluid-rigid kernels on coupled inputs `x` (perf/inputs.
-    coupled_inputs), as a coupled DFSPH step calls them: the solid sums,
-    the contact dot of x["v_r"], the solid viscosity and the reaction of
-    x["u"] on x["force"]. `work` by kernel name (bounds.rigid_work), or
-    None. No one PyTorch call computes any of them."""
+    """The fluid-rigid kernels on coupled inputs `x` (perf/inputs.
+    coupled_inputs), as a coupled step calls them: the solid sums, the
+    contact dot of x["v_r"], the solid viscosity, the reaction of x["u"]
+    on x["force"], and PCISPH's predicted density at x["shifted"] with its
+    walk over the body (and the walls, where the scene has them). `work` by
+    kernel name (bounds.rigid_work), or None. No one PyTorch call computes
+    any of them."""
     g, h, m, p, t = (x[k] for k in ("grid", "h", "m", "p", "table"))
     work = work or {}
+    predict = (p, x["st"], g, h, m, x["shifted"], base.walls(x["sc"]), RHO0,
+               t)
     visc = (p, t, g, h, RHO0, m, x["v"], x["rho"], x["rho_quirk"],
             x["body_vel"], VISC["c_s"], VISC["alpha"])
     side = (x["rpos"], x["rvol"], p, x["st"], g, h, RHO0, x["u"],
@@ -161,7 +168,10 @@ def rigid_cases(x: dict, work: dict | None = None) -> Iterator[Case]:
             ("rigid_viscosity", lambda: R.rigid_viscosity(*visc),
              lambda: R.rigid_viscosity_plain(*visc)),
             ("rigid_side_force", lambda: R.rigid_side_force(*side),
-             lambda: R.rigid_side_force_plain(*side))):
+             lambda: R.rigid_side_force_plain(*side)),
+            ("pcisph_predict_rho_rigid",
+             lambda: S.pcisph_predict_rho(*predict),
+             lambda: S.pcisph_predict_rho_plain(*predict))):
         yield Case(name, name, kern, plain, work.get(name))
 
 

@@ -24,6 +24,10 @@ coef_build of commit 3853c6a, and the tree's coef_build with 4-lane groups:
     python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel coef_build \\
         --variant pr3=build/pr3/coef_build.cu --variant g4=build/g4
 
+Sources whose stencil.cuh takes the cubic kernel's q as r / h round W
+and its gradient unlike the tree's (q = r * f32(1/h)): `--bit-equal`
+against one of them reports the differences that alone makes.
+
 A source from before boundary_terms_launch took the per-cell table
 `bnear` and the boundary count needs the newer entry point put before it:
 

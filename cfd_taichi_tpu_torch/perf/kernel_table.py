@@ -30,7 +30,8 @@ their loop engines, measured on one card:
    (perf/inputs.body_scene: breaking_dam_30k's block with a ~3,200-voxel
    box at its centre), steps 1-100 from rest on the coef f32 engine: the
    rate with the other rates, then 3 profiled steps (steps 101-103) with
-   the other profiles. The four fluid-rigid kernels' rows of step 1 run on
+   the other profiles. The fluid-rigid kernels' rows of step 1 (PCISPH's
+   predicted density with its walk over the body among them) run on
    perf/inputs.body_inputs at 30k and 1M.
 
 Prints one line per number and writes them all as JSON (--out).
@@ -66,7 +67,7 @@ def kernel_rows(res: dict, tag: str, cfg_name: str) -> None:
         # the kernel's time a launch, and all the call's kernels (pbf_terms'
         # boundary entry, wcsph_forces' record build)
         row["device_us"], row["call_device_us"] = timing.device_us(
-            case.kern, case.name)
+            case.kern, cases.DEVICE_KERNEL.get(case.name, case.name))
         row["device_share"] = row["bound_ms"] * 1e3 / row["device_us"]
         lib = ""
         if case.library:

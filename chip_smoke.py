@@ -41,16 +41,21 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 updated positions the inputs' shifted by ~0.3 r (pairs
                 cross r = h both ways) and a random negative lambda. Kernel
                 and plain times: CUDA events, median of 10 after 3 warm-up
-                calls. The four fluid-rigid kernels (rigid_terms,
-                rigid_contact_dot, rigid_viscosity, rigid_side_force) run
-                on a body in water (perf/inputs.body_inputs: the 30k and
-                1M blocks, jittered, with a builtin:cube1 body of ~3,200
-                and ~40k voxels at their centre, the fluid in its voxels
-                taken out) and on the half-immersed torus scene
-                (perf/inputs.torus_inputs), with random rigid and fluid
+                calls. The fluid-rigid kernels (rigid_terms,
+                rigid_contact_dot, rigid_viscosity, rigid_side_force, and
+                pcisph_predict_rho with its walk over the body at the
+                inputs' positions shifted by ~0.3 r, named
+                pcisph_predict_rho_rigid) run on a body in water
+                (perf/inputs.body_inputs: the 30k and 1M blocks,
+                jittered, with a builtin:cube1 body of ~3,200 and ~40k
+                voxels at their centre, the fluid in its voxels taken out)
+                and on the half-immersed torus scene (perf/inputs.
+                torus_inputs), with random rigid and fluid
                 velocities, densities and u, to 1e-5 of scale;
-                rigid_side_force must also repeat bit for bit over two
-                launches. Each kernel's bound (perf/bounds.py: the bytes and
+                rigid_side_force and pcisph_predict_rho_rigid must also
+                repeat bit for bit over two launches, and the body's walk
+                is timed as the call less the call without the body. Each
+                kernel's bound (perf/bounds.py: the bytes and
                 f32 operations of the call's inputs at the H100's peaks)
                 and, for the coef contraction, the one PyTorch call that
                 computes its lane sums (torch.sparse CSR @ dense lanes,
@@ -61,13 +66,13 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 on the card and on the CPU, as DFSPH from rest and as WCSPH,
                 IISPH, PCISPH and PBF from TINY's block squeezed by 0.85
                 about its centre (pressure acts): positions through oid to
-                5e-6 (WCSPH 6.0e-8 and IISPH 9.0e-8, what the same kernels
+                5e-6 (WCSPH 6.0e-8 and IISPH 1.2e-7, what the same kernels
                 gave before), dt to rtol 1e-5, equal iteration counts every
                 step; the errors are printed. Then the coupled scene of
-                tests/test_rigid.py:12-21 (RIGID_CFG) as DFSPH with the body
-                in the water, squeezed by 0.97 about its mean, 4 steps with
-                a rigid step after each: positions to 5e-6, equal counts,
-                the centroid to 1e-5.
+                tests/test_rigid.py:12-21 (RIGID_CFG) as DFSPH, PCISPH,
+                IISPH and WCSPH with the body in the water, squeezed by
+                0.97 about its mean, 4 steps with a rigid step after each:
+                positions to 5e-6, equal counts, the centroid to 1e-5.
 5. main       - configs/breaking_dam_30k.json as DFSPH, 100 steps from rest
                 through Simulation.step on the default engine (stored
                 coefficients, f32). fluid_terms, boundary_terms, viscosity,
@@ -105,20 +110,24 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 53-58), and its range, to two decimals, the one the
                 kernels gave before (WCSPH_RHO).
 12. rigid     - configs/torus_flush.json as written (DFSPH, a torus beside
-                the water), 200 steps, each a fluid step and a rigid step
-                (Simulation.step, Simulation.rigid_step), and its variant
-                with the torus moved to start half immersed in the water
-                (perf/inputs.torus_immersed; the offset is printed), 24
-                steps: the four fluid-rigid kernels launched as often as
-                the step calls them (rigid_terms and rigid_viscosity once a
-                step, rigid_contact_dot twice, rigid_side_force once a
-                density iteration) beside the coef path's, no plain
-                version; the reaction force non-zero in the variant's first
-                three steps; fluid and body finite and inside the box +-
-                2r; the last density residual <= 1.0 unless the step hit
-                the 500-iteration cap. Prints steps/s, device time a step
-                and busy share (3 profiled steps), peak memory, iterations
-                a step, max |F| and the centroid's path.
+                the water), 200 frames, each a fluid step and a rigid step
+                (Simulation.frame), its variant with the torus moved to
+                start half immersed in the water (perf/inputs.
+                torus_immersed; the offset is printed), 24 frames, then 36
+                frames each of configs/coupling_demo.json at full size
+                (55,200 fluid and 3,200 rigid particles, PCISPH),
+                dam_flush_cube.json (PCISPH), experiment1.json (IISPH) and
+                experiment2.json (WCSPH): the solid kernels launched as
+                often as the solver's step calls them (rigid_launches)
+                beside its own pair kernels, no plain version; the
+                reaction force non-zero in the torus variant's first three
+                steps; fluid and body finite and inside the box +- 2r;
+                DFSPH's last density residual <= 1.0 unless the step hit
+                the 500-iteration cap, PCISPH's <= 1.0 unless it hit 80,
+                IISPH at most 180 iterations. Prints steps/s, device time a
+                step and busy share (3 profiled frames), peak memory,
+                iterations a step, max |F| of the first steps (sampled
+                before each rigid step) and the centroid's path.
 13. iisph     - configs/breaking_dam_30k.json as written (IISPH, on the
                 card by default), steps 1-50 from rest on the coef engine
                 and on the recompute engine: that engine's kernels
@@ -164,11 +173,12 @@ PCISPH_PATH = COEF_PATH[:5] + ("pcisph_predict_rho",)
 PBF_PATH = ("pbf_terms", "pbf_lambda", "pbf_xsph")
 # [agree]: (solver, whether to start from TINY's squeezed block, the
 # largest card-vs-CPU position error allowed over its 6 steps: the bar
-# 5e-6, or what the same kernels gave before, 5.960e-08 and 8.941e-08 on
-# an H100 80GB HBM3, so that a kernel that moves it shows; PCISPH and
-# PBF, new, gave 6.855e-07 and 1.788e-07 there at first)
+# 5e-6, or what the same kernels gave before, 5.960e-08 and 1.192e-07 on
+# an H100 80GB HBM3 since the cubic kernels take q = r * f32(1/h), so
+# that a kernel that moves it shows; PCISPH and PBF gave 4.470e-07 and
+# 1.788e-07 there)
 AGREE = (("dfsph", False, 5e-6), ("wcsph", True, 6.0e-8),
-         ("iisph", True, 9.0e-8), ("pcisph", True, 5e-6), ("pbf", True, 5e-6))
+         ("iisph", True, 1.2e-7), ("pcisph", True, 5e-6), ("pbf", True, 5e-6))
 # [agree]: RIGID_CFG (tests/test_rigid.py:12-21) as DFSPH with the body in
 # the water, squeezed by 0.97 about its mean, 4 steps with rigid steps
 RIGID_CFG = {
@@ -183,21 +193,38 @@ RIGID_CFG = {
               "active": True},
 }
 RIGID_PATH = ("rigid_terms", "rigid_contact_dot", "rigid_viscosity",
-              "rigid_side_force")
-# [rigid]: (tag, steps) of torus_flush as written and its half-immersed
-# variant. The variant's voxels overlap ~250 fluid particles, whose
-# pressure throws them out: in both packages two of them leave the box
-# +- 2r after 30 steps (the JAX package at step 33 on the CPU, the port
-# at step 40 or before on an H100), so its run stops at 24.
-RIGID_RUNS = (("torus_flush", 200), ("immersed", 24))
+              "rigid_side_force", "pcisph_predict_rho_rigid")
+# [agree]: the solvers that couple a body, each run on RIGID_CFG
+AGREE_COUPLED = ("dfsph", "pcisph", "iisph", "wcsph")
+# [rigid]: (tag, config, frames) of torus_flush as written (DFSPH) and its
+# half-immersed variant, then the four configs whose solvers couple to
+# the body since: coupling_demo at full size (55,200 fluid, 3,200 rigid)
+# and dam_flush_cube (PCISPH), experiment1 (IISPH), experiment2 (WCSPH),
+# whose bodies stand beside the water at the start. The torus variant's
+# voxels overlap ~250 fluid particles, whose pressure throws them out: in
+# both packages two of them leave the box +- 2r after 30 steps (the JAX
+# package at step 33 on the CPU, the port at step 40 or before on an
+# H100), so its run stops at 24.
+RIGID_RUNS = (("torus_flush", "torus_flush.json", 200),
+              ("immersed", None, 24),
+              ("coupling_demo", "coupling_demo.json", 36),
+              ("dam_flush_cube", "dam_flush_cube.json", 36),
+              ("experiment1", "experiment1.json", 36),
+              ("experiment2", "experiment2.json", 36))
+# [rigid]: the fluid and rigid particles of configs/coupling_demo.json
+COUPLING_DEMO_SIZE = (55_200, 3_200)
+# [rigid]: the solver's own pair kernels, which each coupled run launches
+SOLVER_PATH = {"dfsph": COEF_PATH, "pcisph": PCISPH_PATH,
+               "iisph": COEF_PATH, "wcsph": WCSPH_PATH}
 # [wcsph]: the density range after the run, as printed (%.2f), that the
 # kernels gave before; the same arithmetic in the same order repeats it.
 WCSPH_RHO = {"30k": ("293.99", "693.86"), "1m": ("289.52", "684.12")}
 # [main] and [recompute] at 30k: the last divergence residual, the mean
 # density iterations a step and the last density residual, as printed,
-# that the kernels gave before (PERF.md section 5).
-DFSPH_30K = {"main": ("90.25", "8.22", "0.8486"),
-             "recompute": ("89.78", "8.24", "0.9008")}
+# that the kernels gave before (PERF.md section 5), on an H100 80GB HBM3
+# since the cubic kernels take q = r * f32(1/h).
+DFSPH_30K = {"main": ("84.84", "8.18", "0.7667"),
+             "recompute": ("86.43", "8.22", "0.8785")}
 
 
 class SmokeFailure(Exception):
@@ -399,10 +426,14 @@ def phase_kernels(torch, results: dict) -> None:
 
 
 def rigid_checks(torch, results: dict) -> None:
-    """The four fluid-rigid kernels against their plain versions on a body
-    in water at 30k and 1M and on the half-immersed torus scene, timed;
-    rigid_side_force repeats bit for bit."""
-    from cfd_taichi_tpu_torch.perf import bounds, cases, inputs
+    """The fluid-rigid kernels against their plain versions on a body in
+    water at 30k and 1M and on the half-immersed torus scene, timed;
+    rigid_side_force and pcisph_predict_rho with the body's walk repeat
+    bit for bit. The walk's own time is the call's less the same call
+    without the body."""
+    from cfd_taichi_tpu_torch.models import base
+    from cfd_taichi_tpu_torch.ops import stencil as S
+    from cfd_taichi_tpu_torch.perf import bounds, cases, inputs, timing
 
     for tag, make in (
             ("30k", lambda: inputs.body_inputs("breaking_dam_30k.json", 3)),
@@ -416,11 +447,26 @@ def rigid_checks(torch, results: dict) -> None:
             record(results, case, tag,
                    compare(f"{case.name} {tag}", case.kern(), case.plain(),
                            torch))
-            if case.name == "rigid_side_force":
+            if case.name in ("rigid_side_force", "pcisph_predict_rho_rigid"):
                 same = torch.equal(case.kern(), case.kern())
-                print(f"    rigid_side_force {tag}: two launches bit-equal "
+                print(f"    {case.name} {tag}: two launches bit-equal "
                       f"{same}")
-                check(same, f"rigid_side_force {tag}: launches differ")
+                check(same, f"{case.name} {tag}: launches differ")
+        args = (x["p"], x["st"], x["grid"], x["h"], x["m"], x["shifted"],
+                base.walls(x["sc"]), cases.RHO0)
+        calls = (lambda: S.pcisph_predict_rho(*args, x["table"]),
+                 lambda: S.pcisph_predict_rho(*args))
+        # in turns: with, without, without, with
+        ms = [timing.event_ms(calls[i]) for i in (0, 1, 1, 0)]
+        row = results["pcisph_predict_rho_rigid"]
+        row[f"ms_with_body_{tag}"] = (ms[0] + ms[3]) / 2
+        row[f"ms_without_body_{tag}"] = (ms[1] + ms[2]) / 2
+        row[f"ms_body_walk_{tag}"] = (ms[0] + ms[3] - ms[1] - ms[2]) / 2
+        print(f"  pcisph_predict_rho_rigid {tag}: with the body "
+              f"{row[f'ms_with_body_{tag}']:.4f} ms, without "
+              f"{row[f'ms_without_body_{tag}']:.4f} ms (in turns "
+              f"{[round(t, 4) for t in ms]}), so the body's walk "
+              f"{row[f'ms_body_walk_{tag}']:.4f} ms")
         del x
         torch.cuda.empty_cache()
 
@@ -470,37 +516,42 @@ def phase_agree(torch) -> None:
 
 
 def agree_coupled(torch) -> None:
-    """RIGID_CFG as DFSPH, squeezed by 0.97 about its mean, 4 fluid steps
-    each with its rigid step, on the card and on the CPU."""
+    """RIGID_CFG as each solver of AGREE_COUPLED, squeezed by 0.97 about
+    its mean, 4 fluid steps each with its rigid step, on the card and on
+    the CPU."""
     import numpy as np
 
     from cfd_taichi_tpu_torch import Simulation
     from cfd_taichi_tpu_torch.config import parse_config
 
-    sims = {dev: Simulation(parse_config(copy.deepcopy(RIGID_CFG)),
-                            device=dev) for dev in ("cuda", "cpu")}
-    pos = sims["cpu"].state.fluid.pos
-    mid = pos.mean(dim=0)
-    pos = mid + (pos - mid) * 0.97
-    for dev, s in sims.items():
-        s.state = s.state._replace(fluid=s.state.fluid._replace(
-            pos=pos.to(dev)))
-    for step in range(1, 5):
-        for s in sims.values():
-            s.step()
-            s.rigid_step()
-        a, b = (sims[d].state for d in ("cuda", "cpu"))
-        err = float(np.abs(oid_sorted(a) - oid_sorted(b)).max())
-        cerr = float((a.rigid.centroid.cpu() - b.rigid.centroid).abs().max())
-        da, db = a.diag.cpu().tolist(), b.diag.cpu().tolist()
-        print(f"[agree] coupled dfsph step {step}: pos err {err:.3e}  "
-              f"centroid err {cerr:.3e}  iters cuda {da[0]:.0f}/{da[2]:.0f} "
-              f"cpu {db[0]:.0f}/{db[2]:.0f}")
-        tag = f"RIGID_CFG dfsph step {step}"
-        check(err <= 5e-6, f"{tag}: cuda vs cpu pos err {err}")
-        check(cerr <= 1e-5, f"{tag}: cuda vs cpu centroid err {cerr}")
-        check((da[0], da[2]) == (db[0], db[2]),
-              f"{tag}: iteration counts differ")
+    for solver in AGREE_COUPLED:
+        raw = copy.deepcopy(RIGID_CFG)
+        raw["solver"]["name"] = solver
+        sims = {dev: Simulation(parse_config(raw), device=dev)
+                for dev in ("cuda", "cpu")}
+        pos = sims["cpu"].state.fluid.pos
+        mid = pos.mean(dim=0)
+        pos = mid + (pos - mid) * 0.97
+        for dev, s in sims.items():
+            s.state = s.state._replace(fluid=s.state.fluid._replace(
+                pos=pos.to(dev)))
+        for step in range(1, 5):
+            for s in sims.values():
+                s.step()
+                s.rigid_step()
+            a, b = (sims[d].state for d in ("cuda", "cpu"))
+            err = float(np.abs(oid_sorted(a) - oid_sorted(b)).max())
+            cerr = float((a.rigid.centroid.cpu()
+                          - b.rigid.centroid).abs().max())
+            da, db = a.diag.cpu().tolist(), b.diag.cpu().tolist()
+            print(f"[agree] coupled {solver} step {step}: pos err "
+                  f"{err:.3e}  centroid err {cerr:.3e}  iters cuda "
+                  f"{da[0]:.0f}/{da[2]:.0f} cpu {db[0]:.0f}/{db[2]:.0f}")
+            tag = f"RIGID_CFG {solver} step {step}"
+            check(err <= 5e-6, f"{tag}: cuda vs cpu pos err {err}")
+            check(cerr <= 1e-5, f"{tag}: cuda vs cpu centroid err {cerr}")
+            check((da[0], da[2]) == (db[0], db[2]),
+                  f"{tag}: iteration counts differ")
 
 
 # ---------------------------------------------------------------------------
@@ -760,38 +811,74 @@ def phase_wcsph(torch, results: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def rigid_launches(solver: str, diags) -> dict:
+    """The solid passes a coupled step of `solver` launches over the
+    steps with these diags, by kernel: the sums and the solid viscosity
+    once a step; the reaction once a density iteration (DFSPH), once a
+    loop iteration (PCISPH) or once a step (IISPH, WCSPH); the contact dot
+    once in each DFSPH loop and once an IISPH step; PCISPH's walk over the
+    body once a predict, an iteration and once before its loop."""
+    steps = len(diags)
+    loop = round(sum(d[2] if solver == "dfsph" else d[0] for d in diags))
+    want = dict(rigid_terms=steps, rigid_viscosity=steps)
+    if solver == "dfsph":
+        want.update(rigid_contact_dot=2 * steps, rigid_side_force=loop)
+    elif solver == "pcisph":
+        want.update(rigid_side_force=loop,
+                    pcisph_predict_rho_rigid=loop + steps)
+    elif solver == "iisph":
+        want.update(rigid_contact_dot=steps, rigid_side_force=steps)
+    else:
+        want.update(rigid_side_force=steps)
+    return want
+
+
 def phase_rigid(torch, results: dict) -> None:
-    """configs/torus_flush.json and its half-immersed variant on the card,
-    each step a fluid step and a rigid step."""
+    """configs/torus_flush.json and its half-immersed variant (DFSPH), then
+    the coupled configs of PCISPH, IISPH and WCSPH, on the card: each
+    frame a fluid step and a rigid step (Simulation.frame; every config
+    steps once a frame), the body's largest force sampled between them."""
     from cfd_taichi_tpu_torch import Simulation, read_config
-    from cfd_taichi_tpu_torch.models import dfsph
+    from cfd_taichi_tpu_torch.models import dfsph, iisph, pcisph
     from cfd_taichi_tpu_torch.ops import stencil
     from cfd_taichi_tpu_torch.perf import inputs, timing
 
-    for tag, steps in RIGID_RUNS:
-        if tag == "immersed":
+    for tag, cfg_name, steps in RIGID_RUNS:
+        t0 = time.perf_counter()
+        if cfg_name is None:
             cfg = inputs.torus_immersed()
             print(f"[rigid] immersed: torus_flush with solid.pos_offset "
                   f"{list(cfg.solid.pos_offset)}")
         else:
-            cfg = read_config(str(inputs.CONFIGS / "torus_flush.json"))
+            cfg = read_config(str(inputs.CONFIGS / cfg_name))
         sim = Simulation(cfg)
-        check(sim.scene.coupled and sim.device.type == "cuda",
-              f"rigid {tag}: not a coupled scene on the card")
+        solver = cfg.solver.name
+        check(sim.scene.coupled and sim.device.type == "cuda"
+              and sim.iter_cnt == 1 and sim.scene.fs_couple,
+              f"rigid {tag}: not a two-way coupled scene on the card that "
+              f"steps once a frame")
+        if tag == "coupling_demo":
+            size = (sim.scene.n_fluid, sim.scene.n_rigid)
+            check(size == COUPLING_DEMO_SIZE,
+                  f"rigid {tag}: {size} fluid and rigid particles, not "
+                  f"{COUPLING_DEMO_SIZE}")
+        print(f"[rigid] {tag}: {solver}, scene built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        forces = []
+        rigid_step = sim.rigid_step
 
-        def one():
-            sim.step()
-            force = sim.state.rigid.force.abs().max()
-            sim.rigid_step()
-            return force
+        def sampled_rigid_step():
+            forces.append(sim.state.rigid.force.abs().max())
+            rigid_step()
 
+        sim.rigid_step = sampled_rigid_step
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         stencil.reset_counts()
-        diags, forces, path = [], [], []
+        diags, path = [], []
         t0 = time.perf_counter()
         for k in range(steps):
-            forces.append(one())
+            sim.frame()
             diags.append(sim.state.diag)
             if k % (steps // 8) == 0 or k == steps - 1:
                 path.append(sim.state.rigid.centroid)
@@ -802,27 +889,25 @@ def phase_rigid(torch, results: dict) -> None:
         peak = torch.cuda.max_memory_allocated() / 2**30
         diags = [d.tolist() for d in diags]
         forces = [float(f) for f in forces]
-        den = round(sum(d[2] for d in diags))
         print(f"[rigid] {tag}: n={sim.scene.n_fluid} rigid="
-              f"{sim.scene.n_rigid}: {steps} steps (fluid + rigid) in "
+              f"{sim.scene.n_rigid}: {steps} frames (fluid + rigid step) in "
               f"{wall:.3f} s = {steps / wall:.3f} steps/s; peak device "
               f"memory {peak:.3f} GiB")
-        print(f"[rigid] {tag}: {iter_summary('dfsph', diags)}")
+        print(f"[rigid] {tag}: {iter_summary(solver, diags)}")
         print(f"[rigid] {tag}: kernel (launches, plain calls): {counts}")
         print(f"[rigid] {tag}: max |F| first steps "
               f"{[f'{f:.4e}' for f in forces[:3]]}, over the run "
               f"{max(forces):.4e}")
         print(f"[rigid] {tag}: centroid path "
               f"{[[round(c, 4) for c in p.tolist()] for p in path]}")
-        want = dict(rigid_terms=steps, rigid_contact_dot=2 * steps,
-                    rigid_viscosity=steps, rigid_side_force=den)
+        want = rigid_launches(solver, diags)
         for name, (launches, plain) in counts.items():
             check(plain == 0, f"rigid {tag}: plain version of {name} ran")
-            if name in want:
-                check(launches == want[name],
+            if name in RIGID_PATH:
+                check(launches == want.get(name, 0),
                       f"rigid {tag}: {name} launched {launches} times, not "
-                      f"{want[name]}")
-            elif name in COEF_PATH:
+                      f"{want.get(name, 0)}")
+            elif name in SOLVER_PATH[solver]:
                 check(launches > 0, f"rigid {tag}: {name} never launched")
         if tag == "immersed":
             check(min(forces[:3]) > 0.0,
@@ -840,24 +925,38 @@ def phase_rigid(torch, results: dict) -> None:
               f"outside the box +- 2r")
         check(outside == 0 and body_out == 0, f"rigid {tag}: escaped")
         last = diags[-1]
-        check(last[3] <= 1.0 or last[2] == dfsph.MAX_ITER_DENSITY,
-              f"rigid {tag}: density residual {last[3]} after {last[2]} "
-              f"iterations")
+        if solver == "dfsph":
+            check(last[3] <= 1.0 or last[2] == dfsph.MAX_ITER_DENSITY,
+                  f"rigid {tag}: density residual {last[3]} after "
+                  f"{last[2]} iterations")
+        elif solver == "pcisph":
+            check(last[1] <= 1.0 or last[0] == pcisph.MAX_ITER,
+                  f"rigid {tag}: residual {last[1]} after {last[0]} "
+                  f"iterations")
+        elif solver == "iisph":
+            iters = max(d[0] for d in diags)
+            check(iters <= iisph.MAX_ITER,
+                  f"rigid {tag}: {iters} Jacobi iterations")
         found, pwall = timing.profile_kernels(
-            lambda: [one() for _ in range(3)])
+            lambda: [sim.frame() for _ in range(3)])
         dev_ms = sum(t for _, t in found.values()) / 1e3 / 3
         print(f"[rigid] {tag}: device time {dev_ms:.3f} ms a step, busy "
               f"{dev_ms * 3 / 1e3 / pwall:.3f} of {pwall:.3f} s (3 "
               f"profiled steps)")
         if tag == "torus_flush":
-            for name in RIGID_PATH:
+            for name in RIGID_PATH[:4]:
                 results[name]["launches"] = counts[name][0]
+        elif tag == "coupling_demo":
+            results["pcisph_predict_rho_rigid"]["launches"] = \
+                counts["pcisph_predict_rho_rigid"][0]
         results["_runs"][f"rigid_{tag}"] = dict(
             steps_per_sec=steps / wall, device_ms_per_step=dev_ms,
             busy=dev_ms * 3 / 1e3 / pwall, peak_gib=peak,
             mean_diag=[statistics.mean(c) for c in zip(*diags)],
             last_diag=last, max_force=max(forces),
             launches={k: c[0] for k, c in counts.items()})
+        del sim
+        torch.cuda.empty_cache()
 
 
 def phase_iisph(torch, results: dict) -> None:

@@ -76,8 +76,6 @@ def _all_outputs(sc, pos, starts, k, v, rho):
             stencil.viscosity(pos, starts, g, h, m, v, rho, **VISC),
             stencil.wcsph_forces(pos, starts, g, h, m, v, rho, 0.01 * k,
                                  **cases.WCSPH),
-            stencil.pcisph_predict_rho(pos, starts, g, h, m, pos + 0.01 * v,
-                                       base.walls(sc), 1000.0),
             *stencil.pbf_terms(pos, starts, g, h, m, pbf.w_ref(h),
                                pbf.TENSION_K),
             stencil.pbf_lambda(pos, starts, g, h, -1e-5 * k),
@@ -89,7 +87,8 @@ def _all_outputs(sc, pos, starts, k, v, rho):
 
 
 def _body_outputs(sc, pos, starts, v, rho):
-    """The four fluid-rigid wrappers once, for a 24-voxel box body in
+    """The four fluid-rigid wrappers and PCISPH's predicted density with
+    its walks over the body and the walls once, for a 24-voxel box body in
     TINY's block with numpy-seeded volumes and velocities."""
     dev = pos.device
     rng = np.random.default_rng(13)
@@ -108,7 +107,9 @@ def _body_outputs(sc, pos, starts, v, rho):
             rigid.rigid_viscosity(pos, table, g, h, 1000.0, m, v, rho, rq,
                                   v_r[0].contiguous(), **VISC),
             rigid.rigid_side_force(rpos, rvol, pos, starts, g, h, 1000.0,
-                                   1e-4 * rho, force)]
+                                   1e-4 * rho, force),
+            stencil.pcisph_predict_rho(pos, starts, g, h, m, pos + 0.01 * v,
+                                       base.walls(sc), 1000.0, table)]
 
 
 def _tiny_inputs(dev, seed=11):
@@ -503,15 +504,16 @@ def _rigid_cases(x):
 @pytest.mark.cuda
 @pytest.mark.parametrize("where", ["30k", "torus"])
 def test_rigid_kernels_match_plain_versions(cuda, where):
-    """The four fluid-rigid kernels on a body in water (the 30k block with
-    a ~3,200-voxel box at its centre) and on the half-immersed torus."""
+    """The fluid-rigid kernels (PCISPH's predicted density with its walk
+    over the body among them) on a body in water (the 30k block with a
+    ~3,200-voxel box at its centre) and on the half-immersed torus."""
     x = (inputs.body_inputs("breaking_dam_30k.json", seed=3, device=cuda)
          if where == "30k" else inputs.torus_inputs(seed=3, device=cuda))
     stencil.reset_counts()
     for case in _rigid_cases(x):
         _assert_case_matches_plain(case)
     for name in ("rigid_terms", "rigid_contact_dot", "rigid_viscosity",
-                 "rigid_side_force"):
+                 "rigid_side_force", "pcisph_predict_rho_rigid"):
         assert stencil.KERNELS[name].launches == 1, name
 
 
@@ -523,7 +525,7 @@ def test_rigid_kernels_with_one_live_lane(cuda, n):
     x = inputs.torus_inputs(seed=3, device=cuda)
     near = rigid.rigid_terms(x["p"], x["table"], x["grid"], x["h"],
                              1000.0).rho > 0
-    keys = ("v", "rho", "u")
+    keys = ("v", "rho", "u", "shifted")
     scid, _, p, rows = base.sort_by_cells(
         x["grid"], x["p"][near][:n].clone(),
         tuple(x[key][near][:n] for key in keys))
@@ -584,3 +586,40 @@ def test_coupled_dfsph_steps_on_the_card_match_the_cpu(cuda, squeeze, steps):
                  "rigid_side_force"):
         kern = stencil.KERNELS[name]
         assert kern.launches > 0 and kern.launches == kern.plain_calls, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["pcisph", "iisph", "wcsph"])
+@pytest.mark.parametrize("squeeze,steps", [(0.97, 4), (0.85, 1)])
+def test_coupled_steps_on_the_card_match_the_cpu(cuda, solver, squeeze,
+                                                 steps):
+    """RIGID_CFG as PCISPH, IISPH and WCSPH, as the DFSPH test above:
+    positions through oid to 5e-6, equal iteration counts, the centroid to
+    1e-5 and the body's largest force component to rtol 1e-5."""
+    raw = copy.deepcopy(RIGID_CFG)
+    raw["solver"]["name"] = solver
+    sims = [Simulation(parse_config(raw), device=dev)
+            for dev in (cuda, "cpu")]
+    pos = sims[1].state.fluid.pos
+    mid = pos.mean(dim=0)
+    pos = mid + (pos - mid) * squeeze
+    for s in sims:
+        s.state = s.state._replace(fluid=s.state.fluid._replace(
+            pos=pos.to(s.device)))
+    for _ in range(steps):
+        forces = []
+        for s in sims:
+            s.step()
+            forces.append(float(s.state.rigid.force.abs().max()))
+            s.rigid_step()
+        a, b = (s.state for s in sims)
+        pa = a.fluid.pos.cpu().numpy()[np.argsort(a.fluid.oid.cpu().numpy())]
+        pb = b.fluid.pos.numpy()[np.argsort(b.fluid.oid.numpy())]
+        np.testing.assert_allclose(pa, pb, atol=5e-6)
+        np.testing.assert_array_equal(a.diag.cpu().numpy()[[0, 2]],
+                                      b.diag.numpy()[[0, 2]])
+        np.testing.assert_allclose(a.rigid.centroid.cpu().numpy(),
+                                   b.rigid.centroid.numpy(), atol=1e-5)
+        np.testing.assert_allclose(forces[0], forces[1], rtol=1e-5)
+    if squeeze < 0.9:
+        assert forces[0] > 0

@@ -170,14 +170,14 @@ def test_unported_parts_raise_with_roadmap_pointer():
             f"cfd_taichi_tpu_torch.models.{name}"
     with pytest.raises(ValueError, match="Unknown solver"):
         models.get_solver("nope")
-    # DFSPH couples a rigid body; a solver that does not yet refuses one
+    # Every solver now takes an active rigid body: none refuses one
     raw = copy.deepcopy(TINY)
-    raw["solver"]["name"] = "wcsph"
     raw["solid"] = {"mesh": "builtin:cube", "scale": 0.2, "active": True}
     scene = build_scene(parse_config(raw), device="cpu")
     assert scene.coupled
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        models.get_solver("wcsph").init_state(scene)
+    for name in ("dfsph", "wcsph", "iisph", "pcisph", "pbf"):
+        state = models.get_solver(name).init_state(scene)
+        assert state.rigid.pos.shape == (scene.n_rigid, 3), name
 
 
 def test_checkpoints_cross_between_packages(tmp_path, jax_run):

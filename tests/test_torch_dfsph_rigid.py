@@ -20,7 +20,11 @@ The JAX reference runs with f32 loop coefficients (`BAND_DTYPE`), as
 tests/test_torch_dfsph.py does, and the port on its recompute engine
 (coef budget 0). Also: the coupling switches (one-way coupling, an
 inactive body), checkpoints with a body across packages, the CLI on
-configs/torus_flush.json, and a coupled run's stability.
+configs/torus_flush.json, and a coupled run's stability; every solver
+steps an active body and an inactive one.
+
+The JAX runs and the port's runs here serve the coupled PCISPH, IISPH and
+WCSPH tests too (tests/test_torch_{pcisph,iisph,wcsph}_rigid.py).
 """
 
 import copy
@@ -35,6 +39,8 @@ import pytest
 import torch
 
 import cfd_taichi_tpu.models.dfsph as jdfsph
+import cfd_taichi_tpu.models.pcisph as jpcisph
+import cfd_taichi_tpu.models.wcsph as jwcsph
 from cfd_taichi_tpu import scene as jscene
 from cfd_taichi_tpu.config import parse_config as jparse_config
 from cfd_taichi_tpu.runner import Simulation as JaxSimulation
@@ -63,6 +69,13 @@ REGIMES = {"dormant": (0.97, 4), "pressure": (0.85, 1)}
 # measured (printed by the test): JAX's own contract is 2e-2 and 2e-3.
 PRESSURE_FORCE_RTOL = 1e-5
 PRESSURE_POS_ATOL = 6e-7
+# The module whose dense_eligible says that JAX takes its dense step
+# (tests/test_rigid.py:152).
+DENSE_GATE = {"dfsph": jdfsph, "iisph": jdfsph, "pcisph": jpcisph,
+              "wcsph": jwcsph}
+SOLVERS = ("dfsph", "wcsph", "iisph", "pcisph", "pbf")
+RIGID_KERNELS = ("rigid_terms", "rigid_contact_dot", "rigid_viscosity",
+                 "rigid_side_force", "pcisph_predict_rho_rigid")
 
 
 @pytest.fixture(autouse=True)
@@ -99,13 +112,15 @@ def _pos_by_oid(pos, oid):
 
 
 def run_jax(raw, squeeze, steps):
-    """JAX's dense coupled DFSPH from RIGID_CFG's block squeezed about its
-    mean as tests/test_rigid.py:181-184 does: the start leaves, and after
-    each step the fluid by oid, diag, the body's largest force component
-    (before the rigid step) and the centroid (after it)."""
+    """JAX's dense coupled step of `raw`'s solver from RIGID_CFG's block
+    squeezed about its mean as tests/test_rigid.py:181-184 does: the start
+    leaves, and after each step the fluid by oid, diag, the body's largest
+    force component (before the rigid step) and the centroid (after
+    it)."""
     sim = JaxSimulation(jparse_config(raw))
     st = sim.scene.static
-    assert jdfsph.dense_eligible(st) and st.rq_cap > 0
+    assert DENSE_GATE[raw["solver"]["name"]].dense_eligible(st)
+    assert st.rq_cap > 0
     f = sim.state.fluid
     center = f.pos.mean(axis=0)
     sim.state = sim.state._replace(
@@ -124,17 +139,23 @@ def run_jax(raw, squeeze, steps):
     return out
 
 
-@pytest.fixture(scope="module")
-def jax_runs():
+def jax_regimes(solver):
+    """JAX's runs of both regimes as `solver`, with f32 loop
+    coefficients."""
+    raw = rigid_cfg(**{"solver.name": solver})
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jdfsph, "BAND_DTYPE", jnp.float32)
         # Read at trace time: drop the traces made before, and (after the
         # context) these, so no other test reuses them.
         jax.clear_caches()
-        runs = {name: run_jax(rigid_cfg(), *REGIMES[name])
-                for name in REGIMES}
+        runs = {name: run_jax(raw, *REGIMES[name]) for name in REGIMES}
     jax.clear_caches()
     return runs
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    return jax_regimes("dfsph")
 
 
 def run_port(leaves, steps, raw=None):
@@ -240,16 +261,30 @@ def test_inactive_body_is_ignored():
     assert body.telemetry()["nan_particles"] == 0
 
 
-def test_other_solvers_refuse_an_active_body():
-    for name in ("wcsph", "iisph", "pcisph", "pbf"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Simulation(parse_config(rigid_cfg(**{"solver.name": name})),
-                       device="cpu")
-    # an inactive body is built and ignored by every solver
-    sim = Simulation(parse_config(rigid_cfg(**{"solver.name": "wcsph",
-                                               "solid.active": False})),
-                     device="cpu")
-    sim.frame()
+@pytest.mark.parametrize("solver", SOLVERS)
+def test_every_solver_steps_an_active_and_an_inactive_body(solver):
+    """Two frames of RIGID_CFG, the body in the water, as each solver: an
+    active body takes the solid passes (all but PBF, which ignores it as
+    JAX's does) and moves; an inactive one is built and left as it was,
+    and no solid pass runs."""
+    for active in (True, False):
+        sim = Simulation(parse_config(rigid_cfg(**{
+            "solver.name": solver, "solid.active": active})), device="cpu",
+            check_nan=True)
+        rigid0 = sim.state.rigid
+        stencil.reset_counts()
+        for _ in range(2):
+            sim.frame()
+        calls = {k: stencil.KERNELS[k].plain_calls for k in RIGID_KERNELS}
+        moved = not torch.equal(sim.state.rigid.centroid, rigid0.centroid)
+        assert moved == active, (active, sim.state.rigid.centroid)
+        assert calls["rigid_terms"] == (2 if active and solver != "pbf"
+                                        else 0), calls
+        if not active:
+            assert not any(calls.values()), calls
+            for a, b in zip(sim.state.rigid, rigid0):
+                assert torch.equal(a, b)
+        assert sim.telemetry()["nan_particles"] == 0
 
 
 def test_checkpoints_with_a_body_cross_between_packages(tmp_path, jax_runs):

@@ -272,10 +272,11 @@ def test_pbf_steps_match_jax(scene, jax_runs):
         sim.step()
         assert snap["overflow"] == 0
         f = sim.state.fluid
+        got_pos, got_vel = _by_oid(f.pos.numpy(), f.oid), _by_oid(
+            f.vel.numpy(), f.oid)
         print(f"parity pbf {scene} step {k}: pos err "
-              f"{np.abs(_by_oid(f.pos.numpy(), f.oid) - snap['pos']).max():.3e}"
-              f", vel err "
-              f"{np.abs(_by_oid(f.vel.numpy(), f.oid) - snap['vel']).max():.3e}")
+              f"{np.abs(got_pos - snap['pos']).max():.3e}, vel err "
+              f"{np.abs(got_vel - snap['vel']).max():.3e}")
         np.testing.assert_allclose(_by_oid(f.pos.numpy(), f.oid), snap["pos"],
                                    atol=5e-6, err_msg=f"step {k}")
         np.testing.assert_allclose(_by_oid(f.vel.numpy(), f.oid), snap["vel"],

@@ -413,7 +413,7 @@ def test_rho_quirk_clip_with_more_rigid_than_fluid_particles():
     idx = np.clip(np.arange(nr), 0, n - 1)
     want_q = np.asarray(_jax_quirk(jnp.asarray(x["rho"]), jnp.asarray(oid),
                                    jnp.asarray(idx)))
-    got_q = dfsph.rho_quirk(torch.from_numpy(x["rho"]),
+    got_q = base.rho_quirk(torch.from_numpy(x["rho"]),
                             torch.from_numpy(oid), nr)
     np.testing.assert_array_equal(got_q.numpy(), want_q)
     assert (want_q[n - 1:] == want_q[n - 1]).all()

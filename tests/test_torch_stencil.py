@@ -169,8 +169,6 @@ def test_cpu_tensors_take_the_plain_versions(case):
                           coef.csr_offsets(ft.count))
     coef.coef_matvec(eng, pos, k)
     coef.coef_matvec_dot(eng, pos, v)
-    stencil.pcisph_predict_rho(pos, starts, sc.grid, sc.h, sc.particle_m,
-                               pos + 0.01 * v, base.walls(sc), 1000.0)
     stencil.pbf_terms(pos, starts, sc.grid, sc.h, sc.particle_m, 1e3, 1e-7)
     stencil.pbf_lambda(pos, starts, sc.grid, sc.h, -1e-5 * k)
     stencil.pbf_xsph(pos, starts, sc.grid, sc.h, pos + 0.01 * v, v)
@@ -185,6 +183,9 @@ def test_cpu_tensors_take_the_plain_versions(case):
                           v, rho, rho[:24], v[0], **VISC)
     rigid.rigid_side_force(rpos, rvol, pos, starts, sc.grid, sc.h, 1000.0,
                            k, v[:24])
+    # PCISPH's predicted density with its walls' and the body's walks
+    stencil.pcisph_predict_rho(pos, starts, sc.grid, sc.h, sc.particle_m,
+                               pos + 0.01 * v, base.walls(sc), 1000.0, table)
     for kern in stencil.KERNELS.values():
         assert (kern.launches, kern.plain_calls) == (0, 1), kern.name
 
