@@ -6,10 +6,12 @@ this package imports neither it nor JAX.
 
 Ported so far: the single-device steps of the five pressure solvers
 (DFSPH, WCSPH, IISPH, PCISPH, PBF) on scenes with Akinci boundary
-particles or the clamp boundary, and a rigid body coupled both ways to
-DFSPH. Their pair passes are hand-written CUDA kernels (csrc/, bound in
+particles or the clamp boundary, a rigid body coupled both ways to
+DFSPH, PCISPH, IISPH and WCSPH, and the runner with its frame export.
+Their pair passes are hand-written CUDA kernels (csrc/, bound in
 ops/stencil.py and ops/rigid.py) over cell-sorted CSR tables, with plain
-PyTorch versions for CPU tensors.
+PyTorch versions for CPU tensors; their pressure loops run on the device
+as replayed CUDA graph trips (ops/loops.py).
 """
 
 __version__ = "0.1.0"

@@ -24,10 +24,13 @@ velocity, and in a two-way coupled scene each density iteration adds the
 fluid's reaction to the body's per-particle force. The body moves in
 models/rigid.step, after the fluid step.
 
-The two pressure loops run on the host, as the reference's do
-(dfsph_solver.py:221-233, 393-416): each iteration reads its residual
-average back with one `.item()`. The loop conditions, the f32 arithmetic
-and its quirks are the JAX package's, line for line (`_finish_step`).
+The two pressure loops run on the device as JAX's do, through
+ops/loops.while_loop_unrolled: `loop_unroll(scene)` gated iterations a
+trip, each trip after the first a replay of one CUDA graph, and one host
+read of the loop condition a trip. The conditions compare f32 tensors, and
+the loop conditions, the f32 arithmetic and its quirks are the JAX
+package's, line for line (`_finish_step`); the diagnostics are built on
+the device from the carried counters and residuals.
 """
 
 from __future__ import annotations
@@ -35,11 +38,10 @@ from __future__ import annotations
 import functools
 from typing import Callable, NamedTuple
 
-import numpy as np
 import torch
 
 from cfd_taichi_tpu_torch.models import base
-from cfd_taichi_tpu_torch.ops import coef
+from cfd_taichi_tpu_torch.ops import coef, loops
 from cfd_taichi_tpu_torch.ops import neighbors as nb
 from cfd_taichi_tpu_torch.ops import rigid as rigid_ops
 from cfd_taichi_tpu_torch.ops import stencil
@@ -72,6 +74,26 @@ COEF_BYTE_BUDGET = 12e9
 # (~100x on breaking_dam_1m), and the store fits the card in f32.
 # torch.bfloat16 is supported and held to the JAX bf16 engine.
 COEF_DTYPE = torch.float32
+
+# Gated iterations a trip of the pressure loops of DFSPH, IISPH and PCISPH
+# (ops/loops.py), the counterpart of JAX's `LOOP_UNROLL` and `loop_unroll`
+# (`cfd_taichi_tpu/models/dfsph.py:84-88`). One: with the trips after the
+# first replayed from a graph, a trip costs a graph launch and a host read
+# (tens of us), while every further iteration a trip is paid U times over
+# where it is issued from Python (the first trip and the capture) and once
+# in device time for each masked iteration after the last real one. On an
+# NVIDIA H100 80GB HBM3 at 700 W (perf/loop_rates.py, PERF.md section 5),
+# DFSPH on breaking_dam_30k stepped fastest at U = 1 in each of three runs
+# (68.8-116.2 steps/s, 47.3-98.7 at 2, 44.1-72.0 at 4); at 1M U = 2 led
+# U = 1 by 3-10 % for DFSPH and trailed it by 9-17 % for PCISPH, whose
+# loop takes one iteration a step from rest. The tests set U = 3 through
+# `loop_unroll`.
+LOOP_UNROLL = 1
+
+
+def loop_unroll(scene: Scene) -> int:
+    """Iterations a trip of the scene's pressure loops."""
+    return LOOP_UNROLL
 
 
 def coef_bytes(n_pairs: int, dtype: torch.dtype) -> int:
@@ -193,7 +215,7 @@ def loop_engine(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
     dfsph.py:332`), which DFSPH and IISPH share."""
     grid, h, m = scene.grid, scene.h, scene.particle_m
     # The one host read of the prepare: the pair count sizes nbr and w.
-    # (The loops read a residual every iteration anyway; an upper bound
+    # (The loops read their condition once a trip anyway; an upper bound
     # from the count maximum would need a read too.) Summed in int64, so
     # that a scene far beyond the budget cannot wrap it.
     n_pairs = int(ft.count.sum(dtype=torch.int64))
@@ -270,22 +292,30 @@ def _finish_step(scene: Scene, state: base.SimState,
     # --- divergence solve (dfsph_solver.py:393-416) -------------------------
     # Warm start with the previous step's dt.
     vel = vel - stiff_vel_delta((warm_k / dt) / rho) * dt
-    warm_k = torch.zeros_like(warm_k)
     cs_div = pre.cs_fn(False, dt) if pre.cs_fn is not None else None
-    dr, avg_t = rho_derivative(vel, cs_div)
-    avg = np.float32(avg_t.item())
-    it, stop = 0, False
-    while ((it < MIN_ITER_DIV or avg > DIV_THRESHOLD)
-           and it < MAX_ITER_DIV and not stop):
+    dr0, avg0 = rho_derivative(vel, cs_div)
+    unroll, graphs = loop_unroll(scene), scene.loop_graphs
+
+    def div_cond(c):
+        _, _, _, avg, stop, it = c
+        return (((it < MIN_ITER_DIV) | (avg > f32(DIV_THRESHOLD)))
+                & (it < MAX_ITER_DIV) & ~stop)
+
+    def div_body(c):
+        v, wk, dr, avg, _, it = c
         k_over_rho = (dr * alpha / dt) / rho
-        vel = vel - stiff_vel_delta(k_over_rho) * dt
-        warm_k = warm_k + dr * alpha    # sum_up_stiff (dfsph_solver.py:381)
-        dr, new_avg_t = rho_derivative(vel, cs_div)
-        new_avg = np.float32(new_avg_t.item())
-        stop = bool(np.abs(new_avg - avg) < np.float32(STALL_EPS))
-        avg = new_avg
-        it += 1
-    div_iters, div_avg = it, avg
+        v = v - stiff_vel_delta(k_over_rho) * dt
+        wk = wk + dr * alpha    # sum_up_stiff (dfsph_solver.py:381)
+        new_dr, new_avg = rho_derivative(v, cs_div)
+        stop = torch.abs(new_avg - avg) < f32(STALL_EPS)
+        return v, wk, new_dr, new_avg, stop, it + 1
+
+    zero_i = torch.zeros((), dtype=torch.int32, device=vel.device)
+    vel, warm_k, _, div_avg, _, div_iters = loops.while_loop_unrolled(
+        div_cond, div_body,
+        (vel, torch.zeros_like(warm_k), dr0, avg0,
+         torch.zeros((), dtype=torch.bool, device=vel.device), zero_i),
+        unroll, graphs)
 
     # --- external forces + v_adv + adaptive dt (dfsph_solver.py:91-122) -----
     # Reference quirk kept: gravity joins the force and is divided by m.
@@ -304,22 +334,30 @@ def _finish_step(scene: Scene, state: base.SimState,
     # --- density solve (dfsph_solver.py:221-233) ----------------------------
     # The contact dot with alpha dt, at the new dt; the body's force
     # gathers the fluid's reaction once an iteration (dfsph_solver.py:
-    # 204-212).
+    # 204-212). The residual carried is the one before the iteration's
+    # update.
     cs_den = pre.cs_fn(True, dt) if pre.cs_fn is not None else None
-    rigid_force = rigid.force
-    den_thresh = np.float32(DENSITY_THRESHOLD * RHO_0 * 0.01)
-    avg = np.float32(np.inf)
-    it = 0
-    while ((it < MIN_ITER_DENSITY or avg - np.float32(RHO_0) > den_thresh)
-           and it < MAX_ITER_DENSITY):
-        rho_adv, avg_t = rho_adv_residual(rho, dt, vel_adv, cs_den)
+    den_thresh = f32(DENSITY_THRESHOLD * RHO_0 * 0.01)
+
+    def den_cond(c):
+        _, avg, _, it = c
+        return (((it < MIN_ITER_DENSITY) | (avg - RHO_0 > den_thresh))
+                & (it < MAX_ITER_DENSITY))
+
+    def den_body(c):
+        v_adv, _, rforce, it = c
+        rho_adv, avg = rho_adv_residual(rho, dt, v_adv, cs_den)
         k_over_rho = ((rho_adv - RHO_0) * alpha / dt2) / rho
         if pre.scatter_fn is not None:
-            rigid_force = pre.scatter_fn(k_over_rho, rigid_force)
-        vel_adv = vel_adv - stiff_vel_delta(k_over_rho) * dt
-        avg = np.float32(avg_t.item())   # residual before this update
-        it += 1
-    den_iters, den_avg = it, avg
+            rforce = pre.scatter_fn(k_over_rho, rforce)
+        v_adv = v_adv - stiff_vel_delta(k_over_rho) * dt
+        return v_adv, avg, rforce, it + 1
+
+    vel_adv, den_avg, rigid_force, den_iters = loops.while_loop_unrolled(
+        den_cond, den_body,
+        (vel_adv, torch.full((), float("inf"), dtype=torch.float32,
+                             device=vel.device),
+         rigid.force, zero_i), unroll, graphs)
 
     # --- position update (dfsph_solver.py:235-250) --------------------------
     new_pos = pre.pos + vel_adv * (dt * f32(base.ARTIFICIAL_FRICTION))
@@ -329,7 +367,6 @@ def _finish_step(scene: Scene, state: base.SimState,
             scene, new_pos, new_vel, margin=scene.particle_radius,
             decay_mul=-base.V_DECAY)
 
-    dev = new_pos.device
     return state._replace(
         fluid=base.FluidState(pos=new_pos, vel=new_vel, acc=pre.acc,
                               oid=pre.oid),
@@ -340,6 +377,5 @@ def _finish_step(scene: Scene, state: base.SimState,
         extra=(warm_k,),
         # [divergence iters, divergence residual, density iters,
         #  density error] (dfsph_solver.py:233,416).
-        diag=torch.tensor([div_iters, div_avg, den_iters,
-                           den_avg - np.float32(RHO_0)],
-                          dtype=torch.float32, device=dev))
+        diag=torch.stack([div_iters.float(), div_avg, den_iters.float(),
+                          den_avg - RHO_0]))

@@ -15,9 +15,9 @@ fits, the recompute kernels beyond that):
   r_sum   = d_ij . (S_f + S_b) - mvd(d_ij) - mvd(d_ii p) + dt^2 qsum/rho^2 p
 
 so an iteration is one matvec and two matvec_dots. The loop runs on the
-host, as DFSPH's does: each iteration reads its residual back with one
-`.item()` and compares in np.float32, with JAX's control flow
-(`jacobi_loop`): the warm start p0 = 0.5 p_past, the residual of the
+device as DFSPH's does (ops/loops.while_loop_unrolled: one host read of
+its condition a trip), compares in f32 tensors and follows JAX's control
+flow (`jacobi_loop`): the warm start p0 = 0.5 p_past, the residual of the
 post-update p against the pre-update r_sum, the reference's hard-coded
 1000 in it, and the break on any rise of the residual from the second
 iteration on (which may stop the loop above its 0.1 % contract, as the
@@ -36,11 +36,11 @@ from __future__ import annotations
 
 from typing import Callable
 
-import numpy as np
 import torch
 
-from cfd_taichi_tpu_torch.models import base
+from cfd_taichi_tpu_torch.models import base, dfsph
 from cfd_taichi_tpu_torch.models.dfsph import dot, loop_engine
+from cfd_taichi_tpu_torch.ops import loops
 from cfd_taichi_tpu_torch.ops import neighbors as nb
 from cfd_taichi_tpu_torch.ops import rigid as rigid_ops
 from cfd_taichi_tpu_torch.ops import stencil
@@ -117,20 +117,25 @@ def dense_residual_fn(a_ii: torch.Tensor, rho_adv: torch.Tensor):
 
 
 def jacobi_loop(d_ij_of: Callable, r_sum_of: Callable, residual_of: Callable,
-                p0: torch.Tensor, a_ii: torch.Tensor, rho_adv: torch.Tensor):
+                p0: torch.Tensor, a_ii: torch.Tensor, rho_adv: torch.Tensor,
+                unroll: int = 1, pool: loops.GraphPool | None = None):
     """The reference's `pressure_solve` (iisph_solver.py:78-99) with JAX's
-    control flow (`cfd_taichi_tpu/models/iisph.py:207-263`), on the host.
-    Per iteration: d_ij <- d_ij_of(p); r_sum <- r_sum_of(p, d_ij); p <-
+    control flow (`cfd_taichi_tpu/models/iisph.py:207-263`), on the device
+    (ops/loops.while_loop_unrolled, `unroll` iterations a trip). Per
+    iteration: d_ij <- d_ij_of(p); r_sum <- r_sum_of(p, d_ij); p <-
     max(relaxed Jacobi update, 0); res <- residual_of(p, r_sum), the
     post-update p against the pre-update r_sum; stop on res rising from
-    the second iteration on. Returns (p, d_ij, r_sum, res, iterations)."""
-    err_thresh = np.float32(RHO_ERR_PERCENT * RHO_0 * 0.01)
-    p = p0
-    d_ij = torch.zeros(p0.shape[0], 3, dtype=p0.dtype, device=p0.device)
-    r_sum = torch.zeros_like(p0)
+    the second iteration on. Returns (p, d_ij, r_sum, res, iterations),
+    the last two 0-d tensors."""
+    err_thresh = f32(RHO_ERR_PERCENT * RHO_0 * 0.01)
     solvable = torch.abs(a_ii) > f32(1e-7)
-    res, it, stop = np.float32(np.inf), 0, False
-    while (res > err_thresh or it < MIN_ITER) and it < MAX_ITER and not stop:
+
+    def cond(c):
+        _, _, _, res, stop, it = c
+        return ((res > err_thresh) | (it < MIN_ITER)) & (it < MAX_ITER) & ~stop
+
+    def body(c):
+        p, _, _, res, _, it = c
         d_ij = d_ij_of(p)
         r_sum = r_sum_of(p, d_ij)
         p_new = torch.where(solvable,
@@ -138,10 +143,18 @@ def jacobi_loop(d_ij_of: Callable, r_sum_of: Callable, residual_of: Callable,
                             + OMEGA * (RHO_0 - rho_adv - r_sum) / a_ii,
                             torch.zeros_like(p))
         p = torch.clamp(p_new, min=0.0)
-        new_res = np.float32(residual_of(p, r_sum).item())
-        stop = it >= 1 and bool(new_res - res > np.float32(0.0))
-        res = new_res
-        it += 1
+        new_res = residual_of(p, r_sum)
+        stop = (it >= 1) & (new_res - res > 0.0)
+        return p, d_ij, r_sum, new_res, stop, it + 1
+
+    dev = p0.device
+    p, d_ij, r_sum, res, _, it = loops.while_loop_unrolled(
+        cond, body,
+        (p0, torch.zeros(p0.shape[0], 3, dtype=p0.dtype, device=dev),
+         torch.zeros_like(p0),
+         torch.full((), float("inf"), dtype=torch.float32, device=dev),
+         torch.zeros((), dtype=torch.bool, device=dev),
+         torch.zeros((), dtype=torch.int32, device=dev)), unroll, pool)
     return p, d_ij, r_sum, res, it
 
 
@@ -187,7 +200,7 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
                                          d_ii, dt2)
     p_iter, d_ij, _, res, iters = jacobi_loop(
         d_ij_of, r_sum_of, dense_residual_fn(a_ii, rho_adv), p0, a_ii,
-        rho_adv)
+        rho_adv, dfsph.loop_unroll(scene), scene.loop_graphs)
 
     # --- integration (iisph_solver.py:150-206) ------------------------------
     m_over_dt2 = torch.full_like(dt2, f32(m)) / dt2
@@ -206,6 +219,7 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
             scene, new_pos, new_vel, margin=scene.particle_radius,
             decay_mul=-base.V_DECAY)
 
+    zero = torch.zeros_like(res)
     return state._replace(
         # acc is the previous step's, in sorted order, as JAX returns it.
         fluid=base.FluidState(pos=new_pos, vel=new_vel, acc=acc, oid=oid),
@@ -214,5 +228,4 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
         step_count=state.step_count + 1,
         extra=(p_iter,),
         # [iterations, residual, 0, 0] (iisph_solver.py:96).
-        diag=torch.tensor([iters, res, 0.0, 0.0], dtype=torch.float32,
-                          device=new_pos.device))
+        diag=torch.stack([iters.float(), res, zero, zero]))

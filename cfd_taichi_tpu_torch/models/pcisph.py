@@ -32,17 +32,18 @@ scenes with a rigid body:
   error exceeds 0.1 % of rho0, 1 to 80 iterations; integration with 0.9999
   damping.
 
-The loop runs on the host, as DFSPH's and IISPH's do: each iteration reads
-its residual back with one `.item()` and compares in np.float32.
+The loop runs on the device, as DFSPH's and IISPH's do
+(ops/loops.while_loop_unrolled: one host read of its condition a trip),
+and compares in f32 tensors.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from cfd_taichi_tpu_torch.models import base
+from cfd_taichi_tpu_torch.models import base, dfsph
 from cfd_taichi_tpu_torch.models.dfsph import dot, loop_engine
+from cfd_taichi_tpu_torch.ops import loops
 from cfd_taichi_tpu_torch.ops import neighbors as nb
 from cfd_taichi_tpu_torch.ops import stencil
 from cfd_taichi_tpu_torch.ops.smoothing import (CubicConstants,
@@ -152,19 +153,26 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
                                           walls, RHO_0, table) - RHO_0
 
     # --- predictive-corrective loop (pcisph_solver.py:47-70) ----------------
-    err_thresh = np.float32(RHO_0 * RHO_MAX_ERR_PERCENT * 0.01)
-    p = torch.zeros_like(rho)
-    press_force = torch.zeros_like(pos)
-    rigid_force = rigid.force
-    rho_err = predict(press_force)
-    res = np.float32(positive_avg(rho_err).item())
-    it = 0
-    while (res > err_thresh or it < MIN_ITER) and it < MAX_ITER:
+    err_thresh = f32(RHO_0 * RHO_MAX_ERR_PERCENT * 0.01)
+    force0 = torch.zeros_like(pos)
+    rho_err0 = predict(force0)
+
+    def cond(c):
+        _, _, _, res, _, it = c
+        return ((res > err_thresh) | (it < MIN_ITER)) & (it < MAX_ITER)
+
+    def body(c):
+        p, _, rho_err, _, rigid_force, it = c
         p = torch.clamp(p + rho_err * delta, min=0.0)
-        press_force, rigid_force = press_force_of(p, rigid_force)
-        rho_err = predict(press_force)
-        res = np.float32(positive_avg(rho_err).item())
-        it += 1
+        force, rigid_force = press_force_of(p, rigid_force)
+        rho_err = predict(force)
+        return p, force, rho_err, positive_avg(rho_err), rigid_force, it + 1
+
+    _, press_force, _, res, rigid_force, iters = loops.while_loop_unrolled(
+        cond, body,
+        (torch.zeros_like(rho), force0, rho_err0, positive_avg(rho_err0),
+         rigid.force, torch.zeros((), dtype=torch.int32, device=pos.device)),
+        dfsph.loop_unroll(scene), scene.loop_graphs)
 
     # --- integration (pcisph_solver.py:200-217) -----------------------------
     new_vel = ((vel + (ext_force + press_force) * dt_over_m)
@@ -175,6 +183,7 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
             scene, new_pos, new_vel, margin=scene.particle_radius,
             decay_mul=-base.V_DECAY)
 
+    zero = torch.zeros_like(res)
     return state._replace(
         # acc is the previous step's, in sorted order, as JAX returns it.
         fluid=base.FluidState(pos=new_pos, vel=new_vel, acc=acc, oid=oid),
@@ -184,5 +193,4 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
         extra=(delta,),
         # [iterations, average positive density error, 0, 0]
         # (pcisph_solver.py:70).
-        diag=torch.tensor([it, res, 0.0, 0.0], dtype=torch.float32,
-                          device=new_pos.device))
+        diag=torch.stack([iters.float(), res, zero, zero]))

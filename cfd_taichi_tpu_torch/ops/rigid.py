@@ -191,6 +191,18 @@ def rigid_side_force(rpos: torch.Tensor, rvol: torch.Tensor,
     return out
 
 
+def rigid_counts(pos: torch.Tensor, table: RigidTable, grid: nb.GridSpec,
+                 h: float) -> torch.Tensor:
+    """(N,) int32 rigid particles within h of each cell-sorted fluid query,
+    in plain PyTorch on either device: the neighbour colour view's
+    (runner.Simulation.neighbor_counts), on no step's path."""
+    out = torch.zeros(pos.shape[0], dtype=torch.int32, device=pos.device)
+    for rows, pr in _pair_chunks(pos, table.pos, table.starts, grid, h,
+                                 exclude_self=False):
+        out[rows] = pr.valid.sum(dim=1, dtype=torch.int32)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (ops/stencil.py's chunked candidates)
 # ---------------------------------------------------------------------------

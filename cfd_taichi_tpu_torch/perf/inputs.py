@@ -3,7 +3,8 @@ lattice of a config, a clustered cloud for the stencil walk's edge cases,
 a ragged CSR engine of the coef contraction, a rigid body in a fluid
 block for the fluid-rigid passes, a compressed start state, the
 half-immersed variant of configs/torus_flush.json, and the loop engine of
-DFSPH and IISPH pinned for a run."""
+DFSPH and IISPH and the pressure loops' iterations a trip pinned for a
+run."""
 
 from __future__ import annotations
 
@@ -335,3 +336,23 @@ def engine(budget: float | None = None, dtype: torch.dtype | None = None):
         yield
     finally:
         dfsph.COEF_BYTE_BUDGET, dfsph.COEF_DTYPE = saved
+
+
+@contextlib.contextmanager
+def loop_mode(unroll: int | None = None, eager: bool = False):
+    """Pin the pressure loops of DFSPH, IISPH and PCISPH: `unroll`
+    iterations a trip (models/dfsph.loop_unroll) and, with `eager`, every
+    trip launched from Python (ops/loops.while_loop_unrolled_plain, on any
+    device), restored on exit."""
+    from cfd_taichi_tpu_torch.models import dfsph
+    from cfd_taichi_tpu_torch.ops import loops
+
+    saved = dfsph.loop_unroll, loops.while_loop_unrolled
+    if unroll is not None:
+        dfsph.loop_unroll = lambda scene: unroll
+    if eager:
+        loops.while_loop_unrolled = loops.while_loop_unrolled_plain
+    try:
+        yield
+    finally:
+        dfsph.loop_unroll, loops.while_loop_unrolled = saved

@@ -61,10 +61,12 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_kernels(fn) -> tuple[dict, float]:
+def profile_kernels(fn, host: dict | None = None) -> tuple[dict, float]:
     """Run `fn` under torch.profiler. Returns ({kernel: (launches, device
     us)} for every device kernel, named by its `<name>_kernel` stem where
-    it has one, and the wall seconds of the window)."""
+    it has one, and the wall seconds of the window). Where `host` holds
+    names of CUDA runtime calls, each gets its (calls, host us) in the
+    window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -77,6 +79,8 @@ def profile_kernels(fn) -> tuple[dict, float]:
         wall = time.perf_counter() - t0
     out: dict = {}
     for evt in prof.key_averages():
+        if host is not None and evt.key in host:
+            host[evt.key] = (evt.count, float(evt.cpu_time_total))
         us = _device_us(evt)
         m = _KERNEL.search(evt.key)
         if us <= 0.0 or (evt.device_type != DeviceType.CUDA and not m):

@@ -23,6 +23,7 @@ import torch
 from cfd_taichi_tpu_torch import geometry as geo
 from cfd_taichi_tpu_torch.config import SimConfig, resolve_mesh_path
 from cfd_taichi_tpu_torch.ops import neighbors as nb
+from cfd_taichi_tpu_torch.ops.loops import GraphPool
 from cfd_taichi_tpu_torch.ops.smoothing import f32
 
 RHO_0 = 1000.0  # fluid rest density (reference solver_base.py:19)
@@ -81,6 +82,10 @@ class Scene:
     # a scene made with dataclasses.replace starts with an empty one.
     clamp_bounds: dict = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
+    # The memory pool that the solver loops' trip graphs share, and its
+    # counts of trips and captures (ops/loops.py). Not an argument either.
+    loop_graphs: GraphPool = dataclasses.field(
+        default_factory=GraphPool, init=False, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:

@@ -1,4 +1,11 @@
-"""Checkpoints in the JAX package's leaf layout, and state carry-over.
+"""Frame export (ascii PLY point clouds, OBJ and binary STL meshes),
+checkpoints in the JAX package's leaf layout, and state carry-over.
+
+The frame writers are the counterparts of `cfd_taichi_tpu/utils/io.py:
+53-137` (reference main.py:184-201). Their text is byte for byte what the
+JAX package's default writer, its native one (`csrc/fastio.cpp`), writes:
+each coordinate printed `%.6g` from the f32 value, colours as uchar
+0-255 of the clipped RGBA times 255.
 
 A checkpoint is an `.npz` of `leaf_0 ... leaf_<L-1>`, the leaves of the
 JAX package's `SimState` in `jax.tree_util.tree_flatten` order
@@ -20,11 +27,74 @@ from __future__ import annotations
 
 import json
 import os
+import struct
 
 import numpy as np
 import torch
 
 from cfd_taichi_tpu_torch.models import base
+
+# Rows a frame writer formats at a time: one format string of ~2 MB.
+_ROWS = 1 << 16
+
+
+def _write_rows(f, fmt: str, values: np.ndarray) -> None:
+    """Write each row of the (R, C) float64 `values` through `fmt`, one
+    %-format a row (Python's %.6g is C's: both round the exact value)."""
+    for lo in range(0, values.shape[0], _ROWS):
+        chunk = values[lo:lo + _ROWS]
+        f.write(fmt * chunk.shape[0] % tuple(chunk.ravel().tolist()))
+
+
+def write_ply_ascii(path: str, pos: np.ndarray,
+                    rgba: np.ndarray | None = None) -> None:
+    """Ascii PLY of the (N, 3) positions with optional uchar RGBA, the
+    layout the reference emits through ti.tools.PLYWriter (main.py:
+    189-195)."""
+    pos = np.ascontiguousarray(pos, np.float32)
+    n = pos.shape[0]
+    head = ["ply", "format ascii 1.0", f"element vertex {n}",
+            "property float x", "property float y", "property float z"]
+    values, fmt = pos.astype(np.float64), "%.6g %.6g %.6g\n"
+    if rgba is not None:
+        head += ["property uchar red", "property uchar green",
+                 "property uchar blue", "property uchar alpha"]
+        rgba_u8 = np.ascontiguousarray(
+            np.clip(np.asarray(rgba), 0.0, 1.0) * 255, np.uint8)
+        values = np.concatenate([values, rgba_u8.astype(np.float64)], axis=1)
+        fmt = "%.6g %.6g %.6g %d %d %d %d\n"
+    with open(path, "w") as f:
+        f.write("\n".join(head) + "\nend_header\n")
+        _write_rows(f, fmt, values)
+
+
+def write_obj(path: str, vertices: np.ndarray, faces: np.ndarray) -> None:
+    """OBJ of a triangle mesh, 1-based faces (reference main.py:196-200)."""
+    vertices = np.ascontiguousarray(vertices, np.float32)
+    faces = np.ascontiguousarray(faces, np.int32).astype(np.float64) + 1
+    with open(path, "w") as f:
+        _write_rows(f, "v %.6g %.6g %.6g\n", vertices.astype(np.float64))
+        _write_rows(f, "f %d %d %d\n", faces)
+
+
+def write_stl_binary(path: str, vertices: np.ndarray,
+                     faces: np.ndarray) -> None:
+    """Binary STL (80-byte header, u32 count, 50 bytes a triangle), each
+    facet's normal recomputed: the inverse of geometry.load_mesh's STL
+    reader."""
+    verts = np.asarray(vertices, np.float32)
+    tri = verts[np.asarray(faces, np.int64)]          # (F, 3, 3)
+    n = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    norm = np.linalg.norm(n, axis=1, keepdims=True)
+    n = (n / np.where(norm > 0, norm, 1.0)).astype(np.float32)
+    rec = np.zeros((tri.shape[0], 50), np.uint8)
+    rec[:, 0:12] = n.astype("<f4").view(np.uint8).reshape(-1, 12)
+    rec[:, 12:48] = tri.astype("<f4").reshape(-1, 9).view(np.uint8)
+    with open(path, "wb") as f:
+        f.write(b"\0" * 80)
+        f.write(struct.pack("<I", tri.shape[0]))
+        f.write(rec.tobytes())
+
 
 BASE_LEAVES = 30     # the leaves of every solver's state, extras aside
 _RIGID = 10          # index of the first rigid leaf

@@ -1,9 +1,9 @@
-"""Observability: steps/sec counter, NaN/Inf validation, density statistics
-and a torch.profiler trace scope.
+"""Observability: steps/sec counter, NaN/Inf validation, density
+statistics, a torch.profiler trace scope and false colours by a scalar.
 
-Counterpart of `cfd_taichi_tpu/utils/telemetry.py:20-107` (reference
-main.py:22, 89-124, 174-176, solver_base.py:145-164 and the solvers'
-residual prints).
+Counterpart of `cfd_taichi_tpu/utils/telemetry.py:20-121` (reference
+main.py:22, 89-124, 174-176, solver_base.py:145-164, 219-245 and the
+solvers' residual prints).
 """
 
 from __future__ import annotations
@@ -108,3 +108,17 @@ def profile_trace(log_dir: str | None):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def rgb_by_scalar(value: np.ndarray) -> np.ndarray:
+    """(N, 3) f32 false colours by a scalar normalised to [0, 1] (density or
+    neighbour count), the reference's visualize_rho / visualize_neighbour
+    (solver_base.py:219-245): rgb = (0, 0.28, normalised); all 1 where the
+    scalar is constant."""
+    value = np.asarray(value, np.float32)
+    vmin, vmax = value.min(), value.max()
+    b = (value - vmin) / (vmax - vmin) if vmax > vmin else np.ones_like(value)
+    rgb = np.zeros((value.shape[0], 3), np.float32)
+    rgb[:, 1] = 0.28
+    rgb[:, 2] = b
+    return rgb

@@ -623,3 +623,40 @@ def test_coupled_steps_on_the_card_match_the_cpu(cuda, solver, squeeze,
         np.testing.assert_allclose(forces[0], forces[1], rtol=1e-5)
     if squeeze < 0.9:
         assert forces[0] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unroll", [1, 3])
+@pytest.mark.parametrize("solver", ["dfsph", "iisph", "pcisph"])
+def test_graph_loops_match_eager_loops_on_the_card(cuda, solver, unroll):
+    """TINY squeezed by 0.85 (the loops iterate), 4 steps on the card with
+    the pressure loops' graph trips and with eager trips
+    (ops/loops.while_loop_unrolled_plain) at `unroll` iterations a trip:
+    positions, oid and diag bit for bit, coef_matvec launched as often in
+    both (trips x U of each loop's sub-iterations), a capture where a loop
+    takes a second trip."""
+    raw = copy.deepcopy(TINY)
+    raw["solver"]["name"] = solver
+    runs = {}
+    for eager in (False, True):
+        sim = Simulation(parse_config(raw), device=cuda)
+        sim.state = inputs.squeezed(sim.state)
+        stencil.reset_counts()
+        diags = []
+        with inputs.loop_mode(unroll=unroll, eager=eager):
+            for _ in range(4):
+                sim.step()
+                diags.append(sim.state.diag.tolist())
+        runs[eager] = (sim, diags, stencil.KERNELS["coef_matvec"].launches)
+    (graph, diags, mv), (plain, _, mv_plain) = runs[False], runs[True]
+    for a, b in ((graph.state.fluid.pos, plain.state.fluid.pos),
+                 (graph.state.fluid.oid, plain.state.fluid.oid),
+                 (graph.state.diag, plain.state.diag)):
+        assert torch.equal(a, b)
+    assert mv == mv_plain > 0
+    trips = [-(-round(d[c]) // unroll) for d in diags
+             for c in ((0, 2) if solver == "dfsph" else (0,))]
+    g = graph.scene.loop_graphs
+    assert g.trips == plain.scene.loop_graphs.trips == sum(trips)
+    assert g.captures == sum(t > 1 for t in trips)
+    assert plain.scene.loop_graphs.captures == 0

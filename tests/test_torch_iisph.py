@@ -232,7 +232,7 @@ def test_jacobi_loop_matches_jax(gain, breaks):
         *_synthetic_ops(gain, torch), torch.from_numpy(p0),
         torch.from_numpy(a_ii), torch.from_numpy(rho_adv))
     assert it == int(it_j)
-    assert isinstance(res, np.float32)
+    assert res.dtype == torch.float32 and res.shape == ()
     np.testing.assert_allclose(res, float(res_j), rtol=1e-6)
     np.testing.assert_allclose(p.numpy(), np.asarray(p_j), rtol=1e-6)
     assert d_ij.shape == (n, 3) and r_sum.shape == (n,)

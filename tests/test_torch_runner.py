@@ -1,9 +1,8 @@
 """The port's `run` and `Simulation` parameters held against the JAX
 runner's (cfd_taichi_tpu/runner.py:36, 149-153, 180, 237) on the TINY
-scene, on the CPU: the export flags that the port cannot serve yet raise
-before any step, `max_sim_time` ends a run at the JAX run's frame,
+scene, on the CPU: `max_sim_time` ends a run at the JAX run's frame,
 `profile_dir` leaves a Chrome trace, `check_nan` raises after a frame that
-holds a NaN.
+holds a NaN. Frame export: tests/test_torch_export.py.
 """
 
 import copy
@@ -32,18 +31,6 @@ def _cfg(**scene):
     return parse_config(raw)
 
 
-@pytest.mark.parametrize("flag", ["is_output_ply", "is_output_gif"])
-def test_run_refuses_export_flag(flag, tmp_path, monkeypatch):
-    def no_sim(*a, **k):
-        raise AssertionError("a Simulation was built before the refusal")
-
-    monkeypatch.setattr(runner, "Simulation", no_sim)
-    with pytest.raises(NotImplementedError, match=flag):
-        runner.run(_cfg(**{flag: True}), frames=1, device="cpu",
-                   output_dir=str(tmp_path / "out"), quiet=True)
-    assert not (tmp_path / "out").exists()
-
-
 def test_run_without_export_flags_runs(tmp_path, capsys):
     sim = runner.run(_cfg(), frames=2, device="cpu",
                      output_dir=str(tmp_path))
@@ -55,7 +42,8 @@ def test_run_without_export_flags_runs(tmp_path, capsys):
 
 def test_parameters_carry_the_jax_names_and_defaults():
     for fn, jfn, names in (
-            (runner.run, jrunner.run, ("max_sim_time", "profile_dir")),
+            (runner.run, jrunner.run, ("max_sim_time", "profile_dir",
+                                       "color_by")),
             (Simulation.__init__, jrunner.Simulation.__init__,
              ("check_nan",))):
         got, want = (inspect.signature(f).parameters for f in (fn, jfn))
