@@ -11,7 +11,8 @@ DFSPH, PCISPH, IISPH and WCSPH, and the runner with its frame export.
 Their pair passes are hand-written CUDA kernels (csrc/, bound in
 ops/stencil.py and ops/rigid.py) over cell-sorted CSR tables, with plain
 PyTorch versions for CPU tensors; their pressure loops run on the device
-as replayed CUDA graph trips (ops/loops.py).
+as replayed CUDA graph trips (ops/loops.py). Fluid-only scenes also step
+sharded over torch.distributed, one process a slab (parallel/).
 """
 
 __version__ = "0.1.0"

@@ -10,7 +10,7 @@ gives every particle its stable seeding-order identity.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -60,6 +60,29 @@ class SimState(NamedTuple):
     # Dropped-pair count. The CSR stencil has no capacity, so it stays 0;
     # kept for the JAX state's layout and telemetry.
     overflow: torch.Tensor
+
+
+class Shard(NamedTuple):
+    """One rank's hooks into a solver step (parallel/domain.py), whose rows
+    are then the rank's owned and ghost particles, compacted and
+    cell-sorted. A single-device step passes None, and each hook is then
+    the identity: every row is its own."""
+    sync: Callable        # (n, ...) -> the same, each ghost row's values
+    #                       replaced by its owner's (a trade with the ring
+    #                       neighbours)
+    owned: torch.Tensor   # (n,) bool: the rows the rank owns, which the
+    #                       residual averages count
+    upd: torch.Tensor     # (n,) bool: the rows DFSPH's loops update: owned,
+    #                       or ghosts within h of the slab
+    sum: Callable         # (0-d, ...) -> each summed over the ranks
+    max: Callable         # (n,) >= 0 -> its max over every rank's owned rows
+    loop: dict            # `agree` and `eager` of ops/loops.while_loop_unrolled
+
+
+def synced(shard: Shard | None, x: torch.Tensor) -> torch.Tensor:
+    """`x` with its ghost rows' values from their owners (module note of
+    parallel/domain.py); `x` itself on one device."""
+    return x if shard is None else shard.sync(x)
 
 
 def empty_rigid(device) -> RigidBodyState:
@@ -208,11 +231,18 @@ def sorted_density(scene: Scene, pos: torch.Tensor):
     boundary sums or None)."""
     scid, perm, pos_s, _ = sort_by_cells(scene.grid, pos)
     starts = nb.csr_starts(scid, scene.grid.num_cells)
-    ft, bt = one_shot_terms(scene, pos_s, starts)
+    rho, bt = density(scene, pos_s, starts)
+    return perm, pos_s, starts, rho, bt
+
+
+def density(scene: Scene, pos: torch.Tensor, starts: torch.Tensor):
+    """(rho, the boundary sums or None) of the cell-sorted `pos` with CSR
+    `starts`, as `sorted_density` gives them."""
+    ft, bt = one_shot_terms(scene, pos, starts)
     rho = f32(DENSITY_EPS) + ft.rho
     if bt is not None:
         rho = rho + bt.rho
-    return perm, pos_s, starts, rho, bt
+    return rho, bt
 
 
 def gravity_acc(scene: Scene) -> torch.Tensor:

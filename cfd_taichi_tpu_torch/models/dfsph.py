@@ -29,7 +29,7 @@ ops/loops.while_loop_unrolled: `loop_unroll(scene)` gated iterations a
 trip, each trip after the first a replay of one CUDA graph, and one host
 read of the loop condition a trip. The conditions compare f32 tensors, and
 the loop conditions, the f32 arithmetic and its quirks are the JAX
-package's, line for line (`_finish_step`); the diagnostics are built on
+package's, line for line (`solve`); the diagnostics are built on
 the device from the carried counters and residuals.
 """
 
@@ -96,6 +96,13 @@ def loop_unroll(scene: Scene) -> int:
     return LOOP_UNROLL
 
 
+def loop_args(scene: Scene, shard: base.Shard | None = None) -> dict:
+    """Keyword arguments of ops/loops.while_loop_unrolled for the scene's
+    pressure loops, on a rank of a sharded step its `agree` and `eager`."""
+    return dict(unroll=loop_unroll(scene), pool=scene.loop_graphs,
+                **(shard.loop if shard is not None else {}))
+
+
 def coef_bytes(n_pairs: int, dtype: torch.dtype) -> int:
     return n_pairs * (4 + dtype.itemsize)
 
@@ -143,7 +150,7 @@ def dense_pre_terms(scene: Scene, ft: stencil.FluidTerms,
 
 
 def loop_operators(matvec: Callable, matvec_dot: Callable, S: torch.Tensor,
-                   counts: torch.Tensor):
+                   counts: torch.Tensor, shard: base.Shard | None = None):
     """The DFSPH loop algebra (`cfd_taichi_tpu/models/dfsph.py:174-222`):
 
       stiff_vel_delta(k) = k S + matvec(k)     velocity change per unit dt
@@ -154,7 +161,18 @@ def loop_operators(matvec: Callable, matvec_dot: Callable, S: torch.Tensor,
                                                average
     c_s is the loop-constant solid contact dot of a coupled scene, which
     the density rate subtracts, or None (fluid-only: nothing subtracted).
+    On a rank of a sharded step (`shard`) an average counts the rows the
+    rank owns, its count and total summed over the ranks.
     """
+    def average(sel, vals, empty):
+        if shard is not None:
+            sel = sel & shard.owned
+        cnt = sel.sum()
+        tot = torch.where(sel, vals, torch.zeros_like(vals)).sum()
+        if shard is not None:
+            cnt, tot = shard.sum(cnt, tot)
+        return torch.where(cnt > 0, tot / cnt, empty(tot))
+
     def stiff_vel_delta(k_over_rho):
         return S * k_over_rho[:, None] + matvec(k_over_rho)
 
@@ -166,20 +184,13 @@ def loop_operators(matvec: Callable, matvec_dot: Callable, S: torch.Tensor,
         dr = vel_dot_terms(v, c_s)
         dr = torch.where(counts < MIN_NEIGHBORS, torch.zeros_like(dr),
                          torch.clamp(dr, min=0.0))
-        sel = dr > 0.0
-        cnt = sel.sum()
-        tot = torch.where(sel, dr, torch.zeros_like(dr)).sum()
-        avg = torch.where(cnt > 0, tot / cnt, torch.zeros_like(tot))
-        return dr, avg
+        return dr, average(dr > 0.0, dr, torch.zeros_like)
 
     def rho_adv_residual(rho, dt, v_adv, c_s=None):
         d = vel_dot_terms(v_adv, c_s)
         rho_adv = torch.clamp(rho + dt * d, min=RHO_0)
-        uncl = rho_adv != RHO_0
-        cnt = uncl.sum()
-        tot = torch.where(uncl, rho_adv, torch.zeros_like(rho_adv)).sum()
-        avg = torch.where(cnt > 0, tot / cnt, torch.full_like(tot, RHO_0))
-        return rho_adv, avg
+        return rho_adv, average(rho_adv != RHO_0, rho_adv,
+                                lambda t: torch.full_like(t, RHO_0))
 
     return stiff_vel_delta, rho_derivative, rho_adv_residual
 
@@ -187,9 +198,9 @@ def loop_operators(matvec: Callable, matvec_dot: Callable, S: torch.Tensor,
 class _Pre(NamedTuple):
     """Sorted state and step-constant terms handed to `_finish_step`."""
     pos: torch.Tensor        # (N, 3) sorted positions
-    oid: torch.Tensor
+    oid: torch.Tensor | None
     vel: torch.Tensor
-    acc: torch.Tensor
+    acc: torch.Tensor | None
     warm_k: torch.Tensor
     rho: torch.Tensor
     alpha: torch.Tensor
@@ -219,6 +230,7 @@ def loop_engine(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
     # from the count maximum would need a read too.) Summed in int64, so
     # that a scene far beyond the budget cannot wrap it.
     n_pairs = int(ft.count.sum(dtype=torch.int64))
+    scene.loop_graphs.reads += 1
     if use_coef_engine(n_pairs, COEF_DTYPE):
         eng = coef.build_coef(pos, starts, grid, h, m,
                               coef.csr_offsets(ft.count), COEF_DTYPE,
@@ -233,13 +245,23 @@ def prepare(scene: Scene, state: base.SimState) -> _Pre:
     """Cell sort plus the one-shot pair passes of a step; on a coupled
     scene also the body's cell table, its solid sums and the closures of
     the solid terms (`cfd_taichi_tpu/models/dfsph.py:499-583`)."""
-    fluid, rigid = state.fluid, state.rigid
+    fluid = state.fluid
     (warm_k,) = state.extra
-    grid, h, m = scene.grid, scene.h, scene.particle_m
     scid, _, pos, (vel, warm_s, oid, acc) = base.sort_by_cells(
-        grid, fluid.pos, (fluid.vel, warm_k, fluid.oid, fluid.acc))
-    starts = nb.csr_starts(scid, grid.num_cells)
+        scene.grid, fluid.pos, (fluid.vel, warm_k, fluid.oid, fluid.acc))
+    starts = nb.csr_starts(scid, scene.grid.num_cells)
+    return prepare_sorted(scene, state.rigid, pos, starts, vel, warm_s, oid,
+                          acc)
 
+
+def prepare_sorted(scene: Scene, rigid: base.RigidBodyState,
+                   pos: torch.Tensor, starts: torch.Tensor,
+                   vel: torch.Tensor, warm_k: torch.Tensor,
+                   oid: torch.Tensor | None = None,
+                   acc: torch.Tensor | None = None) -> _Pre:
+    """`prepare` on rows already cell-sorted, with CSR `starts`: also the
+    sharded step's (fluid-only: no `oid` and `acc` to carry)."""
+    grid, h, m = scene.grid, scene.h, scene.particle_m
     ft, bt = base.one_shot_terms(scene, pos, starts)
     table, rt = base.body_terms(scene, rigid, pos)
     rho, alpha, S, tension = dense_pre_terms(scene, ft, bt, rt)
@@ -266,7 +288,7 @@ def prepare(scene: Scene, state: base.SimState) -> _Pre:
                 return base.body_reaction(scene, rigid, pos, starts,
                                           k_over_rho * f32(m), force)
 
-    return _Pre(pos=pos, oid=oid, vel=vel, acc=acc, warm_k=warm_s, rho=rho,
+    return _Pre(pos=pos, oid=oid, vel=vel, acc=acc, warm_k=warm_k, rho=rho,
                 alpha=alpha, count=ft.count, S=S, mv=mv, mvd=mvd,
                 ext_force_fn=ext_force_fn, cs_fn=cs_fn,
                 scatter_fn=scatter_fn)
@@ -278,23 +300,48 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
 
 def _finish_step(scene: Scene, state: base.SimState,
                  pre: _Pre) -> base.SimState:
+    pos, vel, warm_k, dt, diag, rigid_force = solve(scene, pre, state.dt,
+                                                    state.rigid)
+    return state._replace(
+        fluid=base.FluidState(pos=pos, vel=vel, acc=pre.acc, oid=pre.oid),
+        rigid=state.rigid._replace(force=rigid_force),
+        dt=dt,
+        t=state.t + dt,
+        step_count=state.step_count + 1,
+        extra=(warm_k,),
+        diag=diag)
+
+
+def solve(scene: Scene, pre: _Pre, dt: torch.Tensor,
+          rigid: base.RigidBodyState, shard: base.Shard | None = None):
     """Warm start, divergence solve, external forces and adaptive CFL dt,
     density solve, integration: the reference's step order
     (dfsph_solver.py:428-445) with the JAX package's arithmetic
-    (`cfd_taichi_tpu/models/dfsph.py:686-790`)."""
-    dt = state.dt
+    (`cfd_taichi_tpu/models/dfsph.py:686-790`). Returns the sorted rows'
+    positions, velocities and warm-start stiffness, the new dt, the diag
+    and the body's force.
+
+    On a rank of a sharded step (`shard`, `cfd_taichi_tpu/parallel/
+    domain.py:830-1036`) each stiffness reaches the ghost rows from their
+    owners before it is applied, a loop updates the rows of `shard.upd`
+    only, v_adv is traded once, and the averages and the CFL velocity are
+    taken over the ranks."""
     vel, warm_k = pre.vel, pre.warm_k
     rho, alpha = pre.rho, pre.alpha
-    rigid = state.rigid
     stiff_vel_delta, rho_derivative, rho_adv_residual = loop_operators(
-        pre.mv, pre.mvd, pre.S, pre.count)
+        pre.mv, pre.mvd, pre.S, pre.count, shard)
+
+    def kick(v, k_over_rho, dt):
+        new = v - stiff_vel_delta(base.synced(shard, k_over_rho)) * dt
+        return new if shard is None else torch.where(shard.upd[:, None],
+                                                     new, v)
 
     # --- divergence solve (dfsph_solver.py:393-416) -------------------------
     # Warm start with the previous step's dt.
-    vel = vel - stiff_vel_delta((warm_k / dt) / rho) * dt
+    vel = kick(vel, (warm_k / dt) / rho, dt)
     cs_div = pre.cs_fn(False, dt) if pre.cs_fn is not None else None
     dr0, avg0 = rho_derivative(vel, cs_div)
-    unroll, graphs = loop_unroll(scene), scene.loop_graphs
+    loop_kw = loop_args(scene, shard)
 
     def div_cond(c):
         _, _, _, avg, stop, it = c
@@ -303,8 +350,7 @@ def _finish_step(scene: Scene, state: base.SimState,
 
     def div_body(c):
         v, wk, dr, avg, _, it = c
-        k_over_rho = (dr * alpha / dt) / rho
-        v = v - stiff_vel_delta(k_over_rho) * dt
+        v = kick(v, (dr * alpha / dt) / rho, dt)
         wk = wk + dr * alpha    # sum_up_stiff (dfsph_solver.py:381)
         new_dr, new_avg = rho_derivative(v, cs_div)
         stop = torch.abs(new_avg - avg) < f32(STALL_EPS)
@@ -315,13 +361,15 @@ def _finish_step(scene: Scene, state: base.SimState,
         div_cond, div_body,
         (vel, torch.zeros_like(warm_k), dr0, avg0,
          torch.zeros((), dtype=torch.bool, device=vel.device), zero_i),
-        unroll, graphs)
+        **loop_kw)
 
     # --- external forces + v_adv + adaptive dt (dfsph_solver.py:91-122) -----
     # Reference quirk kept: gravity joins the force and is divided by m.
     force_ext = base.gravity_acc(scene) + pre.ext_force_fn(vel)
     vel_adv = vel + force_ext * true_div(dt, f32(scene.particle_m))
-    max_vel = torch.sqrt(dot(vel_adv, vel_adv)).max()
+    speed = torch.sqrt(dot(vel_adv, vel_adv))
+    vel_adv = base.synced(shard, vel_adv)
+    max_vel = speed.max() if shard is None else shard.max(speed)
     if scene.coupled:
         # The body's fastest particle joins the CFL velocity.
         spin = base.cross(rigid.omega, rigid.pos - rigid.centroid)
@@ -350,14 +398,14 @@ def _finish_step(scene: Scene, state: base.SimState,
         k_over_rho = ((rho_adv - RHO_0) * alpha / dt2) / rho
         if pre.scatter_fn is not None:
             rforce = pre.scatter_fn(k_over_rho, rforce)
-        v_adv = v_adv - stiff_vel_delta(k_over_rho) * dt
+        v_adv = kick(v_adv, k_over_rho, dt)
         return v_adv, avg, rforce, it + 1
 
     vel_adv, den_avg, rigid_force, den_iters = loops.while_loop_unrolled(
         den_cond, den_body,
         (vel_adv, torch.full((), float("inf"), dtype=torch.float32,
                              device=vel.device),
-         rigid.force, zero_i), unroll, graphs)
+         rigid.force, zero_i), **loop_kw)
 
     # --- position update (dfsph_solver.py:235-250) --------------------------
     new_pos = pre.pos + vel_adv * (dt * f32(base.ARTIFICIAL_FRICTION))
@@ -366,16 +414,8 @@ def _finish_step(scene: Scene, state: base.SimState,
         new_pos, new_vel = base.clamp_to_box(
             scene, new_pos, new_vel, margin=scene.particle_radius,
             decay_mul=-base.V_DECAY)
-
-    return state._replace(
-        fluid=base.FluidState(pos=new_pos, vel=new_vel, acc=pre.acc,
-                              oid=pre.oid),
-        rigid=rigid._replace(force=rigid_force),
-        dt=dt,
-        t=state.t + dt,
-        step_count=state.step_count + 1,
-        extra=(warm_k,),
-        # [divergence iters, divergence residual, density iters,
-        #  density error] (dfsph_solver.py:233,416).
-        diag=torch.stack([div_iters.float(), div_avg, den_iters.float(),
-                          den_avg - RHO_0]))
+    # [divergence iters, divergence residual, density iters, density
+    #  error] (dfsph_solver.py:233,416).
+    diag = torch.stack([div_iters.float(), div_avg, den_iters.float(),
+                        den_avg - RHO_0])
+    return new_pos, new_vel, warm_k, dt, diag, rigid_force

@@ -103,14 +103,21 @@ def dense_jacobi_ops(mv: Callable, mvd: Callable, qsum: torch.Tensor,
     return d_ij_of, r_sum_of
 
 
-def dense_residual_fn(a_ii: torch.Tensor, rho_adv: torch.Tensor):
+def dense_residual_fn(a_ii: torch.Tensor, rho_adv: torch.Tensor,
+                      shard: base.Shard | None = None):
     """The positive-pressure residual average (`cfd_taichi_tpu/models/
-    iisph.py:266-281`; RESIDUAL_REF keeps the hard-coded 1000)."""
+    iisph.py:266-281`; RESIDUAL_REF keeps the hard-coded 1000). On a rank
+    of a sharded step (`shard`) it counts the rows the rank owns, its
+    count and total summed over the ranks."""
     def residual_of(p, r_sum):
         active = p > 0.0
+        if shard is not None:
+            active = active & shard.owned
         cnt = active.to(torch.float32).sum()
         total = torch.where(active, a_ii * p + r_sum + rho_adv - RESIDUAL_REF,
                             torch.zeros_like(p)).sum()
+        if shard is not None:
+            cnt, total = shard.sum(cnt, total)
         return torch.where(cnt > 0, total / cnt, torch.zeros_like(total))
 
     return residual_of
@@ -118,7 +125,8 @@ def dense_residual_fn(a_ii: torch.Tensor, rho_adv: torch.Tensor):
 
 def jacobi_loop(d_ij_of: Callable, r_sum_of: Callable, residual_of: Callable,
                 p0: torch.Tensor, a_ii: torch.Tensor, rho_adv: torch.Tensor,
-                unroll: int = 1, pool: loops.GraphPool | None = None):
+                unroll: int = 1, pool: loops.GraphPool | None = None,
+                shard: base.Shard | None = None):
     """The reference's `pressure_solve` (iisph_solver.py:78-99) with JAX's
     control flow (`cfd_taichi_tpu/models/iisph.py:207-263`), on the device
     (ops/loops.while_loop_unrolled, `unroll` iterations a trip). Per
@@ -126,7 +134,8 @@ def jacobi_loop(d_ij_of: Callable, r_sum_of: Callable, residual_of: Callable,
     max(relaxed Jacobi update, 0); res <- residual_of(p, r_sum), the
     post-update p against the pre-update r_sum; stop on res rising from
     the second iteration on. Returns (p, d_ij, r_sum, res, iterations),
-    the last two 0-d tensors."""
+    the last two 0-d tensors. On a rank of a sharded step (`shard`) the
+    updated p reaches the ghost rows from their owners."""
     err_thresh = f32(RHO_ERR_PERCENT * RHO_0 * 0.01)
     solvable = torch.abs(a_ii) > f32(1e-7)
 
@@ -142,7 +151,7 @@ def jacobi_loop(d_ij_of: Callable, r_sum_of: Callable, residual_of: Callable,
                             (1.0 - OMEGA) * p
                             + OMEGA * (RHO_0 - rho_adv - r_sum) / a_ii,
                             torch.zeros_like(p))
-        p = torch.clamp(p_new, min=0.0)
+        p = base.synced(shard, torch.clamp(p_new, min=0.0))
         new_res = residual_of(p, r_sum)
         stop = (it >= 1) & (new_res - res > 0.0)
         return p, d_ij, r_sum, new_res, stop, it + 1
@@ -154,19 +163,41 @@ def jacobi_loop(d_ij_of: Callable, r_sum_of: Callable, residual_of: Callable,
          torch.zeros_like(p0),
          torch.full((), float("inf"), dtype=torch.float32, device=dev),
          torch.zeros((), dtype=torch.bool, device=dev),
-         torch.zeros((), dtype=torch.int32, device=dev)), unroll, pool)
+         torch.zeros((), dtype=torch.int32, device=dev)), unroll, pool,
+        **(shard.loop if shard is not None else {}))
     return p, d_ij, r_sum, res, it
 
 
 def step(scene: Scene, state: base.SimState) -> base.SimState:
     fluid, rigid, dt = state.fluid, state.rigid, state.dt
     (p_past,) = state.extra
+    scid, _, pos, (vel, oid, p_past, acc) = base.sort_by_cells(
+        scene.grid, fluid.pos, (fluid.vel, fluid.oid, p_past, fluid.acc))
+    starts = nb.csr_starts(scid, scene.grid.num_cells)
+    new_pos, new_vel, p_iter, diag, rigid_force = solve(
+        scene, pos, starts, vel, p_past, dt, rigid, oid)
+    return state._replace(
+        # acc is the previous step's, in sorted order, as JAX returns it.
+        fluid=base.FluidState(pos=new_pos, vel=new_vel, acc=acc, oid=oid),
+        rigid=rigid._replace(force=rigid_force),
+        t=state.t + dt,
+        step_count=state.step_count + 1,
+        extra=(p_iter,),
+        diag=diag)
+
+
+def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
+          vel: torch.Tensor, p_past: torch.Tensor, dt: torch.Tensor,
+          rigid: base.RigidBodyState, oid: torch.Tensor | None = None,
+          shard: base.Shard | None = None):
+    """The step on cell-sorted rows with CSR `starts`: the new positions,
+    velocities and pressures, the diag and the body's force. On a rank of
+    a sharded step (`shard`, `cfd_taichi_tpu/parallel/domain.py:
+    1197-1304`) the warm start and each iteration's pressure reach the
+    ghost rows from their owners, and the residual is taken over the
+    ranks."""
     grid, m = scene.grid, scene.particle_m
     dt2 = dt * dt
-    scid, _, pos, (vel, oid, p_past, acc) = base.sort_by_cells(
-        grid, fluid.pos, (fluid.vel, fluid.oid, p_past, fluid.acc))
-    starts = nb.csr_starts(scid, grid.num_cells)
-
     ft, bt = base.one_shot_terms(scene, pos, starts)
     table, rt = base.body_terms(scene, rigid, pos)
     rho, S_all, g2_sb, tension = dense_pre_terms(scene, ft, bt, rt)
@@ -195,12 +226,12 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
             - dt2 * f32(m) * inv_rho2 * (true_div(ft.qsum, f32(m)) + g2_sb))
 
     # --- relaxed Jacobi solve (iisph_solver.py:78-147) ----------------------
-    p0 = 0.5 * p_past  # warm start (iisph_solver.py:67)
+    p0 = base.synced(shard, 0.5 * p_past)  # warm start (iisph_solver.py:67)
     d_ij_of, r_sum_of = dense_jacobi_ops(mv, mvd, ft.qsum, S_all, inv_rho2,
                                          d_ii, dt2)
     p_iter, d_ij, _, res, iters = jacobi_loop(
-        d_ij_of, r_sum_of, dense_residual_fn(a_ii, rho_adv), p0, a_ii,
-        rho_adv, dfsph.loop_unroll(scene), scene.loop_graphs)
+        d_ij_of, r_sum_of, dense_residual_fn(a_ii, rho_adv, shard), p0, a_ii,
+        rho_adv, dfsph.loop_unroll(scene), scene.loop_graphs, shard)
 
     # --- integration (iisph_solver.py:150-206) ------------------------------
     m_over_dt2 = torch.full_like(dt2, f32(m)) / dt2
@@ -220,12 +251,6 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
             decay_mul=-base.V_DECAY)
 
     zero = torch.zeros_like(res)
-    return state._replace(
-        # acc is the previous step's, in sorted order, as JAX returns it.
-        fluid=base.FluidState(pos=new_pos, vel=new_vel, acc=acc, oid=oid),
-        rigid=rigid._replace(force=rigid_force),
-        t=state.t + dt,
-        step_count=state.step_count + 1,
-        extra=(p_iter,),
-        # [iterations, residual, 0, 0] (iisph_solver.py:96).
-        diag=torch.stack([iters.float(), res, zero, zero]))
+    # [iterations, residual, 0, 0] (iisph_solver.py:96).
+    return new_pos, new_vel, p_iter, \
+        torch.stack([iters.float(), res, zero, zero]), rigid_force

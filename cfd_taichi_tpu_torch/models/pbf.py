@@ -57,10 +57,27 @@ def w_ref(h: float) -> float:
 
 def step(scene: Scene, state: base.SimState) -> base.SimState:
     fluid, dt = state.fluid, state.dt
-    grid, h, m = scene.grid, scene.h, scene.particle_m
     scid, _, pos, (vel_s, oid, acc) = base.sort_by_cells(
-        grid, fluid.pos, (fluid.vel, fluid.oid, fluid.acc))
-    starts = nb.csr_starts(scid, grid.num_cells)
+        scene.grid, fluid.pos, (fluid.vel, fluid.oid, fluid.acc))
+    starts = nb.csr_starts(scid, scene.grid.num_cells)
+    new_pos, new_vel, _ = solve(scene, pos, starts, vel_s, dt)
+    return state._replace(
+        # acc is the previous step's, in sorted order, as JAX returns it.
+        fluid=base.FluidState(pos=new_pos, vel=new_vel, acc=acc, oid=oid),
+        t=state.t + dt,
+        step_count=state.step_count + 1)
+
+
+def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
+          vel_s: torch.Tensor, dt: torch.Tensor,
+          shard: base.Shard | None = None):
+    """The step on cell-sorted rows with CSR `starts`: the new positions
+    and velocities, and the density constraint. On a rank of a sharded
+    step (`shard`, `cfd_taichi_tpu/parallel/domain.py:1402-1493`) the
+    constraint pass needs no trade (its chain from an owned row is two
+    hops, inside the 2h halo), and the updated positions and velocities
+    reach the ghost rows from their owners before XSPH reads them."""
+    grid, h, m = scene.grid, scene.h, scene.particle_m
     wr = w_ref(h)
 
     # --- external force + predicted positions (pbf_solver.py:26-30) ---------
@@ -104,11 +121,9 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
             scene, pos_predict, new_vel, margin=scene.particle_radius,
             decay_mul=base.V_DECAY)  # positive decay (pbf_solver.py:78, 82)
     new_pos = pos_predict
+    if shard is not None:
+        pv = shard.sync(torch.cat([new_pos, new_vel], dim=1))
+        new_pos, new_vel = pv[:, :3].contiguous(), pv[:, 3:].contiguous()
     new_vel = new_vel + f32(XSPH_C) * stencil.pbf_xsph(pos, starts, grid, h,
                                                        new_pos, new_vel)
-
-    return state._replace(
-        # acc is the previous step's, in sorted order, as JAX returns it.
-        fluid=base.FluidState(pos=new_pos, vel=new_vel, acc=acc, oid=oid),
-        t=state.t + dt,
-        step_count=state.step_count + 1)
+    return new_pos, new_vel, constraint

@@ -85,23 +85,49 @@ def init_state(scene: Scene) -> base.SimState:
     return base.init_sim_state(scene, extra=(stiffness(scene),))
 
 
-def positive_avg(err: torch.Tensor) -> torch.Tensor:
+def positive_avg(err: torch.Tensor,
+                 shard: base.Shard | None = None) -> torch.Tensor:
     """Average of the strictly positive density errors, 0 where there is
-    none (`cfd_taichi_tpu/models/pcisph.py:61-71`)."""
+    none (`cfd_taichi_tpu/models/pcisph.py:61-71`). On a rank of a sharded
+    step (`shard`) it counts the rows the rank owns, its count and total
+    summed over the ranks."""
     sel = err > 0.0
+    if shard is not None:
+        sel = sel & shard.owned
     cnt = sel.sum()
     total = torch.where(sel, err, torch.zeros_like(err)).sum()
+    if shard is not None:
+        cnt, total = shard.sum(cnt, total)
     return torch.where(cnt > 0, total / cnt, torch.zeros_like(total))
 
 
 def step(scene: Scene, state: base.SimState) -> base.SimState:
     fluid, rigid, dt = state.fluid, state.rigid, state.dt
     (delta,) = state.extra
-    grid, h, m = scene.grid, scene.h, scene.particle_m
     scid, _, pos, (vel, oid, acc) = base.sort_by_cells(
-        grid, fluid.pos, (fluid.vel, fluid.oid, fluid.acc))
-    starts = nb.csr_starts(scid, grid.num_cells)
+        scene.grid, fluid.pos, (fluid.vel, fluid.oid, fluid.acc))
+    starts = nb.csr_starts(scid, scene.grid.num_cells)
+    new_pos, new_vel, diag, rigid_force = solve(scene, pos, starts, vel,
+                                                delta, dt, rigid, oid)
+    return state._replace(
+        # acc is the previous step's, in sorted order, as JAX returns it.
+        fluid=base.FluidState(pos=new_pos, vel=new_vel, acc=acc, oid=oid),
+        rigid=rigid._replace(force=rigid_force),
+        t=state.t + dt,
+        step_count=state.step_count + 1,
+        diag=diag)
 
+
+def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
+          vel: torch.Tensor, delta: torch.Tensor, dt: torch.Tensor,
+          rigid: base.RigidBodyState, oid: torch.Tensor | None = None,
+          shard: base.Shard | None = None):
+    """The step on cell-sorted rows with CSR `starts`: the new positions
+    and velocities, the diag and the body's force. On a rank of a sharded
+    step (`shard`, `cfd_taichi_tpu/parallel/domain.py:1039-1194`) each
+    iteration's pressure reaches the ghost rows from their owners, and the
+    residual is taken over the ranks."""
+    grid, h, m = scene.grid, scene.h, scene.particle_m
     ft, bt = base.one_shot_terms(scene, pos, starts)
     rho = f32(base.DENSITY_EPS) + ft.rho
     if bt is not None:
@@ -163,16 +189,18 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
 
     def body(c):
         p, _, rho_err, _, rigid_force, it = c
-        p = torch.clamp(p + rho_err * delta, min=0.0)
+        p = base.synced(shard, torch.clamp(p + rho_err * delta, min=0.0))
         force, rigid_force = press_force_of(p, rigid_force)
         rho_err = predict(force)
-        return p, force, rho_err, positive_avg(rho_err), rigid_force, it + 1
+        return (p, force, rho_err, positive_avg(rho_err, shard), rigid_force,
+                it + 1)
 
     _, press_force, _, res, rigid_force, iters = loops.while_loop_unrolled(
         cond, body,
-        (torch.zeros_like(rho), force0, rho_err0, positive_avg(rho_err0),
-         rigid.force, torch.zeros((), dtype=torch.int32, device=pos.device)),
-        dfsph.loop_unroll(scene), scene.loop_graphs)
+        (torch.zeros_like(rho), force0, rho_err0,
+         positive_avg(rho_err0, shard), rigid.force,
+         torch.zeros((), dtype=torch.int32, device=pos.device)),
+        **dfsph.loop_args(scene, shard))
 
     # --- integration (pcisph_solver.py:200-217) -----------------------------
     new_vel = ((vel + (ext_force + press_force) * dt_over_m)
@@ -184,13 +212,7 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
             decay_mul=-base.V_DECAY)
 
     zero = torch.zeros_like(res)
-    return state._replace(
-        # acc is the previous step's, in sorted order, as JAX returns it.
-        fluid=base.FluidState(pos=new_pos, vel=new_vel, acc=acc, oid=oid),
-        rigid=rigid._replace(force=rigid_force),
-        t=state.t + dt,
-        step_count=state.step_count + 1,
-        extra=(delta,),
-        # [iterations, average positive density error, 0, 0]
-        # (pcisph_solver.py:70).
-        diag=torch.stack([iters.float(), res, zero, zero]))
+    # [iterations, average positive density error, 0, 0]
+    # (pcisph_solver.py:70).
+    return new_pos, new_vel, torch.stack([iters.float(), res, zero, zero]), \
+        rigid_force

@@ -55,9 +55,27 @@ def tait_pressure(rho: torch.Tensor) -> torch.Tensor:
 
 def step(scene: Scene, state: base.SimState) -> base.SimState:
     fluid, rigid, dt = state.fluid, state.rigid, state.dt
-    grid, h, m = scene.grid, scene.h, scene.particle_m
     perm, pos, starts, rho, bt = base.sorted_density(scene, fluid.pos)
-    vel, oid = fluid.vel[perm], fluid.oid[perm]
+    oid = fluid.oid[perm]
+    new_pos, new_vel, acc, rigid_force = solve(
+        scene, pos, starts, fluid.vel[perm], rho, bt, dt, rigid, oid)
+    return state._replace(
+        fluid=base.FluidState(pos=new_pos, vel=new_vel, acc=acc, oid=oid),
+        rigid=rigid._replace(force=rigid_force),
+        t=state.t + dt,
+        step_count=state.step_count + 1)
+
+
+def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
+          vel: torch.Tensor, rho: torch.Tensor,
+          bt: stencil.BoundaryTerms | None, dt: torch.Tensor,
+          rigid: base.RigidBodyState, oid: torch.Tensor | None = None):
+    """The step on cell-sorted rows with CSR `starts` and their density
+    (`base.density`): the new positions and velocities, the acceleration
+    and the body's force. Also the sharded step's: with no loop, each
+    owned row's neighbourhood lies in the 2h halo (`cfd_taichi_tpu/
+    parallel/domain.py:1307-1399`)."""
+    grid, h, m = scene.grid, scene.h, scene.particle_m
     table, rt = base.body_terms(scene, rigid, pos)
     if rt is not None:
         rho = rho + rt.rho
@@ -89,12 +107,7 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
         new_pos, new_vel = base.clamp_to_box(
             scene, new_pos, new_vel, margin=2.0 * scene.particle_radius,
             decay_mul=-base.V_DECAY)
-
-    return state._replace(
-        fluid=base.FluidState(pos=new_pos, vel=new_vel, acc=acc, oid=oid),
-        rigid=rigid._replace(force=rigid_force),
-        t=state.t + dt,
-        step_count=state.step_count + 1)
+    return new_pos, new_vel, acc, rigid_force
 
 
 def density_error(scene: Scene, state: base.SimState) -> torch.Tensor:

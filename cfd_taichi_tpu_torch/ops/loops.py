@@ -50,6 +50,10 @@ from cfd_taichi_tpu_torch.ops.stencil import KERNELS
 
 Carry = tuple[torch.Tensor, ...]
 
+# Every trip launched from Python, on any device: the loops as the port ran
+# them before it had graphs (perf/inputs.loop_mode sets it).
+ALL_EAGER = False
+
 
 class GraphPool:
     """The memory pool of a scene's trip graphs, the stream they are
@@ -71,14 +75,18 @@ class GraphPool:
 
     def reset(self) -> None:
         self.trips = 0          # trips run, each one host read of cond
+        self.reads = 0          # host reads outside the trips (the pair
+        #                         count, a sharded step's compaction)
         self.captures = 0       # graphs captured
         self.capture_s = 0.0    # host seconds in captures, all in
         self.instantiate_s = 0.0  # of which in capture_end (instantiation)
 
 
 def _gated_trip(cond: Callable[[Carry], torch.Tensor],
-                body: Callable[[Carry], Sequence[torch.Tensor]], unroll: int):
-    """carry -> (carry after U gated sub-iterations, cond on it)."""
+                body: Callable[[Carry], Sequence[torch.Tensor]], unroll: int,
+                agree: Callable[[torch.Tensor], torch.Tensor] | None = None):
+    """carry -> (carry after U gated sub-iterations, cond on it, passed
+    through `agree` where one is given)."""
     def trip(carry: Carry):
         for _ in range(unroll):
             pred = cond(carry)
@@ -89,7 +97,8 @@ def _gated_trip(cond: Callable[[Carry], torch.Tensor],
                         f"loop carry leaf {i}: the body returns {a.dtype} "
                         f"{tuple(a.shape)} for {b.dtype} {tuple(b.shape)}")
             carry = tuple(torch.where(pred, a, b) for a, b in zip(new, carry))
-        return carry, cond(carry)
+        more = cond(carry)
+        return carry, more if agree is None else agree(more)
 
     if unroll < 1:
         raise ValueError(f"unroll {unroll}: want at least 1")
@@ -99,10 +108,11 @@ def _gated_trip(cond: Callable[[Carry], torch.Tensor],
 def while_loop_unrolled_plain(cond: Callable[[Carry], torch.Tensor],
                               body: Callable[[Carry], Sequence[torch.Tensor]],
                               init: Sequence[torch.Tensor], unroll: int = 1,
-                              pool: GraphPool | None = None) -> Carry:
+                              pool: GraphPool | None = None,
+                              agree: Callable | None = None) -> Carry:
     """The loop with every trip run eagerly, on any device: the plain
     version of `while_loop_unrolled`, which runs it on CPU tensors."""
-    trip = _gated_trip(cond, body, unroll)
+    trip = _gated_trip(cond, body, unroll, agree)
     carry, more = trip(tuple(init))
     trips = 1
     while bool(more):
@@ -116,17 +126,25 @@ def while_loop_unrolled_plain(cond: Callable[[Carry], torch.Tensor],
 def while_loop_unrolled(cond: Callable[[Carry], torch.Tensor],
                         body: Callable[[Carry], Sequence[torch.Tensor]],
                         init: Sequence[torch.Tensor], unroll: int = 1,
-                        pool: GraphPool | None = None) -> Carry:
+                        pool: GraphPool | None = None,
+                        agree: Callable | None = None,
+                        eager: bool = False) -> Carry:
     """`while cond(carry): carry = body(carry)` over a tuple of tensors, U
     gated sub-iterations a trip (module note). `cond` returns a 0-d bool
     tensor; `body` the new carry, each leaf of its leaf's dtype and shape.
     On CUDA tensors the trips after the first replay a captured graph,
-    into `pool`'s memory where one is given; on CPU tensors the loop is
-    `while_loop_unrolled_plain`."""
+    into `pool`'s memory where one is given; on CPU tensors, where the
+    caller asks for `eager` trips, or under ALL_EAGER, the loop is
+    `while_loop_unrolled_plain`.
+
+    `agree` maps a trip's 0-d `cond` to the one every rank of a sharded
+    loop reads (an all-reduce, parallel/domain.py); it runs inside the
+    trip, so a captured trip holds it too."""
     init = tuple(init)
-    if not init[0].is_cuda:
-        return while_loop_unrolled_plain(cond, body, init, unroll, pool)
-    trip = _gated_trip(cond, body, unroll)
+    if eager or ALL_EAGER or not init[0].is_cuda:
+        return while_loop_unrolled_plain(cond, body, init, unroll, pool,
+                                         agree)
+    trip = _gated_trip(cond, body, unroll, agree)
     carry, more = trip(init)
     trips = 1
     if bool(more):

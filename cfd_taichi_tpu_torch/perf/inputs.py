@@ -342,17 +342,16 @@ def engine(budget: float | None = None, dtype: torch.dtype | None = None):
 def loop_mode(unroll: int | None = None, eager: bool = False):
     """Pin the pressure loops of DFSPH, IISPH and PCISPH: `unroll`
     iterations a trip (models/dfsph.loop_unroll) and, with `eager`, every
-    trip launched from Python (ops/loops.while_loop_unrolled_plain, on any
-    device), restored on exit."""
+    trip launched from Python (ops/loops.ALL_EAGER, on any device),
+    restored on exit."""
     from cfd_taichi_tpu_torch.models import dfsph
     from cfd_taichi_tpu_torch.ops import loops
 
-    saved = dfsph.loop_unroll, loops.while_loop_unrolled
+    saved = dfsph.loop_unroll, loops.ALL_EAGER
     if unroll is not None:
         dfsph.loop_unroll = lambda scene: unroll
-    if eager:
-        loops.while_loop_unrolled = loops.while_loop_unrolled_plain
+    loops.ALL_EAGER = eager
     try:
         yield
     finally:
-        dfsph.loop_unroll, loops.while_loop_unrolled = saved
+        dfsph.loop_unroll, loops.ALL_EAGER = saved

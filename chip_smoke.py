@@ -158,11 +158,36 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 memory, iterations a step, max |F| of the first steps
                 (sampled before each rigid step) and the centroid's path.
 
+16. shard     - the slab decomposition (cfd_taichi_tpu_torch/parallel),
+                its ranks started by parallel/launch.spawn with the rank
+                programs of perf/shard_rates.py. NCCL, one rank a card
+                (world = torch.cuda.device_count(), 1 here):
+                configs/breaking_dam_1m.json as DFSPH, 5 sharded steps from
+                rest against 5 single-device steps on the same scene in
+                the same process: equal iteration counts every step, dt to
+                rtol 1e-5, the largest position difference through oid
+                printed and held to 5e-6, the particle count kept, overflow
+                0; each rank's launches (stencil.KERNELS) reach every
+                kernel of the coef path and no plain version; the loops'
+                captures, host reads, rates, device time, the
+                decomposition's pieces and peak memory a rank printed.
+                With one card, prints that NCCL over several cards did not
+                run. Then four gloo ranks sharing the card, their messages
+                staged through host memory (eager trips, printed):
+                breaking_dam_1m with make_spec(..., slack=2.2), so slabs
+                0-3 hold 480,000 / 500,000 / 20,000 / 0 of the 1,000,000
+                particles at rest against a cap of 550,000, as DFSPH and
+                as WCSPH for 3 steps each against the single-device steps
+                run here: counts, dt and positions as above, overflow 0,
+                the particle count kept, every rank's path kernels launched
+                and no plain version on any rank.
+
 Each run prints steps/s, iterations per step, the last residuals and
 peak device memory; the whole run's wall time comes before the JSON. The line before the last is {"kernels": [...]}
 (ms, plain_ms, bound_ms, library_ms at 30k; bound_us_1m, library_ms_1m
-and the other sizes and dtypes beside them), the last one {"ok": true,
-"device": {...}}.
+and the other sizes and dtypes beside them; launches_shard, the
+launches of the NCCL rank 0's sharded run in [shard]), the last one
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -253,6 +278,11 @@ LOOP_STOPS = (1, 5, 12, 100)
 LOOP_STEPS = 20
 # [export]: frames of configs/torus_flush.json run with PLY export
 EXPORT_FRAMES = 40
+# [shard]: the particles each gloo slab of perf/shard_rates.py holds at
+# rest (breaking_dam_1m, slack 2.2), their cap, and the positions' bar
+SHARD_GLOO_HELD = [480_000, 500_000, 20_000, 0]
+SHARD_GLOO_CAP = 550_000
+SHARD_POS_TOL = 5e-6
 
 
 class SmokeFailure(Exception):
@@ -1254,6 +1284,132 @@ def phase_iisph(torch, results: dict) -> None:
         results["_runs"][f"30k_iisph_{engine}"] = run
 
 
+# ---------------------------------------------------------------------------
+# [shard]
+# ---------------------------------------------------------------------------
+
+def shard_launches(solver: str, diags, unroll: int) -> dict:
+    """The launches of a fluid-only run of `solver` (DFSPH on the stored-
+    coefficient engine, or WCSPH) over the steps with these diags, at
+    `unroll` loop iterations a trip, by kernel: each one-shot pass once a
+    step; coef_matvec and coef_matvec_dot once a step (the warm start, the
+    first density rate) and once a loop sub-iteration, the masked ones
+    included."""
+    steps = len(diags)
+    if solver == "wcsph":
+        return dict.fromkeys(WCSPH_PATH, steps)
+    loop = steps + looped(diags, (0, 2), unroll)
+    return dict(fluid_terms=steps, boundary_terms=steps, viscosity=steps,
+                coef_build=steps, coef_matvec=loop, coef_matvec_dot=loop)
+
+
+def shard_counts(tag: str, counts: dict, want: dict) -> None:
+    """A rank's (launches, plain calls) by kernel: each kernel launched as
+    often as `want` says (0 where it does not name it), no plain
+    version."""
+    for name, (launches, plain) in counts.items():
+        check(plain == 0, f"{tag}: plain version of {name} ran")
+        check(launches == want.get(name, 0),
+              f"{tag}: {name} launched {launches} times, not "
+              f"{want.get(name, 0)}")
+
+
+def shard_agree(tag: str, diags, dts, want_diags, want_dts, err) -> None:
+    its = [(d[0], d[2]) for d in diags]
+    want = [(d[0], d[2]) for d in want_diags]
+    print(f"[shard] {tag}: iterations {its} (single-device {want}); max "
+          f"|pos - single| through oid {err:.3e}; dt {dts}")
+    check(its == want, f"{tag}: iteration counts {its}, not {want}")
+    for a, b in zip(dts, want_dts):
+        check(abs(a - b) <= 1e-5 * abs(b), f"{tag}: dt {a} against {b}")
+    check(err <= SHARD_POS_TOL, f"{tag}: positions differ by {err}")
+
+
+def phase_shard(torch, results: dict) -> None:
+    import numpy as np
+
+    from cfd_taichi_tpu_torch import Simulation
+    from cfd_taichi_tpu_torch.models import dfsph
+    from cfd_taichi_tpu_torch.parallel import launch
+    from cfd_taichi_tpu_torch.perf import inputs, shard_rates
+
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    nccl = launch.spawn(shard_rates.nccl_rank, world, backend="nccl",
+                        device="cuda")
+    print(f"[shard] NCCL, {world} rank(s), one a card: "
+          f"{time.perf_counter() - t0:.1f} s, ranks' scenes built in "
+          f"{[round(r['build_s'], 1) for r in nccl]} s")
+    if world < 2:
+        print("[shard] NCCL with one rank on each of several cards: not run "
+              f"(this machine has {world} card)")
+    for r in nccl:
+        s = r["sharded"]
+        tag = f"nccl rank {r['rank']}/{r['world']}"
+        shard_rates.print_nccl(r)
+        check(r["loops"] == "graph", f"{tag}: loops run {r['loops']}")
+        check(s["overflow"] == 0, f"{tag}: overflow {s['overflow']}")
+        check(s["count"] == r["n_fluid"], f"{tag}: {s['count']} particles")
+        shard_counts(tag, s["counts"],
+                     shard_launches("dfsph", s["diag"], r["unroll"]))
+        if "single" in r:
+            shard_agree(tag, s["diag"], s["dt"], r["single"]["diag"],
+                        r["single"]["dt"], r["max_pos_err"])
+            check(s["counts"] == r["single"]["counts"],
+                  f"{tag}: launches {s['counts']}, single-device "
+                  f"{r['single']['counts']}")
+    results["shard_launches"] = {k: c[0] for k, c in
+                                 nccl[0]["sharded"]["counts"].items()}
+    t0 = time.perf_counter()
+    gloo = launch.spawn(shard_rates.gloo_rank, shard_rates.GLOO_WORLD,
+                        backend="gloo", device="cuda")
+    print(f"[shard] gloo, {shard_rates.GLOO_WORLD} ranks sharing one card: "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(gloo[0]["spec"]["cap"] == SHARD_GLOO_CAP,
+          f"gloo: cap {gloo[0]['spec']['cap']}")
+    runs = {"nccl": nccl, "gloo": []}
+    for solver in shard_rates.GLOO_SOLVERS:
+        sim = Simulation(inputs.solver_config(shard_rates.CONFIG, solver),
+                         device="cuda")
+        unroll = dfsph.loop_unroll(sim.scene)
+        dts, diags = [], []
+        for _ in range(shard_rates.GLOO_STEPS):
+            sim.step()
+            dts.append(float(sim.state.dt))
+            diags.append(sim.state.diag.tolist())
+        ref = oid_sorted(sim.state)
+        del sim
+        torch.cuda.empty_cache()
+        rows = [r[solver] for r in gloo]
+        pos = np.concatenate([g["pos"] for g in rows])
+        oid = np.concatenate([g["oid"] for g in rows])
+        check(pos.shape[0] == ref.shape[0],
+              f"gloo {solver}: {pos.shape[0]} particles")
+        err = float(np.abs(pos[np.argsort(oid)] - ref).max())
+        tag = f"gloo {solver}"
+        print(f"[shard] {tag}: trips {rows[0]['loops']} (gloo stages its "
+              f"messages through host memory: no graph); held at rest "
+              f"{rows[0]['held_at_rest']}; 4 ranks sharing one card, "
+              f"host-staged: {[round(g['steps_per_sec'], 3) for g in rows]}"
+              f" steps/s; peak {[round(g['peak_gib'], 3) for g in rows]} "
+              f"GiB a rank; {rows[0]['reads_per_step']:.2f} host reads a "
+              f"step besides the staged messages")
+        check(rows[0]["held_at_rest"] == SHARD_GLOO_HELD,
+              f"{tag}: held {rows[0]['held_at_rest']}")
+        shard_agree(tag, rows[0]["diag"], rows[0]["dt"], diags, dts, err)
+        for g in rows:
+            check(g["loops"] == "eager", f"{tag}: loops {g['loops']}")
+            check(g["overflow"] == 0, f"{tag}: overflow {g['overflow']}")
+            check(g["count"] == ref.shape[0], f"{tag}: {g['count']} kept")
+            check(g["diag"] == rows[0]["diag"], f"{tag}: ranks disagree")
+            shard_counts(f"{tag} rank", g["counts"],
+                         shard_launches(solver, g["diag"], unroll))
+            g.pop("pos")
+            g.pop("oid")
+        runs["gloo"].append(rows)
+    results["_runs"]["shard"] = runs
+
+
 def main() -> int:
     try:
         import torch
@@ -1299,6 +1455,9 @@ def main() -> int:
         phase_iisph(torch, results)
         phase_export(torch)
         phase_rigid(torch, results)
+        sims.clear()
+        torch.cuda.empty_cache()
+        phase_shard(torch, results)
     except (SmokeFailure, RuntimeError, subprocess.SubprocessError,
             OSError) as e:
         print(f"FAIL: {type(e).__name__}: {e}", file=sys.stderr)
@@ -1318,7 +1477,8 @@ def main() -> int:
             bound_by=row.pop("bound_by_30k"),
             library_ms=row.pop("library_ms_30k", None),
             bound_us_1m=row["bound_ms_1m"] * 1e3,
-            library_ms_1m=row.pop("library_ms_1m", None))
+            library_ms_1m=row.pop("library_ms_1m", None),
+            launches_shard=results["shard_launches"][k.name])
         kernels.append({**head, **dict(sorted(row.items()))})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

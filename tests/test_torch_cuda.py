@@ -660,3 +660,105 @@ def test_graph_loops_match_eager_loops_on_the_card(cuda, solver, unroll):
     assert g.trips == plain.scene.loop_graphs.trips == sum(trips)
     assert g.captures == sum(t > 1 for t in trips)
     assert plain.scene.loop_graphs.captures == 0
+
+
+# tests/test_sharding.py:14-19, the sharded scenes' CFG
+SHARD_CFG = {
+    "scene": {"box_min": [0, 0, 0], "box_max": [1.0, 0.5, 0.4],
+              "particle_radius": 0.025, "gravity": 9.8},
+    "solver": {"name": "dfsph", "delta_time": 5e-4, "iter_cnt": 1},
+    "fluid": {"start_pos": [0.1, 0.1, 0.1], "water_size": [0.8, 0.2, 0.2]},
+}
+SHARD_STEPS = 4
+
+
+def _shard_sim(solver, device):
+    """SHARD_CFG as `solver` on `device`, its block squeezed by 0.85."""
+    raw = copy.deepcopy(SHARD_CFG)
+    raw["solver"]["name"] = solver
+    sim = Simulation(parse_config(raw), device=device)
+    sim.state = inputs.squeezed(sim.state)
+    return sim
+
+
+def _shard_rank_card(ring, solver):
+    """SHARD_STEPS sharded steps of `solver` from SHARD_CFG's squeezed
+    block on this rank's device: its rows with oid, dt, diag, launches and
+    plain calls (launch.spawn pickles this function by name)."""
+    from cfd_taichi_tpu_torch.parallel import domain
+
+    sim = _shard_sim(solver, ring.device)
+    spec = domain.make_spec(sim.scene, ring.world)
+    state = domain.init_sharded_solver(ring, spec, sim.scene,
+                                       sim.state.fluid.pos, solver)
+    step = domain.make_sharded_solver_step(sim.scene, ring, spec, solver)
+    stencil.reset_counts()
+    dts, diags = [], []
+    for _ in range(SHARD_STEPS):
+        state = step(state)
+        dts.append(float(state.dt))
+        diags.append(state.diag.tolist())
+    f = state.fluid
+    return dict(pos=f.pos[f.mask].cpu().numpy(),
+                oid=f.oid[f.mask].cpu().numpy(), dt=dts, diag=diags,
+                loops=step.loops, overflow=int(state.overflow),
+                counts={k.name: (k.launches, k.plain_calls)
+                        for k in stencil.KERNELS.values()})
+
+
+def _single_run(solver, device):
+    sim = _shard_sim(solver, device)
+    dts, diags = [], []
+    for _ in range(SHARD_STEPS):
+        sim.step()
+        dts.append(float(sim.state.dt))
+        diags.append(sim.state.diag.tolist())
+    f = sim.state.fluid
+    order = np.argsort(f.oid.cpu().numpy())
+    return dict(pos=f.pos.cpu().numpy()[order], dt=dts, diag=diags)
+
+
+def _check_shards(ranks, ref, loops):
+    pos = np.concatenate([r["pos"] for r in ranks])
+    oid = np.concatenate([r["oid"] for r in ranks])
+    assert pos.shape == ref["pos"].shape
+    err = float(np.abs(pos[np.argsort(oid)] - ref["pos"]).max())
+    assert err <= 5e-6, err
+    for r in ranks:
+        assert r["loops"] == loops and r["overflow"] == 0
+        assert [(d[0], d[2]) for d in r["diag"]] == \
+            [(d[0], d[2]) for d in ref["diag"]]
+        np.testing.assert_allclose(r["dt"], ref["dt"], rtol=1e-5)
+        assert all(plain == 0 for _, plain in r["counts"].values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["dfsph", "wcsph", "iisph", "pcisph",
+                                    "pbf"])
+def test_sharded_step_on_nccl_world_one_matches_single_device(cuda, solver):
+    """One NCCL rank on the card (parallel/domain.py): the sharded step of
+    the squeezed block against the single-device step on the card, with
+    its loops' trips replayed from graphs that hold the collectives."""
+    from cfd_taichi_tpu_torch.parallel import launch
+
+    ranks = launch.spawn(_shard_rank_card, 1, backend="nccl",
+                         device="cuda", args=(solver,), timeout=600)
+    _check_shards(ranks, _single_run(solver, cuda), "graph")
+    launched = {k for k, (n, _) in ranks[0]["counts"].items() if n}
+    assert launched >= {"dfsph": {"coef_matvec", "viscosity"},
+                        "wcsph": {"wcsph_forces"},
+                        "iisph": {"coef_matvec_dot"},
+                        "pcisph": {"pcisph_predict_rho"},
+                        "pbf": {"pbf_lambda", "pbf_xsph"}}[solver]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["dfsph", "pcisph"])
+def test_two_gloo_ranks_sharing_the_card_match_the_cpu(cuda, solver):
+    """Two gloo ranks on one card, their messages staged through host
+    memory (eager trips), against the single-device step on the CPU."""
+    from cfd_taichi_tpu_torch.parallel import launch
+
+    ranks = launch.spawn(_shard_rank_card, 2, backend="gloo",
+                         device="cuda", args=(solver,), timeout=600)
+    _check_shards(ranks, _single_run(solver, "cpu"), "eager")

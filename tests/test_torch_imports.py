@@ -21,6 +21,8 @@ for mod in pkgutil.walk_packages(cfd_taichi_tpu_torch.__path__,
 leaked = sorted(m for m in sys.modules
                 if m == "cfd_taichi_tpu" or m.startswith("cfd_taichi_tpu."))
 assert not leaked, leaked
+for name in ("domain", "multihost", "launch"):
+    assert f"cfd_taichi_tpu_torch.parallel.{name}" in sys.modules, name
 print("imported", len([m for m in sys.modules
                        if m.startswith("cfd_taichi_tpu_torch")]))
 """
