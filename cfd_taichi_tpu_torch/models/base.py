@@ -77,6 +77,9 @@ class Shard(NamedTuple):
     sum: Callable         # (0-d, ...) -> each summed over the ranks
     max: Callable         # (n,) >= 0 -> its max over every rank's owned rows
     loop: dict            # `agree` and `eager` of ops/loops.while_loop_unrolled
+    total: Callable       # a tensor -> its elementwise sum over the ranks, in
+    #                       its dtype (a body's reaction, the rho quirk's
+    #                       table; never inside a loop's trip)
 
 
 def synced(shard: Shard | None, x: torch.Tensor) -> torch.Tensor:
@@ -142,38 +145,101 @@ def body_terms(scene: Scene, rigid: RigidBodyState, pos: torch.Tensor
                                         RHO_0)
 
 
-def rho_quirk(rho: torch.Tensor, oid: torch.Tensor,
-              n_rigid: int) -> torch.Tensor:
+def rho_quirk(rho: torch.Tensor, oid: torch.Tensor, n_rigid: int,
+              shard: Shard | None = None,
+              n_fluid: int | None = None) -> torch.Tensor:
     """(Nr,) the density the solid viscosity reads for rigid particle j:
     the reference's quirk (solver_base.py:187, 199), the fluid density at
     index j of the seeding order (through `oid`), j clipped to the fluid's
     last index (`cfd_taichi_tpu/models/dfsph.py:548-551`; ROADMAP.md
-    section 3)."""
-    rho_orig = torch.zeros_like(rho).index_put_((oid.long(),), rho)
-    return rho_orig[torch.arange(n_rigid, device=rho.device).clamp(
-        max=rho.shape[0] - 1)]
+    section 3).
+
+    On a rank of a sharded step (`shard`; `cfd_taichi_tpu/parallel/
+    domain.py:592-604, 805-815`) the rows are the rank's owned and ghost
+    ones, and `n_fluid` is the scene's fluid count: the owned rows with 0
+    <= oid < n_quirk = min(n_rigid, n_fluid) write their rho into an
+    (n_quirk,) table, which is summed over the ranks (each id is owned by
+    one rank, so the sum is exact) and read at j clipped to n_quirk - 1.
+    The rows without an entry write a spare last slot, which is dropped."""
+    if shard is None:
+        rho_orig = torch.zeros_like(rho).index_put_((oid.long(),), rho)
+        return rho_orig[torch.arange(n_rigid, device=rho.device).clamp(
+            max=rho.shape[0] - 1)]
+    n_quirk = min(n_rigid, n_fluid)
+    keep = shard.owned & (oid >= 0) & (oid < n_quirk)
+    slot = torch.where(keep, oid.long(), n_quirk)
+    table = rho.new_zeros(n_quirk + 1).index_put_((slot,), rho)[:n_quirk]
+    return shard.total(table)[torch.arange(
+        n_rigid, device=rho.device).clamp(max=n_quirk - 1)]
 
 
 def solid_viscosity(scene: Scene, rigid: RigidBodyState,
                     table: rigid_ops.RigidTable, pos: torch.Tensor,
                     vel: torch.Tensor, rho: torch.Tensor, oid: torch.Tensor,
-                    c_s: float, alpha: float) -> torch.Tensor:
+                    c_s: float, alpha: float,
+                    shard: Shard | None = None) -> torch.Tensor:
     """(N, 3) the solid branch of the solver's viscosity: the body's
-    linear velocity and the rho quirk on the rigid side."""
+    linear velocity and the rho quirk on the rigid side (on a rank, its
+    table summed over the ranks)."""
     return rigid_ops.rigid_viscosity(
         pos, table, scene.grid, scene.h, RHO_0, scene.particle_m, vel, rho,
-        rho_quirk(rho, oid, scene.n_rigid), rigid.vel, c_s, alpha)
+        rho_quirk(rho, oid, scene.n_rigid, shard, scene.n_fluid), rigid.vel,
+        c_s, alpha)
 
 
 def body_reaction(scene: Scene, rigid: RigidBodyState, pos: torch.Tensor,
                   starts: torch.Tensor, u: torch.Tensor,
-                  force: torch.Tensor) -> torch.Tensor:
+                  force: torch.Tensor,
+                  shard: Shard | None = None) -> torch.Tensor:
     """The body's (Nr, 3) `force` plus the fluid's reaction of the per-fluid
     scalar `u` (already scaled by m), each fluid-rigid pair charged once
-    from the rigid side."""
+    from the rigid side. On a rank of a sharded step (`shard`) u is zeroed
+    on the rows the rank does not own, so that each pair is charged by one
+    rank (`cfd_taichi_tpu/parallel/domain.py:817-827`), and `force` is the
+    rank's partial (`reaction_start`)."""
+    if shard is not None:
+        u = torch.where(shard.owned, u, torch.zeros_like(u))
     return rigid_ops.rigid_side_force(rigid.pos, scene.rigid_volume, pos,
                                       starts, scene.grid, scene.h, RHO_0, u,
                                       force)
+
+
+def _partial(scene: Scene, shard: Shard | None) -> bool:
+    """Whether a step's reactions go to a rank's partial: on a rank of a
+    sharded step, on a scene whose fluid pushes a body back."""
+    return shard is not None and scene.coupled and scene.fs_couple
+
+
+def reaction_start(scene: Scene, rigid: RigidBodyState,
+                   shard: Shard | None = None) -> torch.Tensor:
+    """The (Nr, 3) force that a step's reactions (`body_reaction`) add to:
+    the body's incoming force on one device; on a rank of a sharded step
+    zeros, the rank's partial, which `reaction_total` sums over the ranks
+    once the step's loop is done."""
+    return (torch.zeros_like(rigid.force) if _partial(scene, shard)
+            else rigid.force)
+
+
+def reaction_total(scene: Scene, rigid: RigidBodyState, acc: torch.Tensor,
+                   shard: Shard | None = None) -> torch.Tensor:
+    """The body's force after a step that added its reactions to
+    `reaction_start`'s tensor: that tensor on one device; on a rank the
+    incoming force plus the partials summed over the ranks (one
+    all-reduce, outside the loop's trips). The rigid step zeroes the
+    force, so the incoming force is 0 and a world of one adds 0 to the
+    single-device sum: the same bits."""
+    return rigid.force + shard.total(acc) if _partial(scene, shard) else acc
+
+
+def step_reaction(scene: Scene, rigid: RigidBodyState, pos: torch.Tensor,
+                  starts: torch.Tensor, u: torch.Tensor,
+                  shard: Shard | None = None) -> torch.Tensor:
+    """The body's force after a step that charges the reaction of `u` once
+    (IISPH, WCSPH): `body_reaction` between `reaction_start` and
+    `reaction_total`."""
+    acc = body_reaction(scene, rigid, pos, starts, u,
+                        reaction_start(scene, rigid, shard), shard)
+    return reaction_total(scene, rigid, acc, shard)
 
 
 def init_sim_state(scene: Scene, extra: tuple = ()) -> SimState:

@@ -258,9 +258,11 @@ def prepare_sorted(scene: Scene, rigid: base.RigidBodyState,
                    pos: torch.Tensor, starts: torch.Tensor,
                    vel: torch.Tensor, warm_k: torch.Tensor,
                    oid: torch.Tensor | None = None,
-                   acc: torch.Tensor | None = None) -> _Pre:
+                   acc: torch.Tensor | None = None,
+                   shard: base.Shard | None = None) -> _Pre:
     """`prepare` on rows already cell-sorted, with CSR `starts`: also the
-    sharded step's (fluid-only: no `oid` and `acc` to carry)."""
+    sharded step's (no `acc` to carry; `oid` -1 on the ghost rows), whose
+    rho quirk table and reaction take the rank's hooks (`shard`)."""
     grid, h, m = scene.grid, scene.h, scene.particle_m
     ft, bt = base.one_shot_terms(scene, pos, starts)
     table, rt = base.body_terms(scene, rigid, pos)
@@ -273,7 +275,7 @@ def prepare_sorted(scene: Scene, rigid: base.RigidBodyState,
         if table is not None:
             visc = visc + base.solid_viscosity(scene, rigid, table, pos, v,
                                                rho, oid, VISCOSITY_C_S,
-                                               VISCOSITY_ALPHA)
+                                               VISCOSITY_ALPHA, shard)
         return tension + visc
 
     cs_fn = scatter_fn = None
@@ -286,7 +288,7 @@ def prepare_sorted(scene: Scene, rigid: base.RigidBodyState,
         if scene.fs_couple:
             def scatter_fn(k_over_rho, force):
                 return base.body_reaction(scene, rigid, pos, starts,
-                                          k_over_rho * f32(m), force)
+                                          k_over_rho * f32(m), force, shard)
 
     return _Pre(pos=pos, oid=oid, vel=vel, acc=acc, warm_k=warm_k, rho=rho,
                 alpha=alpha, count=ft.count, S=S, mv=mv, mvd=mvd,
@@ -325,7 +327,11 @@ def solve(scene: Scene, pre: _Pre, dt: torch.Tensor,
     domain.py:830-1036`) each stiffness reaches the ghost rows from their
     owners before it is applied, a loop updates the rows of `shard.upd`
     only, v_adv is traded once, and the averages and the CFL velocity are
-    taken over the ranks."""
+    taken over the ranks. On a coupled scene the reaction of the rank's
+    owned rows accumulates from zeros in the density loop and is summed
+    over the ranks after it (`base.reaction_total`); the body is the same
+    on every rank, so its speed joins the CFL velocity after the max over
+    the ranks, and every rank takes one dt."""
     vel, warm_k = pre.vel, pre.warm_k
     rho, alpha = pre.rho, pre.alpha
     stiff_vel_delta, rho_derivative, rho_adv_residual = loop_operators(
@@ -405,7 +411,8 @@ def solve(scene: Scene, pre: _Pre, dt: torch.Tensor,
         den_cond, den_body,
         (vel_adv, torch.full((), float("inf"), dtype=torch.float32,
                              device=vel.device),
-         rigid.force, zero_i), **loop_kw)
+         base.reaction_start(scene, rigid, shard), zero_i), **loop_kw)
+    rigid_force = base.reaction_total(scene, rigid, rigid_force, shard)
 
     # --- position update (dfsph_solver.py:235-250) --------------------------
     new_pos = pre.pos + vel_adv * (dt * f32(base.ARTIFICIAL_FRICTION))

@@ -194,8 +194,8 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
     velocities and pressures, the diag and the body's force. On a rank of
     a sharded step (`shard`, `cfd_taichi_tpu/parallel/domain.py:
     1197-1304`) the warm start and each iteration's pressure reach the
-    ghost rows from their owners, and the residual is taken over the
-    ranks."""
+    ghost rows from their owners, the residual is taken over the ranks,
+    and the reaction of the rank's owned rows is summed over the ranks."""
     grid, m = scene.grid, scene.particle_m
     dt2 = dt * dt
     ft, bt = base.one_shot_terms(scene, pos, starts)
@@ -210,7 +210,7 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
     if table is not None:
         viscosity = viscosity + base.solid_viscosity(
             scene, rigid, table, pos, vel, rho, oid, VISCOSITY_C_S,
-            VISCOSITY_ALPHA)
+            VISCOSITY_ALPHA, shard)
     f_adv = base.gravity_acc(scene) + tension + viscosity
     v_adv = vel + f_adv * true_div(dt, f32(m))
 
@@ -239,9 +239,8 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
     rigid_force = rigid.force
     if table is not None and scene.fs_couple:
         # compute_rigid_force (iisph_solver.py:150-160), once a step
-        rigid_force = base.body_reaction(scene, rigid, pos, starts,
-                                         p_iter * inv_rho2 * f32(m),
-                                         rigid_force)
+        rigid_force = base.step_reaction(scene, rigid, pos, starts,
+                                         p_iter * inv_rho2 * f32(m), shard)
     new_vel = ((v_adv + f_press * true_div(dt, f32(m)))
                * f32(base.ARTIFICIAL_FRICTION))
     new_pos = pos + new_vel * dt

@@ -45,6 +45,7 @@ from cfd_taichi_tpu_torch.models import base, dfsph
 from cfd_taichi_tpu_torch.models.dfsph import dot, loop_engine
 from cfd_taichi_tpu_torch.ops import loops
 from cfd_taichi_tpu_torch.ops import neighbors as nb
+from cfd_taichi_tpu_torch.ops import rigid as rigid_ops
 from cfd_taichi_tpu_torch.ops import stencil
 from cfd_taichi_tpu_torch.ops.smoothing import (CubicConstants,
                                                 cubic_grad_coeff, f32,
@@ -61,17 +62,31 @@ TENSION_K = 0.5
 
 def stiffness(scene: Scene) -> torch.Tensor:
     """() f32 delta = 1 / ((|sum grad W|^2 + sum |grad W|^2) beta) of the
-    seed lattice's particle with the most fluid neighbours
-    (`cfd_taichi_tpu/models/pcisph.py:43-58`, pcisph_solver.py:28-45)."""
+    seed lattice's particle with the most neighbours
+    (`cfd_taichi_tpu/models/pcisph.py:43-58`, pcisph_solver.py:28-45).
+    Where a body takes part in the step, its particles as built are
+    neighbours too, each counted and its grad W summed as a fluid
+    particle's, as JAX's neighbour list holds them (`cfd_taichi_tpu/
+    models/base.py:215-221`; the reference's grid, ParticleSystem.py:
+    399-407)."""
     grid, h, m = scene.grid, scene.h, scene.particle_m
     scid, _, pos, _ = base.sort_by_cells(grid, scene.fluid_pos0)
     starts = nb.csr_starts(scid, grid.num_cells)
     count = stencil.fluid_terms(pos, starts, grid, h, m).count
+    nbrs, rows = pos, torch.arange(pos.shape[0], device=pos.device)
+    if scene.coupled:
+        body = scene.rigid0.pos
+        table = rigid_ops.rigid_table(grid, body, scene.rigid_volume)
+        count = count + rigid_ops.rigid_counts(pos, table, grid, h)
+        # summed in the order of JAX's list, which gives its delta bit for
+        # bit: cell by cell, a cell's fluid particles, then its body's
+        nbrs = torch.cat([pos, body])
+        rows = torch.sort(nb.cell_id(nbrs, grid), stable=True)[1]
+        nbrs = nbrs[rows]
     i = int(torch.argmax(count))     # the first of the densest
-    x = pos[i] - pos
+    x = pos[i] - nbrs
     r2 = x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1] + x[:, 2] * x[:, 2]
-    pairs = r2 <= CubicConstants.of(h).h2
-    pairs[i] = False
+    pairs = (r2 <= CubicConstants.of(h).h2) & (rows != i)
     x = x[pairs]
     gradw = x * cubic_grad_coeff(torch.sqrt(r2[pairs]), h)[:, None]
     grad_sum = gradw.sum(dim=0, keepdim=True)
@@ -125,8 +140,10 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
     """The step on cell-sorted rows with CSR `starts`: the new positions
     and velocities, the diag and the body's force. On a rank of a sharded
     step (`shard`, `cfd_taichi_tpu/parallel/domain.py:1039-1194`) each
-    iteration's pressure reaches the ghost rows from their owners, and the
-    residual is taken over the ranks."""
+    iteration's pressure reaches the ghost rows from their owners, the
+    residual is taken over the ranks, and on a coupled scene the reaction
+    of the rank's owned rows accumulates from zeros in the loop and is
+    summed over the ranks after it (`base.reaction_total`)."""
     grid, h, m = scene.grid, scene.h, scene.particle_m
     ft, bt = base.one_shot_terms(scene, pos, starts)
     rho = f32(base.DENSITY_EPS) + ft.rho
@@ -146,7 +163,7 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
     if table is not None:
         viscosity = viscosity + base.solid_viscosity(
             scene, rigid, table, pos, vel, rho, oid, VISCOSITY_C_S,
-            VISCOSITY_ALPHA)
+            VISCOSITY_ALPHA, shard)
     ext_force = base.gravity_acc(scene) + tension + viscosity
     dt_over_m = true_div(dt, f32(m))
 
@@ -161,7 +178,7 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
             f = f - rt.s * u[:, None]
             if scene.fs_couple:
                 rigid_force = base.body_reaction(scene, rigid, pos, starts,
-                                                 u, rigid_force)
+                                                 u, rigid_force, shard)
         if bt is not None:
             f = f + bt.s * (-m * p * inv_rho2)[:, None]
         return f, rigid_force
@@ -198,9 +215,11 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
     _, press_force, _, res, rigid_force, iters = loops.while_loop_unrolled(
         cond, body,
         (torch.zeros_like(rho), force0, rho_err0,
-         positive_avg(rho_err0, shard), rigid.force,
+         positive_avg(rho_err0, shard),
+         base.reaction_start(scene, rigid, shard),
          torch.zeros((), dtype=torch.int32, device=pos.device)),
         **dfsph.loop_args(scene, shard))
+    rigid_force = base.reaction_total(scene, rigid, rigid_force, shard)
 
     # --- integration (pcisph_solver.py:200-217) -----------------------------
     new_vel = ((vel + (ext_force + press_force) * dt_over_m)

@@ -69,12 +69,15 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
 def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
           vel: torch.Tensor, rho: torch.Tensor,
           bt: stencil.BoundaryTerms | None, dt: torch.Tensor,
-          rigid: base.RigidBodyState, oid: torch.Tensor | None = None):
+          rigid: base.RigidBodyState, oid: torch.Tensor | None = None,
+          shard: base.Shard | None = None):
     """The step on cell-sorted rows with CSR `starts` and their density
     (`base.density`): the new positions and velocities, the acceleration
     and the body's force. Also the sharded step's: with no loop, each
     owned row's neighbourhood lies in the 2h halo (`cfd_taichi_tpu/
-    parallel/domain.py:1307-1399`)."""
+    parallel/domain.py:1307-1399`); the rank's hooks (`shard`) serve the
+    rho quirk's table and the reaction of its owned rows, summed over the
+    ranks."""
     grid, h, m = scene.grid, scene.h, scene.particle_m
     table, rt = base.body_terms(scene, rigid, pos)
     if rt is not None:
@@ -94,11 +97,11 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
         # reaction p' m (wcsph_solver.py:117-129).
         acc = acc - rt.s * p_over_rho2[:, None]
         acc = acc + base.solid_viscosity(scene, rigid, table, pos, vel, rho,
-                                         oid, VISCOSITY_C_S, VISCOSITY_ALPHA)
+                                         oid, VISCOSITY_C_S, VISCOSITY_ALPHA,
+                                         shard)
         if scene.fs_couple:
-            rigid_force = base.body_reaction(scene, rigid, pos, starts,
-                                             p_over_rho2 * f32(m),
-                                             rigid_force)
+            rigid_force = base.step_reaction(scene, rigid, pos, starts,
+                                             p_over_rho2 * f32(m), shard)
 
     # --- kinematic phase (reference wcsph_solver.py:40-63) ------------------
     new_vel = (vel + acc * dt) * f32(WCSPH_DAMPING)

@@ -1,9 +1,9 @@
 """Slab decomposition over torch.distributed: one rank a slab, a 2h ghost
 band traded with the ring neighbours, slab-crossers migrated.
 
-Counterpart of `cfd_taichi_tpu/parallel/domain.py`, its dense route on
-fluid-only scenes, for all five solvers, with Akinci walls or the clamp
-boundary:
+Counterpart of `cfd_taichi_tpu/parallel/domain.py`, its dense route, for
+all five solvers, with Akinci walls or the clamp boundary, on fluid-only
+scenes and on scenes with a rigid body coupled both ways:
 
 * 1-D slabs along the box's longest axis; rank r owns the particles of
   slab r, held in fixed-capacity (cap,) blocks with a validity mask, so
@@ -29,7 +29,18 @@ boundary:
 * after integration, the owned rows are kept, particles that left the
   slab go to the neighbour (`_migrate`) and the blocks are packed again.
   Every row that a capacity drops (halo, migration, cap) is counted in
-  `overflow`, the max over the ranks; none is lost silently.
+  `overflow`, the max over the ranks; none is lost silently;
+* a rigid body (a few thousand particles against the fluid's millions) is
+  held whole on every rank (`ShardedState.rigid`). Each rank's step
+  walks it against its own rows with the model's coupled code; the
+  rank's owned rows charge the body's reaction, which is summed over the
+  ranks once a step (`base.reaction_total`), as is the table of the
+  solid viscosity's rho quirk (`base.rho_quirk`). The body's speed joins
+  the CFL velocity after the max over the ranks, so every rank takes one
+  dt. The body then steps on every rank alike, with no collective
+  (`make_sharded_rigid_step`): a frame is `iter_cnt` sharded fluid steps,
+  then `iter_cnt` rigid steps (runner.Simulation.frame). PBF, as on one
+  device, steps the fluid as if the body were not there.
 
 The loops run through ops/loops.while_loop_unrolled with the trades and
 the all-reduces inside the trip. Where the rank's collectives can be
@@ -39,9 +50,7 @@ graph cannot hold, so there the step asks for eager trips. The stop flag
 of a trip is all-reduced before the host reads it (`Comm.agree`), so that
 every rank leaves a loop on the same trip.
 
-Not ported: the coupled sharded step with its replicated body
-(`make_sharded_rigid_step`), JAX's compact route and its TPU capacity
-ladder.
+Not ported: JAX's compact route and its TPU capacity ladder.
 """
 
 from __future__ import annotations
@@ -55,10 +64,12 @@ import torch
 import torch.distributed as dist
 
 from cfd_taichi_tpu_torch.models import base, dfsph, iisph, pbf, pcisph, wcsph
+from cfd_taichi_tpu_torch.models import rigid as rigid_mod
 from cfd_taichi_tpu_torch.ops import neighbors as nb
 from cfd_taichi_tpu_torch.ops.smoothing import f32
 from cfd_taichi_tpu_torch.parallel.multihost import Ring
 from cfd_taichi_tpu_torch.scene import Scene
+from cfd_taichi_tpu_torch.utils import io
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +102,10 @@ class ShardedState(NamedTuple):
     t: torch.Tensor
     diag: torch.Tensor       # (4,) solver telemetry
     overflow: torch.Tensor | None = None
+    # The body, the same on every rank (an empty one on a fluid-only
+    # scene); the fluid step leaves the fluid's force on it, and
+    # make_sharded_rigid_step moves it.
+    rigid: base.RigidBodyState | None = None
 
 
 _N_EXTRAS = {"dfsph": 1, "pcisph": 0, "iisph": 1, "pbf": 0, "wcsph": 0}
@@ -212,6 +227,11 @@ class Comm:
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
         return self._all_reduce(x, dist.ReduceOp.MAX)
+
+    def total(self, t: torch.Tensor) -> torch.Tensor:
+        """`t` summed over the ranks element by element, in its dtype: one
+        all-reduce of the whole tensor."""
+        return self._all_reduce(t, dist.ReduceOp.SUM)
 
     def agree(self, flag: torch.Tensor) -> torch.Tensor:
         """A 0-d bool that is true on every rank where it is on any."""
@@ -426,39 +446,54 @@ class ShardCtx(NamedTuple):
     scene: Scene
     pos: torch.Tensor        # (ns, 3) sorted local + halo positions
     starts: torch.Tensor     # (num_cells + 1,) int32 CSR offsets of `pos`
+    oid: torch.Tensor        # (ns,) int32 seeding-order id, -1 on a ghost
     shard: base.Shard
-    rigid: base.RigidBodyState   # the empty body of a fluid-only scene
+    rigid: base.RigidBodyState   # the whole body; empty on a fluid-only scene
 
 
 def init_sharded_solver(ring: Ring, spec: ShardSpec, scene: Scene, pos,
-                        solver: str, vel=None) -> ShardedState:
+                        solver: str, vel=None,
+                        rigid: base.RigidBodyState | None = None
+                        ) -> ShardedState:
     """This rank's initial state of `solver` on the slab partition of
-    (N, 3) `pos` (`cfd_taichi_tpu/parallel/domain.py:398-414`)."""
-    _check_fluid_only(scene)
+    (N, 3) `pos` (`cfd_taichi_tpu/parallel/domain.py:398-414`), with the
+    body `rigid`, the same on every rank; by default the scene's as built
+    (base.init_rigid_state: empty on a scene without a body)."""
     fluid = shard_fluid(ring, spec, pos, vel)
     dev = ring.device
     extras = tuple(torch.zeros(spec.cap, dtype=torch.float32, device=dev)
                    for _ in range(_N_EXTRAS[solver]))
+    if rigid is None:
+        rigid = base.init_rigid_state(scene)
     return ShardedState(
         fluid=fluid, extras=extras,
         dt=torch.tensor(scene.dt0, dtype=torch.float32, device=dev),
         t=torch.zeros((), dtype=torch.float32, device=dev),
-        diag=torch.zeros(4, dtype=torch.float32, device=dev))
+        diag=torch.zeros(4, dtype=torch.float32, device=dev),
+        rigid=base.RigidBodyState(*(a.to(dev) for a in rigid)))
 
 
 def sharded_state_from_numpy(ring: Ring, spec: ShardSpec, solver: str,
                              leaves) -> ShardedState:
     """This rank's block of a sharded state given as the JAX package's
-    `ShardedState` leaves (numpy, flatten order, fluid-only): pos.x,
-    pos.y, pos.z, vel.x, vel.y, vel.z, mask, [fluid overflow], oid, the
-    solver's extras, dt, t, diag, [overflow], with (ndev cap,) blocks.
-    The two overflow leaves are there after a step and not before."""
+    `ShardedState` leaves (numpy, flatten order): pos.x, pos.y, pos.z,
+    vel.x, vel.y, vel.z, mask, [fluid overflow], oid, the solver's extras,
+    dt, t, diag, [overflow], [the body], with (ndev cap,) blocks. The two
+    overflow leaves are there after a step and not before; the body's
+    io.RIGID_LEAVES leaves on a coupled scene's state, whole on every
+    rank. Without them the state holds an empty body."""
     leaves = [np.asarray(a) for a in leaves]
     n_extras = _N_EXTRAS[solver]
     base_n = 11 + n_extras
-    if len(leaves) not in (base_n, base_n + 2):
-        raise ValueError(f"{solver}: want {base_n} or {base_n + 2} sharded "
-                         f"state leaves, got {len(leaves)}")
+    counts = [base_n + s + r for r in (0, io.RIGID_LEAVES) for s in (0, 2)]
+    if len(leaves) not in counts:
+        raise ValueError(f"{solver}: want {' or '.join(map(str, counts))} "
+                         f"sharded state leaves, got {len(leaves)}")
+    if len(leaves) - base_n >= io.RIGID_LEAVES:
+        body = io.rigid_from_numpy(leaves[-io.RIGID_LEAVES:], ring.device)
+        leaves = leaves[:-io.RIGID_LEAVES]
+    else:
+        body = base.empty_rigid(ring.device)
     stepped = len(leaves) == base_n + 2
     dev = ring.device
     blk = slice(ring.rank * spec.cap, (ring.rank + 1) * spec.cap)
@@ -479,14 +514,7 @@ def sharded_state_from_numpy(ring: Ring, spec: ShardSpec, solver: str,
                            oid=t(leaves[k][blk], torch.int32)),
         extras=tuple(t(a[blk]) for a in leaves[e:e + n_extras]),
         dt=t(leaves[e + n_extras]), t=t(leaves[e + n_extras + 1]),
-        diag=t(leaves[e + n_extras + 2]), overflow=over)
-
-
-def _check_fluid_only(scene: Scene) -> None:
-    if scene.coupled:
-        raise NotImplementedError(
-            "the sharded step runs fluid-only scenes; the coupled sharded "
-            "step (a replicated body) is not ported")
+        diag=t(leaves[e + n_extras + 2]), overflow=over, rigid=body)
 
 
 def make_sharded_solver_step(scene: Scene, ring: Ring, spec: ShardSpec,
@@ -499,8 +527,10 @@ def make_sharded_solver_step(scene: Scene, ring: Ring, spec: ShardSpec,
     run eagerly where they cannot (gloo on a card stages its messages
     through the host; the CPU); the step's `loops` attribute says which,
     and the step passes it to every loop (ops/loops.while_loop_unrolled's
-    `eager`)."""
-    _check_fluid_only(scene)
+    `eager`). On a coupled scene the state carries the body
+    (`ShardedState.rigid`), and the step returns it with the fluid's force
+    on it, summed over the ranks; `make_sharded_rigid_step` then moves
+    it."""
     physics = {"dfsph": _dfsph_physics, "iisph": _iisph_physics,
                "pbf": _pbf_physics, "wcsph": _wcsph_physics,
                "pcisph": _pcisph_physics}[solver]
@@ -508,13 +538,18 @@ def make_sharded_solver_step(scene: Scene, ring: Ring, spec: ShardSpec,
         physics = functools.partial(physics, delta=pcisph.stiffness(scene))
     comm = Comm(ring)
     loop_kw = dict(agree=comm.agree, eager=not comm.capturable)
-    rigid = base.empty_rigid(ring.device)
+    empty = base.empty_rigid(ring.device)
     h, cap, grid = scene.h, spec.cap, scene.grid
     slab_lo, slab_hi = _slab(spec, ring.rank)
     band_lo = float(slab_lo - np.float32(h))
     band_hi = float(slab_hi + np.float32(h))
 
     def step(state: ShardedState) -> ShardedState:
+        rigid = state.rigid if state.rigid is not None else empty
+        if scene.coupled and rigid.pos.shape[0] != scene.n_rigid:
+            raise ValueError(
+                f"a coupled scene's sharded state carries its body of "
+                f"{scene.n_rigid} particles, not {rigid.pos.shape[0]}")
         f = state.fluid
         pos, vel0, mask, oid = f.pos, f.vel, f.mask, f.oid
         halo_pos, halo_vel, halo_mask, plan = _halo_exchange(
@@ -558,12 +593,13 @@ def make_sharded_solver_step(scene: Scene, ring: Ring, spec: ShardSpec,
             x = torch.where(s_owned, x, torch.zeros_like(x))
             return comm.max(torch.cat([x, x.new_zeros(1)]).max())
 
-        ctx = ShardCtx(scene=scene, pos=spos, starts=starts,
+        s_oid = sorted_rows(oid, -1)
+        ctx = ShardCtx(scene=scene, pos=spos, starts=starts, oid=s_oid,
                        shard=base.Shard(sync=sync, owned=s_owned, upd=s_upd,
                                         sum=comm.sum, max=owned_max,
-                                        loop=loop_kw),
+                                        loop=loop_kw, total=comm.total),
                        rigid=rigid)
-        new_pos, new_vel, new_extras, dt, diag = physics(
+        new_pos, new_vel, new_extras, dt, diag, force = physics(
             ctx, torch.cat([vel0, halo_vel])[perm],
             [sorted_rows(e) for e in state.extras], state.dt)
 
@@ -571,7 +607,7 @@ def make_sharded_solver_step(scene: Scene, ring: Ring, spec: ShardSpec,
         # Kept as the single-device state is: the next stable sort then
         # orders each cell as the single-device step does, and a world of
         # one steps as it does, bit for bit.
-        kept = [new_pos, new_vel, sorted_rows(oid, -1), *new_extras]
+        kept = [new_pos, new_vel, s_oid, *new_extras]
         idx, own, _ = _pack_idx(s_owned, cap)
         if ns:
             kept = _split(_pack_with(idx, own, _columns(kept)), kept)
@@ -583,7 +619,7 @@ def make_sharded_solver_step(scene: Scene, ring: Ring, spec: ShardSpec,
             fluid=ShardedFluid(pos=out[0], vel=out[1], mask=out_mask,
                                overflow=overflow, oid=out[2]),
             extras=tuple(out[3:]), dt=dt, t=state.t + dt, diag=diag,
-            overflow=overflow)
+            overflow=overflow, rigid=rigid._replace(force=force))
 
     step.loops = "eager" if loop_kw["eager"] else "graph"
     return step
@@ -615,54 +651,75 @@ def make_sharded_dfsph_step(scene: Scene, ring: Ring, spec: ShardSpec):
     return make_sharded_solver_step(scene, ring, spec, "dfsph")
 
 
+def make_sharded_rigid_step(scene: Scene):
+    """The rigid half of a coupled sharded frame (`cfd_taichi_tpu/parallel/
+    domain.py:783-798`): models/rigid.step on the body, which every rank
+    holds whole, under the force the fluid step left on it (summed over
+    the ranks) and with the state's dt, the same on every rank. It needs no
+    collective: every rank computes the same body. The identity where no
+    body takes part in the step."""
+    if not scene.coupled:
+        return lambda state: state
+
+    def rstep(state: ShardedState) -> ShardedState:
+        return state._replace(rigid=rigid_mod.step(scene, state.rigid,
+                                                   state.dt))
+
+    return rstep
+
+
 # ---------------------------------------------------------------------------
 # The physics callbacks: each runs its model's own step on the rank's
 # sorted rows, with the rank's hooks (ShardCtx.shard), and returns the
-# sorted rows' (positions, velocities, extras), dt and diag.
+# sorted rows' (positions, velocities, extras), dt, diag and the body's
+# force.
 # ---------------------------------------------------------------------------
 
 def _dfsph_physics(ctx: ShardCtx, vel, extras, dt):
     """`cfd_taichi_tpu/parallel/domain.py:830-1036`: models/dfsph.solve."""
     pre = dfsph.prepare_sorted(ctx.scene, ctx.rigid, ctx.pos, ctx.starts,
-                               vel, *extras)
-    pos, vel, warm_k, dt, diag, _ = dfsph.solve(ctx.scene, pre, dt,
-                                                ctx.rigid, ctx.shard)
-    return pos, vel, [warm_k], dt, diag
+                               vel, *extras, oid=ctx.oid, shard=ctx.shard)
+    pos, vel, warm_k, dt, diag, force = dfsph.solve(ctx.scene, pre, dt,
+                                                    ctx.rigid, ctx.shard)
+    return pos, vel, [warm_k], dt, diag, force
 
 
 def _pcisph_physics(ctx: ShardCtx, vel, extras, dt, delta):
     """`cfd_taichi_tpu/parallel/domain.py:1039-1194`: models/pcisph.solve
     with the stiffness `delta` of the global seed (pcisph.stiffness)."""
-    pos, vel, diag, _ = pcisph.solve(ctx.scene, ctx.pos, ctx.starts, vel,
-                                     delta, dt, ctx.rigid, shard=ctx.shard)
-    return pos, vel, [], dt, diag
+    pos, vel, diag, force = pcisph.solve(ctx.scene, ctx.pos, ctx.starts,
+                                         vel, delta, dt, ctx.rigid, ctx.oid,
+                                         ctx.shard)
+    return pos, vel, [], dt, diag, force
 
 
 def _iisph_physics(ctx: ShardCtx, vel, extras, dt):
     """`cfd_taichi_tpu/parallel/domain.py:1197-1304`: models/iisph.solve,
     its pressure carried as the extra p_past."""
-    pos, vel, p, diag, _ = iisph.solve(ctx.scene, ctx.pos, ctx.starts, vel,
-                                       *extras, dt, ctx.rigid,
-                                       shard=ctx.shard)
-    return pos, vel, [p], dt, diag
+    pos, vel, p, diag, force = iisph.solve(ctx.scene, ctx.pos, ctx.starts,
+                                           vel, *extras, dt, ctx.rigid,
+                                           ctx.oid, ctx.shard)
+    return pos, vel, [p], dt, diag, force
 
 
 def _wcsph_physics(ctx: ShardCtx, vel, extras, dt):
     """`cfd_taichi_tpu/parallel/domain.py:1307-1399`: models/wcsph.solve,
-    which needs no hook."""
+    which takes the hooks only for a body."""
     rho, bt = base.density(ctx.scene, ctx.pos, ctx.starts)
-    pos, vel, _, _ = wcsph.solve(ctx.scene, ctx.pos, ctx.starts, vel, rho,
-                                 bt, dt, ctx.rigid)
+    pos, vel, _, force = wcsph.solve(ctx.scene, ctx.pos, ctx.starts, vel,
+                                     rho, bt, dt, ctx.rigid, ctx.oid,
+                                     ctx.shard)
     return pos, vel, [], dt, torch.zeros(4, dtype=torch.float32,
-                                         device=pos.device)
+                                         device=pos.device), force
 
 
 def _pbf_physics(ctx: ShardCtx, vel, extras, dt):
-    """`cfd_taichi_tpu/parallel/domain.py:1402-1493`: models/pbf.solve;
-    diag[1] is the largest density constraint over the ranks (JAX's
-    sharded telemetry)."""
+    """`cfd_taichi_tpu/parallel/domain.py:1402-1493`: models/pbf.solve,
+    which ignores a body, as one device's does; diag[1] is the largest
+    density constraint over the ranks (JAX's sharded telemetry)."""
     pos, vel, constraint = pbf.solve(ctx.scene, ctx.pos, ctx.starts, vel,
                                      dt, ctx.shard)
     cmax = ctx.shard.max(constraint)
     zero = torch.zeros_like(cmax)
-    return pos, vel, [], dt, torch.stack([zero, cmax, zero, zero])
+    return (pos, vel, [], dt, torch.stack([zero, cmax, zero, zero]),
+            ctx.rigid.force)

@@ -97,8 +97,26 @@ def write_stl_binary(path: str, vertices: np.ndarray,
 
 
 BASE_LEAVES = 30     # the leaves of every solver's state, extras aside
+RIGID_LEAVES = 15    # the leaves of a rigid body
 _RIGID = 10          # index of the first rigid leaf
 _EXTRA = 28          # index of the first extra leaf
+
+
+def rigid_from_numpy(leaves, device="cuda") -> base.RigidBodyState:
+    """A body from the JAX `RigidBodyState`'s RIGID_LEAVES leaves (numpy,
+    flatten order): pos x/y/z, vertices x/y/z, vel, omega, alpha, acc,
+    force x/y/z, centroid, inertia_inv."""
+    def t(i):
+        return torch.tensor(np.asarray(leaves[i]), dtype=torch.float32,
+                            device=device)
+
+    def rows(i):
+        return torch.tensor(np.stack(leaves[i:i + 3], axis=-1),
+                            dtype=torch.float32, device=device)
+
+    return base.RigidBodyState(
+        pos=rows(0), vertices=rows(3), vel=t(6), omega=t(7), alpha=t(8),
+        acc=t(9), force=rows(10), centroid=t(13), inertia_inv=t(14))
 
 
 def state_from_numpy(leaves, device="cuda") -> base.SimState:
@@ -116,15 +134,10 @@ def state_from_numpy(leaves, device="cuda") -> base.SimState:
     def rows(i):
         return t(np.stack(leaves[i:i + 3], axis=-1))
 
-    r = _RIGID
     return base.SimState(
         fluid=base.FluidState(pos=rows(0), vel=rows(3), acc=rows(6),
                               oid=t(leaves[9], torch.int32)),
-        rigid=base.RigidBodyState(
-            pos=rows(r), vertices=rows(r + 3), vel=t(leaves[r + 6]),
-            omega=t(leaves[r + 7]), alpha=t(leaves[r + 8]),
-            acc=t(leaves[r + 9]), force=rows(r + 10),
-            centroid=t(leaves[r + 13]), inertia_inv=t(leaves[r + 14])),
+        rigid=rigid_from_numpy(leaves[_RIGID:_RIGID + RIGID_LEAVES], device),
         dt=t(leaves[25]), t=t(leaves[26]),
         step_count=t(leaves[27], torch.int32),
         extra=tuple(t(a) for a in leaves[_EXTRA:_EXTRA + n_extra]),
@@ -132,23 +145,30 @@ def state_from_numpy(leaves, device="cuda") -> base.SimState:
         overflow=t(leaves[_EXTRA + n_extra + 1], torch.int32))
 
 
+def _numpy(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def _cols(x: torch.Tensor) -> list[np.ndarray]:
+    return [_numpy(x[:, c]) for c in range(3)]
+
+
+def rigid_to_numpy(r: base.RigidBodyState) -> list[np.ndarray]:
+    """The inverse of `rigid_from_numpy`: JAX leaf order."""
+    return (_cols(r.pos) + _cols(r.vertices)
+            + [_numpy(r.vel), _numpy(r.omega), _numpy(r.alpha),
+               _numpy(r.acc)]
+            + _cols(r.force) + [_numpy(r.centroid), _numpy(r.inertia_inv)])
+
+
 def state_to_numpy(state: base.SimState) -> list[np.ndarray]:
     """The inverse of `state_from_numpy`: JAX leaf order."""
-    def n(x):
-        return x.detach().cpu().numpy()
-
-    def cols(x):
-        return [n(x[:, c]) for c in range(3)]
-
-    f, r = state.fluid, state.rigid
-    rigid = (cols(r.pos) + cols(r.vertices)
-             + [n(r.vel), n(r.omega), n(r.alpha), n(r.acc)]
-             + cols(r.force) + [n(r.centroid), n(r.inertia_inv)])
-    return (cols(f.pos) + cols(f.vel) + cols(f.acc)
-            + [n(f.oid)] + rigid
-            + [n(state.dt), n(state.t), n(state.step_count)]
-            + [n(e) for e in state.extra]
-            + [n(state.diag), n(state.overflow)])
+    f = state.fluid
+    return (_cols(f.pos) + _cols(f.vel) + _cols(f.acc)
+            + [_numpy(f.oid)] + rigid_to_numpy(state.rigid)
+            + [_numpy(state.dt), _numpy(state.t), _numpy(state.step_count)]
+            + [_numpy(e) for e in state.extra]
+            + [_numpy(state.diag), _numpy(state.overflow)])
 
 
 def save_checkpoint(path: str, state: base.SimState, meta: dict | None = None):

@@ -180,13 +180,39 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 as WCSPH for 3 steps each against the single-device steps
                 run here: counts, dt and positions as above, overflow 0,
                 the particle count kept, every rank's path kernels launched
-                and no plain version on any rank.
+                and no plain version on any rank. Then the coupled
+                sharded step, a frame being a sharded fluid step and
+                domain.make_sharded_rigid_step: NCCL one rank a card on
+                configs/coupling_demo.json as written (PCISPH, 55,200
+                fluid and 3,200 rigid particles; 30 frames) and on the
+                half-immersed torus (perf/inputs.torus_immersed, DFSPH;
+                5 frames) against runner.Simulation's frames on the same
+                scene: at world 1 bit for bit (positions through oid,
+                dt, diag, the body's largest force and its centroid,
+                velocity and angular velocity every frame), launches
+                equal to the single-device run's, the solid passes as
+                often as rigid_launches says, no plain version, overflow
+                0; coupling_demo's frame rates, device time and the two
+                sums over the ranks a coupled step adds, timed alone,
+                printed. Then four gloo ranks sharing the card on the
+                half-immersed torus (slack 2.5: 3,072 / 2,304 / 0 / 0 at
+                rest, the body across the 0.5 m slab face), 3 frames
+                against the single-device frames run here: the first
+                frame at tests/test_torch_sharding_rigid.py's bars
+                (equal counts, dt rtol 1e-5, positions 5e-6, the force
+                to 1e-5 of its largest component, the body); every frame
+                the divergence counts equal, the density counts within
+                one, positions to 1e-3 and the centroid to 1e-5
+                (SHARD_JAX_BARS says why); the ranks agree on the body
+                bit for bit, every rank's launches on the trips x U
+                formula, overflow 0.
 
 Each run prints steps/s, iterations per step, the last residuals and
 peak device memory; the whole run's wall time comes before the JSON. The line before the last is {"kernels": [...]}
 (ms, plain_ms, bound_ms, library_ms at 30k; bound_us_1m, library_ms_1m
 and the other sizes and dtypes beside them; launches_shard, the
-launches of the NCCL rank 0's sharded run in [shard]), the last one
+launches of the NCCL rank 0's sharded run in [shard];
+launches_shard_coupled, those of its coupled runs), the last one
 {"ok": true, "device": {...}}.
 """
 
@@ -283,6 +309,26 @@ EXPORT_FRAMES = 40
 SHARD_GLOO_HELD = [480_000, 500_000, 20_000, 0]
 SHARD_GLOO_CAP = 550_000
 SHARD_POS_TOL = 5e-6
+# [shard] coupled, the gloo ranks against the single-device frames: the
+# bars of tests/test_torch_sharding_rigid.py (the body's centroid, vel and
+# omega to the absolute bar or the relative one of its largest component,
+# whichever is larger; the body's force, particle by particle, to
+# SHARD_FORCE_TOL of the frame's largest component)
+SHARD_BODY_TOL = {"centroid": 1e-5, "vel": 1e-4, "omega": 1e-3}
+SHARD_BODY_RTOL = {"centroid": 1e-5, "vel": 1e-5, "omega": 2e-4}
+SHARD_FORCE_TOL = 1e-5
+# [shard] coupled gloo: the first frame is held to the CPU test's bars.
+# Then the four ranks' partial sums (the residual averages', the
+# reaction's) round unlike one device's, the torus is violent (dt 1e-3 to
+# 8e-5 in three frames, forces to 2.9e6 N), and a density loop that ends
+# near its threshold ends one iteration apart (57 against 58 in frame 2
+# on an NVIDIA H100 80GB HBM3 at 700 W; ROADMAP.md section 3), which adds or
+# drops one iteration's reaction (~1/158 of the force). Every frame: the
+# divergence iterations equal and the density iterations within one,
+# positions to 1e-3 and the centroid to 1e-5 (the bars of JAX's own test
+# of its sharded coupled step, tests/test_sharding.py:306-321); the
+# body's velocity and spin after the first frame are printed.
+SHARD_JAX_BARS = {"pos": 1e-3, "centroid": 1e-5}
 
 
 class SmokeFailure(Exception):
@@ -1408,6 +1454,155 @@ def phase_shard(torch, results: dict) -> None:
             g.pop("oid")
         runs["gloo"].append(rows)
     results["_runs"]["shard"] = runs
+    shard_coupled(torch, results)
+
+
+def shard_coupled(torch, results: dict) -> None:
+    """The coupled sharded step: NCCL at one rank a card on the coupled
+    cells of perf/shard_rates.py against the single-device frames in the
+    rank's process, then gloo ranks sharing the card on the half-immersed
+    torus against the single-device frames run here."""
+    import numpy as np
+
+    from cfd_taichi_tpu_torch import Simulation
+    from cfd_taichi_tpu_torch.models import dfsph
+    from cfd_taichi_tpu_torch.parallel import launch
+    from cfd_taichi_tpu_torch.perf import shard_rates
+
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    nccl = launch.spawn(shard_rates.nccl_coupled_rank, world,
+                        backend="nccl", device="cuda")
+    print(f"[shard] coupled, NCCL, {world} rank(s), one a card: "
+          f"{time.perf_counter() - t0:.1f} s")
+    total: dict = {}
+    for r in nccl:
+        shard_rates.print_nccl_coupled(r)
+        for tag, solver, frames in shard_rates.COUPLED_CELLS:
+            c, name = r[tag], f"coupled {tag} nccl rank {r['rank']}"
+            s = c["sharded"]
+            check(c["loops"] == "graph", f"{name}: loops run {c['loops']}")
+            check(s["overflow"] == 0, f"{name}: overflow {s['overflow']}")
+            check(s["count"] == c["n_fluid"],
+                  f"{name}: {s['count']} particles")
+            want = rigid_launches(solver, s["diag"], c["unroll"])
+            for kname, (launches, plain) in s["counts"].items():
+                check(plain == 0, f"{name}: plain version of {kname} ran")
+                if kname in RIGID_PATH:
+                    check(launches == want.get(kname, 0),
+                          f"{name}: {kname} launched {launches} times, not "
+                          f"{want.get(kname, 0)}")
+                elif kname in SOLVER_PATH[solver]:
+                    check(launches > 0, f"{name}: {kname} never launched")
+            if r["rank"] == 0:
+                for kname, (launches, _) in s["counts"].items():
+                    total[kname] = total.get(kname, 0) + launches
+            if "single" not in c:
+                continue
+            g = c["single"]
+            check(s["counts"] == g["counts"],
+                  f"{name}: launches {s['counts']}, single-device "
+                  f"{g['counts']}")
+            if world == 1:      # bit for bit
+                for key in ("dt", "diag", "fmax", "centroid", "vel",
+                            "omega"):
+                    check(s[key] == g[key], f"{name}: {key} {s[key]} "
+                          f"against the single-device {g[key]}")
+                check(c["max_pos_err"] == 0.0 and c["body_equal"],
+                      f"{name}: positions {c['max_pos_err']}, body equal "
+                      f"{c['body_equal']}")
+            else:               # JAX's own bars (SHARD_JAX_BARS)
+                check([d[0] for d in s["diag"]] == [d[0] for d in g["diag"]],
+                      f"{name}: iterations {s['diag']}, single-device "
+                      f"{g['diag']}")
+                check(c["max_pos_err"] <= SHARD_JAX_BARS["pos"],
+                      f"{name}: positions differ by {c['max_pos_err']}")
+    results["shard_coupled_launches"] = total
+    runs = {"nccl": nccl}
+
+    t0 = time.perf_counter()
+    gloo = launch.spawn(shard_rates.gloo_coupled_rank,
+                        shard_rates.GLOO_WORLD, backend="gloo",
+                        device="cuda")
+    print(f"[shard] coupled, gloo, {shard_rates.GLOO_WORLD} ranks sharing "
+          f"one card: {time.perf_counter() - t0:.1f} s")
+    sim = Simulation(shard_rates.coupled_config("immersed"), device="cuda")
+    unroll = dfsph.loop_unroll(sim.scene)
+    want = []
+    for _ in range(shard_rates.GLOO_COUPLED_FRAMES):
+        sim.step()
+        force = sim.state.rigid.force.cpu().numpy()
+        sim.rigid_step()
+        want.append(dict(dt=float(sim.state.dt),
+                         diag=sim.state.diag.tolist(), force=force,
+                         pos=oid_sorted(sim.state),
+                         **{k: getattr(sim.state.rigid, k).cpu().numpy()
+                            for k in SHARD_BODY_TOL}))
+    del sim
+    torch.cuda.empty_cache()
+    tag = "coupled gloo immersed"
+    g0 = gloo[0]
+    print(f"[shard] {tag}: held at rest {g0['held_at_rest']} (cap "
+          f"{g0['spec']['cap']}); "
+          f"{[round(g['frames_per_sec'], 3) for g in gloo]} frames/s a "
+          f"rank, host-staged; peak "
+          f"{[round(g['peak_gib'], 3) for g in gloo]} GiB")
+    scale = float(np.abs(np.stack([w["force"] for w in want])).max())
+    check(scale > 0.0, f"{tag}: no reaction on the body")
+    for k, (got, ref) in enumerate(zip(g0["frames"], want)):
+        pos = np.concatenate([g["frames"][k]["pos"] for g in gloo])
+        oid = np.concatenate([g["frames"][k]["oid"] for g in gloo])
+        check(pos.shape == ref["pos"].shape,
+              f"{tag}: {pos.shape[0]} particles")
+        err = float(np.abs(pos[np.argsort(oid)] - ref["pos"]).max())
+        ferr = float(np.abs(got["force"] - ref["force"]).max())
+        berr = {b: float(np.abs(np.asarray(got[b]) - ref[b]).max())
+                for b in SHARD_BODY_TOL}
+        its, its_want = ((d[0], d[2]) for d in (got["diag"],
+                                                 ref["diag"]))
+        print(f"[shard] {tag} frame {k}: iterations {its} (single-device "
+              f"{its_want}); max |pos - single| through oid {err:.3e}; dt "
+              f"{got['dt']!r} ({ref['dt']!r}); force err {ferr:.3e} of "
+              f"{scale:.6e}; body err {berr}")
+        check(its[0] == its_want[0] and abs(its[1] - its_want[1]) <= 1,
+              f"{tag} frame {k}: iterations {its}, not {its_want}")
+        check(err <= SHARD_JAX_BARS["pos"], f"{tag} frame {k}: positions "
+              f"differ by {err}")
+        check(berr["centroid"] <= SHARD_JAX_BARS["centroid"],
+              f"{tag} frame {k}: centroid differs by {berr['centroid']}")
+        if k == 0:        # the first frame: the CPU test's bars
+            check(its == its_want, f"{tag}: iteration counts {its}, not "
+                  f"{its_want}")
+            check(abs(got["dt"] - ref["dt"]) <= 1e-5 * abs(ref["dt"]),
+                  f"{tag}: dt {got['dt']} against {ref['dt']}")
+            check(err <= SHARD_POS_TOL, f"{tag}: positions differ by {err}")
+            check(ferr <= SHARD_FORCE_TOL * float(np.abs(ref["force"])
+                                                  .max()),
+                  f"{tag}: force err {ferr}")
+            for b, tol in SHARD_BODY_TOL.items():
+                bar = max(tol, SHARD_BODY_RTOL[b]
+                          * float(np.abs(ref[b]).max()))
+                check(berr[b] <= bar, f"{tag}: body {b} differs by "
+                      f"{berr[b]}")
+    for g in gloo:
+        rank = f"{tag} rank {g['rank']}"
+        check(g["loops"] == "eager", f"{rank}: loops {g['loops']}")
+        check(g["overflow"] == 0, f"{rank}: overflow {g['overflow']}")
+        check(g["count"] == want[0]["pos"].shape[0],
+              f"{rank}: {g['count']} kept")
+        for a, b in zip(g["frames"], g0["frames"]):
+            check(a["diag"] == b["diag"] and a["dt"] == b["dt"]
+                  and np.array_equal(a["force"], b["force"])
+                  and all(a[k] == b[k] for k in SHARD_BODY_TOL),
+                  f"{rank}: the ranks disagree")
+        diags = [f["diag"] for f in g["frames"]]
+        shard_counts(rank, g["counts"],
+                     {**shard_launches("dfsph", diags, unroll),
+                      **rigid_launches("dfsph", diags, unroll)})
+    for g in gloo:
+        g.pop("frames")
+    runs["gloo"] = gloo
+    results["_runs"]["shard_coupled"] = runs
 
 
 def main() -> int:
@@ -1478,7 +1673,9 @@ def main() -> int:
             library_ms=row.pop("library_ms_30k", None),
             bound_us_1m=row["bound_ms_1m"] * 1e3,
             library_ms_1m=row.pop("library_ms_1m", None),
-            launches_shard=results["shard_launches"][k.name])
+            launches_shard=results["shard_launches"][k.name],
+            launches_shard_coupled=results["shard_coupled_launches"][
+                k.name])
         kernels.append({**head, **dict(sorted(row.items()))})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

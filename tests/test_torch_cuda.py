@@ -762,3 +762,85 @@ def test_two_gloo_ranks_sharing_the_card_match_the_cpu(cuda, solver):
     ranks = launch.spawn(_shard_rank_card, 2, backend="gloo",
                          device="cuda", args=(solver,), timeout=600)
     _check_shards(ranks, _single_run(solver, "cpu"), "eager")
+
+
+# tests/test_sharding.py:258-269's COUPLED_CFG with the cube moved into the
+# water and across the x = 0.6 slab face, as tests/test_torch_sharding_rigid.py
+# starts it ("immersed")
+SHARD_COUPLED_CFG = {
+    "scene": {"box_min": [0, 0, 0], "box_max": [1.2, 0.6, 0.5],
+              "particle_radius": 0.025, "gravity": 9.8},
+    "solver": {"name": "pcisph", "delta_time": 4e-4, "iter_cnt": 1,
+               "boundary_handle": True, "fs_couple": True},
+    "fluid": {"start_pos": [0.1, 0.05, 0.1],
+              "water_size": [1.0, 0.2, 0.3]},
+    "solid": {"mesh": "builtin:cube1", "voxel_radius": 0.025,
+              "rho_0": 500, "scale": 0.15, "pos_offset": [0.5, 0.15, 0.25],
+              "attitude_offset": [0.0, 0.0, 0.0], "fill": True,
+              "active": True},
+}
+SHARD_FRAMES = 3
+
+
+def _coupled_rank_card(ring, solver):
+    """SHARD_FRAMES coupled frames of SHARD_COUPLED_CFG as `solver`, sharded
+    (a fluid step, then make_sharded_rigid_step) and single-device
+    (Simulation.frame) on this rank's card: what parts from the
+    single-device frame's bits, and each run's (launches, plain calls)."""
+    from cfd_taichi_tpu_torch.parallel import domain
+
+    raw = copy.deepcopy(SHARD_COUPLED_CFG)
+    raw["solver"]["name"] = solver
+    sim = Simulation(parse_config(raw), device=ring.device)
+    scene = sim.scene
+    spec = domain.make_spec(scene, ring.world)
+    state = domain.init_sharded_solver(ring, spec, scene, scene.fluid_pos0,
+                                       solver)
+    step = domain.make_sharded_solver_step(scene, ring, spec, solver)
+    rstep = domain.make_sharded_rigid_step(scene)
+    counts = {}
+    for tag in ("sharded", "single"):
+        stencil.reset_counts()
+        for _ in range(SHARD_FRAMES):
+            if tag == "sharded":
+                state = rstep(step(state))
+            else:
+                sim.frame()
+        counts[tag] = {k.name: (k.launches, k.plain_calls)
+                       for k in stencil.KERNELS.values()}
+    n = scene.n_fluid
+    got, want = state.fluid, sim.state.fluid
+    cols = [0, 2, 3] if solver == "pbf" else [0, 1, 2, 3]
+    pairs = dict(dt=(state.dt, sim.state.dt),
+                 diag=(state.diag[cols], sim.state.diag[cols]),
+                 pos=(got.pos[:n], want.pos), vel=(got.vel[:n], want.vel),
+                 oid=(got.oid[:n], want.oid),
+                 **{f"body {f}": (a, b) for f, a, b in zip(
+                     state.rigid._fields, state.rigid, sim.state.rigid)})
+    return dict(parts=[k for k, (a, b) in pairs.items()
+                       if not torch.equal(a, b)],
+                counts=counts, loops=step.loops,
+                overflow=int(state.overflow))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["dfsph", "pcisph", "iisph", "wcsph",
+                                    "pbf"])
+def test_coupled_sharded_frame_on_nccl_world_one_is_the_single_device(
+        cuda, solver):
+    """One NCCL rank on the card: the coupled sharded frame, with the body
+    in the water and its reaction summed over the ranks, is the
+    single-device frame bit for bit, and launches every kernel as often,
+    with no plain version."""
+    from cfd_taichi_tpu_torch.parallel import launch
+
+    (r,) = launch.spawn(_coupled_rank_card, 1, backend="nccl",
+                        device="cuda", args=(solver,), timeout=600)
+    assert r["parts"] == []
+    assert r["loops"] == "graph" and r["overflow"] == 0
+    assert r["counts"]["sharded"] == r["counts"]["single"]
+    assert all(plain == 0 for _, plain in r["counts"]["sharded"].values())
+    launched = {k for k, (n, _) in r["counts"]["sharded"].items() if n}
+    if solver != "pbf":
+        assert {"rigid_terms", "rigid_viscosity",
+                "rigid_side_force"} <= launched
