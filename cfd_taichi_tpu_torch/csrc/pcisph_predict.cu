@@ -1,6 +1,7 @@
-// K6 pcisph_predict_rho: PCISPH's predicted density, once a loop iteration.
+// K6 pcisph_predict_rho and pcisph_predict_rho_list: PCISPH's predicted
+// density, once a loop iteration.
 //
-// Replaces bandmat.predicted_rho_op and boundary_predict_op (cfd_taichi_tpu/
+// Replace bandmat.predicted_rho_op and boundary_predict_op (cfd_taichi_tpu/
 // ops/bandmat.py:1626-1720) and, on a scene with a rigid body,
 // rigid_dense.predict_rho_op (cfd_taichi_tpu/ops/rigid_dense.py:179-199):
 // XLA window passes of the JAX package. Per sorted fluid particle i, with x
@@ -17,27 +18,64 @@
 // three sums are kept apart and added at the end in JAX's order, fluid,
 // body, walls (models/pcisph.py:281-286).
 //
-// Bound on the card: the bytes of x~ and the output (perf/bounds.py), far
-// below what the walk of ~27 x occupancy candidates takes: as for matvec,
-// the walk's issue slots at 1M and its load latency at 30k set the time.
+// Two forms of the fluid sum:
 //
-// Design: one thread per query on the queued walk (queued_walk_of,
-// stencil.cuh) over the start positions and their cell table, so that the
-// walk tests validity exactly as fluid_terms does; the drain loads x~_j
-// (or x_s and V_s, x_b and V_b) and runs the W term on lanes that nearly
-// all hold a pair. The boundary walk comes second, in the same thread,
+// * pcisph_predict_rho, the stencil form (the recompute engine, which has
+//   no pair store): one thread per query on the queued walk (queued_walk_of,
+//   stencil.cuh) over the start positions and their cell table, so that the
+//   walk tests validity exactly as fluid_terms does; the drain loads x~_j
+//   and runs the W term on lanes that nearly all hold a pair. Its bound is
+//   far below what the walk of ~27 x occupancy candidates takes: the walk's
+//   issue slots at 1M and its load latency at 30k set the time.
+// * pcisph_predict_rho_list, the stream form (the stored-coefficient
+//   engine): the pair set is fixed for the whole step and coef_build has
+//   stored it once, as the CSR rows [offsets[i], offsets[i+1]) of nbr, in
+//   the walk's order (9 runs, ascending slot; coef_build.cu). So the query
+//   tests no candidate: it streams its row and sums W at the predicted
+//   distance to x~[nbr[p]]. The shape is coef_matvec's (coef_matvec.cu): a
+//   group of kPredictGroup lanes per row, lane t taking pairs offsets[i] +
+//   t, + t + G, ..., kPredictUnroll nbr loads (streaming, __ldcs) ahead of
+//   their gathers, the x~ gathers served from L2 (12 MB at 1M), the
+//   group's partial sums reduced with __shfl_xor_sync. Each lane first
+//   loads its own row's bounds and x~_i, coalesced, and a group takes them
+//   by shuffle, so that a row's stream waits on no other load. With G = 1 a
+//   thread adds its row's terms in the walk's order, bit for bit as the
+//   stencil form; a group of G > 1 adds strided partial sums, which round
+//   differently. The bytes it must read (nbr 4 B a pair, offsets, x, x~,
+//   the output) are its floor (perf/bounds.py: stream bytes), ~43 us at 1M.
+//   Measured on an H100 at 1M with walls (PERF.md section 6,
+//   perf/coef_compare.py --kernel pcisph_predict): load latency sets the
+//   time, so the loads a lane has in flight decide it: G = 4 with 8 pairs
+//   loaded ahead (a lattice row's ~28 pairs in one round) took 150 us, 8
+//   lanes with 2 ahead 186, 4 with 2 185, one lane a row with 8 ahead (the
+//   stencil form's sum order, bit-equal to it) 198, with 4 ahead 291, the
+//   stencil form 396; x~ gathered as 16-byte records (an (N, 4) copy made
+//   a call) and two rows of a group in flight at once gained nothing.
+//
+// Walls and body, the same in both forms: the boundary walk comes second,
 // over the static boundary table, and only warps with a wall-near lane
 // take it (Scene.boundary_near, as boundary_terms). The body's walk comes
-// third, over its per-step table (ops/rigid.rigid_table); in this first
-// form every query walks it, though only queries near the body find
-// pairs. The three walks hand their pairs to one pair functor type, so
-// that they share one queue in shared memory. Hits drain in walk order: a
-// run repeats bit for bit. Sums stay in registers and each output is
-// written once, with no atomics.
+// third, over its per-step table (ops/rigid.rigid_table), and only warps
+// with a lane inside the body's gate take it: rbox, the body's box grown
+// by a little more than h (stencil.make_body_box), made on the device once a
+// step. A query outside it has no body pair, so its body sum is 0.f either
+// way and the gate leaves every output bit as it was. In the stream form
+// a warp first streams its 32 rows, kRowGroups at a time; lane t then
+// takes row t for these walks, its fluid sum passed on through shared
+// memory, so that the walks run on full warps. The walks hand
+// their pairs to one pair functor type, so that they share one queue in
+// shared memory. Hits drain in walk order: a run repeats bit for bit. Sums
+// stay in registers and each output is written once, with no atomics.
 #include "stencil.cuh"
 
 constexpr int kPredictQueue = 40;  // hits a thread can hold
 constexpr int kPredictChunk = 8;   // candidates tested between two votes
+constexpr int kPredictGroup = 4;   // stream form: lanes per CSR row
+constexpr int kPredictUnroll = 8;  // stream form: pairs a lane loads ahead
+constexpr int kRowGroups = 32 / kPredictGroup;  // rows a warp takes at once
+static_assert(kPredictGroup >= 1 && kPredictGroup <= 32 &&
+                  (kPredictGroup & (kPredictGroup - 1)) == 0,
+              "kPredictGroup must be a power of two no larger than a warp");
 
 // The W sum of one query against one source set: x~_j (or x_s, x_b) from
 // `tpos`, each term weighted by wscale V_j where `vol` is given.
@@ -61,19 +99,78 @@ struct PredictSum {
   }
 };
 
+// The static walls and the body of a call.
+struct Solids {
+  const float* bpos;
+  const float* bvol;
+  const int* bstarts;
+  const int* bnear;  // per cell: boundary particles in its stencil
+  int nb;
+  const float* rpos;
+  const float* rvol;
+  const int* rstarts;
+  const float* rbox;  // the body's gate: lo x, y, z, hi x, y, z
+  int nr;
+  float rho0;
+};
+
+// rho~ of query i (live) from its fluid sum: the walls' and the body's
+// walks at its start position, added in JAX's order. Every lane of the
+// warp must call it.
+__device__ __forceinline__ float add_solids(float fluid, bool live, int i,
+                                            const float* __restrict__ pos,
+                                            const float* __restrict__ pos_p,
+                                            const StencilParams& p,
+                                            const Solids& s) {
+  float xi = 0.f, yi = 0.f, zi = 0.f;
+  PredictSum acc{nullptr, nullptr, s.rho0, 0.f, 0.f, 0.f, &p, 0.f};
+  if (live) {
+    xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
+    acc.xi = pos_p[3 * i], acc.yi = pos_p[3 * i + 1];
+    acc.zi = pos_p[3 * i + 2];
+  }
+  float wall = 0.f;
+  if (s.nb > 0) {
+    bool near = false;
+    if (live) {
+      int c[3];
+      cell_of(xi, yi, zi, p, c);
+      near = __ldg(s.bnear + c[0] * p.strides[0] + c[1] * p.strides[1] +
+                   c[2] * p.strides[2]) > 0;
+    }
+    if (__any_sync(kFullWarp, near)) {
+      acc.tpos = s.bpos;
+      acc.vol = s.bvol;
+      acc.sum = 0.f;
+      queued_walk_of<kPredictQueue, kPredictChunk, kDrainUnroll>(
+          XyzRows{s.bpos}, s.nb, s.bstarts, p, near, -1, xi, yi, zi, acc);
+      wall = acc.sum;
+    }
+  }
+  float body = 0.f;
+  if (s.nr > 0) {
+    const bool near = live && xi >= __ldg(s.rbox) &&
+                      yi >= __ldg(s.rbox + 1) && zi >= __ldg(s.rbox + 2) &&
+                      xi <= __ldg(s.rbox + 3) && yi <= __ldg(s.rbox + 4) &&
+                      zi <= __ldg(s.rbox + 5);
+    if (__any_sync(kFullWarp, near)) {
+      acc.tpos = s.rpos;
+      acc.vol = s.rvol;
+      acc.sum = 0.f;
+      queued_walk_of<kPredictQueue, kPredictChunk, kDrainUnroll>(
+          XyzRows{s.rpos}, s.nr, s.rstarts, p, near, -1, xi, yi, zi, acc);
+      body = acc.sum;
+    }
+  }
+  return (fluid + body) + wall;
+}
+
 __global__ void __launch_bounds__(kThreads, kQueuedBlocks)
 pcisph_predict_rho_kernel(const float* __restrict__ pos,
                           const int* __restrict__ starts, int n,
                           StencilParams p, float m,
-                          const float* __restrict__ pos_p,
-                          const float* __restrict__ bpos,
-                          const float* __restrict__ bvol,
-                          const int* __restrict__ bstarts,
-                          const int* __restrict__ bnear, int nb,
-                          const float* __restrict__ rpos,
-                          const float* __restrict__ rvol,
-                          const int* __restrict__ rstarts, int nr,
-                          float rho0, float* __restrict__ rho) {
+                          const float* __restrict__ pos_p, Solids s,
+                          float* __restrict__ rho) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < n;
   float xi = 0.f, yi = 0.f, zi = 0.f;
@@ -85,56 +182,112 @@ pcisph_predict_rho_kernel(const float* __restrict__ pos,
   }
   queued_walk_of<kPredictQueue, kPredictChunk, kDrainUnroll>(
       XyzRows{pos}, n, starts, p, live, i, xi, yi, zi, acc);
-  const float fluid = m * acc.sum;
-
-  float wall = 0.f;
-  if (nb > 0) {
-    bool near = false;
-    if (live) {
-      int c[3];
-      cell_of(xi, yi, zi, p, c);
-      near = __ldg(bnear + c[0] * p.strides[0] + c[1] * p.strides[1] +
-                   c[2] * p.strides[2]) > 0;
-    }
-    if (__any_sync(kFullWarp, near)) {
-      acc.tpos = bpos;
-      acc.vol = bvol;
-      acc.wscale = rho0;
-      acc.sum = 0.f;
-      queued_walk_of<kPredictQueue, kPredictChunk, kDrainUnroll>(
-          XyzRows{bpos}, nb, bstarts, p, near, -1, xi, yi, zi, acc);
-      wall = acc.sum;
-    }
-  }
-
-  float body = 0.f;
-  if (nr > 0) {
-    acc.tpos = rpos;
-    acc.vol = rvol;
-    acc.wscale = rho0;
-    acc.sum = 0.f;
-    queued_walk_of<kPredictQueue, kPredictChunk, kDrainUnroll>(
-        XyzRows{rpos}, nr, rstarts, p, live, -1, xi, yi, zi, acc);
-    body = acc.sum;
-  }
-  if (live) rho[i] = (fluid + body) + wall;
+  const float out = add_solids(m * acc.sum, live, i, pos, pos_p, p, s);
+  if (live) rho[i] = out;
 }
 
-extern "C" int pcisph_predict_rho_launch(const float* pos, const int* starts,
-                                         int n, const StencilParams* p,
-                                         float m, const float* pos_p,
-                                         const float* bpos, const float* bvol,
-                                         const int* bstarts, const int* bnear,
-                                         int nb, const float* rpos,
-                                         const float* rvol,
-                                         const int* rstarts, int nr,
-                                         float rho0, float* rho,
-                                         void* stream) {
+// Sum over the kPredictGroup lanes of a group; every lane of the warp must
+// call it.
+__device__ __forceinline__ float predict_group_sum(float x) {
+#pragma unroll
+  for (int off = kPredictGroup / 2; off > 0; off >>= 1)
+    x += __shfl_xor_sync(kFullWarp, x, off, kPredictGroup);
+  return x;
+}
+
+__global__ void __launch_bounds__(kThreads, kQueuedBlocks)
+pcisph_predict_rho_list_kernel(const float* __restrict__ pos, int n,
+                               const int* __restrict__ offsets,
+                               const int* __restrict__ nbr, StencilParams p,
+                               float m, const float* __restrict__ pos_p,
+                               Solids s, float* __restrict__ rho) {
+  __shared__ float fluid_of[kThreads];
+  const int lane = threadIdx.x & 31;
+  const int warp0 = threadIdx.x & ~31;        // the warp's first thread
+  const int i = blockIdx.x * kThreads + threadIdx.x;  // lane t's row
+  const bool live = i < n;
+  // Each lane loads its own row's bounds and x~_i, coalesced, and the
+  // groups take them by shuffle: no dependent load before a row's stream.
+  int lo_t = 0, end_t = 0;
+  float x_t = 0.f, y_t = 0.f, z_t = 0.f;
+  if (live) {
+    lo_t = __ldg(offsets + i), end_t = __ldg(offsets + i + 1);
+    x_t = __ldg(pos_p + 3 * i), y_t = __ldg(pos_p + 3 * i + 1);
+    z_t = __ldg(pos_p + 3 * i + 2);
+  }
+  const int g = lane & (kPredictGroup - 1);
+  // The warp's 32 rows, a group a row, kRowGroups rows at a time (rows
+  // past n are empty).
+  for (int k = lane / kPredictGroup; k < 32; k += kRowGroups) {
+    const int end = __shfl_sync(kFullWarp, end_t, k);
+    const float xi = __shfl_sync(kFullWarp, x_t, k);
+    const float yi = __shfl_sync(kFullWarp, y_t, k);
+    const float zi = __shfl_sync(kFullWarp, z_t, k);
+    float sum = 0.f;
+    for (int q0 = __shfl_sync(kFullWarp, lo_t, k) + g; q0 < end;
+         q0 += kPredictGroup * kPredictUnroll) {
+      int j[kPredictUnroll];
+#pragma unroll
+      for (int u = 0; u < kPredictUnroll; ++u) {
+        const int q = q0 + u * kPredictGroup;
+        j[u] = q < end ? __ldcs(nbr + q) : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < kPredictUnroll; ++u) {
+        if (j[u] < 0) continue;
+        const float dx = xi - __ldg(pos_p + 3 * j[u]);
+        const float dy = yi - __ldg(pos_p + 3 * j[u] + 1);
+        const float dz = zi - __ldg(pos_p + 3 * j[u] + 2);
+        sum += cubic_w(pair_r(dist2(dx, dy, dz)), p);
+      }
+    }
+    sum = predict_group_sum(sum);
+    if (g == 0) fluid_of[warp0 + k] = m * sum;
+  }
+  __syncwarp();
+  // The walls and the body: lane t takes its own row.
+  const float out = add_solids(live ? fluid_of[threadIdx.x] : 0.f, live, i,
+                               pos, pos_p, p, s);
+  if (live) rho[i] = out;
+}
+
+Solids solids(const float* bpos, const float* bvol, const int* bstarts,
+              const int* bnear, int nb, const float* rpos, const float* rvol,
+              const int* rstarts, const float* rbox, int nr, float rho0) {
+  return Solids{bpos, bvol, bstarts, bnear, nb, rpos, rvol, rstarts, rbox,
+                nr, rho0};
+}
+
+extern "C" int pcisph_predict_rho_launch(
+    const float* pos, const int* starts, int n, const StencilParams* p,
+    float m, const float* pos_p, const float* bpos, const float* bvol,
+    const int* bstarts, const int* bnear, int nb, const float* rpos,
+    const float* rvol, const int* rstarts, const float* rbox, int nr,
+    float rho0, float* rho, void* stream) {
   if (n > 0) {
     pcisph_predict_rho_kernel<<<grid_blocks(n), kThreads, 0,
                                 (cudaStream_t)stream>>>(
-        pos, starts, n, *p, m, pos_p, bpos, bvol, bstarts, bnear, nb, rpos,
-        rvol, rstarts, nr, rho0, rho);
+        pos, starts, n, *p, m, pos_p,
+        solids(bpos, bvol, bstarts, bnear, nb, rpos, rvol, rstarts, rbox, nr,
+               rho0),
+        rho);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pcisph_predict_rho_list_launch(
+    const float* pos, int n, const int* offsets, const int* nbr,
+    const StencilParams* p, float m, const float* pos_p, const float* bpos,
+    const float* bvol, const int* bstarts, const int* bnear, int nb,
+    const float* rpos, const float* rvol, const int* rstarts,
+    const float* rbox, int nr, float rho0, float* rho, void* stream) {
+  if (n > 0) {
+    pcisph_predict_rho_list_kernel<<<grid_blocks(n), kThreads, 0,
+                                     (cudaStream_t)stream>>>(
+        pos, n, offsets, nbr, *p, m, pos_p,
+        solids(bpos, bvol, bstarts, bnear, nb, rpos, rvol, rstarts, rbox, nr,
+               rho0),
+        rho);
   }
   return (int)cudaGetLastError();
 }

@@ -218,12 +218,14 @@ class _Pre(NamedTuple):
 
 
 def loop_engine(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
-                ft: stencil.FluidTerms) -> tuple[Callable, Callable]:
-    """(matvec, matvec_dot) of a step's loops over the cell-sorted `pos`:
-    the stored-coefficient engine when its pair store fits
-    `COEF_BYTE_BUDGET` in `COEF_DTYPE`, else the recompute kernels. The
-    counterpart of JAX's `build_dense_engine` (`cfd_taichi_tpu/models/
-    dfsph.py:332`), which DFSPH and IISPH share."""
+                ft: stencil.FluidTerms
+                ) -> tuple[Callable, Callable, coef.CoefEngine | None]:
+    """(matvec, matvec_dot, store) of a step's loops over the cell-sorted
+    `pos`: the stored-coefficient engine and its pair store when the store
+    fits `COEF_BYTE_BUDGET` in `COEF_DTYPE`, else the recompute kernels and
+    None. The counterpart of JAX's `build_dense_engine` (`cfd_taichi_tpu/
+    models/dfsph.py:332`), which DFSPH and IISPH share; PCISPH's predicted
+    density streams the store's rows."""
     grid, h, m = scene.grid, scene.h, scene.particle_m
     # The one host read of the prepare: the pair count sizes nbr and w.
     # (The loops read their condition once a trip anyway; an upper bound
@@ -236,9 +238,10 @@ def loop_engine(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
                               coef.csr_offsets(ft.count), COEF_DTYPE,
                               n_pairs=n_pairs)
         return (functools.partial(coef.coef_matvec, eng, pos),
-                functools.partial(coef.coef_matvec_dot, eng, pos))
+                functools.partial(coef.coef_matvec_dot, eng, pos), eng)
     return (functools.partial(stencil.matvec, pos, starts, grid, h, m),
-            functools.partial(stencil.matvec_dot, pos, starts, grid, h, m))
+            functools.partial(stencil.matvec_dot, pos, starts, grid, h, m),
+            None)
 
 
 def prepare(scene: Scene, state: base.SimState) -> _Pre:
@@ -267,7 +270,7 @@ def prepare_sorted(scene: Scene, rigid: base.RigidBodyState,
     ft, bt = base.one_shot_terms(scene, pos, starts)
     table, rt = base.body_terms(scene, rigid, pos)
     rho, alpha, S, tension = dense_pre_terms(scene, ft, bt, rt)
-    mv, mvd = loop_engine(scene, pos, starts, ft)
+    mv, mvd, _ = loop_engine(scene, pos, starts, ft)
 
     def ext_force_fn(v):
         visc = stencil.viscosity(pos, starts, grid, h, m, v, rho,

@@ -202,7 +202,7 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
     table, rt = base.body_terms(scene, rigid, pos)
     rho, S_all, g2_sb, tension = dense_pre_terms(scene, ft, bt, rt)
     inv_rho2 = torch.reciprocal(rho * rho)
-    mv, mvd = loop_engine(scene, pos, starts, ft)
+    mv, mvd, _ = loop_engine(scene, pos, starts, ft)
 
     # --- predict advection (iisph_solver.py:36-75) ---------------------------
     viscosity = stencil.viscosity(pos, starts, grid, scene.h, m, vel, rho,

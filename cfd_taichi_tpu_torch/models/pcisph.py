@@ -20,13 +20,15 @@ scenes with a rigid body:
 * the predict pass: v, x from the force, the clamp at a radius' margin
   with -0.5 decay on clamp scenes, then the density at the predicted
   positions over the start-of-step pair set (`stencil.pcisph_predict_rho`)
-  less rho0;
+  less rho0: on the stored-coefficient engine its stream form over the
+  step's stored pair list, on the recompute engine its stencil form;
 * a rigid body enters as JAX's dense coupled path has it (`cfd_taichi_tpu/
   models/pcisph.py:212-287`; ops/rigid.py, as in models/dfsph.py): its
   density sum joins the fluid's after the walls', its viscosity branch the
   external force, the pressure force gains -S_s u with u = p m / rho^2,
   the predicted density a third walk over the body (which keeps its
-  positions through the step), and in a two-way coupled scene each
+  positions through the step; only queries inside the body's box grown by
+  h take it, the box made once a step), and in a two-way coupled scene each
   iteration adds the fluid's reaction u to the body's force;
 * the loop p <- max(p + err delta, 0) while the average positive density
   error exceeds 0.1 % of rho0, 1 to 80 iterations; integration with 0.9999
@@ -153,8 +155,9 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
     if rt is not None:
         rho = rho + rt.rho
     inv_rho2 = torch.reciprocal(rho * rho)
-    mv, _ = loop_engine(scene, pos, starts, ft)
+    mv, _, store = loop_engine(scene, pos, starts, ft)
     walls = base.walls(scene)
+    box = None if table is None else stencil.make_body_box(table.pos, h)
 
     # --- external forces (pcisph_solver.py:220-226) -------------------------
     tension = ft.tvec * f32(-TENSION_K * m)
@@ -193,7 +196,8 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
                                          margin=scene.particle_radius,
                                          decay_mul=-base.V_DECAY)
         return stencil.pcisph_predict_rho(pos, starts, grid, h, m, pos_p,
-                                          walls, RHO_0, table) - RHO_0
+                                          walls, RHO_0, table, store,
+                                          box) - RHO_0
 
     # --- predictive-corrective loop (pcisph_solver.py:47-70) ----------------
     err_thresh = f32(RHO_0 * RHO_MAX_ERR_PERCENT * 0.01)

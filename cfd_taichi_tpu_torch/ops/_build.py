@@ -65,7 +65,10 @@ _SIGNATURES = {
     "viscosity_launch": (_P, _P, _I, _PP, _F, _F, _F, _P, _P, _P, _P),
     "wcsph_forces_launch": (_P, _P, _P, _I, _PP, _F, _F, _F, _F, _P, _P),
     "pcisph_predict_rho_launch": (_P, _P, _I, _PP, _F, _P, _P, _P, _P, _P,
-                                  _I, _P, _P, _P, _I, _F, _P, _P),
+                                  _I, _P, _P, _P, _P, _I, _F, _P, _P),
+    "pcisph_predict_rho_list_launch": (_P, _I, _P, _P, _PP, _F, _P, _P, _P,
+                                       _P, _P, _I, _P, _P, _P, _P, _I, _F,
+                                       _P, _P),
     "pbf_terms_launch": (_P, _P, _I, _PP, _SP, _F, _F, _F, _P, _P, _P, _P,
                          _P),
     "pbf_boundary_terms_launch": (_P, _I, _P, _P, _P, _P, _I, _PP, _SP, _F,

@@ -11,7 +11,9 @@ Each pass has three parts:
   boundary_terms, matvec, matvec_dot, wcsph_forces, pcisph_predict_rho,
   pbf_terms, pbf_lambda, pbf_xsph and the fluid-rigid passes of
   ops/rigid.py (`csrc/stencil.cuh`, queued_walk),
-  a group of lanes per query in viscosity and coef_build (group_walk).
+  a group of lanes per query in viscosity and coef_build (group_walk);
+  pcisph_predict_rho_list streams the rows of the step's stored pair list
+  (ops/coef.py) and walks no stencil for its fluid pairs.
   The walk of ~27 x occupancy candidates, not DRAM bandwidth
   or FLOPs, sets their time: as measured on an NVIDIA H100 80GB HBM3
   (PERF.md section 6), the warps' instruction slots at breaking_dam_1m,
@@ -20,7 +22,8 @@ Each pass has three parts:
   bounds it and what its design does about that;
 * a plain PyTorch version of the same function, `*_plain`, which walks the
   same stencil as (Q, 27 * max_occupancy) masked candidates, chunked over
-  queries so that it fits at 1M particles;
+  queries so that it fits at 1M particles (the stream form of PCISPH's
+  predicted density sums over the stored pair list instead);
 * a wrapper that launches the kernel for CUDA tensors and calls the plain
   version for CPU tensors. There is no fallback: a CUDA tensor either
   reaches its kernel or the wrapper raises.
@@ -55,6 +58,7 @@ from cfd_taichi_tpu_torch.ops.smoothing import (CubicConstants,
                                                 spiky_grad_coeff)
 
 if TYPE_CHECKING:
+    from cfd_taichi_tpu_torch.ops.coef import CoefEngine
     from cfd_taichi_tpu_torch.ops.rigid import RigidTable
 
 _CSRC = "cfd_taichi_tpu_torch/csrc/"
@@ -85,10 +89,15 @@ KERNELS = {k.name: k for k in (
            "cfd_taichi_tpu/ops/bandmat.py:975"),
     Kernel("wcsph_forces", _CSRC + "wcsph_forces.cu",
            "cfd_taichi_tpu/ops/bandmat.py:1867"),
+    # PCISPH's predicted density in two forms: the stencil form (the
+    # recompute engine's) and the stream form over the stored-coefficient
+    # engine's pair list (ops/coef.py).
     Kernel("pcisph_predict_rho", _CSRC + "pcisph_predict.cu",
            "cfd_taichi_tpu/ops/bandmat.py:1626, :1674"),
-    # The body's walk of pcisph_predict_rho: its launches (and plain
-    # calls) that walk a rigid table, counted here as well.
+    Kernel("pcisph_predict_rho_list", _CSRC + "pcisph_predict.cu",
+           "cfd_taichi_tpu/ops/bandmat.py:1626, :1674"),
+    # The body's walk of either form: the launches (and plain calls) that
+    # walk a rigid table, counted here as well.
     Kernel("pcisph_predict_rho_rigid", _CSRC + "pcisph_predict.cu",
            "cfd_taichi_tpu/ops/rigid_dense.py:179"),
     # Two entry points, fluid and boundary, both counted here.
@@ -388,37 +397,92 @@ def _check_walls(walls: Walls, n_cells: int, device: torch.device) -> int:
 def pcisph_predict_rho(pos: torch.Tensor, starts: torch.Tensor,
                        grid: GridSpec, h: float, m: float,
                        pos_p: torch.Tensor, walls: Walls | None = None,
-                       rho0: float = 0.0, body: "RigidTable | None" = None
-                       ) -> torch.Tensor:
+                       rho0: float = 0.0, body: "RigidTable | None" = None,
+                       eng: "CoefEngine | None" = None,
+                       body_box: torch.Tensor | None = None) -> torch.Tensor:
     """K6: (N,) PCISPH's predicted density m sum_j W(|x~_i - x~_j|) (+ with
     a rigid body's cell-sorted `body` table sum_s rho0 V_s W(|x~_i - x_s|),
     + on walls sum_b rho0 V_b W(|x~_i - x_b|)) over the pairs valid at the
     start-of-step `pos`, W at the predicted `pos_p`, the body and walls
     where they stand (replaces bandmat.predicted_rho_op +
-    rigid_dense.predict_rho_op + boundary_predict_op)."""
-    if not _on_cuda("pcisph_predict_rho", pos):
-        return pcisph_predict_rho_plain(pos, starts, grid, h, m, pos_p,
-                                        walls, rho0, body)
-    n = _check_pos_starts(pos, starts, grid)
+    rigid_dense.predict_rho_op + boundary_predict_op).
+
+    With `eng`, the step's pair store (ops/coef.py: its rows are exactly
+    the fluid pairs valid at `pos`, in walk order), the stream form
+    pcisph_predict_rho_list sums over the stored rows; without one the
+    stencil form pcisph_predict_rho walks the 27-cell stencil of `starts`.
+    Only queries inside `body_box` walk the body (`make_body_box`; made
+    here from the table where the caller has none)."""
+    name = "pcisph_predict_rho" if eng is None else "pcisph_predict_rho_list"
+    if not _on_cuda(name, pos):
+        if eng is None:
+            return pcisph_predict_rho_plain(pos, starts, grid, h, m, pos_p,
+                                            walls, rho0, body)
+        return pcisph_predict_rho_list_plain(eng, pos, grid, h, m, pos_p,
+                                             walls, rho0, body)
+    n = pos.shape[0]
+    _check("pos", pos, torch.float32, (n, 3), pos.device)
     _check("pos_p", pos_p, torch.float32, (n, 3), pos.device)
+    if eng is None:
+        _check_pos_starts(pos, starts, grid)
+    else:
+        _check("offsets", eng.offsets, torch.int32, (n + 1,), pos.device)
+        _check("nbr", eng.nbr, torch.int32, (eng.nbr.shape[0],), pos.device)
     bnd = (None, None, None, None, 0)
     if walls is not None:
         bnd = (*walls, _check_walls(walls, grid.num_cells, pos.device))
-    rig = (None, None, None, 0)
+    rig = (None, None, None, None, 0)
     if body is not None:
         nr = body.pos.shape[0]
         _check("body pos", body.pos, torch.float32, (nr, 3), pos.device)
         _check("body vol", body.vol, torch.float32, (nr,), pos.device)
         _check("body starts", body.starts, torch.int32,
                (grid.num_cells + 1,), pos.device)
-        rig = (body.pos, body.vol, body.starts, nr)
+        if body_box is None:
+            body_box = make_body_box(body.pos, h)
+        _check("body box", body_box, torch.float32, (2, 3), pos.device)
+        rig = (body.pos, body.vol, body.starts, body_box, nr)
     out = pos.new_empty(n)
-    _launch("pcisph_predict_rho", pos.device, pos, starts, n,
-            ctypes.byref(_params(grid, h)), f32(m), pos_p, *bnd, *rig,
-            f32(rho0), out)
+    params = ctypes.byref(_params(grid, h))
+    if eng is None:
+        _launch(name, pos.device, pos, starts, n, params, f32(m), pos_p,
+                *bnd, *rig, f32(rho0), out)
+    else:
+        _launch(name, pos.device, pos, n, eng.offsets, eng.nbr, params,
+                f32(m), pos_p, *bnd, *rig, f32(rho0), out)
     if body is not None:
         KERNELS["pcisph_predict_rho_rigid"].launches += 1
     return out
+
+
+# The body gate's margin beyond h, relative: a pair's f32 test
+# |x_i - x_s|^2 <= f32(h)^2 holds only within h (1 + 3 eps) on each axis,
+# and the box's corners round at the coordinates' own scale (BOX_SLACK of
+# the largest |coordinate|, some sixteen ulps).
+BOX_MARGIN = 2.0**-10
+BOX_SLACK = 2.0**-20
+
+
+def make_body_box(bpos: torch.Tensor, h: float) -> torch.Tensor:
+    """(2, 3) f32 corners lo, hi of the body's gate: the box of its (Nr, 3)
+    positions `bpos` grown by h (1 + BOX_MARGIN) and BOX_SLACK of each
+    axis' largest |coordinate|, made on the device with no host read. A
+    query with a body pair lies inside it (`in_body_box`); on a body of no
+    particles it holds nothing."""
+    if bpos.shape[0] == 0:
+        inf = float("inf")
+        return torch.tensor([[inf] * 3, [-inf] * 3], dtype=torch.float32,
+                            device=bpos.device)
+    lo, hi = bpos.amin(dim=0), bpos.amax(dim=0)
+    grow = f32(CubicConstants.of(h).h * (1.0 + BOX_MARGIN)) \
+        + torch.maximum(lo.abs(), hi.abs()) * f32(BOX_SLACK)
+    return torch.stack([lo - grow, hi + grow])
+
+
+def in_body_box(pos: torch.Tensor, box: torch.Tensor) -> torch.Tensor:
+    """(N,) bool: the queries at `pos` that the kernels let walk the body,
+    by the same f32 comparisons as theirs (csrc/pcisph_predict.cu)."""
+    return ((pos >= box[0]) & (pos <= box[1])).all(dim=1)
 
 
 def _spiky_poly6(h: float) -> _build.SpikyPoly6:
@@ -746,7 +810,35 @@ def pcisph_predict_rho_plain(pos: torch.Tensor, starts: torch.Tensor,
     for rows, pr in _pair_chunks(pos, pos, starts, grid, h, exclude_self=True):
         fluid[rows] = _rowsum(pr.valid, cubic_w(
             _pair_r(pos_p[rows], pos_p[pr.slot]), h))
-    rho = f32(m) * fluid
+    return _predict_solids(f32(m) * fluid, pos, grid, h, pos_p, walls, rho0,
+                           body)
+
+
+def pcisph_predict_rho_list_plain(eng: "CoefEngine", pos: torch.Tensor,
+                                  grid: GridSpec, h: float, m: float,
+                                  pos_p: torch.Tensor,
+                                  walls: Walls | None = None,
+                                  rho0: float = 0.0,
+                                  body: "RigidTable | None" = None
+                                  ) -> torch.Tensor:
+    """The stream form: the fluid sum over the stored rows of `eng`, each
+    pair's W at the predicted distance added into its row in pair order
+    (index_add_); the walls and the body as the stencil form's."""
+    KERNELS["pcisph_predict_rho_list"].plain_calls += 1
+    n = pos.shape[0]
+    rows = torch.repeat_interleave(torch.arange(n, device=pos.device),
+                                   eng.offsets.diff())
+    w = cubic_w(_pair_r(pos_p[rows], pos_p[eng.nbr.long()][:, None, :]),
+                h)[:, 0]
+    fluid = pos.new_zeros(n).index_add_(0, rows, w)
+    return _predict_solids(f32(m) * fluid, pos, grid, h, pos_p, walls, rho0,
+                           body)
+
+
+def _predict_solids(rho: torch.Tensor, pos: torch.Tensor, grid: GridSpec,
+                    h: float, pos_p: torch.Tensor, walls: Walls | None,
+                    rho0: float, body: "RigidTable | None") -> torch.Tensor:
+    """The fluid sum `rho` plus the body's and the walls' sums."""
     # JAX's order: fluid, body, walls (models/pcisph.py:281-286).
     if body is not None:
         KERNELS["pcisph_predict_rho_rigid"].plain_calls += 1

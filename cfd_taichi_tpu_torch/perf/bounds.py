@@ -19,7 +19,10 @@ function needs:
 
 `Work.walk_ops` adds the distance tests of the other candidates of the
 27-cell walk: work the kernels' algorithm does, not work the function
-needs, so it is reported beside the bound and never sets it. Where a
+needs, so it is reported beside the bound and never sets it. So is
+`Work.stream_bytes`, the bytes a kernel that streams a stored pair list
+(pcisph_predict_rho_list) must read: the list is the design's, not the
+function's input. Where a
 kernel does more work than counted (viscosity evaluates its force only on
 compressive pairs, which are not counted), the bound is lower than the
 least time, never higher.
@@ -83,6 +86,7 @@ class Work(NamedTuple):
     bytes: int
     ops: int            # what the function needs: sets the bound
     walk_ops: int = 0   # ops plus the walk's other candidates, or 0
+    stream_bytes: int = 0  # a stream form's bytes with its pair list, or 0
 
     def bound(self) -> tuple[float, str]:
         """(least seconds, "bytes" or "operations", whichever bounds)."""
@@ -175,7 +179,9 @@ def rigid_work(x: dict) -> dict[str, Work]:
     the cells its stencils cover; and PCISPH's predicted density as the
     coupled step launches it, its fluid and wall walks (`scene_work`'s)
     with the body's walk: the body's table and its pairs' terms beside the
-    bytes of x~ and the output that the fluid walk counts."""
+    bytes of x~ and the output that the fluid walk counts; under
+    pcisph_predict_rho_rigid with the stream form's bytes (`streamed`),
+    under pcisph_predict_rho without."""
     g, p, t = x["grid"], x["p"], x["table"]
     n, nr, cells = p.shape[0], t.pos.shape[0], g.num_cells
     pairs = count_pairs(p, t.pos, t.starts, g, x["h"], exclude_self=False)
@@ -204,9 +210,9 @@ def rigid_work(x: dict) -> dict[str, Work]:
     out["rigid_side_force"] = _pair_work(
         "rigid_side_force", side, candidates(x["rpos"], x["st"], g), pairs)
     sc, st = x["sc"], x["st"]
+    pairs_f = count_pairs(p, p, st, g, x["h"], exclude_self=True)
     walks = [stencil_work("pcisph_predict_rho", n, cells,
-                          candidates(p, st, g),
-                          count_pairs(p, p, st, g, x["h"], exclude_self=True)),
+                          candidates(p, st, g), pairs_f),
              _pair_work("pcisph_predict_rho_rigid", table, cand, pairs)]
     if sc.akinci:
         bst, nb = sc.boundary_starts, sc.boundary_pos.shape[0]
@@ -214,13 +220,29 @@ def rigid_work(x: dict) -> dict[str, Work]:
             "pcisph_predict_rho_walls", n, cells, candidates(p, bst, g),
             count_pairs(p, sc.boundary_pos, bst, g, x["h"],
                         exclude_self=False), nb))
-    out["pcisph_predict_rho_rigid"] = combined(*walks)
+    # the stream form (perf/cases.py's pcisph_predict_rho_rigid case) and
+    # the stencil form with the body: one function, one bound
+    out["pcisph_predict_rho_rigid"] = streamed(walks[0], n, pairs_f,
+                                               *walks[1:])
+    out["pcisph_predict_rho"] = combined(*walks)
     return out
 
 
 def combined(*works: Work) -> Work:
     """The work of calls made together, as one."""
-    return Work(*(sum(w[i] for w in works) for i in range(3)))
+    return Work(*(sum(w[i] for w in works) for i in range(len(Work._fields))))
+
+
+def streamed(fluid: Work, n: int, pairs: int, *solids: Work) -> Work:
+    """pcisph_predict_rho_list's work beside the stencil form's: the same
+    function (`fluid`, the stencil form's fluid walk, and the `solids`
+    walks), with no candidate tests in its fluid sum, and the bytes it
+    streams: offsets and nbr (4 B a pair) of the pair list, x (the walls'
+    and body's gates), x~ and the output, plus what the solid walks
+    read."""
+    own = 4 * (n + 1) + 4 * pairs + 12 * n + 12 * n + 4 * n
+    out = combined(Work(fluid.bytes, fluid.ops, fluid.ops, own), *solids)
+    return out._replace(stream_bytes=own + sum(w.bytes for w in solids))
 
 
 def coef_build_work(n: int, n_cells: int, cand: int, pairs: int,
@@ -267,6 +289,9 @@ def scene_work(sc, pos: torch.Tensor, starts: torch.Tensor,
                         ("pbf_terms", "pbf_boundary_terms")):
         out[name] = combined(stencil_work(name, n, cells, cand, pairs),
                              walls_work(wname, n, cells, bcand, bpairs, nb))
+    out["pcisph_predict_rho_list"] = streamed(
+        stencil_work("pcisph_predict_rho", n, cells, cand, pairs), n, pairs,
+        walls_work("pcisph_predict_rho_walls", n, cells, bcand, bpairs, nb))
     for sfx, wb in (("", 4), ("_bf16", 2)):
         out["coef_build" + sfx] = coef_build_work(n, cells, cand, pairs, wb)
         out["coef_matvec" + sfx] = coef_contraction_work(False, n, pairs, wb)

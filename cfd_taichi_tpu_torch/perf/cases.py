@@ -21,8 +21,9 @@ VISC = dict(c_s=13.0, alpha=0.08)
 WCSPH = dict(c_s=10.0, alpha=0.08, tension_k=0.2)
 RHO0 = 1000.0
 # The device kernel of a case whose name is not its kernel's: the body's
-# walk runs inside pcisph_predict_rho's launch.
-DEVICE_KERNEL = {"pcisph_predict_rho_rigid": "pcisph_predict_rho"}
+# walk runs inside the launch of the predicted density's stream form (the
+# coupled PCISPH step's on the stored-coefficient engine).
+DEVICE_KERNEL = {"pcisph_predict_rho_rigid": "pcisph_predict_rho_list"}
 # (kernel, wrapper, plain version, key of its source in the inputs, dot)
 CONTRACTIONS = (
     ("coef_matvec", coef.coef_matvec, coef.coef_matvec_plain, "k", False),
@@ -46,6 +47,22 @@ def fluid_pairs(x: dict) -> int:
     sc = x["sc"]
     return int(S.fluid_terms(x["p"], x["st"], sc.grid, sc.h, sc.particle_m)
                .count.sum(dtype=torch.int64))
+
+
+def pair_store(p, st, g, h: float, m: float) -> coef.CoefEngine:
+    """The f32 pair store of cell-sorted `p` with CSR `st`, as a step of the
+    stored-coefficient engine builds it (fluid_terms' counts, coef_build):
+    the rows that PCISPH's stream form sums over."""
+    count = S.fluid_terms(p, st, g, h, m).count
+    return coef.build_coef(p, st, g, h, m, coef.csr_offsets(count))
+
+
+def ungated_box(device) -> torch.Tensor:
+    """A body gate that holds every query: the predicted density's body
+    walk taken by every warp, as before the gate."""
+    inf = float("inf")
+    return torch.tensor([[-inf] * 3, [inf] * 3], dtype=torch.float32,
+                        device=device)
 
 
 def coef_lanes(dot: bool, pos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -119,11 +136,14 @@ def solver_cases(p, st, g, h: float, m: float, walls: S.Walls, x: dict,
                  work: dict) -> Iterator[Case]:
     """The PCISPH and PBF kernels on cell-sorted `p` with CSR `st` and the
     boundary set `walls`, as their steps call them on a scene with walls:
-    the predicted density at x["shifted"], pbf_terms' fluid and boundary
-    entries together, pbf_lambda of x["lam"], pbf_xsph at x["shifted"]
-    with velocities x["v"]. `work` by kernel name, or {} (no bound)."""
+    the predicted density at x["shifted"] in its stencil form and in its
+    stream form over the pair store of `p` (`pair_store`), pbf_terms'
+    fluid and boundary entries together, pbf_lambda of x["lam"], pbf_xsph
+    at x["shifted"] with velocities x["v"]. `work` by kernel name, or {}
+    (no bound)."""
     sp, lam, v = x["shifted"], x["lam"], x["v"]
     wr, kc = pbf.w_ref(h), pbf.TENSION_K
+    eng = pair_store(p, st, g, h, m)
 
     def terms(fluid, boundary):
         return lambda: (*fluid(p, st, g, h, m, wr, kc),
@@ -134,6 +154,11 @@ def solver_cases(p, st, g, h: float, m: float, walls: S.Walls, x: dict,
              lambda: S.pcisph_predict_rho(p, st, g, h, m, sp, walls, RHO0),
              lambda: S.pcisph_predict_rho_plain(p, st, g, h, m, sp, walls,
                                                 RHO0)),
+            ("pcisph_predict_rho_list",
+             lambda: S.pcisph_predict_rho(p, st, g, h, m, sp, walls, RHO0,
+                                          eng=eng),
+             lambda: S.pcisph_predict_rho_list_plain(eng, p, g, h, m, sp,
+                                                     walls, RHO0)),
             ("pbf_terms", terms(S.pbf_terms, S.pbf_boundary_terms),
              terms(S.pbf_terms_plain, S.pbf_boundary_terms_plain)),
             ("pbf_lambda", lambda: S.pbf_lambda(p, st, g, h, lam),
@@ -148,13 +173,17 @@ def rigid_cases(x: dict, work: dict | None = None) -> Iterator[Case]:
     coupled_inputs), as a coupled step calls them: the solid sums, the
     contact dot of x["v_r"], the solid viscosity, the reaction of x["u"]
     on x["force"], and PCISPH's predicted density at x["shifted"] with its
-    walk over the body (and the walls, where the scene has them). `work` by
-    kernel name (bounds.rigid_work), or None. No one PyTorch call computes
-    any of them."""
+    walk over the body (and the walls, where the scene has them): its
+    stream form over the pair store of x["p"] as pcisph_predict_rho_rigid
+    (the coupled PCISPH step's on the stored-coefficient engine), and its
+    stencil form under its own name with the key
+    "pcisph_predict_rho_body". `work` by kernel name (bounds.rigid_work),
+    or None. No one PyTorch call computes any of them."""
     g, h, m, p, t = (x[k] for k in ("grid", "h", "m", "p", "table"))
     work = work or {}
     predict = (p, x["st"], g, h, m, x["shifted"], base.walls(x["sc"]), RHO0,
                t)
+    eng = pair_store(p, x["st"], g, h, m)
     visc = (p, t, g, h, RHO0, m, x["v"], x["rho"], x["rho_quirk"],
             x["body_vel"], VISC["c_s"], VISC["alpha"])
     side = (x["rpos"], x["rvol"], p, x["st"], g, h, RHO0, x["u"],
@@ -170,9 +199,13 @@ def rigid_cases(x: dict, work: dict | None = None) -> Iterator[Case]:
             ("rigid_side_force", lambda: R.rigid_side_force(*side),
              lambda: R.rigid_side_force_plain(*side)),
             ("pcisph_predict_rho_rigid",
-             lambda: S.pcisph_predict_rho(*predict),
-             lambda: S.pcisph_predict_rho_plain(*predict))):
+             lambda: S.pcisph_predict_rho(*predict, eng=eng),
+             lambda: S.pcisph_predict_rho_list_plain(eng, p, *predict[2:]))):
         yield Case(name, name, kern, plain, work.get(name))
+    yield Case("pcisph_predict_rho", "pcisph_predict_rho_body",
+               lambda: S.pcisph_predict_rho(*predict),
+               lambda: S.pcisph_predict_rho_plain(*predict),
+               work.get("pcisph_predict_rho"))
 
 
 def lane_error(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -236,6 +269,9 @@ def measure(case: Case) -> dict:
     walk = bounds.Work(case.work.bytes, case.work.walk_ops).bound()[0]
     row = dict(ms=ms, bound_ms=bound_s * 1e3, bound_by=by,
                share=bound_s * 1e3 / ms, walk_bound_ms=walk * 1e3)
+    if case.work.stream_bytes:
+        row["stream_bound_ms"] = bounds.Work(
+            case.work.stream_bytes, case.work.walk_ops).bound()[0] * 1e3
     if not case.library:
         return row
     want = case.kern(lane_sums=True)

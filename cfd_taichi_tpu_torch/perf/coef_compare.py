@@ -3,13 +3,17 @@ on one card:
 
     python -m cfd_taichi_tpu_torch.perf.coef_compare \\
         [--kernel coef_matvec|coef_build|viscosity|fluid_terms|
-                  boundary_terms|matvec|wcsph_forces] \\
+                  boundary_terms|matvec|wcsph_forces|pcisph_predict] \\
         [--variant NAME=PATH ...] [--bit-equal NAME] [--out PATH]
 
 `--kernel` picks the source: csrc/coef_matvec.cu (the default, both
 contractions), csrc/coef_build.cu, csrc/viscosity.cu, csrc/fluid_terms.cu,
 csrc/boundary_terms.cu, csrc/matvec.cu (both recompute products, matvec
-and matvec_dot) or csrc/wcsph_forces.cu. A variant's PATH is a source of that file, or
+and matvec_dot), csrc/wcsph_forces.cu or csrc/pcisph_predict.cu (both
+forms of PCISPH's predicted density with walls: the stream form over
+the inputs' pair store, "list", and the stencil form, "stencil"; and
+both without walls, "list_fluid" and "stencil_fluid"). A
+variant's PATH is a source of that file, or
 a directory: its `.cu` of the kernel's name
 (else the tree's) is built beside its headers, which take the place of
 the tree's (`#include "..."` looks beside the source first; the headers
@@ -48,6 +52,15 @@ A source from before boundary_terms_launch took the per-cell table
     END
     python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel \\
         boundary_terms --variant before=build/before --bit-equal before
+
+The predicted density's stream form with one lane a row (its terms
+added in the stencil form's order) beside the tree's:
+
+    mkdir -p build/g1
+    sed 's/kPredictGroup = [0-9]*;/kPredictGroup = 1;/' \\
+        cfd_taichi_tpu_torch/csrc/pcisph_predict.cu > build/g1/pcisph_predict.cu
+    python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel \\
+        pcisph_predict --variant g1=build/g1
 
 The recompute products before they took the queued walk (pair term in the
 candidate loop), and the tree's with a queue of 32 hits a thread:
@@ -123,6 +136,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from cfd_taichi_tpu_torch.models import base
 from cfd_taichi_tpu_torch.ops import _build, coef
 from cfd_taichi_tpu_torch.ops import stencil as S
 from cfd_taichi_tpu_torch.ops.neighbors import stencil_counts
@@ -134,7 +148,8 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 SOURCES = {"coef_matvec": "coef_matvec.cu", "coef_build": "coef_build.cu",
            "viscosity": "viscosity.cu", "fluid_terms": "fluid_terms.cu",
            "boundary_terms": "boundary_terms.cu", "matvec": "matvec.cu",
-           "wcsph_forces": "wcsph_forces.cu"}
+           "wcsph_forces": "wcsph_forces.cu",
+           "pcisph_predict": "pcisph_predict.cu"}
 # The entry point of a wcsph_forces source from before the packed records,
 # renamed so (see above): (pos, starts, n, params, m, nu_num, q2e_add,
 # tension_mk, vel, rho, p', out, stream).
@@ -274,6 +289,27 @@ def entries(kernel: str, x: dict) -> list[Entry]:
         call = functools.partial(wcsph_call, args)
         return [Entry("f32", kernel, call,
                       lambda: cases.scaled_error(call(), want))]
+    if kernel == "pcisph_predict":
+        sc = x.get("sc")
+        walls = base.walls(sc) if sc else S.Walls(x["bp"], x["bvol"],
+                                                   x["bst"], x["bnear"])
+        args = (p, st, g, h, m, x["shifted"], walls, cases.RHO0)
+        eng = cases.pair_store(p, st, g, h, m)
+        out = []
+        for sfx, a in (("", args), ("_fluid", args[:6])):
+            for label, kname, store, plain in (
+                    ("list", "pcisph_predict_rho_list", eng,
+                     lambda a=a: S.pcisph_predict_rho_list_plain(
+                         eng, p, *a[2:])),
+                    ("stencil", "pcisph_predict_rho", None,
+                     lambda a=a: S.pcisph_predict_rho_plain(*a))):
+                call = functools.partial(S.pcisph_predict_rho, *a,
+                                         eng=store)
+                want = plain()
+                out.append(Entry(label + sfx, kname, call,
+                                 lambda call=call, want=want:
+                                 cases.scaled_error(call(), want)))
+        return out
     if kernel == "viscosity":
         args = (p, st, g, h, m, x["v"], x["rho"])
         want = S.viscosity_plain(*args, **cases.VISC)

@@ -1,0 +1,95 @@
+"""PCISPH's step from rest on one card, on breaking_dam_30k and
+breaking_dam_1m with the default (stored-coefficient, f32) engine: the
+numbers by which two trees of the port are compared in one call.
+
+    PYTHONPATH=<tree> python cfd_taichi_tpu_torch/perf/pcisph_steps.py \\
+        --label NAME [--out PATH]
+
+The package is imported from PYTHONPATH, so that the same script measures
+an older tree unpacked beside this one (`git archive`); run the trees in
+turns (older, newer, newer, older), each in its own process. For each
+scene: 3 untimed steps and a restart from rest (the kernel build and
+PyTorch's set-up), steps 1-5 untimed and 6-15 timed on the host clock
+around work that ends in a synchronize (steps/s, iterations a step), then
+3 profiled steps (16-18): device ms a step, busy share, and each
+kernel's launches a step and device us a launch (torch.profiler).
+Prints one line per number and writes them as JSON (--out).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from pathlib import Path
+
+import torch
+
+from cfd_taichi_tpu_torch import Simulation
+from cfd_taichi_tpu_torch.ops import _build
+from cfd_taichi_tpu_torch.ops import stencil as S
+from cfd_taichi_tpu_torch.perf import inputs, timing
+
+SCENES = (("30k", "breaking_dam_30k.json"), ("1m", "breaking_dam_1m.json"))
+UNTIMED, TIMED, PROFILED = 5, 10, 3
+
+
+def measure(cfg_name: str) -> dict:
+    sim = Simulation(inputs.solver_config(cfg_name, "pcisph"), device="cuda")
+    for _ in range(3):
+        sim.step()
+    sim.state = sim.solver.init_state(sim.scene)
+    for _ in range(UNTIMED):
+        sim.step()
+    S.reset_counts()
+    iters = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED):
+        sim.step()
+        iters.append(sim.state.diag[0])
+    torch.cuda.synchronize()
+    rate = TIMED / (time.perf_counter() - t0)
+    launches = {k.name: k.launches / TIMED for k in S.KERNELS.values()
+                if k.launches}
+    found, wall = timing.profile_kernels(
+        lambda: [sim.step() for _ in range(PROFILED)])
+    device_ms = sum(t for _, t in found.values()) / 1e3 / PROFILED
+    return dict(steps_per_sec=rate, iters=[float(i) for i in iters],
+                launches_per_step=launches, device_ms_per_step=device_ms,
+                busy=device_ms * PROFILED / 1e3 / wall,
+                kernels={name: dict(launches_per_step=c / PROFILED,
+                                    us_per_launch=t / c)
+                         for name, (c, t) in sorted(
+                             found.items(), key=lambda kv: -kv[1][1])})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--label", required=True)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs an NVIDIA card")
+    res = {"label": args.label, "card": timing.card(),
+           "package": str(Path(S.__file__).resolve().parents[1])}
+    print(f"[pcisph] {args.label}: {res['package']} on {res['card']}")
+    print(f"[pcisph] kernels built in {_build.library().build_seconds:.1f} s")
+    for tag, cfg_name in SCENES:
+        row = res[tag] = measure(cfg_name)
+        top = list(row["kernels"].items())[:6]
+        print(f"[pcisph] {args.label} {tag}: {row['steps_per_sec']:.3f} "
+              f"steps/s, iterations {row['iters']}, device "
+              f"{row['device_ms_per_step']:.4f} ms a step, busy "
+              f"{row['busy']:.3f}; " + "; ".join(
+                  f"{name} {k['launches_per_step']:.1f} x "
+                  f"{k['us_per_launch']:.2f} us" for name, k in top))
+        torch.cuda.empty_cache()
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(res, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

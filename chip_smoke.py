@@ -35,17 +35,21 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 boundary cloud: a wall sheet on cell faces, a dense patch,
                 boundary particles clamped into edge cells, none near
                 most queries); wcsph_forces is timed there too.
-                pcisph_predict_rho, pbf_terms (its fluid and boundary
+                pcisph_predict_rho (the stencil form) and
+                pcisph_predict_rho_list (the stream form, over the
+                inputs' pair store), pbf_terms (its fluid and boundary
                 entries together), pbf_lambda and pbf_xsph run at 30k, 1M
                 and on the clustered cloud, with walls, their predicted or
                 updated positions the inputs' shifted by ~0.3 r (pairs
-                cross r = h both ways) and a random negative lambda. Kernel
-                and plain times: CUDA events, median of 10 after 3 warm-up
-                calls. The fluid-rigid kernels (rigid_terms,
+                cross r = h both ways) and a random negative lambda; the
+                two forms' outputs are compared bit for bit (printed).
+                Kernel and plain times: CUDA events, median of 10 after 3
+                warm-up calls. The fluid-rigid kernels (rigid_terms,
                 rigid_contact_dot, rigid_viscosity, rigid_side_force, and
-                pcisph_predict_rho with its walk over the body at the
-                inputs' positions shifted by ~0.3 r, named
-                pcisph_predict_rho_rigid) run on a body in water
+                the predicted density with its walk over the body at the
+                inputs' positions shifted by ~0.3 r, in its stream form
+                named pcisph_predict_rho_rigid and in its stencil form
+                under the key pcisph_predict_rho_body) run on a body in water
                 (perf/inputs.body_inputs: the 30k and 1M blocks,
                 jittered, with a builtin:cube1 body of ~3,200 and ~40k
                 voxels at their centre, the fluid in its voxels taken out)
@@ -53,8 +57,11 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 torus_inputs), with random rigid and fluid
                 velocities, densities and u, to 1e-5 of scale;
                 rigid_side_force and pcisph_predict_rho_rigid must also
-                repeat bit for bit over two launches, and the body's walk
-                is timed as the call less the call without the body. Each
+                repeat bit for bit over two launches, each form with its
+                body gate must give the bits of the same launch ungated
+                (every warp walking the body), and the body's walk is
+                timed as the call less the call without the body, gated
+                and ungated (events around 20 calls). Each
                 kernel's bound (perf/bounds.py: the bytes and
                 f32 operations of the call's inputs at the H100's peaks)
                 and, for the coef contraction, the one PyTorch call that
@@ -66,8 +73,9 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 on the card and on the CPU, as DFSPH from rest and as WCSPH,
                 IISPH, PCISPH and PBF from TINY's block squeezed by 0.85
                 about its centre (pressure acts): positions through oid to
-                5e-6 (WCSPH 6.0e-8 and IISPH 1.2e-7, what the same kernels
-                gave before), dt to rtol 1e-5, equal iteration counts every
+                5e-6 (WCSPH 6.0e-8, IISPH 1.2e-7 and PCISPH 7.2e-7,
+                what the same kernels gave before), dt to rtol 1e-5,
+                equal iteration counts every
                 step; the errors are printed. Then the coupled scene of
                 tests/test_rigid.py:12-21 (RIGID_CFG) as DFSPH, PCISPH,
                 IISPH and WCSPH with the body in the water, squeezed by
@@ -104,10 +112,15 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
 9. pcisph     - breaking_dam_30k as PCISPH, steps 1-100 from rest, and
                 breaking_dam_1m as PCISPH, steps 6-15, on the scenes that
                 main and scale built: fluid_terms, boundary_terms,
-                viscosity, coef_build, coef_matvec and pcisph_predict_rho
-                launched and no plain version; finite; every particle
-                inside the box +- 2r; the last residual <= 1.0 unless the
-                step hit 80 iterations; iterations a step printed.
+                viscosity, coef_build, coef_matvec and
+                pcisph_predict_rho_list (the predicted density's stream
+                form) launched and no plain version; finite; every
+                particle inside the box +- 2r; the last residual <= 1.0
+                unless the step hit 80 iterations; iterations a step
+                printed. Then breaking_dam_30k as PCISPH on the recompute
+                engine, steps 1-100: matvec and pcisph_predict_rho (the
+                stencil form) launched instead, as often as the step
+                calls them.
 10. pbf       - the same runs as PBF: pbf_terms, pbf_lambda and pbf_xsph
                 launched (pbf_terms twice a step: fluid and boundary
                 entries) and no plain version; finite; inside the box +-
@@ -241,16 +254,20 @@ COEF_PATH = ("fluid_terms", "boundary_terms", "viscosity", "coef_build",
 RECOMPUTE_PATH = ("fluid_terms", "boundary_terms", "viscosity", "matvec",
                   "matvec_dot")
 WCSPH_PATH = ("fluid_terms", "boundary_terms", "wcsph_forces")
-PCISPH_PATH = COEF_PATH[:5] + ("pcisph_predict_rho",)
+PCISPH_PATH = COEF_PATH[:5] + ("pcisph_predict_rho_list",)
+PCISPH_RECOMPUTE_PATH = RECOMPUTE_PATH[:4] + ("pcisph_predict_rho",)
 PBF_PATH = ("pbf_terms", "pbf_lambda", "pbf_xsph")
 # [agree]: (solver, whether to start from TINY's squeezed block, the
 # largest card-vs-CPU position error allowed over its 6 steps: the bar
 # 5e-6, or what the same kernels gave before, 5.960e-08 and 1.192e-07 on
 # an H100 80GB HBM3 since the cubic kernels take q = r * f32(1/h), so
-# that a kernel that moves it shows; PCISPH and PBF gave 4.470e-07 and
+# that a kernel that moves it shows; PCISPH 7.153e-07 there since its
+# predicted density streams the stored pair list (the card adds a row's
+# terms in 4 strided partial sums, the CPU in pair order); PBF gave
 # 1.788e-07 there)
 AGREE = (("dfsph", False, 5e-6), ("wcsph", True, 6.0e-8),
-         ("iisph", True, 1.2e-7), ("pcisph", True, 5e-6), ("pbf", True, 5e-6))
+         ("iisph", True, 1.2e-7), ("pcisph", True, 7.2e-7),
+         ("pbf", True, 5e-6))
 # [agree]: RIGID_CFG (tests/test_rigid.py:12-21) as DFSPH with the body in
 # the water, squeezed by 0.97 about its mean, 4 steps with rigid steps
 RIGID_CFG = {
@@ -519,9 +536,13 @@ def phase_kernels(torch, results: dict) -> None:
         pairs = cases.fluid_pairs(x)
         print(f"[kernels] {cfg_name}: {x['sc'].n_fluid} fluid particles, "
               f"{pairs} pairs")
+        outs = {}
         for case in cases.scene_cases(x, pairs):
             record(results, case, tag + case.key[len(case.name):],
                    check_case(case, x["p"], torch))
+            if case.name.startswith("pcisph_predict_rho"):
+                outs[case.name] = case.kern()
+        forms_bits(results, tag, outs, torch)
         del x
         torch.cuda.empty_cache()
     rigid_checks(torch, results)
@@ -529,15 +550,25 @@ def phase_kernels(torch, results: dict) -> None:
     clustered_checks(torch, results)
 
 
+def forms_bits(results: dict, tag: str, outs: dict, torch) -> None:
+    """How the predicted density's stream form differs from its stencil
+    form on the same inputs: the elements that differ and the largest
+    difference (a group of lanes a row sums in another order)."""
+    a, b = outs["pcisph_predict_rho_list"], outs["pcisph_predict_rho"]
+    row = dict(differ=int((a != b).sum()),
+               max_abs=float((a - b).abs().max()))
+    results["pcisph_predict_rho_list"][f"against_stencil_{tag}"] = row
+    print(f"  pcisph_predict_rho_list {tag}: against the stencil form "
+          f"{row['differ']} of {a.numel()} elements differ, largest "
+          f"{row['max_abs']:.3e}")
+
+
 def rigid_checks(torch, results: dict) -> None:
     """The fluid-rigid kernels against their plain versions on a body in
     water at 30k and 1M and on the half-immersed torus scene, timed;
-    rigid_side_force and pcisph_predict_rho with the body's walk repeat
-    bit for bit. The walk's own time is the call's less the same call
-    without the body."""
-    from cfd_taichi_tpu_torch.models import base
-    from cfd_taichi_tpu_torch.ops import stencil as S
-    from cfd_taichi_tpu_torch.perf import bounds, cases, inputs, timing
+    rigid_side_force and the stream form with the body's walk repeat bit
+    for bit; the body gate (`body_gate`)."""
+    from cfd_taichi_tpu_torch.perf import bounds, cases, inputs
 
     for tag, make in (
             ("30k", lambda: inputs.body_inputs("breaking_dam_30k.json", 3)),
@@ -548,31 +579,60 @@ def rigid_checks(torch, results: dict) -> None:
         print(f"[kernels] body in water, {tag}: {x['p'].shape[0]} fluid "
               f"particles, {x['rpos'].shape[0]} rigid particles")
         for case in cases.rigid_cases(x, work):
-            record(results, case, tag,
-                   compare(f"{case.name} {tag}", case.kern(), case.plain(),
+            record(results, case, tag + case.key[len(case.name):],
+                   compare(f"{case.key} {tag}", case.kern(), case.plain(),
                            torch))
             if case.name in ("rigid_side_force", "pcisph_predict_rho_rigid"):
                 same = torch.equal(case.kern(), case.kern())
                 print(f"    {case.name} {tag}: two launches bit-equal "
                       f"{same}")
                 check(same, f"{case.name} {tag}: launches differ")
-        args = (x["p"], x["st"], x["grid"], x["h"], x["m"], x["shifted"],
-                base.walls(x["sc"]), cases.RHO0)
-        calls = (lambda: S.pcisph_predict_rho(*args, x["table"]),
-                 lambda: S.pcisph_predict_rho(*args))
-        # in turns: with, without, without, with
-        ms = [timing.event_ms(calls[i]) for i in (0, 1, 1, 0)]
-        row = results["pcisph_predict_rho_rigid"]
-        row[f"ms_with_body_{tag}"] = (ms[0] + ms[3]) / 2
-        row[f"ms_without_body_{tag}"] = (ms[1] + ms[2]) / 2
-        row[f"ms_body_walk_{tag}"] = (ms[0] + ms[3] - ms[1] - ms[2]) / 2
-        print(f"  pcisph_predict_rho_rigid {tag}: with the body "
-              f"{row[f'ms_with_body_{tag}']:.4f} ms, without "
-              f"{row[f'ms_without_body_{tag}']:.4f} ms (in turns "
-              f"{[round(t, 4) for t in ms]}), so the body's walk "
-              f"{row[f'ms_body_walk_{tag}']:.4f} ms")
+        body_gate(torch, results, x, tag)
         del x
         torch.cuda.empty_cache()
+
+
+def body_gate(torch, results: dict, x: dict, tag: str) -> None:
+    """The predicted density's body gate on coupled inputs `x`: each form
+    with the gate (the box made once, as a step makes it) against the same
+    launch ungated, bit for bit; then the body's walk timed as the call
+    less the call without the body, gated and ungated, in turns (CUDA
+    events around 20 back-to-back calls, over the count: the device time
+    where it outlasts a call's host work, as at 1M)."""
+    from cfd_taichi_tpu_torch.models import base
+    from cfd_taichi_tpu_torch.ops import stencil as S
+    from cfd_taichi_tpu_torch.perf import cases, timing
+
+    args = (x["p"], x["st"], x["grid"], x["h"], x["m"], x["shifted"],
+            base.walls(x["sc"]), cases.RHO0)
+    eng = cases.pair_store(x["p"], x["st"], x["grid"], x["h"], x["m"])
+    box = S.make_body_box(x["table"].pos, x["h"])
+    inside = int(S.in_body_box(x["p"], box).sum())
+    print(f"  body gate {tag}: {inside} of {x['p'].shape[0]} queries inside")
+    for form, store in (("pcisph_predict_rho_rigid", eng),
+                        ("pcisph_predict_rho", None)):
+        def call(b, body=x["table"], store=store):
+            return S.pcisph_predict_rho(*args, body, store, b)
+        open_box = cases.ungated_box(box.device)
+        same = torch.equal(call(box), call(open_box))
+        print(f"    {form} {tag}: gated bit-equal to ungated {same}")
+        check(same, f"{form} {tag}: the body gate changed the output")
+        calls = (lambda: call(box), lambda: call(open_box),
+                 lambda: call(None, None))
+        # in turns: gated, ungated, without, without, ungated, gated
+        ms = [timing.batch_ms(calls[i]) for i in (0, 1, 2, 2, 1, 0)]
+        gated, ungated, none = ((ms[i] + ms[5 - i]) / 2 for i in range(3))
+        row = results[form]
+        row.update({f"ms_with_body_{tag}": gated,
+                    f"ms_with_body_ungated_{tag}": ungated,
+                    f"ms_without_body_{tag}": none,
+                    f"ms_body_walk_{tag}": gated - none,
+                    f"ms_body_walk_ungated_{tag}": ungated - none,
+                    f"gate_inside_{tag}": inside})
+        print(f"  {form} {tag}: with the body {gated:.4f} ms (ungated "
+              f"{ungated:.4f}), without {none:.4f} ms (in turns "
+              f"{[round(t, 4) for t in ms]}), so the body's walk "
+              f"{gated - none:.4f} ms (ungated {ungated - none:.4f})")
 
 
 # ---------------------------------------------------------------------------
@@ -978,7 +1038,8 @@ def phase_solver(torch, sims: dict, results: dict, solver: str) -> None:
         loop = run["looped"][0]
         want = dict.fromkeys(path, steps)
         if solver == "pcisph":
-            want.update(coef_matvec=loop, pcisph_predict_rho=loop + steps)
+            want.update(coef_matvec=loop,
+                        pcisph_predict_rho_list=loop + steps)
             check(diag[1] <= 1.0 or diag[0] == pcisph.MAX_ITER,
                   f"{solver} {tag}: residual {diag[1]} after {diag[0]} "
                   f"iterations")
@@ -995,6 +1056,29 @@ def phase_solver(torch, sims: dict, results: dict, solver: str) -> None:
             for name in path[-1:] if solver == "pcisph" else path:
                 results[name]["launches"] = run["launches"][name]
         results["_runs"][f"{tag}_{solver}"] = run
+    if solver == "pcisph":
+        pcisph_recompute(torch, sims, results)
+
+
+def pcisph_recompute(torch, sims: dict, results: dict) -> None:
+    """breaking_dam_30k as PCISPH on the recompute engine, steps 1-100:
+    matvec and the predicted density's stencil form launched as often as
+    the step calls them, no coef kernel and no plain version."""
+    from cfd_taichi_tpu_torch.perf.inputs import engine
+
+    with engine(budget=0):
+        run = drive(with_solver(sims["30k"], "pcisph"), "pcisph-recompute",
+                    [100], PCISPH_RECOMPUTE_PATH, torch)
+    loop, steps = run["looped"][0], 100
+    want = dict.fromkeys(PCISPH_RECOMPUTE_PATH, steps)
+    want.update(matvec=loop, pcisph_predict_rho=loop + steps)
+    for name, launches in run["launches"].items():
+        check(launches == want.get(name, 0),
+              f"pcisph-recompute 30k: {name} launched {launches} times, "
+              f"not {want.get(name, 0)}")
+    results["pcisph_predict_rho"]["launches"] = \
+        run["launches"]["pcisph_predict_rho"]
+    results["_runs"]["30k_pcisph_recompute"] = run
 
 
 def phase_scale_bf16(torch, sims: dict, results: dict) -> None:

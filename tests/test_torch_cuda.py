@@ -80,6 +80,8 @@ def _all_outputs(sc, pos, starts, k, v, rho):
                                pbf.TENSION_K),
             stencil.pbf_lambda(pos, starts, g, h, -1e-5 * k),
             stencil.pbf_xsph(pos, starts, g, h, pos + 0.01 * v, v),
+            stencil.pcisph_predict_rho(pos, starts, g, h, m, pos + 0.01 * v,
+                                       base.walls(sc), 1000.0, eng=eng),
             eng.nbr, eng.w,
             *coef.coef_matvec(eng, pos, k, lane_sums=True).unbind(1),
             *coef.coef_matvec_dot(eng, pos, v, lane_sums=True).unbind(1),
@@ -503,6 +505,58 @@ def _rigid_cases(x):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("where", ["30k", "torus"])
+def test_predicted_density_body_gate_keeps_every_bit(cuda, where):
+    """Both forms of the predicted density with the body's gate (its box
+    grown by h, stencil.make_body_box) against the same launch with a gate
+    that holds every query, bit for bit, on a body in water and on the
+    half-immersed torus; the gate lets fewer queries walk the body than
+    there are."""
+    x = (inputs.body_inputs("breaking_dam_30k.json", seed=3, device=cuda)
+         if where == "30k" else inputs.torus_inputs(seed=3, device=cuda))
+    args = (x["p"], x["st"], x["grid"], x["h"], x["m"], x["shifted"],
+            base.walls(x["sc"]), cases.RHO0, x["table"])
+    box = stencil.make_body_box(x["table"].pos, x["h"])
+    assert int(stencil.in_body_box(x["p"], box).sum()) < x["p"].shape[0]
+    eng = cases.pair_store(x["p"], x["st"], x["grid"], x["h"], x["m"])
+    for store in (None, eng):
+        gated = stencil.pcisph_predict_rho(*args, eng=store, body_box=box)
+        ungated = stencil.pcisph_predict_rho(
+            *args, eng=store, body_box=cases.ungated_box(cuda))
+        assert torch.equal(gated, ungated), store is None
+
+
+@pytest.mark.cuda
+def test_pcisph_recompute_engine_launches_the_stencil_form(cuda,
+                                                            monkeypatch):
+    """TINY squeezed by 0.85 as PCISPH, 3 steps on the card: on the
+    recompute engine (coef budget 0) the predicted density launches its
+    stencil form and no stream form; on the stored-coefficient engine the
+    reverse; iterations + 1 launches a step either way."""
+    from cfd_taichi_tpu_torch.models import dfsph
+
+    raw = copy.deepcopy(TINY)
+    raw["solver"]["name"] = "pcisph"
+    for budget, form, other in ((0, "pcisph_predict_rho",
+                                 "pcisph_predict_rho_list"),
+                                (12e9, "pcisph_predict_rho_list",
+                                 "pcisph_predict_rho")):
+        monkeypatch.setattr(dfsph, "COEF_BYTE_BUDGET", budget)
+        sim = Simulation(parse_config(raw), device=cuda)
+        sim.state = inputs.squeezed(sim.state)
+        stencil.reset_counts()
+        iters = 0
+        with inputs.loop_mode(unroll=1, eager=True):
+            for _ in range(3):
+                sim.step()
+                iters += int(sim.state.diag[0])
+        k = stencil.KERNELS
+        assert k[form].launches == iters + 3, form
+        assert k[other].launches == 0, other
+        assert all(kk.plain_calls == 0 for kk in k.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["30k", "torus"])
 def test_rigid_kernels_match_plain_versions(cuda, where):
     """The fluid-rigid kernels (PCISPH's predicted density with its walk
     over the body among them) on a body in water (the 30k block with a
@@ -513,8 +567,11 @@ def test_rigid_kernels_match_plain_versions(cuda, where):
     for case in _rigid_cases(x):
         _assert_case_matches_plain(case)
     for name in ("rigid_terms", "rigid_contact_dot", "rigid_viscosity",
-                 "rigid_side_force", "pcisph_predict_rho_rigid"):
+                 "rigid_side_force", "pcisph_predict_rho",
+                 "pcisph_predict_rho_list"):
         assert stencil.KERNELS[name].launches == 1, name
+    # both forms of the predicted density walk the body
+    assert stencil.KERNELS["pcisph_predict_rho_rigid"].launches == 2
 
 
 @pytest.mark.cuda
@@ -748,7 +805,7 @@ def test_sharded_step_on_nccl_world_one_matches_single_device(cuda, solver):
     assert launched >= {"dfsph": {"coef_matvec", "viscosity"},
                         "wcsph": {"wcsph_forces"},
                         "iisph": {"coef_matvec_dot"},
-                        "pcisph": {"pcisph_predict_rho"},
+                        "pcisph": {"pcisph_predict_rho_list"},
                         "pbf": {"pbf_lambda", "pbf_xsph"}}[solver]
 
 

@@ -186,6 +186,10 @@ def test_cpu_tensors_take_the_plain_versions(case):
     # PCISPH's predicted density with its walls' and the body's walks
     stencil.pcisph_predict_rho(pos, starts, sc.grid, sc.h, sc.particle_m,
                                pos + 0.01 * v, base.walls(sc), 1000.0, table)
+    # and its stream form over the stored pair list
+    stencil.pcisph_predict_rho(pos, starts, sc.grid, sc.h, sc.particle_m,
+                               pos + 0.01 * v, base.walls(sc), 1000.0,
+                               eng=eng)
     for kern in stencil.KERNELS.values():
         assert (kern.launches, kern.plain_calls) == (0, 1), kern.name
 
@@ -200,6 +204,9 @@ def test_wrappers_reject_other_devices(case):
             lambda: stencil.fluid_terms(meta, starts, grid, 0.1, 0.1),
             lambda: stencil.pcisph_predict_rho(meta, starts, grid, 0.1, 0.1,
                                                meta, walls, 1000.0),
+            lambda: stencil.pcisph_predict_rho(
+                meta, starts, grid, 0.1, 0.1, meta, walls, 1000.0,
+                eng=coef.CoefEngine(starts, starts, meta[:, 0])),
             lambda: stencil.pbf_terms(meta, starts, grid, 0.1, 0.1, 1e3,
                                       1e-7),
             lambda: stencil.pbf_boundary_terms(meta, walls, grid, 0.1,
