@@ -1,5 +1,5 @@
 // K7 pbf_terms: the one-shot pair sums of a PBF step, at the start-of-step
-// positions.
+// positions, and the step's pair list.
 //
 // Replaces the one-shot terms of bandmat.dense_pbf_ops and
 // bandmat.pbf_boundary_terms (cfd_taichi_tpu/ops/bandmat.py:1735-1792,
@@ -16,6 +16,15 @@
 //     (JAX's quirk, ops/bandmat.py:1813-1817, kept).
 // r = sqrt(max(r2, 1e-24)), as every JAX pass takes it.
 //
+// The fluid entry also stores the pairs it finds, for the step's two later
+// pair passes over the same pair set (pbf_lambda.cu, pbf_xsph.cu, which
+// stream it): nbr[base[i] + kListStride t] = j for its t-th pair in walk
+// order, and cnt[i]; a warp's 32 rows interleave (stencil.cuh,
+// stream_rows). Each row has room for the largest number of sources in
+// the 27-cell stencil of its warp's rows' cells (ops/stencil.py:
+// pair_rows), known before the walk; the pairs are a subset of these
+// candidates, so no row overflows it.
+//
 // Bound on the card: f32 operations (a distance test and a ~50-operation
 // pair term a pair, perf/bounds.py), far below what the walk of ~27 x
 // occupancy candidates takes, as for fluid_terms, whose shape this is.
@@ -26,7 +35,14 @@
 // boundary entry reads Scene.boundary_near after cell_of, and a warp none
 // of whose lanes has a boundary particle near writes zeros and leaves.
 // Hits drain in walk order: a run repeats bit for bit. Sums stay in
-// registers and each output is written once, with no atomics.
+// registers and each output is written once, with no atomics. A lane
+// writes its hits' j to its own row as the drain hands them over; a
+// drain turn's hits of the warp's lanes, the t-th of each row when their
+// queues began the drain equally deep (as at a lattice query's one drain,
+// at the end), fill one 128-byte line. Each row written as a run of its
+// own (nbr[base[i] + t]), the fluid entry took 880 us at 1M where it
+// takes 418 with the rows interleaved (an NVIDIA H100, perf/coef_compare.py
+// --kernel pbf): 4-byte stores to 32 lines a warp instruction.
 #include "stencil.cuh"
 
 constexpr int kPbfQueue = 40;          // hits a thread can hold (fluid)
@@ -83,21 +99,32 @@ __global__ void __launch_bounds__(kThreads, kQueuedBlocks)
 pbf_terms_kernel(const float* __restrict__ pos,
                  const int* __restrict__ starts, int n, StencilParams p,
                  SpikyPoly6 k, float m, float inv_wref, float neg_k,
-                 float* __restrict__ rho, float* __restrict__ gsum,
-                 float* __restrict__ around, float* __restrict__ ssum) {
+                 const int* __restrict__ base, int* __restrict__ cnt,
+                 int* __restrict__ nbr, float* __restrict__ rho,
+                 float* __restrict__ gsum, float* __restrict__ around,
+                 float* __restrict__ ssum) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < n;
   float xi = 0.f, yi = 0.f, zi = 0.f;
-  if (live) xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
+  int* row = nbr;  // the query's row of the pair list
+  if (live) {
+    xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
+    row += __ldg(base + i);
+  }
 
   PbfSums acc;
+  int found = 0;
   queued_walk<kPbfQueue>(
       pos, n, starts, p, live, i, xi, yi, zi,
-      [&](int, float dx, float dy, float dz, float r2, bool take) {
+      [&](int j, float dx, float dy, float dz, float r2, bool take) {
         // The density's factor m comes after the sum, as JAX takes it.
         acc.add(pair_r(r2), dx, dy, dz, 1.0f, k, inv_wref, neg_k, take);
+        if (take) row[kListStride * found++] = j;
       });
-  if (live) acc.store(i, m, rho, gsum, around, ssum);
+  if (live) {
+    acc.store(i, m, rho, gsum, around, ssum);
+    cnt[i] = found;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads, kQueuedBlocks)
@@ -137,11 +164,13 @@ pbf_boundary_terms_kernel(const float* __restrict__ qpos, int n,
 extern "C" int pbf_terms_launch(const float* pos, const int* starts, int n,
                                 const StencilParams* p, const SpikyPoly6* k,
                                 float m, float inv_wref, float neg_k,
+                                const int* base, int* cnt, int* nbr,
                                 float* rho, float* gsum, float* around,
                                 float* ssum, void* stream) {
   if (n > 0) {
     pbf_terms_kernel<<<grid_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
-        pos, starts, n, *p, *k, m, inv_wref, neg_k, rho, gsum, around, ssum);
+        pos, starts, n, *p, *k, m, inv_wref, neg_k, base, cnt, nbr, rho,
+        gsum, around, ssum);
   }
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// K9 pbf_xsph: PBF's XSPH velocity sum at the updated positions.
+// K9 pbf_xsph: PBF's XSPH velocity sum at the updated positions, streamed
+// over the step's stored pair list.
 //
 // Replaces xsph of bandmat.dense_pbf_ops (cfd_taichi_tpu/ops/bandmat.py:
 // 1798-1806), an XLA window pass of the JAX package. Per sorted fluid
@@ -11,65 +12,94 @@
 // valid at the start but beyond h at x' gives w = 0; a pair within h at x'
 // but not valid at the start is not a pair.
 //
-// Bound on the card: f32 operations (a distance test and a ~30-operation
-// pair term a pair, perf/bounds.py), far below what the walk of ~27 x
-// occupancy candidates takes.
+// The pair set is the one pbf_terms walks at x earlier in the step, and
+// pbf_terms stores it (pbf_terms.cu): row i's t-th pair is nbr[base[i] +
+// kListStride t], t < cnt[i], in walk order. So x is not read here: the
+// kernel streams each row and gathers x'_j and v'_j (24 B) a pair.
 //
-// Design: one thread per query on the queued walk (queued_walk,
-// stencil.cuh) over the start positions and their cell table; the drain
-// gathers x'_j and v'_j and runs the poly6 term on lanes that nearly all
-// hold a pair. Hits drain in walk order: a run repeats bit for bit. Sums
-// stay in registers and each output is written once, with no atomics.
+// Bound on the card: f32 operations (a ~32-operation pair term a pair,
+// perf/bounds.py) for the function; the bytes the stream must read (nbr
+// 4 B a pair, base, cnt, x', v' and the output) bound this design
+// (perf/bounds.py: stream bytes), ~48 us at 1M. The gathers are served from
+// L2 (24 MB of x' and v' at 1M), so load latency sets the time.
+//
+// Design: stream_rows (stencil.cuh), as pbf_lambda.cu: kXsphGroup lanes a
+// row, kXsphAhead nbr loads ahead of their gathers, shuffle sums, each
+// output written once with no atomics. One lane a row adds the terms in
+// walk order, bit for bit as the walk that this kernel replaced. Measured
+// on an H100 at 1M (perf/coef_compare.py --kernel pbf), the list
+// interleaved: one lane a row with 8 pairs ahead 139.4-140.9 us, with 4
+// ahead 142.7, with 16 ahead 145.0; 2 lanes with 8 ahead 132.3 (6 % less,
+// not bit for bit: kept to one lane), 4 lanes 155.9, 8 lanes with 4 ahead
+// 217.1.
 #include "stencil.cuh"
 
-constexpr int kXsphQueue = 40;  // hits a thread can hold
+constexpr int kXsphGroup = 1;  // lanes per row
+constexpr int kXsphAhead = 8;  // pairs a lane loads ahead
+
+struct XsphStream {
+  const float* npos;
+  const float* nvel;
+  SpikyPoly6 k;
+  float* out;
+
+  struct Row {
+    float x, y, z;     // x'_i
+    float vx, vy, vz;  // v'_i
+  };
+  struct Sums {
+    float w, x, y, z;  // sum w, sum v'_j w
+  };
+
+  __device__ __forceinline__ Row load(int i) const {
+    return {__ldg(npos + 3 * i), __ldg(npos + 3 * i + 1),
+            __ldg(npos + 3 * i + 2), __ldg(nvel + 3 * i),
+            __ldg(nvel + 3 * i + 1), __ldg(nvel + 3 * i + 2)};
+  }
+  __device__ __forceinline__ static Row shfl(const Row& r, int src) {
+    return {__shfl_sync(kFullWarp, r.x, src), __shfl_sync(kFullWarp, r.y, src),
+            __shfl_sync(kFullWarp, r.z, src),
+            __shfl_sync(kFullWarp, r.vx, src),
+            __shfl_sync(kFullWarp, r.vy, src),
+            __shfl_sync(kFullWarp, r.vz, src)};
+  }
+  __device__ __forceinline__ void add(Sums& s, const Row& r, int j) const {
+    const float dx = r.x - __ldg(npos + 3 * j);
+    const float dy = r.y - __ldg(npos + 3 * j + 1);
+    const float dz = r.z - __ldg(npos + 3 * j + 2);
+    const float w = poly6_w(pair_r(dist2(dx, dy, dz)), k);
+    s.w += w;
+    s.x += __ldg(nvel + 3 * j) * w;
+    s.y += __ldg(nvel + 3 * j + 1) * w;
+    s.z += __ldg(nvel + 3 * j + 2) * w;
+  }
+  template <int kG>
+  __device__ __forceinline__ static Sums reduce(const Sums& s) {
+    return {lane_group_sum<kG>(s.w), lane_group_sum<kG>(s.x),
+            lane_group_sum<kG>(s.y), lane_group_sum<kG>(s.z)};
+  }
+  __device__ __forceinline__ void store(int i, const Row& r,
+                                        const Sums& s) const {
+    out[3 * i] = s.x - r.vx * s.w;
+    out[3 * i + 1] = s.y - r.vy * s.w;
+    out[3 * i + 2] = s.z - r.vz * s.w;
+  }
+};
 
 __global__ void __launch_bounds__(kThreads, kQueuedBlocks)
-pbf_xsph_kernel(const float* __restrict__ pos, const int* __restrict__ starts,
-                int n, StencilParams p, SpikyPoly6 k,
-                const float* __restrict__ npos, const float* __restrict__ nvel,
-                float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
-  float xi = 0.f, yi = 0.f, zi = 0.f;
-  float ux = 0.f, uy = 0.f, uz = 0.f;  // x'_i
-  float vx = 0.f, vy = 0.f, vz = 0.f;  // v'_i
-  if (live) {
-    xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
-    ux = npos[3 * i], uy = npos[3 * i + 1], uz = npos[3 * i + 2];
-    vx = nvel[3 * i], vy = nvel[3 * i + 1], vz = nvel[3 * i + 2];
-  }
-
-  float sw = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
-  queued_walk<kXsphQueue>(
-      pos, n, starts, p, live, i, xi, yi, zi,
-      [&](int j, float, float, float, float, bool take) {
-        const float dx = ux - __ldg(npos + 3 * j);
-        const float dy = uy - __ldg(npos + 3 * j + 1);
-        const float dz = uz - __ldg(npos + 3 * j + 2);
-        const float w = poly6_w(pair_r(dist2(dx, dy, dz)), k);
-        const float tx = __ldg(nvel + 3 * j) * w;
-        const float ty = __ldg(nvel + 3 * j + 1) * w;
-        const float tz = __ldg(nvel + 3 * j + 2) * w;
-        if (!take) return;
-        sw += w;
-        sx += tx;
-        sy += ty;
-        sz += tz;
-      });
-  if (!live) return;
-  out[3 * i] = sx - vx * sw;
-  out[3 * i + 1] = sy - vy * sw;
-  out[3 * i + 2] = sz - vz * sw;
+pbf_xsph_kernel(int n, const int* __restrict__ base,
+                const int* __restrict__ cnt, const int* __restrict__ nbr,
+                XsphStream s) {
+  stream_rows<kXsphGroup, kXsphAhead>(n, base, cnt, nbr, s);
 }
 
-extern "C" int pbf_xsph_launch(const float* pos, const int* starts, int n,
-                               const StencilParams* p, const SpikyPoly6* k,
+extern "C" int pbf_xsph_launch(int n, const int* base, const int* cnt,
+                               const int* nbr, const SpikyPoly6* k,
                                const float* npos, const float* nvel,
                                float* out, void* stream) {
   if (n > 0) {
     pbf_xsph_kernel<<<grid_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
-        pos, starts, n, *p, *k, npos, nvel, out);
+        n, base, cnt, nbr, XsphStream{npos, nvel, *k, out});
   }
   return (int)cudaGetLastError();
 }

@@ -5,12 +5,13 @@
 // stencil as 9 contiguous runs of the source CSR table: the fast axis has
 // stride 1, so the three cells of one stencil row are adjacent in the
 // sorted order. fluid_terms, boundary_terms, matvec, matvec_dot,
-// wcsph_forces, pcisph_predict_rho, pbf_terms, pbf_lambda, pbf_xsph and
-// the four fluid-rigid kernels (rigid_terms.cu, rigid_viscosity.cu,
-// rigid_side_force.cu) run one thread per query that queues its hits and
-// takes the pair term out of the candidate loop (queued_walk_of below);
-// coef_build and viscosity run a group of kGroupWalk lanes per query
-// (group_walk below).
+// wcsph_forces, pcisph_predict_rho, pbf_terms and the four fluid-rigid
+// kernels (rigid_terms.cu, rigid_viscosity.cu, rigid_side_force.cu) run one
+// thread per query that queues its hits and takes the pair term out of the
+// candidate loop (queued_walk_of below); coef_build and viscosity run a
+// group of kGroupWalk lanes per query (group_walk below). pbf_lambda and
+// pbf_xsph walk no stencil: they stream the pair list that pbf_terms
+// stores (stream_rows below).
 // Sums stay in f32 registers and each query's row is written by its own
 // thread or group, so there are no atomics and every run gives
 // bit-identical results.
@@ -285,6 +286,86 @@ __device__ __forceinline__ void queued_walk_of(const Source& src, int ns,
     }
   }
   drain();
+}
+
+// ---------------------------------------------------------------------------
+// The stream of a stored pair list: a group of kGroup lanes a row.
+//
+// Row i's sources are nbr[base[i] + kListStride t], t = 0, ..., cnt[i] - 1,
+// in the walk's order (pbf_terms.cu stores them so). The 32 rows of a warp
+// interleave: base[i] is the warp's base plus the row's lane (ops/
+// stencil.py: pair_rows), so that pair t of the warp's rows lies in one
+// 128-byte line. A walk's drain, which hands each lane its t-th hit in
+// turn t, then stores whole lines a warp, and a stream that takes a few
+// rows' t-th pairs at once reads whole sectors.
+//
+// A warp takes its 32 rows, the rows of its lanes, 32 / kGroup at a time.
+// Each lane first loads its own row's bounds and values (Stream::load),
+// coalesced, and a group takes them by shuffle (Stream::shfl), so that a
+// row's stream waits on no other load. Lane g of a group takes pairs g,
+// g + G, ..., with kAhead nbr loads (streaming, __ldcs: the list is read
+// once) in flight ahead of their gathers; Stream::add adds a pair's terms
+// into the lane's sums, the group's partial sums are reduced with
+// __shfl_xor_sync (Stream::reduce) and the group's lane 0 writes the row's
+// output once (Stream::store). With kGroup = 1 a thread adds its row's
+// terms in pair order, which is the order a walk that adds them as it
+// finds them takes; a group of kGroup > 1 adds strided partial sums, which
+// round differently. A run repeats bit for bit: nothing is added by
+// atomics.
+// ---------------------------------------------------------------------------
+
+constexpr int kListStride = 32;  // slots between a row's pairs in the list
+
+// Sum of x over the kG lanes of a group; every lane of the warp must call
+// it.
+template <int kG>
+__device__ __forceinline__ float lane_group_sum(float x) {
+#pragma unroll
+  for (int off = kG / 2; off > 0; off >>= 1)
+    x += __shfl_xor_sync(kFullWarp, x, off, kG);
+  return x;
+}
+
+template <int kGroup, int kAhead, typename Stream>
+__device__ __forceinline__ void stream_rows(int n,
+                                            const int* __restrict__ base,
+                                            const int* __restrict__ cnt,
+                                            const int* __restrict__ nbr,
+                                            const Stream& s) {
+  static_assert(kGroup >= 1 && kGroup <= 32 && (kGroup & (kGroup - 1)) == 0,
+                "kGroup must be a power of two no larger than a warp");
+  static_assert(kAhead >= 1, "kAhead: at least one pair a lane");
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kThreads + threadIdx.x;  // lane t's row
+  const int row0 = i - lane;                          // the warp's first
+  int lo_t = 0, cnt_t = 0;
+  typename Stream::Row own{};
+  if (i < n) {
+    lo_t = __ldg(base + i);
+    cnt_t = __ldg(cnt + i);
+    own = s.load(i);
+  }
+  const int g = lane & (kGroup - 1);
+  // Rows past n hold no pairs: their groups only join the shuffles.
+  for (int k = lane / kGroup; k < 32; k += 32 / kGroup) {
+    const int* const pairs = nbr + __shfl_sync(kFullWarp, lo_t, k);
+    const int end = __shfl_sync(kFullWarp, cnt_t, k);
+    const typename Stream::Row row = Stream::shfl(own, k);
+    typename Stream::Sums sum{};
+    for (int t0 = g; t0 < end; t0 += kGroup * kAhead) {
+      int j[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        const int t = t0 + u * kGroup;
+        j[u] = t < end ? __ldcs(pairs + kListStride * t) : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u)
+        if (j[u] >= 0) s.add(sum, row, j[u]);
+    }
+    sum = Stream::template reduce<kGroup>(sum);
+    if (g == 0 && row0 + k < n) s.store(row0 + k, row, sum);
+  }
 }
 
 // queued_walk_of over (ns, 3) f32 positions spos, with kDrainUnroll hits a

@@ -11,7 +11,8 @@ its own step (`cfd_taichi_tpu/models/pbf.py:21, 53`). The step:
   + sum_j |grad C_j|^2 + 1e-6) with spiky gradients over rho0, all at the
   start-of-step positions: the one-shot kernel `pbf_terms` and, on walls,
   its boundary entry, where the volume weights the density only (JAX's
-  quirk, kept);
+  quirk, kept). Its fluid entry also stores the pairs it finds
+  (`stencil.PairList`), which the two later passes stream;
 * the position change (lambda_i gsum + sum_j lambda_j spiky_c x_ij + ssum)
   / rho0 with the quartic s_corr (k 1e-7 at 0.3 h) in ssum: the kernel
   `pbf_lambda` takes the one sum that depends on lambda_j;
@@ -20,8 +21,10 @@ its own step (`cfd_taichi_tpu/models/pbf.py:21, 53`). The step:
 * XSPH viscosity c = 9e-6 over the start-of-step pairs with poly6 at the
   updated positions: the kernel `pbf_xsph`.
 
-No loop and no host read: a step is the cell sort, three or four pair
-passes and elementwise work. JAX's dense step takes w_ref = poly6(0.3 h) as
+No loop, and one host read: the size of the pair list (`stencil.
+pair_rows`), read right after the cell sort, so that the host waits on the
+sort alone. A step is the cell sort, three or four pair passes and
+elementwise work. JAX's dense step takes w_ref = poly6(0.3 h) as
 a host double closed form and uses f32(1 / w_ref) (`cfd_taichi_tpu/models/
 pbf.py:74-75`); so does this one.
 """
@@ -60,7 +63,9 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
     scid, _, pos, (vel_s, oid, acc) = base.sort_by_cells(
         scene.grid, fluid.pos, (fluid.vel, fluid.oid, fluid.acc))
     starts = nb.csr_starts(scid, scene.grid.num_cells)
-    new_pos, new_vel, _ = solve(scene, pos, starts, vel_s, dt)
+    rows = stencil.pair_rows(starts, scene.grid, scid)
+    scene.loop_graphs.reads += 1
+    new_pos, new_vel, _ = solve(scene, pos, starts, vel_s, dt, rows=rows)
     return state._replace(
         # acc is the previous step's, in sorted order, as JAX returns it.
         fluid=base.FluidState(pos=new_pos, vel=new_vel, acc=acc, oid=oid),
@@ -70,22 +75,29 @@ def step(scene: Scene, state: base.SimState) -> base.SimState:
 
 def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
           vel_s: torch.Tensor, dt: torch.Tensor,
-          shard: base.Shard | None = None):
+          shard: base.Shard | None = None,
+          rows: stencil.PairRows | None = None):
     """The step on cell-sorted rows with CSR `starts`: the new positions
-    and velocities, and the density constraint. On a rank of a sharded
+    and velocities, and the density constraint. `rows` is where the pair
+    list goes (`stencil.pair_rows`), made here, with its host read, where
+    the caller has none. On a rank of a sharded
     step (`shard`, `cfd_taichi_tpu/parallel/domain.py:1402-1493`) the
     constraint pass needs no trade (its chain from an owned row is two
     hops, inside the 2h halo), and the updated positions and velocities
     reach the ghost rows from their owners before XSPH reads them."""
     grid, h, m = scene.grid, scene.h, scene.particle_m
     wr = w_ref(h)
+    if rows is None:
+        rows = stencil.pair_rows(starts, grid, nb.cell_id(pos, grid))
+        scene.loop_graphs.reads += 1
 
     # --- external force + predicted positions (pbf_solver.py:26-30) ---------
     vel = vel_s + base.gravity_acc(scene) * dt
     pos_predict = pos + vel * dt
 
     # --- density + constraint (pbf_solver.py:127-130, 166-174) --------------
-    terms = stencil.pbf_terms(pos, starts, grid, h, m, wr, TENSION_K)
+    terms, pairs = stencil.pbf_terms(pos, starts, grid, h, m, wr, TENSION_K,
+                                     rows)
     rho = f32(base.DENSITY_EPS) + terms.rho
     gsum, around, ssum = terms.gsum, terms.around, terms.ssum
     walls = base.walls(scene)
@@ -110,7 +122,7 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
     #            = lam_i gsum + pbf_lambda(lam) + ssum; boundary pairs carry
     #              lam_i (+ s_corr) only, folded into gsum and ssum.
     delta_pos = ((gsum * lam[:, None]
-                  + stencil.pbf_lambda(pos, starts, grid, h, lam) + ssum)
+                  + stencil.pbf_lambda(pos, pairs, h, lam) + ssum)
                  * f32(1.0 / RHO_0))
 
     # --- position/velocity update + XSPH (pbf_solver.py:67-96) --------------
@@ -124,6 +136,6 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
     if shard is not None:
         pv = shard.sync(torch.cat([new_pos, new_vel], dim=1))
         new_pos, new_vel = pv[:, :3].contiguous(), pv[:, 3:].contiguous()
-    new_vel = new_vel + f32(XSPH_C) * stencil.pbf_xsph(pos, starts, grid, h,
-                                                       new_pos, new_vel)
+    new_vel = new_vel + f32(XSPH_C) * stencil.pbf_xsph(pairs, h, new_pos,
+                                                       new_vel)
     return new_pos, new_vel, constraint

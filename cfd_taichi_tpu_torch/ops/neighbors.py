@@ -97,10 +97,13 @@ def stencil_counts(starts: torch.Tensor, grid: GridSpec) -> torch.Tensor:
     fast, mid, slow = grid.axes_by_stride
     occ = (starts[1:] - starts[:-1]).reshape(
         grid.dims[slow], grid.dims[mid], grid.dims[fast])
-    pad = torch.nn.functional.pad(occ, (1, 1, 1, 1, 1, 1))
-    a, b, c = occ.shape
-    box = sum(pad[i:i + a, j:j + b, k:k + c]
-              for i in range(3) for j in range(3) for k in range(3))
+    box = torch.nn.functional.pad(occ, (1, 1, 1, 1, 1, 1))
+    # The 3 x 3 x 3 box as three 3-wide sums, one axis at a time (exact in
+    # integers): six adds where 27 shifted views took 26.
+    for axis in range(3):
+        m = box.shape[axis] - 2
+        box = (box.narrow(axis, 0, m) + box.narrow(axis, 1, m)
+               + box.narrow(axis, 2, m))
     return box.reshape(-1).to(torch.int32)
 
 

@@ -9,11 +9,13 @@ Each pass has three parts:
   and sums in registers: one thread per query that queues its hits and
   runs the pair term outside the candidate loop in fluid_terms,
   boundary_terms, matvec, matvec_dot, wcsph_forces, pcisph_predict_rho,
-  pbf_terms, pbf_lambda, pbf_xsph and the fluid-rigid passes of
-  ops/rigid.py (`csrc/stencil.cuh`, queued_walk),
+  pbf_terms and the fluid-rigid passes of ops/rigid.py
+  (`csrc/stencil.cuh`, queued_walk),
   a group of lanes per query in viscosity and coef_build (group_walk);
   pcisph_predict_rho_list streams the rows of the step's stored pair list
-  (ops/coef.py) and walks no stencil for its fluid pairs.
+  (ops/coef.py) and walks no stencil for its fluid pairs, and pbf_lambda
+  and pbf_xsph stream the pair list that pbf_terms stores (`PairList`,
+  stream_rows).
   The walk of ~27 x occupancy candidates, not DRAM bandwidth
   or FLOPs, sets their time: as measured on an NVIDIA H100 80GB HBM3
   (PERF.md section 6), the warps' instruction slots at breaking_dam_1m,
@@ -22,8 +24,8 @@ Each pass has three parts:
   bounds it and what its design does about that;
 * a plain PyTorch version of the same function, `*_plain`, which walks the
   same stencil as (Q, 27 * max_occupancy) masked candidates, chunked over
-  queries so that it fits at 1M particles (the stream form of PCISPH's
-  predicted density sums over the stored pair list instead);
+  queries so that it fits at 1M particles (the stream forms sum over the
+  stored pair list instead: `*_list_plain`);
 * a wrapper that launches the kernel for CUDA tensors and calls the plain
   version for CPU tensors. There is no fallback: a CUDA tensor either
   reaches its kernel or the wrapper raises.
@@ -50,7 +52,7 @@ import torch
 
 from cfd_taichi_tpu_torch.ops import _build
 from cfd_taichi_tpu_torch.ops.neighbors import (GridSpec, cell_coords,
-                                                  stencil_counts)
+                                                  cell_id, stencil_counts)
 from cfd_taichi_tpu_torch.ops.smoothing import (CubicConstants,
                                                 SpikyPoly6Constants,
                                                 cubic_grad_coeff, cubic_w,
@@ -100,9 +102,11 @@ KERNELS = {k.name: k for k in (
     # walk a rigid table, counted here as well.
     Kernel("pcisph_predict_rho_rigid", _CSRC + "pcisph_predict.cu",
            "cfd_taichi_tpu/ops/rigid_dense.py:179"),
-    # Two entry points, fluid and boundary, both counted here.
+    # Two entry points, fluid (which also stores the step's pair list) and
+    # boundary, both counted here.
     Kernel("pbf_terms", _CSRC + "pbf_terms.cu",
            "cfd_taichi_tpu/ops/bandmat.py:1735-1792, :1811"),
+    # PBF's two later passes: stream forms over pbf_terms' pair list.
     Kernel("pbf_lambda", _CSRC + "pbf_lambda.cu",
            "cfd_taichi_tpu/ops/bandmat.py:1794-1796"),
     Kernel("pbf_xsph", _CSRC + "pbf_xsph.cu",
@@ -157,6 +161,28 @@ class PbfTerms(NamedTuple):
     gsum: torch.Tensor    # (N, 3) sum spiky_c x_ij
     around: torch.Tensor  # (N,)  sum (r spiky_c)^2
     ssum: torch.Tensor    # (N, 3) sum s_corr spiky_c x_ij
+
+
+# Slots between a row's pairs in the pair list: the 32 rows of a warp
+# interleave (csrc/stencil.cuh's kListStride, stream_rows).
+LIST_STRIDE = 32
+
+
+class PairRows(NamedTuple):
+    """Where pbf_terms stores each cell-sorted row's fluid pairs: pair t of
+    row i in slot base[i] + LIST_STRIDE t (`pair_rows`)."""
+    base: torch.Tensor  # (N,) int32: its warp's base, plus its lane
+    size: int           # the list's slots
+
+
+class PairList(NamedTuple):
+    """The fluid pairs j != i with r2 <= h2 at the start-of-step positions,
+    as pbf_terms stores them: row i's sources are nbr[base[i] + LIST_STRIDE
+    t], t = 0, ..., cnt[i] - 1, in walk order. The slots of a row past
+    cnt[i] are never written or read."""
+    base: torch.Tensor  # (N,) int32
+    cnt: torch.Tensor   # (N,) int32
+    nbr: torch.Tensor   # (PairRows.size,) int32
 
 
 class Walls(NamedTuple):
@@ -500,18 +526,53 @@ def _pbf_out(pos: torch.Tensor) -> PbfTerms:
                     around=pos.new_empty(n), ssum=pos.new_empty(n, 3))
 
 
+def pair_rows(starts: torch.Tensor, grid: GridSpec,
+              cells: torch.Tensor) -> PairRows:
+    """The rows of the pair list that pbf_terms stores, for cell-sorted
+    fluid rows in the cells `cells` ((N,) ids, the sort's) of the CSR table
+    `starts`. A row's pairs are a subset of its walk's candidates,
+    `stencil_counts(starts, grid)` at its cell; each warp of 32 rows gets
+    room for its rows' largest count, its rows interleaved (row i's pair t
+    in slot base[i] + LIST_STRIDE t), so that no row can overflow. One host
+    read: the size. Raises where the slots pass what int32 offsets
+    address."""
+    n = cells.shape[0]
+    warps = -(-n // LIST_STRIDE)
+    room = torch.nn.functional.pad(
+        stencil_counts(starts, grid).index_select(0, cells),
+        (0, warps * LIST_STRIDE - n)).view(warps, LIST_STRIDE).amax(dim=1)
+    end = torch.cumsum(room, 0, dtype=torch.int64)
+    size = LIST_STRIDE * int(end[-1]) if warps else 0
+    if size > torch.iinfo(torch.int32).max:
+        raise ValueError(f"the pair list of {n} rows needs {size} slots, "
+                         f"more than int32 offsets address")
+    lane = torch.arange(LIST_STRIDE, dtype=torch.int32, device=cells.device)
+    base = ((end - room).to(torch.int32)[:, None] * LIST_STRIDE + lane)
+    return PairRows(base.reshape(-1)[:n], size)
+
+
 def pbf_terms(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
-              h: float, m: float, w_ref: float, k_corr: float) -> PbfTerms:
+              h: float, m: float, w_ref: float, k_corr: float,
+              rows: PairRows | None = None) -> tuple[PbfTerms, PairList]:
     """K7, fluid entry: PBF's one-shot fluid-fluid sums at the start-of-
-    step positions (replaces the terms of bandmat.dense_pbf_ops)."""
-    if not _on_cuda("pbf_terms", pos):
-        return pbf_terms_plain(pos, starts, grid, h, m, w_ref, k_corr)
+    step positions (replaces the terms of bandmat.dense_pbf_ops), and the
+    pairs it finds, stored in `rows` (`pair_rows`; made here, with its host
+    read, where the caller has none) for pbf_lambda and pbf_xsph."""
+    cuda = _on_cuda("pbf_terms", pos)
+    if rows is None:
+        rows = pair_rows(starts, grid, cell_id(pos, grid))
+    if not cuda:
+        return pbf_terms_plain(pos, starts, grid, h, m, w_ref, k_corr, rows)
     n = _check_pos_starts(pos, starts, grid)
+    _check("rows.base", rows.base, torch.int32, (n,), pos.device)
     out = _pbf_out(pos)
+    pairs = PairList(rows.base, torch.empty_like(rows.base),
+                     torch.empty(rows.size, dtype=torch.int32,
+                                 device=pos.device))
     _launch("pbf_terms", pos.device, pos, starts, n,
             ctypes.byref(_params(grid, h)), ctypes.byref(_spiky_poly6(h)),
-            f32(m), *_s_corr_constants(w_ref, k_corr), *out)
-    return out
+            f32(m), *_s_corr_constants(w_ref, k_corr), *pairs, *out)
+    return out, pairs
 
 
 def pbf_boundary_terms(pos: torch.Tensor, walls: Walls, grid: GridSpec,
@@ -535,36 +596,44 @@ def pbf_boundary_terms(pos: torch.Tensor, walls: Walls, grid: GridSpec,
     return out
 
 
-def pbf_lambda(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
-               h: float, lam: torch.Tensor) -> torch.Tensor:
+def _check_pairs(pairs: PairList, n: int, device: torch.device) -> None:
+    _check("pairs.base", pairs.base, torch.int32, (n,), device)
+    _check("pairs.cnt", pairs.cnt, torch.int32, (n,), device)
+    _check("pairs.nbr", pairs.nbr, torch.int32, (pairs.nbr.shape[0],),
+           device)
+
+
+def pbf_lambda(pos: torch.Tensor, pairs: PairList, h: float,
+               lam: torch.Tensor) -> torch.Tensor:
     """K8: (N, 3) sum_j lambda_j spiky_c x_ij at the start-of-step
-    positions (replaces lam_mv of bandmat.dense_pbf_ops)."""
+    positions `pos`, over the stored `pairs` (pbf_terms') (replaces lam_mv
+    of bandmat.dense_pbf_ops)."""
     if not _on_cuda("pbf_lambda", pos):
-        return pbf_lambda_plain(pos, starts, grid, h, lam)
-    n = _check_pos_starts(pos, starts, grid)
+        return pbf_lambda_list_plain(pairs, pos, h, lam)
+    n = pos.shape[0]
+    _check("pos", pos, torch.float32, (n, 3), pos.device)
+    _check_pairs(pairs, n, pos.device)
     _check("lam", lam, torch.float32, (n,), pos.device)
     out = pos.new_empty(n, 3)
-    _launch("pbf_lambda", pos.device, pos, starts, n,
-            ctypes.byref(_params(grid, h)), ctypes.byref(_spiky_poly6(h)),
-            lam, out)
+    _launch("pbf_lambda", pos.device, pos, n, *pairs,
+            ctypes.byref(_spiky_poly6(h)), lam, out)
     return out
 
 
-def pbf_xsph(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
-             h: float, new_pos: torch.Tensor,
+def pbf_xsph(pairs: PairList, h: float, new_pos: torch.Tensor,
              new_vel: torch.Tensor) -> torch.Tensor:
     """K9: (N, 3) sum_j v'_j w - v'_i sum_j w, w = poly6(|x'_i - x'_j|) at
-    the updated positions, over the pairs valid at the start-of-step `pos`
-    (replaces xsph of bandmat.dense_pbf_ops)."""
-    if not _on_cuda("pbf_xsph", pos):
-        return pbf_xsph_plain(pos, starts, grid, h, new_pos, new_vel)
-    n = _check_pos_starts(pos, starts, grid)
-    _check("new_pos", new_pos, torch.float32, (n, 3), pos.device)
-    _check("new_vel", new_vel, torch.float32, (n, 3), pos.device)
-    out = pos.new_empty(n, 3)
-    _launch("pbf_xsph", pos.device, pos, starts, n,
-            ctypes.byref(_params(grid, h)), ctypes.byref(_spiky_poly6(h)),
-            new_pos, new_vel, out)
+    the updated positions, over the stored `pairs` (pbf_terms', valid at
+    the start-of-step positions) (replaces xsph of bandmat.dense_pbf_ops)."""
+    if not _on_cuda("pbf_xsph", new_pos):
+        return pbf_xsph_list_plain(pairs, h, new_pos, new_vel)
+    n = new_pos.shape[0]
+    _check("new_pos", new_pos, torch.float32, (n, 3), new_pos.device)
+    _check("new_vel", new_vel, torch.float32, (n, 3), new_pos.device)
+    _check_pairs(pairs, n, new_pos.device)
+    out = new_pos.new_empty(n, 3)
+    _launch("pbf_xsph", new_pos.device, n, *pairs,
+            ctypes.byref(_spiky_poly6(h)), new_pos, new_vel, out)
     return out
 
 
@@ -875,14 +944,36 @@ def _pbf_zeros(pos: torch.Tensor) -> PbfTerms:
 
 
 def pbf_terms_plain(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
-                    h: float, m: float, w_ref: float,
-                    k_corr: float) -> PbfTerms:
+                    h: float, m: float, w_ref: float, k_corr: float,
+                    rows: PairRows | None = None
+                    ) -> tuple[PbfTerms, PairList]:
+    """The four sums, and the pairs in the kernel's walk order stored in
+    `rows` as the kernel stores them (the slots past a row's count hold
+    -1), so that each row's nbr compares exactly."""
     KERNELS["pbf_terms"].plain_calls += 1
+    if rows is None:
+        rows = pair_rows(starts, grid, cell_id(pos, grid))
+    n, dev = pos.shape[0], pos.device
     out = _pbf_zeros(pos)
-    for rows, pr in _pair_chunks(pos, pos, starts, grid, h, exclude_self=True):
-        _pbf_sums(out, rows, pr, 1.0, h, w_ref, k_corr)
+    pairs = PairList(rows.base, torch.zeros(n, dtype=torch.int32, device=dev),
+                     torch.full((rows.size,), -1, dtype=torch.int32,
+                                device=dev))
+    # A chunk's candidates cell by cell in _OFFSETS' order, taken in the
+    # walk's order (walk_offsets) for the list.
+    walk = torch.tensor([_OFFSETS.index(o) for o in walk_offsets(grid)],
+                        device=dev)
+    for sl, pr in _pair_chunks(pos, pos, starts, grid, h, exclude_self=True):
+        _pbf_sums(out, sl, pr, 1.0, h, w_ref, k_corr)
+        occ = pr.valid.shape[1] // 27
+        cols = (walk[:, None] * occ
+                + torch.arange(occ, device=dev)).reshape(-1)
+        valid, slot = pr.valid[:, cols], pr.slot[:, cols]
+        pairs.cnt[sl] = valid.sum(dim=1, dtype=torch.int32)
+        at = rows.base[sl, None].long() \
+            + LIST_STRIDE * (valid.cumsum(dim=1) - 1)
+        pairs.nbr[at[valid]] = slot[valid].to(torch.int32)
     # The factor m comes after the sum, as JAX takes it.
-    return out._replace(rho=f32(m) * out.rho)
+    return out._replace(rho=f32(m) * out.rho), pairs
 
 
 def pbf_boundary_terms_plain(pos: torch.Tensor, walls: Walls, grid: GridSpec,
@@ -897,8 +988,47 @@ def pbf_boundary_terms_plain(pos: torch.Tensor, walls: Walls, grid: GridSpec,
     return out
 
 
+def stored_pairs(pairs: PairList) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rows, sources) of every stored pair, int64, in pair order: row by
+    row, each row's in walk order."""
+    cnt = pairs.cnt.long()
+    rows = torch.repeat_interleave(
+        torch.arange(cnt.shape[0], device=cnt.device), cnt)
+    first = torch.cumsum(cnt, 0) - cnt
+    at = pairs.base.long()[rows] + LIST_STRIDE * (torch.arange(
+        rows.shape[0], device=cnt.device) - first[rows])
+    return rows, pairs.nbr[at].long()
+
+
+def pbf_lambda_list_plain(pairs: PairList, pos: torch.Tensor, h: float,
+                          lam: torch.Tensor) -> torch.Tensor:
+    """The stream form: each stored pair's term added into its row in pair
+    order (index_add_)."""
+    KERNELS["pbf_lambda"].plain_calls += 1
+    rows, j = stored_pairs(pairs)
+    d = pos[rows] - pos[j]
+    r = torch.sqrt(torch.clamp(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
+                               + d[:, 2] * d[:, 2], min=f32(1e-24)))
+    lw = lam[j] * spiky_grad_coeff(r, h)
+    return pos.new_zeros(pos.shape[0], 3).index_add_(0, rows, lw[:, None] * d)
+
+
+def pbf_xsph_list_plain(pairs: PairList, h: float, new_pos: torch.Tensor,
+                        new_vel: torch.Tensor) -> torch.Tensor:
+    """The stream form: sum w and sum v'_j w of each stored pair added into
+    its row in pair order (index_add_), then sum v'_j w - v'_i sum w."""
+    KERNELS["pbf_xsph"].plain_calls += 1
+    rows, j = stored_pairs(pairs)
+    w = poly6_w(_pair_r(new_pos[rows], new_pos[j][:, None, :])[:, 0], h)
+    s = new_pos.new_zeros(new_pos.shape[0], 4).index_add_(
+        0, rows, torch.cat([w[:, None], new_vel[j] * w[:, None]], dim=1))
+    return s[:, 1:] - new_vel * s[:, :1]
+
+
 def pbf_lambda_plain(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
                      h: float, lam: torch.Tensor) -> torch.Tensor:
+    """The walking form, over the 27-cell stencil of `starts`: the tests'
+    second reference of the stream form."""
     KERNELS["pbf_lambda"].plain_calls += 1
     out = pos.new_zeros(pos.shape[0], 3)
     for rows, pr in _pair_chunks(pos, pos, starts, grid, h, exclude_self=True):
@@ -910,6 +1040,8 @@ def pbf_lambda_plain(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
 def pbf_xsph_plain(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
                    h: float, new_pos: torch.Tensor,
                    new_vel: torch.Tensor) -> torch.Tensor:
+    """The walking form, over the 27-cell stencil of the start-of-step
+    `pos` and `starts`: the tests' second reference of the stream form."""
     KERNELS["pbf_xsph"].plain_calls += 1
     out = pos.new_zeros(pos.shape[0], 3)
     for rows, pr in _pair_chunks(pos, pos, starts, grid, h, exclude_self=True):

@@ -21,8 +21,9 @@ function needs:
 27-cell walk: work the kernels' algorithm does, not work the function
 needs, so it is reported beside the bound and never sets it. So is
 `Work.stream_bytes`, the bytes a kernel that streams a stored pair list
-(pcisph_predict_rho_list) must read: the list is the design's, not the
-function's input. Where a
+(pcisph_predict_rho_list, pbf_lambda, pbf_xsph) must read, or that
+pbf_terms moves with the list it stores: the list is the design's, not
+the function's input or output. Where a
 kernel does more work than counted (viscosity evaluates its force only on
 compressive pairs, which are not counted), the bound is lower than the
 least time, never higher.
@@ -86,7 +87,7 @@ class Work(NamedTuple):
     bytes: int
     ops: int            # what the function needs: sets the bound
     walk_ops: int = 0   # ops plus the walk's other candidates, or 0
-    stream_bytes: int = 0  # a stream form's bytes with its pair list, or 0
+    stream_bytes: int = 0  # the bytes with the design's pair list, or 0
 
     def bound(self) -> tuple[float, str]:
         """(least seconds, "bytes" or "operations", whichever bounds)."""
@@ -245,6 +246,22 @@ def streamed(fluid: Work, n: int, pairs: int, *solids: Work) -> Work:
     return out._replace(stream_bytes=own + sum(w.bytes for w in solids))
 
 
+def pbf_listed(work: Work, n: int, pairs: int, row_bytes: int) -> Work:
+    """pbf_lambda's or pbf_xsph's work as a stream over pbf_terms' pair
+    list: the function's `work` with no candidate tests, and the bytes the
+    stream moves: each row's base and count, nbr (4 B a pair), and
+    `row_bytes` a row of the kernel's own inputs and output."""
+    return Work(work.bytes, work.ops, work.ops,
+                8 * n + 4 * pairs + row_bytes * n)
+
+
+def pbf_stored(work: Work, n: int, pairs: int) -> Work:
+    """pbf_terms' `work` (its fluid and boundary entries) with the pair list
+    its fluid entry stores: it also reads each row's base and writes its
+    count and nbr (4 B a pair)."""
+    return work._replace(stream_bytes=work.bytes + 8 * n + 4 * pairs)
+
+
 def coef_build_work(n: int, n_cells: int, cand: int, pairs: int,
                     w_bytes: int) -> Work:
     """pos, starts and offsets in; nbr and w (`w_bytes` a slot) out."""
@@ -277,7 +294,11 @@ def scene_work(sc, pos: torch.Tensor, starts: torch.Tensor,
     bstarts = sc.boundary_starts
     out = {name: stencil_work(name, n, cells, cand, pairs)
            for name in ("fluid_terms", "matvec", "matvec_dot", "viscosity",
-                        "wcsph_forces", "pbf_lambda", "pbf_xsph")}
+                        "wcsph_forces")}
+    # x, lambda and the output; x', v' and the output
+    for name, row_bytes in (("pbf_lambda", 28), ("pbf_xsph", 36)):
+        out[name] = pbf_listed(stencil_work(name, n, cells, cand, pairs), n,
+                               pairs, row_bytes)
     nb, bcand = sc.boundary_pos.shape[0], candidates(pos, bstarts, g)
     bpairs = count_pairs(pos, sc.boundary_pos, bstarts, g, sc.h,
                          exclude_self=False)
@@ -289,6 +310,7 @@ def scene_work(sc, pos: torch.Tensor, starts: torch.Tensor,
                         ("pbf_terms", "pbf_boundary_terms")):
         out[name] = combined(stencil_work(name, n, cells, cand, pairs),
                              walls_work(wname, n, cells, bcand, bpairs, nb))
+    out["pbf_terms"] = pbf_stored(out["pbf_terms"], n, pairs)
     out["pcisph_predict_rho_list"] = streamed(
         stencil_work("pcisph_predict_rho", n, cells, cand, pairs), n, pairs,
         walls_work("pcisph_predict_rho_walls", n, cells, bcand, bpairs, nb))

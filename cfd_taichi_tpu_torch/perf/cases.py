@@ -15,6 +15,7 @@ from cfd_taichi_tpu_torch.models import base, pbf
 from cfd_taichi_tpu_torch.ops import coef
 from cfd_taichi_tpu_torch.ops import rigid as R
 from cfd_taichi_tpu_torch.ops import stencil as S
+from cfd_taichi_tpu_torch.ops.neighbors import cell_id
 from cfd_taichi_tpu_torch.perf import bounds, timing
 
 VISC = dict(c_s=13.0, alpha=0.08)
@@ -40,6 +41,29 @@ class Case(NamedTuple):
     # {lanes layout: call} of the one-call library yardstick, or {}; the
     # contraction's kern and plain then also take `lane_sums=True`.
     library: dict = {}
+    # maps kern's or plain's output to the tensors compared, or None (all
+    # of them): pbf_terms' pair list is compared row by row (`compared`)
+    view: Callable | None = None
+
+
+def compared(case: Case) -> tuple[tuple, tuple]:
+    """The kernel's and the plain version's outputs of `case`, as tensors
+    that must agree (the pair list's rows without the slots past their
+    counts, which nothing writes or reads)."""
+    got, want = case.kern(), case.plain()
+    if case.view is not None:
+        return case.view(got), case.view(want)
+    return ((got if isinstance(got, tuple) else (got,)),
+            (want if isinstance(want, tuple) else (want,)))
+
+
+def pbf_terms_view(out: tuple) -> tuple:
+    """pbf_terms' fluid sums, its pair list as each row's count and the
+    sources of all rows in pair order (int32, compared exactly), and the
+    boundary entry's sums."""
+    fluid, pairs, boundary = out
+    return (*fluid, pairs.cnt, S.stored_pairs(pairs)[1].to(torch.int32),
+            *boundary)
 
 
 def fluid_pairs(x: dict) -> int:
@@ -138,16 +162,21 @@ def solver_cases(p, st, g, h: float, m: float, walls: S.Walls, x: dict,
     boundary set `walls`, as their steps call them on a scene with walls:
     the predicted density at x["shifted"] in its stencil form and in its
     stream form over the pair store of `p` (`pair_store`), pbf_terms'
-    fluid and boundary entries together, pbf_lambda of x["lam"], pbf_xsph
-    at x["shifted"] with velocities x["v"]. `work` by kernel name, or {}
-    (no bound)."""
+    fluid entry, which stores the pair list, and its boundary entry
+    together, then pbf_lambda of x["lam"] and pbf_xsph at x["shifted"] with
+    velocities x["v"], both over the list that pbf_terms' wrapper made
+    here once. `work` by kernel name, or {} (no bound)."""
     sp, lam, v = x["shifted"], x["lam"], x["v"]
     wr, kc = pbf.w_ref(h), pbf.TENSION_K
     eng = pair_store(p, st, g, h, m)
+    # The list's rows, made once as a step makes them after its sort, and
+    # the list itself, which both streams read.
+    rows = S.pair_rows(st, g, cell_id(p, g))
+    _, pl = S.pbf_terms(p, st, g, h, m, wr, kc, rows)
 
     def terms(fluid, boundary):
-        return lambda: (*fluid(p, st, g, h, m, wr, kc),
-                        *boundary(p, walls, g, h, RHO0, wr, kc))
+        return lambda: (*fluid(p, st, g, h, m, wr, kc, rows),
+                        boundary(p, walls, g, h, RHO0, wr, kc))
 
     for name, kern, plain in (
             ("pcisph_predict_rho",
@@ -161,11 +190,12 @@ def solver_cases(p, st, g, h: float, m: float, walls: S.Walls, x: dict,
                                                      walls, RHO0)),
             ("pbf_terms", terms(S.pbf_terms, S.pbf_boundary_terms),
              terms(S.pbf_terms_plain, S.pbf_boundary_terms_plain)),
-            ("pbf_lambda", lambda: S.pbf_lambda(p, st, g, h, lam),
-             lambda: S.pbf_lambda_plain(p, st, g, h, lam)),
-            ("pbf_xsph", lambda: S.pbf_xsph(p, st, g, h, sp, v),
-             lambda: S.pbf_xsph_plain(p, st, g, h, sp, v))):
-        yield Case(name, name, kern, plain, work.get(name))
+            ("pbf_lambda", lambda: S.pbf_lambda(p, pl, h, lam),
+             lambda: S.pbf_lambda_list_plain(pl, p, h, lam)),
+            ("pbf_xsph", lambda: S.pbf_xsph(pl, h, sp, v),
+             lambda: S.pbf_xsph_list_plain(pl, h, sp, v))):
+        yield Case(name, name, kern, plain, work.get(name),
+                   view=pbf_terms_view if name == "pbf_terms" else None)
 
 
 def rigid_cases(x: dict, work: dict | None = None) -> Iterator[Case]:

@@ -3,7 +3,8 @@ on one card:
 
     python -m cfd_taichi_tpu_torch.perf.coef_compare \\
         [--kernel coef_matvec|coef_build|viscosity|fluid_terms|
-                  boundary_terms|matvec|wcsph_forces|pcisph_predict] \\
+                  boundary_terms|matvec|wcsph_forces|pcisph_predict|
+                  pbf] \\
         [--variant NAME=PATH ...] [--bit-equal NAME] [--out PATH]
 
 `--kernel` picks the source: csrc/coef_matvec.cu (the default, both
@@ -12,10 +13,14 @@ csrc/boundary_terms.cu, csrc/matvec.cu (both recompute products, matvec
 and matvec_dot), csrc/wcsph_forces.cu or csrc/pcisph_predict.cu (both
 forms of PCISPH's predicted density with walls: the stream form over
 the inputs' pair store, "list", and the stencil form, "stencil"; and
-both without walls, "list_fluid" and "stencil_fluid"). A
-variant's PATH is a source of that file, or
-a directory: its `.cu` of the kernel's name
-(else the tree's) is built beside its headers, which take the place of
+both without walls, "list_fluid" and "stencil_fluid") or, for `pbf`,
+csrc/pbf_terms.cu, csrc/pbf_lambda.cu and csrc/pbf_xsph.cu together
+(PBF's fluid pass with its store of the pair list, "terms", and the two
+streams over the tree's list, "lambda" and "xsph"). A
+variant's PATH is a source of one of those files (it replaces the
+tree's of its name), or
+a directory: its `.cu` of the kernel's names
+(else the tree's) are built beside its headers, which take the place of
 the tree's (`#include "..."` looks beside the source first; the headers
 it lacks come from the tree's csrc). For instance, the one-thread-per-query
 coef_build of commit 3853c6a, and the tree's coef_build with 4-lane groups:
@@ -61,6 +66,21 @@ added in the stencil form's order) beside the tree's:
         cfd_taichi_tpu_torch/csrc/pcisph_predict.cu > build/g1/pcisph_predict.cu
     python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel \\
         pcisph_predict --variant g1=build/g1
+
+PBF's two streams with one lane a row and 8 pairs ahead (their terms
+added in walk order, bit-equal to the walks they replace), and with 8
+lanes and 2 ahead, beside the tree's:
+
+    for v in "1 8" "8 2"; do
+        set -- $v; mkdir -p build/g$1a$2
+        for f in pbf_lambda pbf_xsph; do
+            sed -e "s/Group = [0-9]*;/Group = $1;/" \\
+                -e "s/Ahead = [0-9]*;/Ahead = $2;/" \\
+                cfd_taichi_tpu_torch/csrc/$f.cu > build/g$1a$2/$f.cu
+        done
+    done
+    python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel pbf \\
+        --variant g1a8=build/g1a8 --variant g8a2=build/g8a2
 
 The recompute products before they took the queued walk (pair term in the
 candidate loop), and the tree's with a queue of 32 hits a thread:
@@ -136,20 +156,22 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from cfd_taichi_tpu_torch.models import base
+from cfd_taichi_tpu_torch.models import base, pbf
 from cfd_taichi_tpu_torch.ops import _build, coef
 from cfd_taichi_tpu_torch.ops import stencil as S
-from cfd_taichi_tpu_torch.ops.neighbors import stencil_counts
+from cfd_taichi_tpu_torch.ops.neighbors import cell_id, stencil_counts
 from cfd_taichi_tpu_torch.ops.smoothing import f32
 from cfd_taichi_tpu_torch.perf import cases, inputs, timing
 
 COMPARE_DIR = _build.BUILD_DIR.parent / "compare"
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
-SOURCES = {"coef_matvec": "coef_matvec.cu", "coef_build": "coef_build.cu",
-           "viscosity": "viscosity.cu", "fluid_terms": "fluid_terms.cu",
-           "boundary_terms": "boundary_terms.cu", "matvec": "matvec.cu",
-           "wcsph_forces": "wcsph_forces.cu",
-           "pcisph_predict": "pcisph_predict.cu"}
+SOURCES = {"coef_matvec": ("coef_matvec.cu",),
+           "coef_build": ("coef_build.cu",), "viscosity": ("viscosity.cu",),
+           "fluid_terms": ("fluid_terms.cu",),
+           "boundary_terms": ("boundary_terms.cu",),
+           "matvec": ("matvec.cu",), "wcsph_forces": ("wcsph_forces.cu",),
+           "pcisph_predict": ("pcisph_predict.cu",),
+           "pbf": ("pbf_terms.cu", "pbf_lambda.cu", "pbf_xsph.cu")}
 # The entry point of a wcsph_forces source from before the packed records,
 # renamed so (see above): (pos, starts, n, params, m, nu_num, q2e_add,
 # tension_mk, vel, rho, p', out, stream).
@@ -159,11 +181,17 @@ ROUNDS = 4
 TOL = 1e-5
 
 
+def _tensors(out) -> list[torch.Tensor]:
+    return [out] if isinstance(out, torch.Tensor) else list(out)
+
+
 class Entry(NamedTuple):
     label: str                 # what is called, e.g. "f32/coef_matvec"
     kernel: str                # the kernel's name in the profiler
     call: Callable             # one call through the wrapper
     check: Callable[[], float]  # error of a call against the plain version
+    # the output tensors of a call that are compared bit for bit
+    outputs: Callable = _tensors
 
 
 def build_variants(kernel: str, sources: dict[str, Path]) -> dict:
@@ -176,15 +204,22 @@ def build_variants(kernel: str, sources: dict[str, Path]) -> dict:
         if path.is_dir():
             for f in path.glob("*.cuh"):
                 shutil.copy(f, vdir / f.name)
-            path = path / SOURCES[kernel] if (path / SOURCES[kernel]).exists() \
-                else _build._CSRC / SOURCES[kernel]
-        srcs[name] = vdir / SOURCES[kernel]
-        shutil.copy(path, srcs[name])
+        srcs[name] = []
+        for fname in SOURCES[kernel]:
+            if path.is_dir() and (path / fname).exists():
+                src = path / fname
+            elif path.name == fname or (path.is_file()
+                                        and len(SOURCES[kernel]) == 1):
+                src = path
+            else:
+                src = _build._CSRC / fname
+            srcs[name].append(vdir / fname)
+            shutil.copy(src, vdir / fname)
 
     def build(name):
-        lib = srcs[name].parent / f"lib_{kernel}.so"
+        lib = srcs[name][0].parent / f"lib_{kernel}.so"
         try:
-            _build.build_shared({lib: [srcs[name]]})
+            _build.build_shared({lib: srcs[name]})
         except RuntimeError as e:
             print(f"[compare] {name} does not build, left out:\n{e}")
             return None
@@ -310,6 +345,8 @@ def entries(kernel: str, x: dict) -> list[Entry]:
                                  lambda call=call, want=want:
                                  cases.scaled_error(call(), want)))
         return out
+    if kernel == "pbf":
+        return pbf_entries(x, p, st, g, h, m)
     if kernel == "viscosity":
         args = (p, st, g, h, m, x["v"], x["rho"])
         want = S.viscosity_plain(*args, **cases.VISC)
@@ -336,8 +373,38 @@ def entries(kernel: str, x: dict) -> list[Entry]:
     return out
 
 
-def _tensors(out) -> list[torch.Tensor]:
-    return [out] if isinstance(out, torch.Tensor) else list(out)
+def pbf_entries(x: dict, p, st, g, h: float, m: float) -> list[Entry]:
+    """PBF's fluid pass with its store of the pair list ("terms": the four
+    sums to 1e-5 of scale, each row's count and sources exactly, against
+    the plain version; bit for bit the sums, counts and rows), and the two
+    streams over the tree's list of the same inputs ("lambda" of x["lam"],
+    "xsph" at x["shifted"] with velocities x["v"])."""
+    wr, kc = pbf.w_ref(h), pbf.TENSION_K
+    rows = S.pair_rows(st, g, cell_id(p, g))
+    terms = functools.partial(S.pbf_terms, p, st, g, h, m, wr, kc, rows)
+    want, want_pl = S.pbf_terms_plain(p, st, g, h, m, wr, kc, rows)
+    _, pl = terms()
+    lam, sp, v = x["lam"], x["shifted"], x["v"]
+
+    def listed(out):
+        return [*out[0], out[1].cnt, S.stored_pairs(out[1])[1]]
+
+    def check_terms():
+        got = listed(terms())
+        if not all(torch.equal(a, b) for a, b in zip(
+                got[4:], listed((want, want_pl))[4:])):
+            return float("inf")
+        return max(cases.scaled_error(a, b) for a, b in zip(got, want))
+
+    lam_want = S.pbf_lambda_list_plain(pl, p, h, lam)
+    xsph_want = S.pbf_xsph_list_plain(pl, h, sp, v)
+    lam_call = functools.partial(S.pbf_lambda, p, pl, h, lam)
+    xsph_call = functools.partial(S.pbf_xsph, pl, h, sp, v)
+    return [Entry("terms", "pbf_terms", terms, check_terms, listed),
+            Entry("lambda", "pbf_lambda", lam_call,
+                  lambda: cases.scaled_error(lam_call(), lam_want)),
+            Entry("xsph", "pbf_xsph", xsph_call,
+                  lambda: cases.scaled_error(xsph_call(), xsph_want))]
 
 
 def run_checks(res: dict, libs: dict, case: str, ents: list[Entry],
@@ -347,10 +414,10 @@ def run_checks(res: dict, libs: dict, case: str, ents: list[Entry],
     for ent in ents:
         if bit_equal:
             with using(libs[bit_equal]):
-                ref = _tensors(ent.call())
+                ref = ent.outputs(ent.call())
             for name, lib in libs.items():
                 with using(lib):
-                    got = _tensors(ent.call())
+                    got = ent.outputs(ent.call())
                 diff = sum(int((a != b).sum()) for a, b in zip(got, ref))
                 key = f"{name}/{case}/{ent.label}"
                 res.setdefault("bit_diff", {})[key] = diff
@@ -415,7 +482,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA card")
     kernel = args.kernel
-    sources = {"tree": _build._CSRC / SOURCES[kernel],
+    sources = {"tree": _build._CSRC,
                **dict(v.split("=", 1) for v in args.variant)}
     print(f"[compare] {kernel} on card: {timing.card()}")
     libs = build_variants(kernel, sources)

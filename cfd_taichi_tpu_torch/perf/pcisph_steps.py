@@ -1,24 +1,32 @@
-"""PCISPH's step from rest on one card, on breaking_dam_30k and
+"""PCISPH's (or PBF's) step from rest on one card, on breaking_dam_30k and
 breaking_dam_1m with the default (stored-coefficient, f32) engine: the
 numbers by which two trees of the port are compared in one call.
 
     PYTHONPATH=<tree> python cfd_taichi_tpu_torch/perf/pcisph_steps.py \\
-        --label NAME [--out PATH]
+        --label NAME [--solver pcisph|pbf] [--out PATH]
 
 The package is imported from PYTHONPATH, so that the same script measures
 an older tree unpacked beside this one (`git archive`); run the trees in
 turns (older, newer, newer, older), each in its own process. For each
 scene: 3 untimed steps and a restart from rest (the kernel build and
 PyTorch's set-up), steps 1-5 untimed and 6-15 timed on the host clock
-around work that ends in a synchronize (steps/s, iterations a step), then
-3 profiled steps (16-18): device ms a step, busy share, and each
-kernel's launches a step and device us a launch (torch.profiler).
-Prints one line per number and writes them as JSON (--out).
+around work that ends in a synchronize (steps/s, iterations a step, host
+reads a step: the loops' trips and the reads outside them, peak device
+memory, and a digest of the positions after step 15, equal between two
+trees whose steps are bit for bit), then 3 profiled steps (16-18): device
+ms a step, busy share, and each kernel's launches a step and device us a
+launch (torch.profiler). With --solver pbf also digests of PBF's three
+pair passes on the scene's jittered lattice (perf/inputs.lattice_inputs,
+seed 7): pbf_terms' four sums, pbf_lambda and pbf_xsph, equal between two
+trees whose kernels give the same bits (a tree from before pbf_terms
+stored the pair list walks all three). Prints one line per number and
+writes them as JSON (--out).
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import time
 from pathlib import Path
@@ -26,6 +34,7 @@ from pathlib import Path
 import torch
 
 from cfd_taichi_tpu_torch import Simulation
+from cfd_taichi_tpu_torch.models import pbf
 from cfd_taichi_tpu_torch.ops import _build
 from cfd_taichi_tpu_torch.ops import stencil as S
 from cfd_taichi_tpu_torch.perf import inputs, timing
@@ -34,14 +43,41 @@ SCENES = (("30k", "breaking_dam_30k.json"), ("1m", "breaking_dam_1m.json"))
 UNTIMED, TIMED, PROFILED = 5, 10, 3
 
 
-def measure(cfg_name: str) -> dict:
-    sim = Simulation(inputs.solver_config(cfg_name, "pcisph"), device="cuda")
+def _digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def pbf_digests(cfg_name: str) -> dict:
+    """Digests of the outputs of PBF's three pair passes on the config's
+    jittered lattice, lambda and shifted positions of perf/inputs."""
+    x = inputs.lattice_inputs(cfg_name, seed=7)
+    sc = x["sc"]
+    p, st, g, h, m = x["p"], x["st"], sc.grid, sc.h, sc.particle_m
+    out = S.pbf_terms(p, st, g, h, m, pbf.w_ref(h), pbf.TENSION_K)
+    if hasattr(out, "rho"):     # a tree whose three passes walk
+        terms = out
+        lam = S.pbf_lambda(p, st, g, h, x["lam"])
+        xsph = S.pbf_xsph(p, st, g, h, x["shifted"], x["v"])
+    else:
+        terms, pairs = out
+        lam = S.pbf_lambda(p, pairs, h, x["lam"])
+        xsph = S.pbf_xsph(pairs, h, x["shifted"], x["v"])
+    return dict({f"pbf_terms.{k}": _digest(t)
+                 for k, t in terms._asdict().items()},
+                pbf_lambda=_digest(lam), pbf_xsph=_digest(xsph))
+
+
+def measure(cfg_name: str, solver: str) -> dict:
+    sim = Simulation(inputs.solver_config(cfg_name, solver), device="cuda")
     for _ in range(3):
         sim.step()
     sim.state = sim.solver.init_state(sim.scene)
     for _ in range(UNTIMED):
         sim.step()
     S.reset_counts()
+    pool = sim.scene.loop_graphs
+    pool.reset()
+    torch.cuda.reset_peak_memory_stats()
     iters = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -52,11 +88,16 @@ def measure(cfg_name: str) -> dict:
     rate = TIMED / (time.perf_counter() - t0)
     launches = {k.name: k.launches / TIMED for k in S.KERNELS.values()
                 if k.launches}
+    reads = (pool.trips + pool.reads) / TIMED
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    digest = _digest(sim.state.fluid.pos)
     found, wall = timing.profile_kernels(
         lambda: [sim.step() for _ in range(PROFILED)])
     device_ms = sum(t for _, t in found.values()) / 1e3 / PROFILED
     return dict(steps_per_sec=rate, iters=[float(i) for i in iters],
-                launches_per_step=launches, device_ms_per_step=device_ms,
+                launches_per_step=launches, reads_per_step=reads,
+                peak_gib=peak, pos_digest=digest,
+                device_ms_per_step=device_ms,
                 busy=device_ms * PROFILED / 1e3 / wall,
                 kernels={name: dict(launches_per_step=c / PROFILED,
                                     us_per_launch=t / c)
@@ -67,19 +108,28 @@ def measure(cfg_name: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", required=True)
+    ap.add_argument("--solver", choices=("pcisph", "pbf"), default="pcisph")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA card")
-    res = {"label": args.label, "card": timing.card(),
+    solver = args.solver
+    res = {"label": args.label, "solver": solver, "card": timing.card(),
            "package": str(Path(S.__file__).resolve().parents[1])}
-    print(f"[pcisph] {args.label}: {res['package']} on {res['card']}")
-    print(f"[pcisph] kernels built in {_build.library().build_seconds:.1f} s")
+    print(f"[{solver}] {args.label}: {res['package']} on {res['card']}")
+    print(f"[{solver}] kernels built in "
+          f"{_build.library().build_seconds:.1f} s")
     for tag, cfg_name in SCENES:
-        row = res[tag] = measure(cfg_name)
+        row = res[tag] = measure(cfg_name, solver)
+        if solver == "pbf":
+            row["pass_digests"] = pbf_digests(cfg_name)
+            print(f"[pbf] {args.label} {tag} pass digests "
+                  f"{row['pass_digests']}")
         top = list(row["kernels"].items())[:6]
-        print(f"[pcisph] {args.label} {tag}: {row['steps_per_sec']:.3f} "
-              f"steps/s, iterations {row['iters']}, device "
+        print(f"[{solver}] {args.label} {tag}: {row['steps_per_sec']:.3f} "
+              f"steps/s, iterations {row['iters']}, {row['reads_per_step']} "
+              f"reads a step, peak {row['peak_gib']:.3f} GiB, positions "
+              f"{row['pos_digest']}, device "
               f"{row['device_ms_per_step']:.4f} ms a step, busy "
               f"{row['busy']:.3f}; " + "; ".join(
                   f"{name} {k['launches_per_step']:.1f} x "

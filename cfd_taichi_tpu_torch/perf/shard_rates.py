@@ -37,7 +37,9 @@ Four runs, each started with parallel/launch.spawn:
   with `oid`, the body's force of each frame and its launches.
 
 Prints one line per number and writes them all as JSON (--out). The
-ranks return what chip_smoke.py's [shard] phase checks.
+ranks return what chip_smoke.py's [shard] phase checks; that phase also
+starts `nccl_pbf_rank` (PBF on the config at one rank a card, against the
+single-device steps: bit for bit at world 1).
 """
 
 from __future__ import annotations
@@ -211,6 +213,45 @@ def nccl_rank(ring) -> dict:
     for k, fn in pieces.items():
         out["pieces_device_ms"][k], out["pieces_kernels"][k] = \
             _device_ms(fn)
+    return out
+
+
+def nccl_pbf_rank(ring) -> dict:
+    """PBF on CONFIG sharded over the NCCL ring, STEPS steps from rest,
+    and on rank 0 the single-device steps on the same scene: the largest
+    position difference through oid (0 at world 1, where the sharded step
+    is the single-device step bit for bit), dt, overflow, host reads and
+    each run's (launches, plain calls)."""
+    from cfd_taichi_tpu_torch import Simulation
+    from cfd_taichi_tpu_torch.parallel import domain
+    from cfd_taichi_tpu_torch.perf import inputs
+
+    sim = Simulation(inputs.solver_config(CONFIG, "pbf"), device=ring.device)
+    scene = sim.scene
+    spec = domain.make_spec(scene, ring.world)
+    step = domain.make_sharded_solver_step(scene, ring, spec, "pbf")
+    state = domain.init_sharded_solver(ring, spec, scene, scene.fluid_pos0,
+                                       "pbf")
+    _reset(scene)
+    state, dts, _, _ = _run(step, state, STEPS)
+    out = dict(rank=ring.rank, world=ring.world, dt=dts, counts=_counts(),
+               overflow=int(state.overflow),
+               **_loop_reads(scene.loop_graphs, STEPS))
+    pos, _, oid = domain.unshard(ring, state.fluid, with_oid=True)
+    out["count"] = int(pos.shape[0])
+    if ring.rank == 0:
+        def single(s):
+            sim.state = s
+            sim.step()
+            return sim.state
+
+        _reset(scene)
+        s0, sdts, _, _ = _run(single, sim.solver.init_state(scene), STEPS)
+        out["single"] = dict(dt=sdts, counts=_counts(),
+                             **_loop_reads(scene.loop_graphs, STEPS))
+        ref = _by_oid(s0.fluid.pos.cpu().numpy(), s0.fluid.oid.cpu().numpy())
+        out["max_pos_err"] = float(np.abs(_by_oid(pos, oid) - ref).max()) \
+            if out["count"] == ref.shape[0] else float("inf")
     return out
 
 

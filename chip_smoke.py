@@ -38,11 +38,16 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 pcisph_predict_rho (the stencil form) and
                 pcisph_predict_rho_list (the stream form, over the
                 inputs' pair store), pbf_terms (its fluid and boundary
-                entries together), pbf_lambda and pbf_xsph run at 30k, 1M
-                and on the clustered cloud, with walls, their predicted or
-                updated positions the inputs' shifted by ~0.3 r (pairs
-                cross r = h both ways) and a random negative lambda; the
-                two forms' outputs are compared bit for bit (printed).
+                entries together; the pair list the fluid entry stores
+                against the plain version's exactly: each row's count and
+                its sources in order), pbf_lambda and pbf_xsph (streams
+                over that list, which perf/cases.py makes once) run at
+                30k, 1M and on the clustered cloud, with walls, their
+                predicted or updated positions the inputs' shifted by ~0.3
+                r (pairs cross r = h both ways) and a random negative
+                lambda; the predicted density's two forms' outputs are
+                compared bit for bit (printed), and pbf_lambda and
+                pbf_xsph must repeat bit for bit over two launches.
                 Kernel and plain times: CUDA events, median of 10 after 3
                 warm-up calls. The fluid-rigid kernels (rigid_terms,
                 rigid_contact_dot, rigid_viscosity, rigid_side_force, and
@@ -73,10 +78,15 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 on the card and on the CPU, as DFSPH from rest and as WCSPH,
                 IISPH, PCISPH and PBF from TINY's block squeezed by 0.85
                 about its centre (pressure acts): positions through oid to
-                5e-6 (WCSPH 6.0e-8, IISPH 1.2e-7 and PCISPH 7.2e-7,
-                what the same kernels gave before), dt to rtol 1e-5,
-                equal iteration counts every
-                step; the errors are printed. Then the coupled scene of
+                5e-6 (WCSPH 6.0e-8, IISPH 1.2e-7, PCISPH 7.2e-7 and PBF
+                PBF_AGREE, what the same kernels gave before), dt to rtol
+                1e-5, equal iteration counts every
+                step; the errors are printed. PBF again with one of its
+                pair passes (pbf_terms with its boundary entry, pbf_lambda
+                or pbf_xsph) at a time, then all but one, then all three,
+                run by the plain version on the CPU on the card's inputs:
+                the drift each leaves, printed (which kernel adds it).
+                Then the coupled scene of
                 tests/test_rigid.py:12-21 (RIGID_CFG) as DFSPH, PCISPH,
                 IISPH and WCSPH with the body in the water, squeezed by
                 0.97 about its mean, 4 steps with a rigid step after each:
@@ -123,8 +133,9 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 calls them.
 10. pbf       - the same runs as PBF: pbf_terms, pbf_lambda and pbf_xsph
                 launched (pbf_terms twice a step: fluid and boundary
-                entries) and no plain version; finite; inside the box +-
-                2r.
+                entries; the streams once) and no plain version; one host
+                read a step (the pair list's size), printed with the peak
+                device memory; finite; inside the box +- 2r.
 11. scale-bf16 - 1M and 30k with bf16 coefficient storage: iterations and
                 residual printed, positions finite.
 12. wcsph     - breaking_dam_30k as WCSPH, steps 1-100 from rest, and
@@ -185,7 +196,10 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 captures, host reads, rates, device time, the
                 decomposition's pieces and peak memory a rank printed.
                 With one card, prints that NCCL over several cards did not
-                run. Then four gloo ranks sharing the card, their messages
+                run. Then PBF the same way (perf/shard_rates.
+                nccl_pbf_rank, 5 steps): at world 1 the positions through
+                oid and dt bit for bit, the launches equal. Then four gloo
+                ranks sharing the card, their messages
                 staged through host memory (eager trips, printed):
                 breaking_dam_1m with make_spec(..., slack=2.2), so slabs
                 0-3 hold 480,000 / 500,000 / 20,000 / 0 of the 1,000,000
@@ -257,17 +271,25 @@ WCSPH_PATH = ("fluid_terms", "boundary_terms", "wcsph_forces")
 PCISPH_PATH = COEF_PATH[:5] + ("pcisph_predict_rho_list",)
 PCISPH_RECOMPUTE_PATH = RECOMPUTE_PATH[:4] + ("pcisph_predict_rho",)
 PBF_PATH = ("pbf_terms", "pbf_lambda", "pbf_xsph")
+# The kernels that must repeat bit for bit over two launches in [kernels]
+REPEATED = ("rigid_side_force", "pcisph_predict_rho_rigid", "pbf_lambda",
+            "pbf_xsph")
 # [agree]: (solver, whether to start from TINY's squeezed block, the
 # largest card-vs-CPU position error allowed over its 6 steps: the bar
 # 5e-6, or what the same kernels gave before, 5.960e-08 and 1.192e-07 on
 # an H100 80GB HBM3 since the cubic kernels take q = r * f32(1/h), so
 # that a kernel that moves it shows; PCISPH 7.153e-07 there since its
 # predicted density streams the stored pair list (the card adds a row's
-# terms in 4 strided partial sums, the CPU in pair order); PBF gave
-# 1.788e-07 there)
+# terms in 4 strided partial sums, the CPU in pair order); PBF 1.788e-07
+# there, all of it from pbf_terms' walk (its streams add their terms in
+# pair order, as the CPU does: [agree]'s pbf_drift shows it))
+PBF_AGREE = 1.8e-7
 AGREE = (("dfsph", False, 5e-6), ("wcsph", True, 6.0e-8),
          ("iisph", True, 1.2e-7), ("pcisph", True, 7.2e-7),
-         ("pbf", True, 5e-6))
+         ("pbf", True, PBF_AGREE))
+# [agree]: PBF's pair passes, each run by its plain version on the CPU in
+# turn (then all three) to show which adds the card's drift
+PBF_PASSES = ("pbf_terms", "pbf_lambda", "pbf_xsph")
 # [agree]: RIGID_CFG (tests/test_rigid.py:12-21) as DFSPH with the body in
 # the water, squeezed by 0.97 about its mean, 4 steps with rigid steps
 RIGID_CFG = {
@@ -420,6 +442,8 @@ def compare_contraction(tag: str, got_sums, want_sums, got, want, pos,
 
 def check_case(case, pos, torch) -> float:
     """Compare a case's kernel with its plain version; its max_abs_err."""
+    from cfd_taichi_tpu_torch.perf import cases
+
     if case.name == "coef_build":
         return check_build(case.key, case.kern(), case.plain())
     if case.library:        # the coef contraction
@@ -427,7 +451,14 @@ def check_case(case, pos, torch) -> float:
             case.key, case.kern(lane_sums=True), case.plain(lane_sums=True),
             case.kern(), case.plain(), pos, case.name == "coef_matvec_dot",
             torch)
-    return compare(case.key, case.kern(), case.plain(), torch)
+    return compare(case.key, *cases.compared(case), torch)
+
+
+def repeats(case, tag: str, torch) -> None:
+    """The case's kernel gives the same bits over two launches."""
+    same = torch.equal(case.kern(), case.kern())
+    print(f"    {case.name} {tag}: two launches bit-equal {same}")
+    check(same, f"{case.name} {tag}: launches differ")
 
 
 def ragged_checks(torch) -> None:
@@ -503,7 +534,13 @@ def clustered_checks(torch, results: dict) -> None:
     walls = S.Walls(x["bp"], x["bvol"], x["bst"], x["bnear"])
     for case in cases.solver_cases(p, st, g, h, m, walls, x, {}):
         results[case.name]["max_abs_err_clustered"] = compare(
-            f"{case.name} clustered", case.kern(), case.plain(), torch)
+            f"{case.name} clustered", *cases.compared(case), torch)
+        if case.name in REPEATED:
+            repeats(case, "clustered", torch)
+        if case.name == "pbf_terms":
+            _, pl, _ = case.kern()
+            print(f"    pbf_terms clustered: {int(pl.cnt.sum())} pairs "
+                  f"stored in {pl.nbr.numel()} slots")
 
 
 def record(results: dict, case, key: str, err: float) -> None:
@@ -542,6 +579,8 @@ def phase_kernels(torch, results: dict) -> None:
                    check_case(case, x["p"], torch))
             if case.name.startswith("pcisph_predict_rho"):
                 outs[case.name] = case.kern()
+            if case.name in REPEATED:
+                repeats(case, tag, torch)
         forms_bits(results, tag, outs, torch)
         del x
         torch.cuda.empty_cache()
@@ -582,11 +621,8 @@ def rigid_checks(torch, results: dict) -> None:
             record(results, case, tag + case.key[len(case.name):],
                    compare(f"{case.key} {tag}", case.kern(), case.plain(),
                            torch))
-            if case.name in ("rigid_side_force", "pcisph_predict_rho_rigid"):
-                same = torch.equal(case.kern(), case.kern())
-                print(f"    {case.name} {tag}: two launches bit-equal "
-                      f"{same}")
-                check(same, f"{case.name} {tag}: launches differ")
+            if case.name in REPEATED:
+                repeats(case, tag, torch)
         body_gate(torch, results, x, tag)
         del x
         torch.cuda.empty_cache()
@@ -676,7 +712,73 @@ def phase_agree(torch) -> None:
                   f"{tag}: dt differs")
             check((da[0], da[2]) == (db[0], db[2]),
                   f"{tag}: iteration counts differ")
+    pbf_drift(torch)
     agree_coupled(torch)
+
+
+def on_cpu(fn, torch):
+    """`fn` run on CPU copies of its arguments (tensors, and the tuples
+    that hold them), its outputs brought back to the arguments' card:
+    a wrapper so called runs its plain version."""
+    def move(x, dev):
+        if isinstance(x, torch.Tensor):
+            return x.to(dev)
+        if isinstance(x, tuple):
+            items = [move(v, dev) for v in x]
+            return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+        return x
+
+    def call(*args):
+        dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+        return move(fn(*move(args, "cpu")), dev)
+    return call
+
+
+def pbf_drift(torch) -> None:
+    """PBF from TINY's squeezed block, 6 steps on the card against the CPU,
+    with one pair pass at a time (PBF_PASSES) run by its plain version on
+    the CPU on the card's inputs, then all but one, then all three: the
+    largest position difference each step, printed. A pass whose swap
+    takes the drift away, or which alone on the card brings it back, is
+    one that adds it."""
+    import numpy as np
+
+    from cfd_taichi_tpu_torch import Simulation
+    from cfd_taichi_tpu_torch.config import parse_config
+    from cfd_taichi_tpu_torch.ops import stencil
+    from cfd_taichi_tpu_torch.perf import inputs
+
+    raw = copy.deepcopy(TINY)
+    raw["solver"]["name"] = "pbf"
+    wrappers = {name: getattr(stencil, name) for name in
+                (*PBF_PASSES, "pbf_boundary_terms")}
+    swaps = ([(name,) for name in PBF_PASSES]
+             + [tuple(p for p in PBF_PASSES if p != name)
+                for name in PBF_PASSES] + [PBF_PASSES])
+    for swap in swaps:
+        names = [*swap, *(("pbf_boundary_terms",)
+                          if "pbf_terms" in swap else ())]
+        try:
+            for name in names:
+                setattr(stencil, name, on_cpu(wrappers[name], torch))
+            sims = {dev: Simulation(parse_config(raw), device=dev)
+                    for dev in ("cuda", "cpu")}
+            for sim in sims.values():
+                sim.state = inputs.squeezed(sim.state)
+            errs = []
+            for _ in range(6):
+                for sim in sims.values():
+                    sim.step()
+                a, b = (sims[d].state for d in ("cuda", "cpu"))
+                errs.append(float(np.abs(oid_sorted(a)
+                                         - oid_sorted(b)).max()))
+        finally:
+            for name in names:
+                setattr(stencil, name, wrappers[name])
+        kept = [p for p in PBF_PASSES if p not in swap]
+        print(f"[agree] pbf with {' + '.join(swap)} run by the plain "
+              f"version on the CPU ({' + '.join(kept) or 'none'} on the "
+              f"card): pos err by step {' '.join(f'{e:.3e}' for e in errs)}")
 
 
 def agree_coupled(torch) -> None:
@@ -904,9 +1006,11 @@ def drive(sim, tag: str, windows, path, torch) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     reserved = torch.cuda.max_memory_reserved() / 2**30
     unroll = dfsph.loop_unroll(sim.scene)
+    reads = (graphs.trips + graphs.reads) / done
     print(f"[{tag}] {iter_summary(sim.cfg.solver.name, diags)}; "
-          f"{unroll} iteration(s) a trip, {graphs.trips / done:.2f} host "
-          f"reads (trips), {graphs.captures / done:.2f} captures "
+          f"{unroll} iteration(s) a trip, {reads:.2f} host reads a step "
+          f"({graphs.trips / done:.2f} trips, {graphs.reads / done:.2f} "
+          f"outside them), {graphs.captures / done:.2f} captures "
           f"({graphs.capture_s * 1e3 / done:.3f} ms, "
           f"{graphs.instantiate_s * 1e3 / done:.3f} instantiating) a step")
     print(f"[{tag}] kernel (launches, plain calls): {counts}")
@@ -924,7 +1028,8 @@ def drive(sim, tag: str, windows, path, torch) -> dict:
                 peak_gib=peak, peak_reserved_gib=reserved, unroll=unroll,
                 # trips x U of the loops in diag columns 0 and 2
                 looped=[looped(diags, (c,), unroll) for c in (0, 2)],
-                reads_per_step=graphs.trips / done,
+                trips_per_step=graphs.trips / done,
+                reads_per_step=reads,
                 captures_per_step=graphs.captures / done,
                 capture_ms_per_step=graphs.capture_s * 1e3 / done,
                 launches={k: c[0] for k, c in counts.items()})
@@ -1045,6 +1150,9 @@ def phase_solver(torch, sims: dict, results: dict, solver: str) -> None:
                   f"iterations")
         else:
             want["pbf_terms"] = 2 * steps   # fluid and boundary entries
+            # the size of the pair list, read after the sort
+            check(run["reads_per_step"] == 1.0,
+                  f"{solver} {tag}: {run['reads_per_step']} reads a step")
         for name, launches in run["launches"].items():
             check(launches == want.get(name, 0),
                   f"{solver} {tag}: {name} launched {launches} times, not "
@@ -1490,6 +1598,7 @@ def phase_shard(torch, results: dict) -> None:
                   f"{r['single']['counts']}")
     results["shard_launches"] = {k: c[0] for k, c in
                                  nccl[0]["sharded"]["counts"].items()}
+    shard_pbf(world)
     t0 = time.perf_counter()
     gloo = launch.spawn(shard_rates.gloo_rank, shard_rates.GLOO_WORLD,
                         backend="gloo", device="cuda")
@@ -1539,6 +1648,36 @@ def phase_shard(torch, results: dict) -> None:
         runs["gloo"].append(rows)
     results["_runs"]["shard"] = runs
     shard_coupled(torch, results)
+
+
+def shard_pbf(world: int) -> None:
+    """PBF on breaking_dam_1m sharded over NCCL, one rank a card, against
+    the single-device steps: at world 1 bit for bit (positions through
+    oid, dt) with equal launches; else within SHARD_POS_TOL."""
+    from cfd_taichi_tpu_torch.parallel import launch
+    from cfd_taichi_tpu_torch.perf import shard_rates
+
+    t0 = time.perf_counter()
+    ranks = launch.spawn(shard_rates.nccl_pbf_rank, world, backend="nccl",
+                         device="cuda")
+    r = ranks[0]
+    tag = f"nccl pbf rank 0/{world}"
+    print(f"[shard] {tag}: {time.perf_counter() - t0:.1f} s; max |pos - "
+          f"single| through oid {r['max_pos_err']:.3e}; dt {r['dt']} "
+          f"(single-device {r['single']['dt']}); {r['reads_per_step']:.2f} "
+          f"host reads a step (single-device "
+          f"{r['single']['reads_per_step']:.2f})")
+    for rank in ranks:
+        check(rank["overflow"] == 0, f"{tag}: overflow {rank['overflow']}")
+        shard_counts(f"nccl pbf rank {rank['rank']}", rank["counts"],
+                     {**dict.fromkeys(PBF_PATH, shard_rates.STEPS),
+                      "pbf_terms": 2 * shard_rates.STEPS})
+    if world == 1:
+        check(r["max_pos_err"] == 0.0 and r["dt"] == r["single"]["dt"],
+              f"{tag}: not the single-device step bit for bit")
+        check(r["counts"] == r["single"]["counts"], f"{tag}: launches")
+    else:
+        check(r["max_pos_err"] <= SHARD_POS_TOL, f"{tag}: positions")
 
 
 def shard_coupled(torch, results: dict) -> None:

@@ -68,6 +68,8 @@ def _all_outputs(sc, pos, starts, k, v, rho):
     g, h, m = sc.grid, sc.h, sc.particle_m
     ft = stencil.fluid_terms(pos, starts, g, h, m)
     eng = coef.build_coef(pos, starts, g, h, m, coef.csr_offsets(ft.count))
+    terms, pl = stencil.pbf_terms(pos, starts, g, h, m, pbf.w_ref(h),
+                                  pbf.TENSION_K)
     return [*ft,
             *stencil.boundary_terms(pos, sc.boundary_pos, sc.boundary_volume,
                                     sc.boundary_starts, g, h, 1000.0),
@@ -76,10 +78,9 @@ def _all_outputs(sc, pos, starts, k, v, rho):
             stencil.viscosity(pos, starts, g, h, m, v, rho, **VISC),
             stencil.wcsph_forces(pos, starts, g, h, m, v, rho, 0.01 * k,
                                  **cases.WCSPH),
-            *stencil.pbf_terms(pos, starts, g, h, m, pbf.w_ref(h),
-                               pbf.TENSION_K),
-            stencil.pbf_lambda(pos, starts, g, h, -1e-5 * k),
-            stencil.pbf_xsph(pos, starts, g, h, pos + 0.01 * v, v),
+            *terms, pl.cnt, stencil.stored_pairs(pl)[1].to(torch.int32),
+            stencil.pbf_lambda(pos, pl, h, -1e-5 * k),
+            stencil.pbf_xsph(pl, h, pos + 0.01 * v, v),
             stencil.pcisph_predict_rho(pos, starts, g, h, m, pos + 0.01 * v,
                                        base.walls(sc), 1000.0, eng=eng),
             eng.nbr, eng.w,
@@ -435,10 +436,11 @@ def _solver_cases(x, walls):
 
 
 def _assert_case_matches_plain(case):
-    got, want = case.kern(), case.plain()
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
+    got, want = cases.compared(case)
     for a, b in zip(got, want, strict=True):
+        if not b.dtype.is_floating_point:   # pair counts and lists
+            assert torch.equal(a, b), case.name
+            continue
         assert a.shape == b.shape and bool(torch.isfinite(a).all())
         np.testing.assert_allclose(
             a.cpu().numpy(), b.cpu().numpy(), rtol=0,
@@ -492,11 +494,44 @@ def test_pcisph_and_pbf_kernels_with_one_live_lane(cuda, n):
 def test_pcisph_and_pbf_kernels_repeat_bit_for_bit(clustered):
     x, _ = clustered
     for case in _solver_cases(x, _walls(x)):
-        first, again = case.kern(), case.kern()
-        first = first if isinstance(first, tuple) else (first,)
-        again = again if isinstance(again, tuple) else (again,)
+        view = case.view or (lambda out: out if isinstance(out, tuple)
+                             else (out,))
+        first, again = view(case.kern()), view(case.kern())
         assert all(torch.equal(a, b) for a, b in zip(first, again)), \
             case.name
+
+
+@pytest.mark.cuda
+def test_pbf_pair_list_and_streams(clustered):
+    """pbf_terms' stored pair list against the plain version's exactly
+    (each row's count and its sources in walk order, within the row's room)
+    on the clustered cloud, and pbf_lambda and pbf_xsph over it against
+    their stream forms' plain versions and the walking plain versions, to
+    1e-5 of scale, bit for bit over two launches."""
+    x, off = clustered
+    p, st, g, h, m = x["p"], x["st"], x["grid"], x["h"], x["m"]
+    rows = stencil.pair_rows(st, g, nb.cell_id(p, g))
+    args = (p, st, g, h, m, pbf.w_ref(h), pbf.TENSION_K, rows)
+    _, pl = stencil.pbf_terms(*args)
+    _, want = stencil.pbf_terms_plain(*args)
+    assert torch.equal(pl.cnt, want.cnt)
+    assert torch.equal(coef.csr_offsets(pl.cnt), off)
+    assert torch.equal(stencil.stored_pairs(pl)[1],
+                       stencil.stored_pairs(want)[1])
+    room = nb.stencil_counts(st, g)[nb.cell_id(p, g).long()]
+    assert bool((pl.cnt <= room).all())
+    lam, sp, v = x["lam"], x["shifted"], x["v"]
+    for kern, plain, walk in (
+            (lambda: stencil.pbf_lambda(p, pl, h, lam),
+             lambda: stencil.pbf_lambda_list_plain(pl, p, h, lam),
+             lambda: stencil.pbf_lambda_plain(p, st, g, h, lam)),
+            (lambda: stencil.pbf_xsph(pl, h, sp, v),
+             lambda: stencil.pbf_xsph_list_plain(pl, h, sp, v),
+             lambda: stencil.pbf_xsph_plain(p, st, g, h, sp, v))):
+        got = kern()
+        assert torch.equal(got, kern())
+        for ref in (plain(), walk()):
+            assert cases.scaled_error(got, ref) <= 1e-5
 
 
 def _rigid_cases(x):

@@ -178,8 +178,8 @@ def test_pbf_terms_plain_matches_dense_pbf_ops(pair_case):
     c, sc = pair_case, pair_case["sc"]
     terms, _, _ = _jax_ops(c)
     stencil.reset_counts()
-    got = stencil.pbf_terms(c["pos_s"], c["starts"], sc.grid, sc.h,
-                            sc.particle_m, c["w_ref"], pbf.TENSION_K)
+    got, _ = stencil.pbf_terms(c["pos_s"], c["starts"], sc.grid, sc.h,
+                               sc.particle_m, c["w_ref"], pbf.TENSION_K)
     assert stencil.KERNELS["pbf_terms"].plain_calls == 1
     assert float(got.ssum.abs().max()) > 0.0
     _check_terms(got, terms)
@@ -199,8 +199,8 @@ def test_pbf_boundary_terms_plain_matches_jax(pair_case):
 def test_pbf_lambda_plain_matches_lam_mv(pair_case):
     c, sc = pair_case, pair_case["sc"]
     _, lam_mv, _ = _jax_ops(c)
-    got = stencil.pbf_lambda(c["pos_s"], c["starts"], sc.grid, sc.h,
-                             torch.from_numpy(c["lam"]))
+    got = stencil.pbf_lambda_plain(c["pos_s"], c["starts"], sc.grid, sc.h,
+                                   torch.from_numpy(c["lam"]))
     close(got, lam_mv(jnp.asarray(c["lam"])).to_numpy())
 
 
@@ -216,9 +216,9 @@ def test_pbf_xsph_plain_matches_xsph_at_updated_positions(pair_case):
     assert (valid & ~near).sum() > 0 and (near & ~valid).sum() > 0
     _, _, xsph = _jax_ops(c)
     want = xsph(V3.from_rows(p1), V3.from_rows(c["new_vel"])).to_numpy()
-    got = stencil.pbf_xsph(c["pos_s"], c["starts"], sc.grid, sc.h,
-                           torch.from_numpy(p1),
-                           torch.from_numpy(c["new_vel"]))
+    got = stencil.pbf_xsph_plain(c["pos_s"], c["starts"], sc.grid, sc.h,
+                                 torch.from_numpy(p1),
+                                 torch.from_numpy(c["new_vel"]))
     close(got, want)
 
 

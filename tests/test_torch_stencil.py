@@ -169,9 +169,10 @@ def test_cpu_tensors_take_the_plain_versions(case):
                           coef.csr_offsets(ft.count))
     coef.coef_matvec(eng, pos, k)
     coef.coef_matvec_dot(eng, pos, v)
-    stencil.pbf_terms(pos, starts, sc.grid, sc.h, sc.particle_m, 1e3, 1e-7)
-    stencil.pbf_lambda(pos, starts, sc.grid, sc.h, -1e-5 * k)
-    stencil.pbf_xsph(pos, starts, sc.grid, sc.h, pos + 0.01 * v, v)
+    _, pairs = stencil.pbf_terms(pos, starts, sc.grid, sc.h, sc.particle_m,
+                                 1e3, 1e-7)
+    stencil.pbf_lambda(pos, pairs, sc.h, -1e-5 * k)
+    stencil.pbf_xsph(pairs, sc.h, pos + 0.01 * v, v)
     # the fluid-rigid passes, with the first 24 fluid particles, moved by
     # 0.01, standing in for a body
     rpos = pos[:24] + 0.01
@@ -200,6 +201,8 @@ def test_wrappers_reject_other_devices(case):
                          device="meta")
     grid = case["sc"].grid
     walls = stencil.Walls(meta, meta[:, 0], starts, starts[1:])
+    rows = torch.empty((4,), dtype=torch.int32, device="meta")
+    pairs = stencil.PairList(rows, rows, rows)
     for call in (
             lambda: stencil.fluid_terms(meta, starts, grid, 0.1, 0.1),
             lambda: stencil.pcisph_predict_rho(meta, starts, grid, 0.1, 0.1,
@@ -211,7 +214,7 @@ def test_wrappers_reject_other_devices(case):
                                       1e-7),
             lambda: stencil.pbf_boundary_terms(meta, walls, grid, 0.1,
                                                1000.0, 1e3, 1e-7),
-            lambda: stencil.pbf_lambda(meta, starts, grid, 0.1, meta[:, 0]),
-            lambda: stencil.pbf_xsph(meta, starts, grid, 0.1, meta, meta)):
+            lambda: stencil.pbf_lambda(meta, pairs, 0.1, meta[:, 0]),
+            lambda: stencil.pbf_xsph(pairs, 0.1, meta, meta)):
         with pytest.raises(ValueError, match="no kernel for device"):
             call()
