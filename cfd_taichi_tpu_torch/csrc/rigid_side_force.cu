@@ -1,6 +1,12 @@
 // R4 rigid_side_force: the fluid's reaction on each rigid particle in a
-// two-way coupled step: once a density iteration of DFSPH and PCISPH, once
-// a step of IISPH and WCSPH.
+// two-way coupled step, in two forms:
+//
+// * the walk (rigid_side_force_kernel): once a step of IISPH and WCSPH,
+//   which charge the reaction once;
+// * the list (rigid_side_rows_kernel, then rigid_side_list_kernel, once a
+//   step) and its stream (rigid_side_force_list_kernel, once a density
+//   iteration of DFSPH and an iteration of PCISPH), where the loop charges
+//   it many times over the same start-of-step geometry.
 //
 // Replaces rigid_dense.build_rigid_side + rigid_side_force (cfd_taichi_tpu/
 // ops/rigid_dense.py:255-292), the JAX package's compact (Nr, Kf) list of
@@ -16,40 +22,134 @@
 // rho^2 (PCISPH, IISPH) or p' m (WCSPH).
 //
 // Bound on the card: bytes, the fluid's u and the rigid rows (perf/
-// bounds.py), under a microsecond for 10^4 rigid particles; the walk of
-// ~27 x occupancy fluid candidates per rigid particle and its launch
-// set the time.
+// bounds.py), under a microsecond for 10^4 rigid particles. The walk of
+// ~27 x occupancy fluid candidates per rigid particle and its launch set
+// the walk's time; the stream's bound is the list it reads (16 B a pair)
+// and the u it gathers, and the latency of those two dependent loads sets
+// its time.
 //
-// Design: one thread per rigid particle on the queued walk (queued_walk_of,
-// stencil.cuh) over the fluid's table, the pair term in the drain; the
-// pair geometry is recomputed every iteration from the start-of-step
-// positions, so nothing per pair is stored. A thread owns its particle's
-// sum, so there are no atomics: a run repeats bit for bit, and the card
-// can be held to the CPU. The voxels come in the mesh's lattice order, so
+// The walk: one thread per rigid particle on the queued walk
+// (queued_walk_of, stencil.cuh) over the fluid's table, the pair term in
+// the drain; nothing per pair is stored. A thread owns its particle's sum,
+// so there are no atomics: a run repeats bit for bit, and the card can be
+// held to the CPU. The voxels come in the mesh's lattice order, so
 // neighbouring threads walk neighbouring cells.
+//
+// The list: the same walk, which stores each pair it charges, as the JAX
+// package hoists the pair vectors once a step: rec[base_j + kListStride
+// t] = (i, g) for its t-th pair in walk order, g = (x_i - x_j) rho0 V_j c(r)
+// as three f32 bit patterns, and cnt_j. A warp's 32 rows interleave, as
+// pbf_terms' (stencil.cuh, stream_rows), each with room for the largest
+// fluid stencil count of its warp's rows, which rigid_side_rows_kernel
+// finds before the walk from the CSR offsets at the body's own cells; the
+// pairs are a subset of those candidates, so no row overflows it. A drain
+// turn then writes one 512-byte run a warp.
+//
+// The stream: stream_rows (stencil.cuh) over the int4 records, kSideGroup
+// lanes a row, kSideAhead records (one 16-byte streaming load each) in
+// flight ahead of their u gathers. With one lane a row a thread adds g u in
+// walk order, so that, built with -fmad=false, the stored g, its product
+// with u and the sum round exactly as the walk's ((-dx) * coeff) * ui: the
+// stream is bit-equal to the walk. Most rows are short (1.6 pairs a row on
+// the 1M block's body, 4.9 on the 30k one's: only the body's skin has
+// fluid near), so a row's few dependent loads and the launch set the time.
+// Measured on an H100 (perf/coef_compare.py --kernel rigid_side, device us
+// at 1M / 30k / the half-immersed torus): one lane with 1 record ahead
+// 5.75 / 5.15 / 4.26, 2 ahead 6.65 / 6.10 / 5.00, 4 ahead 6.63-6.91 /
+// 5.94-5.95 / 5.15-5.21, 8 ahead 7.18-7.93 / 5.63-6.98 / 5.56-5.83, 16
+// ahead 9.10 / 8.39 / 6.90; 2 lanes with 8 ahead 6.58-6.71 / 6.36-6.39 /
+// 5.33-5.38 and 4 lanes with 4 ahead 8.75 / 7.96 / 7.68, neither bit-equal
+// to the walk. Kept: one lane, 1 ahead.
 #include "stencil.cuh"
 
 constexpr int kSideQueue = 40;  // hits a thread can hold
 constexpr int kSideChunk = 8;   // candidates tested between two votes
+constexpr int kSideGroup = 1;   // stream: lanes per row
+constexpr int kSideAhead = 1;   // stream: records a lane loads ahead
+
+// The pair term's factor: rho0 V_j c(r) of a pair at r, and whether the
+// reaction charges the pair (r <= h as well as r2 <= h2).
+struct SidePair {
+  const StencilParams* p;
+  float coeff_v;  // rho0 V_j of the query
+
+  __device__ __forceinline__ float coeff(float r2, bool take,
+                                         bool& charged) const {
+    const float r = pair_r(r2);
+    charged = take && r <= p->h;
+    return coeff_v * cubic_grad_coeff(r, *p);
+  }
+};
 
 struct SideForce {
   const float* u;
-  const StencilParams* p;
-  float coeff_v;  // rho0 V_j of the query
+  SidePair k;
   float fx, fy, fz;
 
   __device__ __forceinline__ void operator()(int i, const XyzRows::Record&,
                                              float dx, float dy, float dz,
                                              float r2, bool take) {
     // dx is the query (rigid) minus the source (fluid): x_i - x_j = -dx.
-    const float r = pair_r(r2);
-    const float coeff = coeff_v * cubic_grad_coeff(r, *p);
+    bool charged;
+    const float coeff = k.coeff(r2, take, charged);
     const float ui = __ldg(u + i);
-    if (take && r <= p->h) {
+    if (charged) {
       fx += ((-dx) * coeff) * ui;
       fy += ((-dy) * coeff) * ui;
       fz += ((-dz) * coeff) * ui;
     }
+  }
+};
+
+struct SideStore {
+  SidePair k;
+  int4* row;  // the query's row of the list
+  int found;
+
+  __device__ __forceinline__ void operator()(int i, const XyzRows::Record&,
+                                             float dx, float dy, float dz,
+                                             float r2, bool take) {
+    bool charged;
+    const float coeff = k.coeff(r2, take, charged);
+    if (charged) {
+      row[kListStride * found++] =
+          make_int4(i, __float_as_int((-dx) * coeff),
+                    __float_as_int((-dy) * coeff),
+                    __float_as_int((-dz) * coeff));
+    }
+  }
+};
+
+// The stream's row j: out_j = force_j + sum_t g_t u[i_t].
+struct SideStream {
+  const float* u;
+  const float* force;
+  float* out;
+
+  struct Row {};  // the row's force is read once, at the store
+  struct Sums {
+    float x, y, z;
+  };
+
+  __device__ __forceinline__ Row load(int) const { return {}; }
+  __device__ __forceinline__ static Row shfl(const Row& r, int) { return r; }
+  __device__ __forceinline__ void add(Sums& s, const Row&,
+                                      const int4& q) const {
+    const float ui = __ldg(u + q.x);
+    s.x += __int_as_float(q.y) * ui;
+    s.y += __int_as_float(q.z) * ui;
+    s.z += __int_as_float(q.w) * ui;
+  }
+  template <int kG>
+  __device__ __forceinline__ static Sums reduce(const Sums& s) {
+    return {lane_group_sum<kG>(s.x), lane_group_sum<kG>(s.y),
+            lane_group_sum<kG>(s.z)};
+  }
+  __device__ __forceinline__ void store(int j, const Row&,
+                                        const Sums& s) const {
+    out[3 * j] = __ldg(force + 3 * j) + s.x;
+    out[3 * j + 1] = __ldg(force + 3 * j + 1) + s.y;
+    out[3 * j + 2] = __ldg(force + 3 * j + 2) + s.z;
   }
 };
 
@@ -65,10 +165,10 @@ rigid_side_force_kernel(const float* __restrict__ rpos,
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = j < nr;
   float xj = 0.f, yj = 0.f, zj = 0.f;
-  SideForce acc{u, &p, 0.f, 0.f, 0.f, 0.f};
+  SideForce acc{u, {&p, 0.f}, 0.f, 0.f, 0.f};
   if (live) {
     xj = rpos[3 * j], yj = rpos[3 * j + 1], zj = rpos[3 * j + 2];
-    acc.coeff_v = rho0 * rvol[j];
+    acc.k.coeff_v = rho0 * rvol[j];
   }
   queued_walk_of<kSideQueue, kSideChunk, kDrainUnroll>(
       XyzRows{pos}, n, starts, p, live, -1, xj, yj, zj, acc);
@@ -77,6 +177,66 @@ rigid_side_force_kernel(const float* __restrict__ rpos,
     out[3 * j + 1] = force[3 * j + 1] + acc.fy;
     out[3 * j + 2] = force[3 * j + 2] + acc.fz;
   }
+}
+
+// The list's rows: room[w + 1] = the largest candidate count (the fluid
+// in the 27-cell stencil of the row's cell, from the CSR offsets alone) of
+// warp w's kListStride rows, room[0] = 0; their running sum is each warp's
+// first slot over kListStride (ops/rigid.py: side_rows).
+__global__ void __launch_bounds__(kThreads)
+rigid_side_rows_kernel(const float* __restrict__ rpos, int nr,
+                       const int* __restrict__ starts, StencilParams p,
+                       long long* __restrict__ room) {
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  int cand = 0;
+  if (j < nr) {
+    int c[3];
+    cell_of(rpos[3 * j], rpos[3 * j + 1], rpos[3 * j + 2], p, c);
+    for (int dm = -1; dm <= 1; ++dm)
+      for (int ds = -1; ds <= 1; ++ds) {
+        int lo, hi;
+        if (stencil_run(c, dm, ds, starts, p, lo, hi)) cand += hi - lo;
+      }
+  }
+  cand = __reduce_max_sync(kFullWarp, cand);
+  if (j < nr && (j & (kListStride - 1)) == 0) room[j / kListStride + 1] = cand;
+  if (j == 0) room[0] = 0;
+}
+
+// The walk of each row j, storing its pairs from slot base_j = kListStride
+// offs[j / kListStride] + its lane (offs: the running sum of the rows'
+// room), and base_j and cnt_j.
+__global__ void __launch_bounds__(kThreads, kQueuedBlocks)
+rigid_side_list_kernel(const float* __restrict__ rpos,
+                       const float* __restrict__ rvol, int nr,
+                       const float* __restrict__ pos,
+                       const int* __restrict__ starts, int n,
+                       StencilParams p, float rho0,
+                       const long long* __restrict__ offs,
+                       int* __restrict__ base, int* __restrict__ cnt,
+                       int4* __restrict__ rec) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = j < nr;
+  float xj = 0.f, yj = 0.f, zj = 0.f;
+  SideStore store{{&p, 0.f}, rec, 0};
+  if (live) {
+    xj = rpos[3 * j], yj = rpos[3 * j + 1], zj = rpos[3 * j + 2];
+    store.k.coeff_v = rho0 * rvol[j];
+    const int b = kListStride * (int)__ldg(offs + j / kListStride) +
+                  (j & (kListStride - 1));
+    base[j] = b;
+    store.row += b;
+  }
+  queued_walk_of<kSideQueue, kSideChunk, kDrainUnroll>(
+      XyzRows{pos}, n, starts, p, live, -1, xj, yj, zj, store);
+  if (live) cnt[j] = store.found;
+}
+
+__global__ void __launch_bounds__(kThreads)
+rigid_side_force_list_kernel(int nr, const int* __restrict__ base,
+                             const int* __restrict__ cnt,
+                             const int4* __restrict__ rec, SideStream s) {
+  stream_rows<kSideGroup, kSideAhead>(nr, base, cnt, rec, s);
 }
 
 extern "C" int rigid_side_force_launch(const float* rpos, const float* rvol,
@@ -90,6 +250,48 @@ extern "C" int rigid_side_force_launch(const float* rpos, const float* rvol,
     rigid_side_force_kernel<<<grid_blocks(nr), kThreads, 0,
                               (cudaStream_t)stream>>>(
         rpos, rvol, nr, pos, starts, n, *p, rho0, u, force, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rigid_side_rows_launch(const float* rpos, int nr,
+                                      const int* starts,
+                                      const StencilParams* p, void* room,
+                                      void* stream) {
+  if (nr > 0) {
+    rigid_side_rows_kernel<<<grid_blocks(nr), kThreads, 0,
+                             (cudaStream_t)stream>>>(
+        rpos, nr, starts, *p, static_cast<long long*>(room));
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rigid_side_list_launch(const float* rpos, const float* rvol,
+                                      int nr, const float* pos,
+                                      const int* starts, int n,
+                                      const StencilParams* p, float rho0,
+                                      const void* offs, int* base, int* cnt,
+                                      void* rec, void* stream) {
+  if (nr > 0) {
+    rigid_side_list_kernel<<<grid_blocks(nr), kThreads, 0,
+                             (cudaStream_t)stream>>>(
+        rpos, rvol, nr, pos, starts, n, *p, rho0,
+        static_cast<const long long*>(offs), base, cnt,
+        static_cast<int4*>(rec));
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rigid_side_force_list_launch(int nr, const int* base,
+                                            const int* cnt, const void* rec,
+                                            const float* u,
+                                            const float* force, float* out,
+                                            void* stream) {
+  if (nr > 0) {
+    rigid_side_force_list_kernel<<<grid_blocks(nr), kThreads, 0,
+                                   (cudaStream_t)stream>>>(
+        nr, base, cnt, static_cast<const int4*>(rec),
+        SideStream{u, force, out});
   }
   return (int)cudaGetLastError();
 }

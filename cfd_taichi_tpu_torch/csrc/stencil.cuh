@@ -9,9 +9,9 @@
 // kernels (rigid_terms.cu, rigid_viscosity.cu, rigid_side_force.cu) run one
 // thread per query that queues its hits and takes the pair term out of the
 // candidate loop (queued_walk_of below); coef_build and viscosity run a
-// group of kGroupWalk lanes per query (group_walk below). pbf_lambda and
-// pbf_xsph walk no stencil: they stream the pair list that pbf_terms
-// stores (stream_rows below).
+// group of kGroupWalk lanes per query (group_walk below). pbf_lambda,
+// pbf_xsph and rigid_side_force_list walk no stencil: they stream a pair
+// list that a walk stored once a step (stream_rows below).
 // Sums stay in f32 registers and each query's row is written by its own
 // thread or group, so there are no atomics and every run gives
 // bit-identical results.
@@ -291,11 +291,12 @@ __device__ __forceinline__ void queued_walk_of(const Source& src, int ns,
 // ---------------------------------------------------------------------------
 // The stream of a stored pair list: a group of kGroup lanes a row.
 //
-// Row i's sources are nbr[base[i] + kListStride t], t = 0, ..., cnt[i] - 1,
-// in the walk's order (pbf_terms.cu stores them so). The 32 rows of a warp
-// interleave: base[i] is the warp's base plus the row's lane (ops/
-// stencil.py: pair_rows), so that pair t of the warp's rows lies in one
-// 128-byte line. A walk's drain, which hands each lane its t-th hit in
+// Row i's records are nbr[base[i] + kListStride t], t = 0, ..., cnt[i] - 1,
+// in the walk's order: a source index (pbf_terms.cu stores them so) or a
+// record of the stream's type Rec (rigid_side_force.cu's int4 of a fluid
+// index and a pair vector). The 32 rows of a warp interleave: base[i] is
+// the warp's base plus the row's lane (ops/stencil.py: pair_rows), so that
+// pair t of the warp's rows lies in one 128-byte line (four of int4). A walk's drain, which hands each lane its t-th hit in
 // turn t, then stores whole lines a warp, and a stream that takes a few
 // rows' t-th pairs at once reads whole sectors.
 //
@@ -303,7 +304,7 @@ __device__ __forceinline__ void queued_walk_of(const Source& src, int ns,
 // Each lane first loads its own row's bounds and values (Stream::load),
 // coalesced, and a group takes them by shuffle (Stream::shfl), so that a
 // row's stream waits on no other load. Lane g of a group takes pairs g,
-// g + G, ..., with kAhead nbr loads (streaming, __ldcs: the list is read
+// g + G, ..., with kAhead record loads (streaming, __ldcs: the list is read
 // once) in flight ahead of their gathers; Stream::add adds a pair's terms
 // into the lane's sums, the group's partial sums are reduced with
 // __shfl_xor_sync (Stream::reduce) and the group's lane 0 writes the row's
@@ -326,11 +327,11 @@ __device__ __forceinline__ float lane_group_sum(float x) {
   return x;
 }
 
-template <int kGroup, int kAhead, typename Stream>
+template <int kGroup, int kAhead, typename Stream, typename Rec>
 __device__ __forceinline__ void stream_rows(int n,
                                             const int* __restrict__ base,
                                             const int* __restrict__ cnt,
-                                            const int* __restrict__ nbr,
+                                            const Rec* __restrict__ nbr,
                                             const Stream& s) {
   static_assert(kGroup >= 1 && kGroup <= 32 && (kGroup & (kGroup - 1)) == 0,
                 "kGroup must be a power of two no larger than a warp");
@@ -348,20 +349,20 @@ __device__ __forceinline__ void stream_rows(int n,
   const int g = lane & (kGroup - 1);
   // Rows past n hold no pairs: their groups only join the shuffles.
   for (int k = lane / kGroup; k < 32; k += 32 / kGroup) {
-    const int* const pairs = nbr + __shfl_sync(kFullWarp, lo_t, k);
+    const Rec* const pairs = nbr + __shfl_sync(kFullWarp, lo_t, k);
     const int end = __shfl_sync(kFullWarp, cnt_t, k);
     const typename Stream::Row row = Stream::shfl(own, k);
     typename Stream::Sums sum{};
     for (int t0 = g; t0 < end; t0 += kGroup * kAhead) {
-      int j[kAhead];
+      Rec j[kAhead];
 #pragma unroll
       for (int u = 0; u < kAhead; ++u) {
         const int t = t0 + u * kGroup;
-        j[u] = t < end ? __ldcs(pairs + kListStride * t) : -1;
+        j[u] = t < end ? __ldcs(pairs + kListStride * t) : Rec{};
       }
 #pragma unroll
       for (int u = 0; u < kAhead; ++u)
-        if (j[u] >= 0) s.add(sum, row, j[u]);
+        if (t0 + u * kGroup < end) s.add(sum, row, j[u]);
     }
     sum = Stream::template reduce<kGroup>(sum);
     if (g == 0 && row0 + k < n) s.store(row0 + k, row, sum);

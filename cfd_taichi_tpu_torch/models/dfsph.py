@@ -21,8 +21,9 @@ step-constant sums fold into the fluid's before the alpha factor, the
 solid viscosity joins the external force, the loop-constant contact dot
 C_s joins both loops' density rate, the body's speed joins the CFL
 velocity, and in a two-way coupled scene each density iteration adds the
-fluid's reaction to the body's per-particle force. The body moves in
-models/rigid.step, after the fluid step.
+fluid's reaction to the body's per-particle force, a stream over the
+body's fluid pairs that the prepare lists once a step (`loop_lists`). The
+body moves in models/rigid.step, after the fluid step.
 
 The two pressure loops run on the device as JAX's do, through
 ops/loops.while_loop_unrolled: `loop_unroll(scene)` gated iterations a
@@ -35,8 +36,9 @@ the device from the carried counters and residuals.
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Callable, NamedTuple
+from typing import Callable, Iterator, NamedTuple
 
 import torch
 
@@ -218,21 +220,23 @@ class _Pre(NamedTuple):
 
 
 def loop_engine(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
-                ft: stencil.FluidTerms
+                ft: stencil.FluidTerms, n_pairs: int | None = None
                 ) -> tuple[Callable, Callable, coef.CoefEngine | None]:
     """(matvec, matvec_dot, store) of a step's loops over the cell-sorted
     `pos`: the stored-coefficient engine and its pair store when the store
     fits `COEF_BYTE_BUDGET` in `COEF_DTYPE`, else the recompute kernels and
     None. The counterpart of JAX's `build_dense_engine` (`cfd_taichi_tpu/
     models/dfsph.py:332`), which DFSPH and IISPH share; PCISPH's predicted
-    density streams the store's rows."""
+    density streams the store's rows. `n_pairs`: the fluid pair count
+    where the caller read it with another size (`loop_lists`)."""
     grid, h, m = scene.grid, scene.h, scene.particle_m
     # The one host read of the prepare: the pair count sizes nbr and w.
     # (The loops read their condition once a trip anyway; an upper bound
     # from the count maximum would need a read too.) Summed in int64, so
     # that a scene far beyond the budget cannot wrap it.
-    n_pairs = int(ft.count.sum(dtype=torch.int64))
-    scene.loop_graphs.reads += 1
+    if n_pairs is None:
+        n_pairs = int(ft.count.sum(dtype=torch.int64))
+        scene.loop_graphs.reads += 1
     if use_coef_engine(n_pairs, COEF_DTYPE):
         eng = coef.build_coef(pos, starts, grid, h, m,
                               coef.csr_offsets(ft.count), COEF_DTYPE,
@@ -242,6 +246,46 @@ def loop_engine(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
     return (functools.partial(stencil.matvec, pos, starts, grid, h, m),
             functools.partial(stencil.matvec_dot, pos, starts, grid, h, m),
             None)
+
+
+# Set within `walked_reaction` only.
+_WALK_REACTION = False
+
+
+@contextlib.contextmanager
+def walked_reaction() -> Iterator[None]:
+    """Within it, coupled DFSPH and PCISPH steps walk the body's reaction
+    each loop iteration (`rigid_ops.rigid_side_force`, IISPH's and WCSPH's
+    form) instead of streaming the list that `loop_lists` builds: the
+    tests' and chip_smoke's comparison of the two forms."""
+    global _WALK_REACTION
+    was, _WALK_REACTION = _WALK_REACTION, True
+    try:
+        yield
+    finally:
+        _WALK_REACTION = was
+
+
+def loop_lists(scene: Scene, rigid: base.RigidBodyState, pos: torch.Tensor,
+               starts: torch.Tensor, ft: stencil.FluidTerms
+               ) -> tuple[Callable, Callable, coef.CoefEngine | None,
+                          rigid_ops.SideList | None]:
+    """`loop_engine`'s three and, on a scene whose fluid pushes the body
+    back, the body's reaction list at the cell-sorted `pos`
+    (`rigid_ops.rigid_side_list`), built once before the loop that streams
+    it once an iteration; None where there is no such body, or within
+    `walked_reaction`. The list's size is read with the pair count, in the
+    prepare's one host read."""
+    if _WALK_REACTION or not (scene.coupled and scene.fs_couple):
+        return (*loop_engine(scene, pos, starts, ft), None)
+    offs = rigid_ops.rigid_side_rows(rigid.pos, starts, scene.grid)
+    n_pairs, room = torch.stack([ft.count.sum(dtype=torch.int64),
+                                 offs[-1]]).tolist()
+    scene.loop_graphs.reads += 1
+    return (*loop_engine(scene, pos, starts, ft, n_pairs),
+            rigid_ops.rigid_side_list(rigid.pos, scene.rigid_volume, pos,
+                                      starts, scene.grid, scene.h, RHO_0,
+                                      offs, stencil.LIST_STRIDE * room))
 
 
 def prepare(scene: Scene, state: base.SimState) -> _Pre:
@@ -265,12 +309,13 @@ def prepare_sorted(scene: Scene, rigid: base.RigidBodyState,
                    shard: base.Shard | None = None) -> _Pre:
     """`prepare` on rows already cell-sorted, with CSR `starts`: also the
     sharded step's (no `acc` to carry; `oid` -1 on the ghost rows), whose
-    rho quirk table and reaction take the rank's hooks (`shard`)."""
+    rho quirk table and reaction take the rank's hooks (`shard`); the
+    reaction list is built on the rank's rows."""
     grid, h, m = scene.grid, scene.h, scene.particle_m
     ft, bt = base.one_shot_terms(scene, pos, starts)
     table, rt = base.body_terms(scene, rigid, pos)
     rho, alpha, S, tension = dense_pre_terms(scene, ft, bt, rt)
-    mv, mvd, _ = loop_engine(scene, pos, starts, ft)
+    mv, mvd, _, side = loop_lists(scene, rigid, pos, starts, ft)
 
     def ext_force_fn(v):
         visc = stencil.viscosity(pos, starts, grid, h, m, v, rho,
@@ -291,7 +336,8 @@ def prepare_sorted(scene: Scene, rigid: base.RigidBodyState,
         if scene.fs_couple:
             def scatter_fn(k_over_rho, force):
                 return base.body_reaction(scene, rigid, pos, starts,
-                                          k_over_rho * f32(m), force, shard)
+                                          k_over_rho * f32(m), force, shard,
+                                          side)
 
     return _Pre(pos=pos, oid=oid, vel=vel, acc=acc, warm_k=warm_k, rho=rho,
                 alpha=alpha, count=ft.count, S=S, mv=mv, mvd=mvd,

@@ -29,7 +29,8 @@ scenes with a rigid body:
   the predicted density a third walk over the body (which keeps its
   positions through the step; only queries inside the body's box grown by
   h take it, the box made once a step), and in a two-way coupled scene each
-  iteration adds the fluid's reaction u to the body's force;
+  iteration adds the fluid's reaction u to the body's force, a stream over
+  the body's fluid pairs listed once a step (`dfsph.loop_lists`);
 * the loop p <- max(p + err delta, 0) while the average positive density
   error exceeds 0.1 % of rho0, 1 to 80 iterations; integration with 0.9999
   damping.
@@ -44,7 +45,7 @@ from __future__ import annotations
 import torch
 
 from cfd_taichi_tpu_torch.models import base, dfsph
-from cfd_taichi_tpu_torch.models.dfsph import dot, loop_engine
+from cfd_taichi_tpu_torch.models.dfsph import dot, loop_lists
 from cfd_taichi_tpu_torch.ops import loops
 from cfd_taichi_tpu_torch.ops import neighbors as nb
 from cfd_taichi_tpu_torch.ops import rigid as rigid_ops
@@ -145,7 +146,8 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
     iteration's pressure reaches the ghost rows from their owners, the
     residual is taken over the ranks, and on a coupled scene the reaction
     of the rank's owned rows accumulates from zeros in the loop and is
-    summed over the ranks after it (`base.reaction_total`)."""
+    summed over the ranks after it (`base.reaction_total`); the reaction
+    list is built on the rank's rows."""
     grid, h, m = scene.grid, scene.h, scene.particle_m
     ft, bt = base.one_shot_terms(scene, pos, starts)
     rho = f32(base.DENSITY_EPS) + ft.rho
@@ -155,7 +157,7 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
     if rt is not None:
         rho = rho + rt.rho
     inv_rho2 = torch.reciprocal(rho * rho)
-    mv, _, store = loop_engine(scene, pos, starts, ft)
+    mv, _, store, side = loop_lists(scene, rigid, pos, starts, ft)
     walls = base.walls(scene)
     box = None if table is None else stencil.make_body_box(table.pos, h)
 
@@ -181,7 +183,7 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
             f = f - rt.s * u[:, None]
             if scene.fs_couple:
                 rigid_force = base.body_reaction(scene, rigid, pos, starts,
-                                                 u, rigid_force, shard)
+                                                 u, rigid_force, shard, side)
         if bt is not None:
             f = f + bt.s * (-m * p * inv_rho2)[:, None]
         return f, rigid_force

@@ -27,7 +27,17 @@ fit together; the launch counts are rows of `stencil.KERNELS`):
   table: F_j += sum_i rho0 V_j c (x_i - x_j) u_i. JAX computes it from the
   rigid side, one pair once, with no scatter; so does the kernel, one
   thread a rigid particle and no atomics, so that a run repeats bit for
-  bit and the card can be held to the CPU.
+  bit and the card can be held to the CPU. It walks the fluid's stencil:
+  the form of IISPH and WCSPH, which charge the reaction once a step;
+* `rigid_side_rows`, `rigid_side_list` and `rigid_side_force_list` (the same
+  source): the form of DFSPH's density loop and PCISPH's loop, which
+  charge it once an iteration over the same start-of-step geometry. As
+  JAX's build_rigid_side hoists the pair vectors, the list entry walks
+  once a step and stores each charged pair (`SideList`: the fluid index
+  and g = rho0 V_j c (x_i - x_j)), in rows that `rigid_side_rows` sizes before
+  it from the fluid's CSR offsets at the body's own cells (a warp's 32
+  rows interleaved, as PBF's pair list); the stream then adds g u_i over
+  each row in walk order, bit for bit as the walk.
 
 Pairs are those with r2 <= f32(h)^2 at the start-of-step positions, r =
 sqrt(max(r2, 1e-24)) (`_geom0`, rigid_dense.py:118-127); the reaction
@@ -47,9 +57,12 @@ from cfd_taichi_tpu_torch.ops import neighbors as nb
 from cfd_taichi_tpu_torch.ops.smoothing import (CubicConstants,
                                                 cubic_grad_coeff, cubic_w,
                                                 f32)
-from cfd_taichi_tpu_torch.ops.stencil import (KERNELS, _check, _launch,
-                                              _on_cuda, _pair_chunks,
-                                              _params, _rowsum, _rowsum3)
+from cfd_taichi_tpu_torch.ops.stencil import (KERNELS, LIST_STRIDE, _check,
+                                              _launch, _on_cuda,
+                                              _pair_chunks, _params, _rowsum,
+                                              _rowsum3, checked_slots,
+                                              walk_offsets, warp_bases,
+                                              warp_offsets)
 
 
 class RigidTable(NamedTuple):
@@ -66,6 +79,17 @@ class RigidTerms(NamedTuple):
     s: torch.Tensor      # (N, 3) sum w_s c x_ij
     qsum: torch.Tensor   # (N,)  sum (w_s c r)^2
     g2: torch.Tensor     # (N,)  sum w_s c^2 r^2
+
+
+class SideList(NamedTuple):
+    """The fluid-rigid pairs that the reaction charges, at the start-of-
+    step positions: row j's t-th is rec[base[j] + LIST_STRIDE t], t <
+    cnt[j], in walk order, (i, g_x, g_y, g_z) with i the cell-sorted fluid
+    index and g = rho0 V_j c(r) (x_i - x_j) as f32 bit patterns. The slots
+    of a row past cnt[j] are never written or read."""
+    base: torch.Tensor  # (Nr,) int32
+    cnt: torch.Tensor   # (Nr,) int32
+    rec: torch.Tensor   # (slots, 4) int32
 
 
 def rigid_table(grid: nb.GridSpec, pos: torch.Tensor,
@@ -191,6 +215,91 @@ def rigid_side_force(rpos: torch.Tensor, rvol: torch.Tensor,
     return out
 
 
+def rigid_side_rows(rpos: torch.Tensor, starts: torch.Tensor,
+              grid: nb.GridSpec) -> torch.Tensor:
+    """R4, rows entry: the (warps + 1,) int64 warp offsets (stencil.
+    warp_offsets) of the reaction list of the body's (Nr, 3) `rpos`, in
+    original order, over the fluid's CSR table `starts`: each warp's room
+    is its rows' largest fluid stencil count, read from `starts` at the
+    body's own cells. No host read: the list's size is LIST_STRIDE
+    offs[-1] (`list_slots`)."""
+    if not _on_cuda("rigid_side_rows", rpos):
+        return rigid_side_rows_plain(rpos, starts, grid)
+    nr = rpos.shape[0]
+    _check("rigid pos", rpos, torch.float32, (nr, 3), rpos.device)
+    _check("starts", starts, torch.int32, (grid.num_cells + 1,), rpos.device)
+    if nr == 0:
+        return torch.zeros(1, dtype=torch.int64, device=rpos.device)
+    # room[0] = 0 and each warp's room after it, written by the kernel
+    room = torch.empty(-(-nr // LIST_STRIDE) + 1, dtype=torch.int64,
+                       device=rpos.device)
+    _launch("rigid_side_rows", rpos.device, rpos, nr, starts,
+            ctypes.byref(_params(grid, grid.cell)), room)
+    return torch.cumsum(room, 0)
+
+
+def list_slots(offs: torch.Tensor) -> int:
+    """The slots of the reaction list with warp offsets `offs`
+    (`rigid_side_rows`), read on the host."""
+    return LIST_STRIDE * int(offs[-1])
+
+
+def _check_side(side: SideList, device: torch.device) -> int:
+    nr = side.base.shape[0]
+    _check("side.base", side.base, torch.int32, (nr,), device)
+    _check("side.cnt", side.cnt, torch.int32, (nr,), device)
+    _check("side.rec", side.rec, torch.int32, (side.rec.shape[0], 4),
+           device)
+    if side.rec.data_ptr() % 16:
+        raise ValueError("side.rec: want 16-byte aligned records")
+    return nr
+
+
+def rigid_side_list(rpos: torch.Tensor, rvol: torch.Tensor,
+                    pos: torch.Tensor, starts: torch.Tensor,
+                    grid: nb.GridSpec, h: float, rho0: float,
+                    offs: torch.Tensor, slots: int) -> SideList:
+    """R4, list entry: the pairs that `rigid_side_force` charges, stored
+    once a step in the rows of the warp offsets `offs` (`rigid_side_rows`;
+    `slots` is their `list_slots`, read on the host) with their g = rho0
+    V_j c (x_i - x_j) (replaces rigid_dense.build_rigid_side)."""
+    nr = rpos.shape[0]
+    slots = checked_slots(slots, nr)
+    if not _on_cuda("rigid_side_list", rpos):
+        return rigid_side_list_plain(rpos, rvol, pos, starts, grid, h, rho0,
+                                     offs, slots)
+    n = pos.shape[0]
+    _check("rigid pos", rpos, torch.float32, (nr, 3), rpos.device)
+    _check("rigid vol", rvol, torch.float32, (nr,), rpos.device)
+    _check("pos", pos, torch.float32, (n, 3), rpos.device)
+    _check("starts", starts, torch.int32, (grid.num_cells + 1,), rpos.device)
+    _check("offs", offs, torch.int64, (-(-nr // LIST_STRIDE) + 1,),
+           rpos.device)
+    side = SideList(torch.empty(nr, dtype=torch.int32, device=rpos.device),
+                    torch.empty(nr, dtype=torch.int32, device=rpos.device),
+                    torch.empty(slots, 4, dtype=torch.int32,
+                                device=rpos.device))
+    _check_side(side, rpos.device)
+    _launch("rigid_side_list", rpos.device, rpos, rvol, nr, pos, starts, n,
+            ctypes.byref(_params(grid, h)), f32(rho0), offs, *side)
+    return side
+
+
+def rigid_side_force_list(side: SideList, u: torch.Tensor,
+                          force: torch.Tensor) -> torch.Tensor:
+    """R4, stream: (Nr, 3) force_j + sum_t g_jt u[i_jt] over the stored
+    `side` (`rigid_side_list`), each row in walk order (replaces
+    rigid_dense.rigid_side_force)."""
+    if not _on_cuda("rigid_side_force_list", force):
+        return rigid_side_force_list_plain(side, u, force)
+    nr = _check_side(side, force.device)
+    _check("u", u, torch.float32, (u.shape[0],), force.device)
+    _check("force", force, torch.float32, (nr, 3), force.device)
+    out = torch.empty_like(force)
+    _launch("rigid_side_force_list", force.device, nr, *side, u, force, out)
+    return out
+
+
 def rigid_counts(pos: torch.Tensor, table: RigidTable, grid: nb.GridSpec,
                  h: float) -> torch.Tensor:
     """(N,) int32 rigid particles within h of each cell-sorted fluid query,
@@ -289,3 +398,66 @@ def rigid_side_force_plain(rpos: torch.Tensor, rvol: torch.Tensor,
         out[rows] += torch.stack([_rowsum(valid, ((-d) * coeff) * ui)
                                   for d in pr.d], dim=1)
     return out
+
+
+def rigid_side_rows_plain(rpos: torch.Tensor, starts: torch.Tensor,
+                          grid: nb.GridSpec) -> torch.Tensor:
+    """The warp offsets from the fluid's stencil count of every cell
+    (`nb.stencil_counts`) at the body's cells."""
+    KERNELS["rigid_side_rows"].plain_calls += 1
+    return warp_offsets(nb.stencil_counts(starts, grid).index_select(
+        0, nb.cell_id(rpos, grid)))
+
+
+def rigid_side_list_plain(rpos: torch.Tensor, rvol: torch.Tensor,
+                          pos: torch.Tensor, starts: torch.Tensor,
+                          grid: nb.GridSpec, h: float, rho0: float,
+                          offs: torch.Tensor, slots: int) -> SideList:
+    """The pairs in the kernel's walk order, stored in the rows of `offs`
+    as the kernel stores them (the slots past a row's count hold -1), so
+    that each row's records compare exactly."""
+    KERNELS["rigid_side_list"].plain_calls += 1
+    nr = rpos.shape[0]
+    side = SideList(warp_bases(offs, nr),
+                    torch.zeros(nr, dtype=torch.int32, device=rpos.device),
+                    torch.full((slots, 4), -1, dtype=torch.int32,
+                               device=rpos.device))
+    hf = CubicConstants.of(h).h
+    for sl, pr in _pair_chunks(rpos, pos, starts, grid, h,
+                               exclude_self=False,
+                               offsets=walk_offsets(grid)):
+        coeff = (f32(rho0) * rvol[sl, None]) * cubic_grad_coeff(pr.r, h)
+        valid = pr.valid & (pr.r <= hf)
+        side.cnt[sl] = valid.sum(dim=1, dtype=torch.int32)
+        at = side.base[sl, None].long() \
+            + LIST_STRIDE * (valid.cumsum(dim=1) - 1)
+        # x_i - x_j: the chunks' d is query (rigid) minus source (fluid).
+        g = torch.stack([(-d) * coeff for d in pr.d], dim=-1)
+        side.rec[at[valid]] = torch.cat(
+            [pr.slot[valid, None].to(torch.int32),
+             g[valid].view(torch.int32)], dim=1)
+    return side
+
+
+def side_pairs(side: SideList
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(rows, fluid indices, g) of every stored pair, the first two int64,
+    g (P, 3) f32, in pair order: row by row, each row's in walk order."""
+    cnt = side.cnt.long()
+    rows = torch.repeat_interleave(
+        torch.arange(cnt.shape[0], device=cnt.device), cnt)
+    first = torch.cumsum(cnt, 0) - cnt
+    at = side.base.long()[rows] + LIST_STRIDE * (torch.arange(
+        rows.shape[0], device=cnt.device) - first[rows])
+    rec = side.rec[at]
+    return rows, rec[:, 0].long(), rec[:, 1:].contiguous().view(torch.float32)
+
+
+def rigid_side_force_list_plain(side: SideList, u: torch.Tensor,
+                                force: torch.Tensor) -> torch.Tensor:
+    """The stream form: each stored pair's g u_i added into its row in pair
+    order (index_add_), then to the force."""
+    KERNELS["rigid_side_force_list"].plain_calls += 1
+    rows, i, g = side_pairs(side)
+    return force + torch.zeros_like(force).index_add_(0, rows,
+                                                      g * u[i][:, None])

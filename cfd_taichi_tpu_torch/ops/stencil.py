@@ -118,8 +118,17 @@ KERNELS = {k.name: k for k in (
            "cfd_taichi_tpu/ops/rigid_dense.py:161"),
     Kernel("rigid_viscosity", _CSRC + "rigid_viscosity.cu",
            "cfd_taichi_tpu/ops/rigid_dense.py:202"),
+    # The reaction's walk (IISPH, WCSPH: once a step); the list's rows and
+    # the list, built once a step, and the list's stream (DFSPH's density
+    # loop, PCISPH's loop).
     Kernel("rigid_side_force", _CSRC + "rigid_side_force.cu",
            "cfd_taichi_tpu/ops/rigid_dense.py:255, :281"),
+    Kernel("rigid_side_rows", _CSRC + "rigid_side_force.cu",
+           "cfd_taichi_tpu/ops/rigid_dense.py:255"),
+    Kernel("rigid_side_list", _CSRC + "rigid_side_force.cu",
+           "cfd_taichi_tpu/ops/rigid_dense.py:255"),
+    Kernel("rigid_side_force_list", _CSRC + "rigid_side_force.cu",
+           "cfd_taichi_tpu/ops/rigid_dense.py:281"),
     # The stored-coefficient engine (ops/coef.py).
     Kernel("coef_build", _CSRC + "coef_build.cu",
            "cfd_taichi_tpu/ops/bandmat.py:682"),
@@ -526,29 +535,50 @@ def _pbf_out(pos: torch.Tensor) -> PbfTerms:
                     around=pos.new_empty(n), ssum=pos.new_empty(n, 3))
 
 
+def warp_offsets(counts: torch.Tensor) -> torch.Tensor:
+    """(warps + 1,) int64 offsets of a pair list whose N rows hold at most
+    `counts` ((N,) int) pairs each: 0, then the running sum of each warp's
+    room, its 32 rows' largest count, so that warp w's first slot is
+    LIST_STRIDE offs[w] and the list holds LIST_STRIDE offs[-1] slots."""
+    n = counts.shape[0]
+    warps = -(-n // LIST_STRIDE)
+    room = torch.nn.functional.pad(counts, (0, warps * LIST_STRIDE - n)).view(
+        warps, LIST_STRIDE).amax(dim=1)
+    return torch.nn.functional.pad(torch.cumsum(room, 0, dtype=torch.int64),
+                                   (1, 0))
+
+
+def warp_bases(offs: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) int32 first slot of each row of a list with warp offsets `offs`
+    (`warp_offsets`): its warp's, plus its lane, the warp's rows
+    interleaved (row i's pair t in slot base[i] + LIST_STRIDE t)."""
+    lane = torch.arange(LIST_STRIDE, dtype=torch.int32, device=offs.device)
+    return (offs[:-1].to(torch.int32)[:, None] * LIST_STRIDE
+            + lane).reshape(-1)[:n]
+
+
+def checked_slots(size: int, n: int) -> int:
+    """A pair list's size read on the host; raises where its slots pass
+    what int32 offsets address."""
+    if size > torch.iinfo(torch.int32).max:
+        raise ValueError(f"the pair list of {n} rows needs {size} slots, "
+                         f"more than int32 offsets address")
+    return size
+
+
 def pair_rows(starts: torch.Tensor, grid: GridSpec,
               cells: torch.Tensor) -> PairRows:
     """The rows of the pair list that pbf_terms stores, for cell-sorted
     fluid rows in the cells `cells` ((N,) ids, the sort's) of the CSR table
     `starts`. A row's pairs are a subset of its walk's candidates,
     `stencil_counts(starts, grid)` at its cell; each warp of 32 rows gets
-    room for its rows' largest count, its rows interleaved (row i's pair t
-    in slot base[i] + LIST_STRIDE t), so that no row can overflow. One host
-    read: the size. Raises where the slots pass what int32 offsets
-    address."""
+    room for its rows' largest count (`warp_offsets`), so that no row can
+    overflow. One host read: the size. Raises where the slots pass what
+    int32 offsets address."""
     n = cells.shape[0]
-    warps = -(-n // LIST_STRIDE)
-    room = torch.nn.functional.pad(
-        stencil_counts(starts, grid).index_select(0, cells),
-        (0, warps * LIST_STRIDE - n)).view(warps, LIST_STRIDE).amax(dim=1)
-    end = torch.cumsum(room, 0, dtype=torch.int64)
-    size = LIST_STRIDE * int(end[-1]) if warps else 0
-    if size > torch.iinfo(torch.int32).max:
-        raise ValueError(f"the pair list of {n} rows needs {size} slots, "
-                         f"more than int32 offsets address")
-    lane = torch.arange(LIST_STRIDE, dtype=torch.int32, device=cells.device)
-    base = ((end - room).to(torch.int32)[:, None] * LIST_STRIDE + lane)
-    return PairRows(base.reshape(-1)[:n], size)
+    offs = warp_offsets(stencil_counts(starts, grid).index_select(0, cells))
+    size = checked_slots(LIST_STRIDE * int(offs[-1]), n)
+    return PairRows(warp_bases(offs, n), size)
 
 
 def pbf_terms(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,

@@ -21,9 +21,10 @@ function needs:
 27-cell walk: work the kernels' algorithm does, not work the function
 needs, so it is reported beside the bound and never sets it. So is
 `Work.stream_bytes`, the bytes a kernel that streams a stored pair list
-(pcisph_predict_rho_list, pbf_lambda, pbf_xsph) must read, or that
-pbf_terms moves with the list it stores: the list is the design's, not
-the function's input or output. Where a
+(pcisph_predict_rho_list, pbf_lambda, pbf_xsph, rigid_side_force_list)
+must read, or that pbf_terms moves with the list it stores: the list is
+the design's, not the function's input or output (rigid_side_list, whose
+function is to list the pairs, writes it as its output). Where a
 kernel does more work than counted (viscosity evaluates its force only on
 compressive pairs, which are not counted), the bound is lower than the
 least time, never higher.
@@ -37,7 +38,8 @@ import torch
 
 from cfd_taichi_tpu_torch.ops.neighbors import (GridSpec, cell_coords,
                                                   cell_id, stencil_counts)
-from cfd_taichi_tpu_torch.ops.stencil import _pair_chunks, count_pairs
+from cfd_taichi_tpu_torch.ops.stencil import (LIST_STRIDE, _pair_chunks,
+                                              count_pairs)
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -77,6 +79,8 @@ PAIR_OPS = {
     "rigid_viscosity": 6,
     # r, rho0 V_j gc, the r <= h test, three products and sums
     "rigid_side_force": 29,
+    # r, rho0 V_j gc, the r <= h test, the three products of g
+    "rigid_side_list": 23,
     # the predicted distance (8), r, q, W, rho0 V_s and its product, the
     # sum (as the boundary walk)
     "pcisph_predict_rho_rigid": 27,
@@ -206,10 +210,29 @@ def rigid_work(x: dict) -> dict[str, Work]:
         partners[pr.slot[pr.valid]] = True
     # the body's pos, V_j and force in, force out; the partners' pos and
     # u; the offsets of the cells of the body's stencils
-    side = (40 * nr + 16 * int(partners.sum())
-            + 8 * stencil_cells(x["rpos"], g))
-    out["rigid_side_force"] = _pair_work(
-        "rigid_side_force", side, candidates(x["rpos"], x["st"], g), pairs)
+    partners = int(partners.sum())
+    cells_side = 8 * stencil_cells(x["rpos"], g)
+    side = 40 * nr + 16 * partners + cells_side
+    side_cand = candidates(x["rpos"], x["st"], g)
+    out["rigid_side_force"] = walk = _pair_work("rigid_side_force", side,
+                                                side_cand, pairs)
+    # the list's rows: the body's pos and the offsets in, a warp's room
+    # out; a row's nine run lengths and their sum
+    warps = -(-nr // LIST_STRIDE)
+    out["rigid_side_rows"] = Work(12 * nr + cells_side + 8 * (warps + 1),
+                                  18 * nr, 18 * nr)
+    # the list: the body's pos and V_j, the partners' pos, the offsets and
+    # the warps' offsets in; each row's base and count and a 16-byte
+    # record a pair out
+    out["rigid_side_list"] = _pair_work(
+        "rigid_side_list", 24 * nr + 12 * partners + cells_side
+        + 8 * (warps + 1) + 16 * pairs, side_cand, pairs)
+    # the stream: the reaction's function (the walk's), and the bytes it
+    # moves with the list: each row's base and count, its records, the
+    # partners' u, the force in and out
+    out["rigid_side_force_list"] = Work(
+        walk.bytes, walk.ops, walk.ops,
+        8 * nr + 16 * pairs + 4 * partners + 24 * nr)
     sc, st = x["sc"], x["st"]
     pairs_f = count_pairs(p, p, st, g, x["h"], exclude_self=True)
     walks = [stencil_work("pcisph_predict_rho", n, cells,

@@ -1,8 +1,9 @@
 """Every hand-written kernel's call on a scene's seed lattice, beside its
-plain version, its work and, for the coef contraction, the one PyTorch
-call that computes its lane sums; and the one measurement of such a call
-that chip_smoke.py and perf/kernel_table.py share: its time (CUDA events),
-its bound and the share of it reached, and the library call's time."""
+plain version, its work and, for the coef contraction and the body's
+reaction stream, the one PyTorch call that computes the same function;
+and the one measurement of such a call that chip_smoke.py and perf/
+kernel_table.py share: its time (CUDA events), its bound and the share of
+it reached, and the library call's time."""
 
 from __future__ import annotations
 
@@ -38,8 +39,9 @@ class Case(NamedTuple):
     kern: Callable         # the wrapper's call (a CUDA launch on the card)
     plain: Callable        # the plain version's call on the same inputs
     work: bounds.Work
-    # {lanes layout: call} of the one-call library yardstick, or {}; the
-    # contraction's kern and plain then also take `lane_sums=True`.
+    # {layout: call} of the one-call library yardstick, or {}: for the
+    # coef contraction its lane sums (kern and plain then also take
+    # `lane_sums=True`), else the kernel's output.
     library: dict = {}
     # maps kern's or plain's output to the tensors compared, or None (all
     # of them): pbf_terms' pair list is compared row by row (`compared`)
@@ -64,6 +66,44 @@ def pbf_terms_view(out: tuple) -> tuple:
     fluid, pairs, boundary = out
     return (*fluid, pairs.cnt, S.stored_pairs(pairs)[1].to(torch.int32),
             *boundary)
+
+
+def side_list_view(side: R.SideList) -> tuple:
+    """The reaction list as each row's count and, over all rows in pair
+    order, the fluid indices (int32, compared exactly) and the pair
+    vectors g."""
+    _, i, g = R.side_pairs(side)
+    return side.cnt, i.to(torch.int32), g
+
+
+def side_list(x: dict) -> tuple[tuple, R.SideList]:
+    """The arguments of `rigid_side_list` on coupled inputs `x`, its rows
+    made as a step makes them (`rigid_side_rows`), and the list its
+    wrapper builds from them: the list the stream reads."""
+    offs = R.rigid_side_rows(x["rpos"], x["st"], x["grid"])
+    args = (x["rpos"], x["rvol"], x["p"], x["st"], x["grid"], x["h"], RHO0,
+            offs, R.list_slots(offs))
+    return args, R.rigid_side_list(*args)
+
+
+def side_library_calls(side: R.SideList, u: torch.Tensor,
+                       force: torch.Tensor) -> dict:
+    """{form: call}: the reaction stream's function as one sparse matrix-
+    vector product, force + G u with G the (3 Nr, N) CSR matrix of the
+    stored g (row 3 j + axis, column the fluid index i), made here outside
+    the timing: `torch.addmv` and `@` (cuSPARSE SpMV on the card). A
+    yardstick for the stream, which the port never calls."""
+    rows, i, g = R.side_pairs(side)
+    nr = side.cnt.shape[0]
+    axis = torch.arange(3, device=i.device)
+    a = torch.sparse_coo_tensor(
+        torch.stack([(3 * rows[:, None] + axis).reshape(-1),
+                     i[:, None].expand(-1, 3).reshape(-1)]),
+        g.reshape(-1), (3 * nr, u.shape[0]),
+        check_invariants=False).coalesce().to_sparse_csr()
+    f = force.reshape(-1)
+    return {"addmv": lambda: torch.addmv(f, a, u).view(nr, 3),
+            "matmul": lambda: (f + a @ u).view(nr, 3)}
 
 
 def fluid_pairs(x: dict) -> int:
@@ -202,13 +242,16 @@ def rigid_cases(x: dict, work: dict | None = None) -> Iterator[Case]:
     """The fluid-rigid kernels on coupled inputs `x` (perf/inputs.
     coupled_inputs), as a coupled step calls them: the solid sums, the
     contact dot of x["v_r"], the solid viscosity, the reaction of x["u"]
-    on x["force"], and PCISPH's predicted density at x["shifted"] with its
+    on x["force"] by the walk, the reaction list's rows, the list, and its
+    stream over the list that the wrappers made here once (`side_list`;
+    its library yardstick `side_library_calls`), and PCISPH's predicted
+    density at x["shifted"] with its
     walk over the body (and the walls, where the scene has them): its
     stream form over the pair store of x["p"] as pcisph_predict_rho_rigid
     (the coupled PCISPH step's on the stored-coefficient engine), and its
     stencil form under its own name with the key
     "pcisph_predict_rho_body". `work` by kernel name (bounds.rigid_work),
-    or None. No one PyTorch call computes any of them."""
+    or None. No one PyTorch call computes any of the others."""
     g, h, m, p, t = (x[k] for k in ("grid", "h", "m", "p", "table"))
     work = work or {}
     predict = (p, x["st"], g, h, m, x["shifted"], base.walls(x["sc"]), RHO0,
@@ -218,6 +261,9 @@ def rigid_cases(x: dict, work: dict | None = None) -> Iterator[Case]:
             x["body_vel"], VISC["c_s"], VISC["alpha"])
     side = (x["rpos"], x["rvol"], p, x["st"], g, h, RHO0, x["u"],
             x["force"])
+    build, listed = side_list(x)
+    stream = (listed, x["u"], x["force"])
+    rows = (x["rpos"], x["st"], g)
     for name, kern, plain in (
             ("rigid_terms", lambda: R.rigid_terms(p, t, g, h, RHO0),
              lambda: R.rigid_terms_plain(p, t, g, h, RHO0)),
@@ -228,10 +274,20 @@ def rigid_cases(x: dict, work: dict | None = None) -> Iterator[Case]:
              lambda: R.rigid_viscosity_plain(*visc)),
             ("rigid_side_force", lambda: R.rigid_side_force(*side),
              lambda: R.rigid_side_force_plain(*side)),
+            ("rigid_side_rows", lambda: R.rigid_side_rows(*rows),
+             lambda: R.rigid_side_rows_plain(*rows)),
+            ("rigid_side_list", lambda: R.rigid_side_list(*build),
+             lambda: R.rigid_side_list_plain(*build)),
+            ("rigid_side_force_list",
+             lambda: R.rigid_side_force_list(*stream),
+             lambda: R.rigid_side_force_list_plain(*stream)),
             ("pcisph_predict_rho_rigid",
              lambda: S.pcisph_predict_rho(*predict, eng=eng),
              lambda: S.pcisph_predict_rho_list_plain(eng, p, *predict[2:]))):
-        yield Case(name, name, kern, plain, work.get(name))
+        yield Case(name, name, kern, plain, work.get(name),
+                   side_library_calls(*stream)
+                   if name == "rigid_side_force_list" else {},
+                   side_list_view if name == "rigid_side_list" else None)
     yield Case("pcisph_predict_rho", "pcisph_predict_rho_body",
                lambda: S.pcisph_predict_rho(*predict),
                lambda: S.pcisph_predict_rho_plain(*predict),
@@ -290,10 +346,11 @@ def build_error(got: coef.CoefEngine, want: coef.CoefEngine) -> dict:
 def measure(case: Case) -> dict:
     """The case's kernel time (CUDA events, median of 10), its bound (and
     the walk's, `bounds.Work.walk_ops`) and the share of the bound reached.
-    With a library yardstick also the kernel's lane-sum call and each
-    layout of the library call, timed alike, and the library's error
-    against the kernel's lane sums; `library_ms` is the faster layout's
-    time, null where PyTorch refuses the product."""
+    With a library yardstick also each layout of the library call, timed
+    alike, and its error against the kernel's output (the contraction's:
+    against the kernel's lane sums, whose call is timed too);
+    `library_ms` is the faster layout's time, null where PyTorch refuses
+    the product."""
     ms = timing.event_ms(case.kern)
     bound_s, by = case.work.bound()
     walk = bounds.Work(case.work.bytes, case.work.walk_ops).bound()[0]
@@ -304,13 +361,18 @@ def measure(case: Case) -> dict:
             case.work.stream_bytes, case.work.walk_ops).bound()[0] * 1e3
     if not case.library:
         return row
-    want = case.kern(lane_sums=True)
-    row["lane_sums_ms"] = timing.event_ms(
-        lambda: case.kern(lane_sums=True))
+    lanes = case.name in {c[0] for c in CONTRACTIONS}
+    if lanes:
+        want = case.kern(lane_sums=True)
+        row["lane_sums_ms"] = timing.event_ms(
+            lambda: case.kern(lane_sums=True))
+    else:
+        want = case.kern()
     row["library_ms"] = row["library_layout"] = None
     for layout, call in case.library.items():
         try:
-            err = lane_error(call().float(), want)
+            err = (lane_error(call().float(), want) if lanes else
+                   scaled_error(call(), want))
         except (RuntimeError, NotImplementedError) as e:
             row[f"library_note_{layout}"] = \
                 f"not available: {str(e).splitlines()[0]}"

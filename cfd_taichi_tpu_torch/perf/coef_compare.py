@@ -4,7 +4,7 @@ on one card:
     python -m cfd_taichi_tpu_torch.perf.coef_compare \\
         [--kernel coef_matvec|coef_build|viscosity|fluid_terms|
                   boundary_terms|matvec|wcsph_forces|pcisph_predict|
-                  pbf] \\
+                  pbf|rigid_side] \\
         [--variant NAME=PATH ...] [--bit-equal NAME] [--out PATH]
 
 `--kernel` picks the source: csrc/coef_matvec.cu (the default, both
@@ -16,7 +16,11 @@ the inputs' pair store, "list", and the stencil form, "stencil"; and
 both without walls, "list_fluid" and "stencil_fluid") or, for `pbf`,
 csrc/pbf_terms.cu, csrc/pbf_lambda.cu and csrc/pbf_xsph.cu together
 (PBF's fluid pass with its store of the pair list, "terms", and the two
-streams over the tree's list, "lambda" and "xsph"). A
+streams over the tree's list, "lambda" and "xsph"), or, for
+`rigid_side`, csrc/rigid_side_force.cu (the body's reaction: the walk,
+"walk", the list's rows, "rows", the list's build, "list", and the
+stream over the tree's list, "stream", on perf/inputs.body_inputs and
+torus_inputs). A
 variant's PATH is a source of one of those files (it replaces the
 tree's of its name), or
 a directory: its `.cu` of the kernel's names
@@ -82,6 +86,20 @@ lanes and 2 ahead, beside the tree's:
     python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel pbf \\
         --variant g1a8=build/g1a8 --variant g8a2=build/g8a2
 
+The reaction's stream with other lanes a row and records ahead (kSideGroup,
+kSideAhead), each against one lane a row bit for bit:
+
+    for v in "1 4" "1 16" "2 8" "4 4"; do
+        set -- $v; mkdir -p build/s$1a$2
+        sed -e "s/kSideGroup = [0-9]*;/kSideGroup = $1;/" \\
+            -e "s/kSideAhead = [0-9]*;/kSideAhead = $2;/" \\
+            cfd_taichi_tpu_torch/csrc/rigid_side_force.cu \\
+            > build/s$1a$2/rigid_side_force.cu
+    done
+    python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel rigid_side \\
+        --variant s1a4=build/s1a4 --variant s1a16=build/s1a16 \\
+        --variant s2a8=build/s2a8 --variant s4a4=build/s4a4 --bit-equal tree
+
 The recompute products before they took the queued walk (pair term in the
 candidate loop), and the tree's with a queue of 32 hits a thread:
 
@@ -117,9 +135,11 @@ Each source, the tree's ("tree") first, is built into its own library
 (build/compare/<kernel>/<name>/; one that does not build is reported and
 left out) and called through the port's wrappers with that library in
 place of the tree's. It is checked against the plain version on
-breaking_dam_1m's and breaking_dam_30k's jittered lattices and, for the
+breaking_dam_1m's and breaking_dam_30k's jittered lattices (rigid_side:
+on their blocks with a body, perf/inputs.body_inputs) and, for the
 contraction, on two ragged engines of 1000 and 1003 rows (lane sums to
-1e-5 of each lane's largest value), else on the clustered cloud of
+1e-5 of each lane's largest value), for rigid_side on the half-immersed
+torus (perf/inputs.torus_inputs), else on the clustered cloud of
 chip_smoke.py
 (perf/inputs.py; coef_build: nbr exactly, w as perf/cases.build_error
 says; viscosity, matvec, matvec_dot and wcsph_forces: 1e-5 of the largest
@@ -171,7 +191,8 @@ SOURCES = {"coef_matvec": ("coef_matvec.cu",),
            "boundary_terms": ("boundary_terms.cu",),
            "matvec": ("matvec.cu",), "wcsph_forces": ("wcsph_forces.cu",),
            "pcisph_predict": ("pcisph_predict.cu",),
-           "pbf": ("pbf_terms.cu", "pbf_lambda.cu", "pbf_xsph.cu")}
+           "pbf": ("pbf_terms.cu", "pbf_lambda.cu", "pbf_xsph.cu"),
+           "rigid_side": ("rigid_side_force.cu",)}
 # The entry point of a wcsph_forces source from before the packed records,
 # renamed so (see above): (pos, starts, n, params, m, nu_num, q2e_add,
 # tension_mk, vel, rho, p', out, stream).
@@ -187,7 +208,8 @@ def _tensors(out) -> list[torch.Tensor]:
 
 class Entry(NamedTuple):
     label: str                 # what is called, e.g. "f32/coef_matvec"
-    kernel: str                # the kernel's name in the profiler
+    kernel: str | None         # the kernel's name in the profiler; None:
+    #                            a library call, timed by all its kernels
     call: Callable             # one call through the wrapper
     check: Callable[[], float]  # error of a call against the plain version
     # the output tensors of a call that are compared bit for bit
@@ -347,6 +369,8 @@ def entries(kernel: str, x: dict) -> list[Entry]:
         return out
     if kernel == "pbf":
         return pbf_entries(x, p, st, g, h, m)
+    if kernel == "rigid_side":
+        return rigid_side_entries(x)
     if kernel == "viscosity":
         args = (p, st, g, h, m, x["v"], x["rho"])
         want = S.viscosity_plain(*args, **cases.VISC)
@@ -407,6 +431,71 @@ def pbf_entries(x: dict, p, st, g, h: float, m: float) -> list[Entry]:
                   lambda: cases.scaled_error(xsph_call(), xsph_want))]
 
 
+def rigid_side_entries(x: dict) -> list[Entry]:
+    """The body's reaction on coupled inputs `x`: the walk of x["u"] on
+    x["force"] ("walk"), the list's rows ("rows": exactly), the list's
+    build ("list": each row's count and fluid indices exactly, g to 1e-5
+    of scale, against the plain version; bit for bit the counts, indices
+    and g), the stream over the tree's list ("stream") and its library
+    yardstick on that list ("addmv", perf/cases.side_library_calls)."""
+    from cfd_taichi_tpu_torch.ops import rigid as R
+
+    rows_args = (x["rpos"], x["st"], x["grid"])
+    rows_want = R.rigid_side_rows_plain(*rows_args)
+    rows = functools.partial(R.rigid_side_rows, *rows_args)
+
+    walk_args = (x["rpos"], x["rvol"], x["p"], x["st"], x["grid"], x["h"],
+                 cases.RHO0, x["u"], x["force"])
+    build, side = cases.side_list(x)
+    listed = cases.side_list_view
+    want_list = listed(R.rigid_side_list_plain(*build))
+
+    def check_list():
+        got = listed(R.rigid_side_list(*build))
+        if not all(torch.equal(a, b) for a, b in zip(got[:2], want_list)):
+            return float("inf")
+        return cases.scaled_error(got[2], want_list[2])
+
+    walk = functools.partial(R.rigid_side_force, *walk_args)
+    walk_want = R.rigid_side_force_plain(*walk_args)
+    stream = functools.partial(R.rigid_side_force_list, side, x["u"],
+                               x["force"])
+    stream_want = R.rigid_side_force_list_plain(side, x["u"], x["force"])
+    addmv = cases.side_library_calls(side, x["u"], x["force"])["addmv"]
+    return [Entry("walk", "rigid_side_force", walk,
+                  lambda: cases.scaled_error(walk(), walk_want)),
+            Entry("rows", "rigid_side_rows", rows,
+                  lambda: 0.0 if torch.equal(rows(), rows_want)
+                  else float("inf")),
+            Entry("list", "rigid_side_list",
+                  functools.partial(R.rigid_side_list, *build), check_list,
+                  listed),
+            Entry("stream", "rigid_side_force_list", stream,
+                  lambda: cases.scaled_error(stream(), stream_want)),
+            Entry("addmv", None, addmv,
+                  lambda: cases.scaled_error(addmv(), stream_want))]
+
+
+def cells(kernel: str) -> list[tuple[str, Callable, bool]]:
+    """(case, inputs, timed with events) in the order they run: the 1M
+    inputs, then the contraction's ragged engines (checked only), the
+    half-immersed torus (rigid_side) or the clustered cloud, then 30k."""
+    if kernel == "rigid_side":
+        return [("1m", lambda: inputs.body_inputs("breaking_dam_1m.json",
+                                                  3), True),
+                ("torus", lambda: inputs.torus_inputs(3), True),
+                ("30k", lambda: inputs.body_inputs("breaking_dam_30k.json",
+                                                   3), False)]
+    cloud = [] if kernel == "coef_matvec" else [
+        ("clustered", lambda: inputs.clustered_inputs(CLUSTERED_N, seed=5),
+         True)]
+    return [("1m", lambda: inputs.lattice_inputs("breaking_dam_1m.json",
+                                                 seed=7), True),
+            *cloud,
+            ("30k", lambda: inputs.lattice_inputs("breaking_dam_30k.json",
+                                                  seed=7), False)]
+
+
 def run_checks(res: dict, libs: dict, case: str, ents: list[Entry],
                bit_equal: str | None = None) -> None:
     """Every entry of every library against the plain version and, with
@@ -450,6 +539,16 @@ def time_rounds(res: dict, libs: dict, case: str,
                   f"(rounds {[round(t * 1e3, 2) for t in times[name]]})")
 
 
+def library_us(fn, launches: int = 20) -> tuple[float, float]:
+    """Device us a call of the library call `fn`, all its kernels (after 3
+    calls outside the profile), twice: as `timing.device_us` returns."""
+    for _ in range(3):
+        fn()
+    found, _ = timing.profile_kernels(lambda: [fn() for _ in range(launches)])
+    us = sum(t for _, t in found.values()) / launches
+    return us, us
+
+
 def device_times(res: dict, libs: dict, case: str,
                  ents: list[Entry]) -> None:
     """torch.profiler's device time per launch: what a kernel takes where
@@ -458,7 +557,8 @@ def device_times(res: dict, libs: dict, case: str,
     for ent in ents:
         for name, lib in libs.items():
             with using(lib):
-                us, call_us = timing.device_us(ent.call, ent.kernel)
+                us, call_us = (library_us(ent.call) if ent.kernel is None
+                               else timing.device_us(ent.call, ent.kernel))
             key = f"{name}/{ent.label}"
             res.setdefault(f"device_us_{case}", {})[key] = us
             res.setdefault(f"call_device_us_{case}", {})[key] = call_us
@@ -490,34 +590,25 @@ def main() -> int:
         regs = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln]
         print(f"[compare] {name}: {regs}")
     res: dict = {"card": timing.card(), "kernel": kernel, "check": {}}
-
-    x = inputs.lattice_inputs("breaking_dam_1m.json", seed=7)
-    ents = entries(kernel, x)
     if args.bit_equal and args.bit_equal not in libs:
         raise SystemExit(f"--bit-equal {args.bit_equal}: no such source")
-    run_checks(res, libs, "1m", ents, args.bit_equal)
-    time_rounds(res, libs, "1m", ents)
-    device_times(res, libs, "1m", ents)
-    del x, ents
-    torch.cuda.empty_cache()
 
-    if kernel == "coef_matvec":
-        for n in (1000, 1003):
-            # One seed: the same rows, sources, pos, k and v in both dtypes.
-            rag = {d: inputs.ragged_engine(n, dt) for d, dt in DTYPES.items()}
-            run_checks(res, libs, f"ragged{n}", contraction_entries(
-                {d: r[0] for d, r in rag.items()}, *rag["f32"][1:]))
-    else:
-        ents = entries(kernel, inputs.clustered_inputs(CLUSTERED_N, seed=5))
-        run_checks(res, libs, "clustered", ents, args.bit_equal)
-        time_rounds(res, libs, "clustered", ents)
-        device_times(res, libs, "clustered", ents)
+    for case, make, timed in cells(kernel):
+        ents = entries(kernel, make())
+        run_checks(res, libs, case, ents, args.bit_equal)
+        if timed:
+            time_rounds(res, libs, case, ents)
+        device_times(res, libs, case, ents)
         del ents
-
-    x = inputs.lattice_inputs("breaking_dam_30k.json", seed=7)
-    ents = entries(kernel, x)
-    run_checks(res, libs, "30k", ents, args.bit_equal)
-    device_times(res, libs, "30k", ents)
+        torch.cuda.empty_cache()
+        if case == "1m" and kernel == "coef_matvec":
+            for n in (1000, 1003):
+                # One seed: the same rows, sources, pos, k and v in both
+                # dtypes.
+                rag = {d: inputs.ragged_engine(n, dt)
+                       for d, dt in DTYPES.items()}
+                run_checks(res, libs, f"ragged{n}", contraction_entries(
+                    {d: r[0] for d, r in rag.items()}, *rag["f32"][1:]))
     bad = [key for key, err in res["check"].items() if not err <= TOL]
     bad += [f"bits:{key}" for key, diff in res.get("bit_diff", {}).items()
             if diff and key.startswith("tree/")]

@@ -56,7 +56,8 @@ CONFIGS = (("30k", "breaking_dam_30k.json"), ("1m", "breaking_dam_1m.json"))
 def kernel_rows(res: dict, tag: str, cfg_name: str) -> None:
     """perf/cases.py's measurement of every case of the config's lattice,
     plus device times: the kernel's (and, for the contraction, its lane-sum
-    call's) and each library kernel's, per call."""
+    call's) and, where a case has a library yardstick (the contraction,
+    the body's reaction stream), each library kernel's, per call."""
     x = inputs.lattice_inputs(cfg_name, seed=7)
     pairs = cases.fluid_pairs(x)
     print(f"[{tag}] n {x['sc'].n_fluid}, pairs {pairs}")
@@ -71,8 +72,6 @@ def kernel_rows(res: dict, tag: str, cfg_name: str) -> None:
         row["device_share"] = row["bound_ms"] * 1e3 / row["device_us"]
         lib = ""
         if case.library:
-            row["lane_sums_us"] = timing.kernel_device_us(
-                lambda: case.kern(lane_sums=True), case.name)
             for layout, call in case.library.items():
                 if f"library_ms_{layout}" not in row:
                     continue
@@ -83,12 +82,15 @@ def kernel_rows(res: dict, tag: str, cfg_name: str) -> None:
                     for name, (c, t) in found.items()}
                 row[f"library_us_{layout}"] = sum(
                     t for _, t in found.values()) / 20
-                lib += (f"  torch.sparse {layout}: "
+                lib += (f"\n    torch.sparse {layout}: "
                         f"{row[f'library_ms_{layout}']:.4f} ms, "
                         f"{row[f'library_us_{layout}']:.2f} us device "
                         f"{row[f'library_kernels_{layout}']}")
-            lib = (f"\n    lane sums {row['lane_sums_ms']:.4f} ms "
-                   f"({row['lane_sums_us']:.2f} us device);{lib}")
+            if "lane_sums_ms" in row:      # the contraction
+                row["lane_sums_us"] = timing.kernel_device_us(
+                    lambda: case.kern(lane_sums=True), case.name)
+                lib = (f"\n    lane sums {row['lane_sums_ms']:.4f} ms "
+                       f"({row['lane_sums_us']:.2f} us device);{lib}")
         res.setdefault(case.key, {})[tag] = row
         print(f"[{tag}] {case.key:20s} device {row['device_us']:9.2f} us "
               f"(call {row['call_device_us']:9.2f})  "

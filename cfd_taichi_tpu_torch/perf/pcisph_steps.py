@@ -1,9 +1,19 @@
 """PCISPH's (or PBF's) step from rest on one card, on breaking_dam_30k and
-breaking_dam_1m with the default (stored-coefficient, f32) engine: the
-numbers by which two trees of the port are compared in one call.
+breaking_dam_1m with the default (stored-coefficient, f32) engine, or the
+coupled frames of a body in water: the numbers by which two trees of the
+port are compared in one call.
 
     PYTHONPATH=<tree> python cfd_taichi_tpu_torch/perf/pcisph_steps.py \\
-        --label NAME [--solver pcisph|pbf] [--out PATH]
+        --label NAME [--solver pcisph|pbf|coupled] [--out PATH]
+
+With --solver coupled the cells are frames (a fluid step and a rigid
+step) from rest of the half-immersed torus (perf/inputs.torus_immersed,
+DFSPH), breaking_dam_30k's and breaking_dam_1m's blocks with a body at
+their centre (perf/inputs.body_scene, DFSPH) and configs/
+coupling_demo.json (PCISPH), each measured as a step below; the digest
+also covers the body's particles, velocity and spin, and the device
+times of the body's reaction (its walk, or its list's rows, the list and
+the list's stream) are printed.
 
 The package is imported from PYTHONPATH, so that the same script measures
 an older tree unpacked beside this one (`git archive`); run the trees in
@@ -33,13 +43,19 @@ from pathlib import Path
 
 import torch
 
-from cfd_taichi_tpu_torch import Simulation
+from cfd_taichi_tpu_torch import Simulation, read_config
 from cfd_taichi_tpu_torch.models import pbf
 from cfd_taichi_tpu_torch.ops import _build
 from cfd_taichi_tpu_torch.ops import stencil as S
 from cfd_taichi_tpu_torch.perf import inputs, timing
 
 SCENES = (("30k", "breaking_dam_30k.json"), ("1m", "breaking_dam_1m.json"))
+COUPLED = ("torus", "body_30k", "coupling_demo", "body_1m")
+BODY_BLOCKS = {"body_30k": "breaking_dam_30k.json",
+               "body_1m": "breaking_dam_1m.json"}
+# The reaction's kernels, whose device times a coupled cell prints
+REACTION = ("rigid_side_force", "rigid_side_rows", "rigid_side_list",
+            "rigid_side_force_list")
 UNTIMED, TIMED, PROFILED = 5, 10, 3
 
 
@@ -67,35 +83,61 @@ def pbf_digests(cfg_name: str) -> dict:
                 pbf_lambda=_digest(lam), pbf_xsph=_digest(xsph))
 
 
-def measure(cfg_name: str, solver: str) -> dict:
-    sim = Simulation(inputs.solver_config(cfg_name, solver), device="cuda")
+def simulation(tag: str, solver: str):
+    """(the cell's Simulation on the card, what a step of it is)."""
+    if solver != "coupled":
+        sim = Simulation(inputs.solver_config(dict(SCENES)[tag], solver),
+                         device="cuda")
+        return sim, sim.step
+    if tag == "torus":
+        sim = Simulation(inputs.torus_immersed(), device="cuda")
+    elif tag == "coupling_demo":
+        sim = Simulation(read_config(str(inputs.CONFIGS /
+                                         "coupling_demo.json")),
+                         device="cuda")
+    else:
+        block = BODY_BLOCKS[tag]
+        sim = Simulation(inputs.solver_config(block), device="cuda",
+                         scene=inputs.body_scene(block))
+    return sim, sim.frame
+
+
+def measure(sim, advance) -> dict:
+    """The cell's numbers, `advance` (a step or a frame of `sim`) being
+    its step."""
     for _ in range(3):
-        sim.step()
+        advance()
     sim.state = sim.solver.init_state(sim.scene)
     for _ in range(UNTIMED):
-        sim.step()
+        advance()
     S.reset_counts()
     pool = sim.scene.loop_graphs
     pool.reset()
     torch.cuda.reset_peak_memory_stats()
-    iters = []
+    diags = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(TIMED):
-        sim.step()
-        iters.append(sim.state.diag[0])
+        advance()
+        diags.append(sim.state.diag)
     torch.cuda.synchronize()
     rate = TIMED / (time.perf_counter() - t0)
     launches = {k.name: k.launches / TIMED for k in S.KERNELS.values()
                 if k.launches}
     reads = (pool.trips + pool.reads) / TIMED
+    outside = pool.reads / TIMED
     peak = torch.cuda.max_memory_allocated() / 2**30
-    digest = _digest(sim.state.fluid.pos)
+    body = sim.state.rigid
+    digest = _digest(torch.cat([sim.state.fluid.pos.flatten()] + (
+        [body.pos.flatten(), body.vel, body.omega] if sim.scene.coupled
+        else [])))
     found, wall = timing.profile_kernels(
-        lambda: [sim.step() for _ in range(PROFILED)])
+        lambda: [advance() for _ in range(PROFILED)])
     device_ms = sum(t for _, t in found.values()) / 1e3 / PROFILED
-    return dict(steps_per_sec=rate, iters=[float(i) for i in iters],
+    return dict(steps_per_sec=rate, iters=[float(d[0]) for d in diags],
+                diags=[d.tolist() for d in diags],
                 launches_per_step=launches, reads_per_step=reads,
+                reads_outside_trips=outside,
                 peak_gib=peak, pos_digest=digest,
                 device_ms_per_step=device_ms,
                 busy=device_ms * PROFILED / 1e3 / wall,
@@ -108,7 +150,8 @@ def measure(cfg_name: str, solver: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", required=True)
-    ap.add_argument("--solver", choices=("pcisph", "pbf"), default="pcisph")
+    ap.add_argument("--solver", choices=("pcisph", "pbf", "coupled"),
+                    default="pcisph")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -119,9 +162,12 @@ def main() -> int:
     print(f"[{solver}] {args.label}: {res['package']} on {res['card']}")
     print(f"[{solver}] kernels built in "
           f"{_build.library().build_seconds:.1f} s")
-    for tag, cfg_name in SCENES:
-        row = res[tag] = measure(cfg_name, solver)
+    for tag in COUPLED if solver == "coupled" else dict(SCENES):
+        sim, advance = simulation(tag, solver)
+        row = res[tag] = measure(sim, advance)
+        del sim, advance
         if solver == "pbf":
+            cfg_name = dict(SCENES)[tag]
             row["pass_digests"] = pbf_digests(cfg_name)
             print(f"[pbf] {args.label} {tag} pass digests "
                   f"{row['pass_digests']}")
@@ -134,6 +180,13 @@ def main() -> int:
               f"{row['busy']:.3f}; " + "; ".join(
                   f"{name} {k['launches_per_step']:.1f} x "
                   f"{k['us_per_launch']:.2f} us" for name, k in top))
+        if solver == "coupled":
+            print(f"[coupled] {args.label} {tag}: diag of the last step "
+                  f"{row['diags'][-1]}; reaction " + "; ".join(
+                      f"{name} {k['launches_per_step']:.1f} x "
+                      f"{k['us_per_launch']:.2f} us"
+                      for name, k in row["kernels"].items()
+                      if name in REACTION))
         torch.cuda.empty_cache()
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -50,7 +50,13 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 pbf_xsph must repeat bit for bit over two launches.
                 Kernel and plain times: CUDA events, median of 10 after 3
                 warm-up calls. The fluid-rigid kernels (rigid_terms,
-                rigid_contact_dot, rigid_viscosity, rigid_side_force, and
+                rigid_contact_dot, rigid_viscosity, rigid_side_force (the
+                reaction's walk), rigid_side_rows (the reaction list's
+                warp offsets, exactly), rigid_side_list (the reaction's
+                list, each row's count and fluid indices exactly, its pair
+                vectors to 1e-5 of scale) and rigid_side_force_list (the
+                list's stream, timed beside torch.addmv and @ of the
+                list's CSR matrix, the library yardstick), and
                 the predicted density with its walk over the body at the
                 inputs' positions shifted by ~0.3 r, in its stream form
                 named pcisph_predict_rho_rigid and in its stencil form
@@ -61,8 +67,10 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 and on the half-immersed torus scene (perf/inputs.
                 torus_inputs), with random rigid and fluid
                 velocities, densities and u, to 1e-5 of scale;
-                rigid_side_force and pcisph_predict_rho_rigid must also
-                repeat bit for bit over two launches, each form with its
+                rigid_side_force, rigid_side_force_list and
+                pcisph_predict_rho_rigid must also repeat bit for bit over
+                two launches, the stream must give the walk's bits on the
+                same inputs, each form with its
                 body gate must give the bits of the same launch ungated
                 (every warp walking the body), and the body's walk is
                 timed as the call less the call without the body, gated
@@ -170,8 +178,18 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 (55,200 fluid and 3,200 rigid particles, PCISPH),
                 dam_flush_cube.json (PCISPH), experiment1.json (IISPH) and
                 experiment2.json (WCSPH): the solid kernels launched as
-                often as the solver's step calls them (rigid_launches)
-                beside its own pair kernels, no plain version; the
+                often as the solver's step calls them (rigid_launches:
+                DFSPH's and PCISPH's reaction streams its list once a loop
+                sub-iteration, the list's rows and the list built once a
+                step; IISPH's and WCSPH's walks once a step) beside its
+                own pair kernels, no
+                plain version; one host read a step outside the loops'
+                trips (the pair count, with the list's size) on DFSPH,
+                PCISPH and IISPH, none on WCSPH, printed; before each
+                DFSPH and PCISPH run, its first RIGID_WALK_FRAMES frames
+                stepped twice, streaming the list and walking the reaction
+                (`dfsph.walked_reaction`), bit for bit (fluid, body, dt,
+                diag and the body's force), outside the timed frames; the
                 reaction force non-zero in the torus variant's first three
                 steps; fluid and body finite and inside the box +- 2r;
                 DFSPH's last density residual <= 1.0 unless the step hit
@@ -272,8 +290,8 @@ PCISPH_PATH = COEF_PATH[:5] + ("pcisph_predict_rho_list",)
 PCISPH_RECOMPUTE_PATH = RECOMPUTE_PATH[:4] + ("pcisph_predict_rho",)
 PBF_PATH = ("pbf_terms", "pbf_lambda", "pbf_xsph")
 # The kernels that must repeat bit for bit over two launches in [kernels]
-REPEATED = ("rigid_side_force", "pcisph_predict_rho_rigid", "pbf_lambda",
-            "pbf_xsph")
+REPEATED = ("rigid_side_force", "rigid_side_force_list",
+            "pcisph_predict_rho_rigid", "pbf_lambda", "pbf_xsph")
 # [agree]: (solver, whether to start from TINY's squeezed block, the
 # largest card-vs-CPU position error allowed over its 6 steps: the bar
 # 5e-6, or what the same kernels gave before, 5.960e-08 and 1.192e-07 on
@@ -304,7 +322,8 @@ RIGID_CFG = {
               "active": True},
 }
 RIGID_PATH = ("rigid_terms", "rigid_contact_dot", "rigid_viscosity",
-              "rigid_side_force", "pcisph_predict_rho_rigid")
+              "rigid_side_force", "rigid_side_rows", "rigid_side_list",
+              "rigid_side_force_list", "pcisph_predict_rho_rigid")
 # [agree]: the solvers that couple a body, each run on RIGID_CFG
 AGREE_COUPLED = ("dfsph", "pcisph", "iisph", "wcsph")
 # [rigid]: (tag, config, frames) of torus_flush as written (DFSPH) and its
@@ -324,6 +343,9 @@ RIGID_RUNS = (("torus_flush", "torus_flush.json", 200),
               ("experiment2", "experiment2.json", 36))
 # [rigid]: the fluid and rigid particles of configs/coupling_demo.json
 COUPLING_DEMO_SIZE = (55_200, 3_200)
+# [rigid]: the frames of each DFSPH and PCISPH run held bit for bit to the
+# same frames stepped with the reaction's walk
+RIGID_WALK_FRAMES = 3
 # [rigid]: the solver's own pair kernels, which each coupled run launches
 SOLVER_PATH = {"dfsph": COEF_PATH, "pcisph": PCISPH_PATH,
                "iisph": COEF_PATH, "wcsph": WCSPH_PATH}
@@ -390,9 +412,9 @@ def compare(name: str, got, want, torch) -> float:
     worst = 0.0
     for i, (a, b) in enumerate(zip(got, want)):
         check(a.shape == b.shape, f"{name}[{i}] shape {a.shape} != {b.shape}")
-        if b.dtype == torch.int32:
+        if not b.dtype.is_floating_point:
             bad = int((a != b).sum())
-            print(f"    {name}[{i}] int32: {bad} mismatches (want 0)")
+            print(f"    {name}[{i}] {b.dtype}: {bad} mismatches (want 0)")
             check(bad == 0, f"{name}[{i}]: {bad} count mismatches")
             continue
         check(bool(torch.isfinite(a).all()), f"{name}[{i}] not finite")
@@ -446,7 +468,7 @@ def check_case(case, pos, torch) -> float:
 
     if case.name == "coef_build":
         return check_build(case.key, case.kern(), case.plain())
-    if case.library:        # the coef contraction
+    if case.name in ("coef_matvec", "coef_matvec_dot"):
         return compare_contraction(
             case.key, case.kern(lane_sums=True), case.plain(lane_sums=True),
             case.kern(), case.plain(), pos, case.name == "coef_matvec_dot",
@@ -553,12 +575,14 @@ def record(results: dict, case, key: str, err: float) -> None:
     results.setdefault(case.name, {}).update(
         {f"{k}_{key}": val for k, val in row.items()})
     lib = ""
-    if case.library:
-        lib = (f"  torch.sparse {row['library_ms']:.4f} ms "
-               f"({row['library_layout']} lanes; kernel lane sums "
-               f"{row['lane_sums_ms']:.4f} ms)"
-               if row["library_ms"] is not None else
-               "  torch.sparse not available")
+    if case.library and row["library_ms"] is None:
+        lib = "  torch.sparse not available"
+    elif case.library:
+        layout = row["library_layout"]
+        lib = (f"  torch.sparse {row['library_ms']:.4f} ms ({layout}, "
+               f"error {row[f'library_err_{layout}']:.3e}"
+               + (f"; kernel lane sums {row['lane_sums_ms']:.4f} ms)"
+                  if "lane_sums_ms" in row else ")"))
     print(f"  {case.name:15s} {key}: kernel {row['ms']:.4f} ms  plain "
           f"{row['plain_ms']:.4f} ms  max_abs_err {err:.3e}  bound "
           f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}), share "
@@ -605,8 +629,9 @@ def forms_bits(results: dict, tag: str, outs: dict, torch) -> None:
 def rigid_checks(torch, results: dict) -> None:
     """The fluid-rigid kernels against their plain versions on a body in
     water at 30k and 1M and on the half-immersed torus scene, timed;
-    rigid_side_force and the stream form with the body's walk repeat bit
-    for bit; the body gate (`body_gate`)."""
+    rigid_side_force, its list's stream and the stream form with the
+    body's walk repeat bit for bit; the list's stream gives the walk's bits
+    (`stream_bits`); the body gate (`body_gate`)."""
     from cfd_taichi_tpu_torch.perf import bounds, cases, inputs
 
     for tag, make in (
@@ -619,13 +644,34 @@ def rigid_checks(torch, results: dict) -> None:
               f"particles, {x['rpos'].shape[0]} rigid particles")
         for case in cases.rigid_cases(x, work):
             record(results, case, tag + case.key[len(case.name):],
-                   compare(f"{case.key} {tag}", case.kern(), case.plain(),
+                   compare(f"{case.key} {tag}", *cases.compared(case),
                            torch))
             if case.name in REPEATED:
                 repeats(case, tag, torch)
+        stream_bits(torch, results, x, tag)
         body_gate(torch, results, x, tag)
         del x
         torch.cuda.empty_cache()
+
+
+def stream_bits(torch, results: dict, x: dict, tag: str) -> None:
+    """The reaction's stream over the list, which the list's kernel built,
+    against the walk on the same coupled inputs `x`: bit for bit."""
+    from cfd_taichi_tpu_torch.ops import rigid as R
+    from cfd_taichi_tpu_torch.perf import cases
+
+    _, side = cases.side_list(x)
+    got = R.rigid_side_force_list(side, x["u"], x["force"])
+    walk = R.rigid_side_force(x["rpos"], x["rvol"], x["p"], x["st"],
+                              x["grid"], x["h"], cases.RHO0, x["u"],
+                              x["force"])
+    differ = int((got != walk).sum())
+    results["rigid_side_force_list"][f"against_walk_{tag}"] = differ
+    print(f"  rigid_side_force_list {tag}: against the walk {differ} of "
+          f"{got.numel()} elements differ; {int(side.cnt.sum())} pairs in "
+          f"{side.rec.shape[0]} slots ({side.rec.numel() * 4 / 2**20:.3f} "
+          f"MiB)")
+    check(differ == 0, f"rigid_side_force_list {tag}: not the walk's bits")
 
 
 def body_gate(torch, results: dict, x: dict, tag: str) -> None:
@@ -1243,25 +1289,60 @@ def phase_wcsph(torch, results: dict) -> None:
 def rigid_launches(solver: str, diags, unroll: int) -> dict:
     """The solid passes a coupled step of `solver` launches over the
     steps with these diags, at `unroll` loop iterations a trip, by kernel:
-    the sums and the solid viscosity once a step; the reaction once a
-    density sub-iteration (DFSPH), once a loop sub-iteration (PCISPH) or
-    once a step (IISPH, WCSPH); the contact dot once in each DFSPH loop
-    and once an IISPH step; PCISPH's walk over the body once a predict, a
-    sub-iteration and once before its loop. A loop's sub-iterations, the
-    masked ones included, are its trips x U."""
+    the sums and the solid viscosity once a step; the reaction list's rows
+    and the list once a step and its stream once a density sub-iteration
+    (DFSPH) or once a
+    loop sub-iteration (PCISPH), or its walk once a step (IISPH, WCSPH);
+    the contact dot once in each DFSPH loop and once an IISPH step;
+    PCISPH's walk over the body once a predict, a sub-iteration and once
+    before its loop. A loop's sub-iterations, the masked ones included,
+    are its trips x U."""
     steps = len(diags)
     loop = looped(diags, (2,) if solver == "dfsph" else (0,), unroll)
     want = dict(rigid_terms=steps, rigid_viscosity=steps)
+    if solver in ("dfsph", "pcisph"):
+        want.update(rigid_side_rows=steps, rigid_side_list=steps,
+                    rigid_side_force_list=loop)
     if solver == "dfsph":
-        want.update(rigid_contact_dot=2 * steps, rigid_side_force=loop)
+        want.update(rigid_contact_dot=2 * steps)
     elif solver == "pcisph":
-        want.update(rigid_side_force=loop,
-                    pcisph_predict_rho_rigid=loop + steps)
+        want.update(pcisph_predict_rho_rigid=loop + steps)
     elif solver == "iisph":
         want.update(rigid_contact_dot=steps, rigid_side_force=steps)
     else:
         want.update(rigid_side_force=steps)
     return want
+
+
+def walk_frames(sim, frames: int, tag: str, torch) -> None:
+    """`frames` frames of `sim` from its state, stepped twice: streaming the
+    reaction's list, and within `dfsph.walked_reaction` walking it; every
+    tensor of the fluid and the body, dt, diag and the body's force after
+    each fluid step bit for bit. `sim` is put back to its state."""
+    import contextlib
+
+    from cfd_taichi_tpu_torch.models import dfsph
+
+    start, runs = sim.state, []
+    for walk in (False, True):
+        sim.state, out = start, []
+        for _ in range(frames):
+            with (dfsph.walked_reaction() if walk
+                  else contextlib.nullcontext()):
+                sim.state = sim.solver.step(sim.scene, sim.state)
+            force = sim.state.rigid.force
+            sim.rigid_step()
+            out.append((sim.state, force))
+        runs.append(out)
+    sim.state = start
+    for k, ((a, fa), (b, fb)) in enumerate(zip(*runs)):
+        pairs = [*zip(a.fluid, b.fluid), *zip(a.rigid, b.rigid),
+                 (a.dt, b.dt), (a.diag, b.diag), (fa, fb)]
+        check(all(torch.equal(x, y) for x, y in pairs),
+              f"rigid {tag} frame {k}: the stream's frame is not the "
+              f"walk's, bit for bit")
+    print(f"[rigid] {tag}: frames 1-{frames} bit for bit with the "
+          f"reaction's walk (dfsph.walked_reaction)")
 
 
 def phase_rigid(torch, results: dict) -> None:
@@ -1303,10 +1384,14 @@ def phase_rigid(torch, results: dict) -> None:
             forces.append(sim.state.rigid.force.abs().max())
             rigid_step()
 
+        if solver in ("dfsph", "pcisph"):
+            walk_frames(sim, RIGID_WALK_FRAMES, tag, torch)
         sim.rigid_step = sampled_rigid_step
+        graphs = sim.scene.loop_graphs
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         stencil.reset_counts()
+        graphs.reset()
         diags, path = [], []
         t0 = time.perf_counter()
         for k in range(steps):
@@ -1325,6 +1410,12 @@ def phase_rigid(torch, results: dict) -> None:
               f"{sim.scene.n_rigid}: {steps} frames (fluid + rigid step) in "
               f"{wall:.3f} s = {steps / wall:.3f} steps/s; peak device "
               f"memory {peak:.3f} GiB")
+        reads = graphs.reads / steps
+        print(f"[rigid] {tag}: host reads a step {reads:.2f} outside the "
+              f"loops' trips (the pair count and the reaction list's size "
+              f"in one), {graphs.trips / steps:.2f} trips")
+        check(reads == (0.0 if solver == "wcsph" else 1.0),
+              f"rigid {tag}: {reads} host reads a step outside the trips")
         print(f"[rigid] {tag}: {iter_summary(solver, diags)}")
         print(f"[rigid] {tag}: kernel (launches, plain calls): {counts}")
         print(f"[rigid] {tag}: max |F| first steps "
@@ -1369,18 +1460,18 @@ def phase_rigid(torch, results: dict) -> None:
             iters = max(d[0] for d in diags)
             check(iters <= iisph.MAX_ITER,
                   f"rigid {tag}: {iters} Jacobi iterations")
-        if tag == "torus_flush":
-            for name in RIGID_PATH[:4]:
-                results[name]["launches"] = counts[name][0]
-        elif tag == "coupling_demo":
-            results["pcisph_predict_rho_rigid"]["launches"] = \
-                counts["pcisph_predict_rho_rigid"][0]
         results["_runs"][f"rigid_{tag}"] = dict(
             steps_per_sec=steps / wall, peak_gib=peak,
             mean_diag=[statistics.mean(c) for c in zip(*diags)],
-            last_diag=last, max_force=max(forces),
+            last_diag=last, max_force=max(forces), reads_per_step=reads,
             launches={k: c[0] for k, c in counts.items()})
         sims[tag] = sim
+    # The solid kernels' launches: over all the runs, each kernel's
+    # solvers among them.
+    for name in RIGID_PATH:
+        results[name]["launches"] = sum(
+            results["_runs"][f"rigid_{tag}"]["launches"][name]
+            for tag, _, _ in RIGID_RUNS)
     # The profiles last: a process that has run torch.profiler launches
     # slower on the host clock, replayed graphs most of all.
     for tag, sim in sims.items():

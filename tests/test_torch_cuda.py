@@ -18,6 +18,7 @@ the stored pair slots compare exactly, and bf16 w within one ulp in at
 most 1e-4 of the slots (perf/cases.py, build_error).
 """
 
+import contextlib
 import copy
 
 import numpy as np
@@ -27,7 +28,7 @@ import torch
 from cfd_taichi_tpu_torch import Simulation, build_scene
 from cfd_taichi_tpu_torch import geometry as geo
 from cfd_taichi_tpu_torch.config import parse_config
-from cfd_taichi_tpu_torch.models import base, pbf
+from cfd_taichi_tpu_torch.models import base, dfsph, pbf, pcisph
 from cfd_taichi_tpu_torch.ops import coef
 from cfd_taichi_tpu_torch.ops import neighbors as nb
 from cfd_taichi_tpu_torch.ops import rigid
@@ -90,9 +91,10 @@ def _all_outputs(sc, pos, starts, k, v, rho):
 
 
 def _body_outputs(sc, pos, starts, v, rho):
-    """The four fluid-rigid wrappers and PCISPH's predicted density with
-    its walks over the body and the walls once, for a 24-voxel box body in
-    TINY's block with numpy-seeded volumes and velocities."""
+    """The fluid-rigid wrappers (the reaction's walk, and its list's rows,
+    the list and its stream among them) and PCISPH's predicted density
+    with its walks over the body and the walls once, for a 24-voxel box
+    body in TINY's block with numpy-seeded volumes and velocities."""
     dev = pos.device
     rng = np.random.default_rng(13)
     vox = np.ascontiguousarray(geo.voxelize_mesh(
@@ -105,12 +107,18 @@ def _body_outputs(sc, pos, starts, v, rho):
          rng.uniform(900.0, 1100.0, nr), rng.standard_normal((nr, 3))))
     table = rigid.rigid_table(sc.grid, rpos, rvol)
     g, h, m = sc.grid, sc.h, sc.particle_m
+    offs = rigid.rigid_side_rows(rpos, starts, g)
+    side = rigid.rigid_side_list(rpos, rvol, pos, starts, g, h, 1000.0,
+                                 offs, rigid.list_slots(offs))
+    _, fluid, pair_g = rigid.side_pairs(side)
     return [*rigid.rigid_terms(pos, table, g, h, 1000.0),
             rigid.rigid_contact_dot(pos, table, g, h, 1000.0, v_r),
             rigid.rigid_viscosity(pos, table, g, h, 1000.0, m, v, rho, rq,
                                   v_r[0].contiguous(), **VISC),
             rigid.rigid_side_force(rpos, rvol, pos, starts, g, h, 1000.0,
                                    1e-4 * rho, force),
+            offs.to(torch.int32), side.cnt, fluid.to(torch.int32), pair_g,
+            rigid.rigid_side_force_list(side, 1e-4 * rho, force),
             stencil.pcisph_predict_rho(pos, starts, g, h, m, pos + 0.01 * v,
                                        base.walls(sc), 1000.0, table)]
 
@@ -567,8 +575,6 @@ def test_pcisph_recompute_engine_launches_the_stencil_form(cuda,
     recompute engine (coef budget 0) the predicted density launches its
     stencil form and no stream form; on the stored-coefficient engine the
     reverse; iterations + 1 launches a step either way."""
-    from cfd_taichi_tpu_torch.models import dfsph
-
     raw = copy.deepcopy(TINY)
     raw["solver"]["name"] = "pcisph"
     for budget, form, other in ((0, "pcisph_predict_rho",
@@ -602,9 +608,12 @@ def test_rigid_kernels_match_plain_versions(cuda, where):
     for case in _rigid_cases(x):
         _assert_case_matches_plain(case)
     for name in ("rigid_terms", "rigid_contact_dot", "rigid_viscosity",
-                 "rigid_side_force", "pcisph_predict_rho",
-                 "pcisph_predict_rho_list"):
+                 "rigid_side_force", "rigid_side_force_list",
+                 "pcisph_predict_rho", "pcisph_predict_rho_list"):
         assert stencil.KERNELS[name].launches == 1, name
+    # the rows and list the stream reads, then their own cases
+    assert stencil.KERNELS["rigid_side_rows"].launches == 2
+    assert stencil.KERNELS["rigid_side_list"].launches == 2
     # both forms of the predicted density walk the body
     assert stencil.KERNELS["pcisph_predict_rho_rigid"].launches == 2
 
@@ -635,10 +644,29 @@ def test_rigid_kernels_repeat_bit_for_bit(cuda):
     x = inputs.body_inputs("breaking_dam_30k.json", seed=3, device=cuda)
     for case in _rigid_cases(x):
         first, again = case.kern(), case.kern()
+        if case.view is not None:   # the list: its rows, not its spare slots
+            first, again = case.view(first), case.view(again)
         first = first if isinstance(first, tuple) else (first,)
         again = again if isinstance(again, tuple) else (again,)
         assert all(torch.equal(a, b) for a, b in zip(first, again)), \
             case.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["30k", "torus"])
+def test_the_reaction_stream_gives_the_walks_bits(cuda, where):
+    """The reaction's list, built by its kernel, streamed: the walk's
+    output bit for bit on a body in water and on the half-immersed
+    torus."""
+    x = (inputs.body_inputs("breaking_dam_30k.json", seed=3, device=cuda)
+         if where == "30k" else inputs.torus_inputs(seed=3, device=cuda))
+    _, side = cases.side_list(x)
+    got = rigid.rigid_side_force_list(side, x["u"], x["force"])
+    walk = rigid.rigid_side_force(x["rpos"], x["rvol"], x["p"], x["st"],
+                                  x["grid"], x["h"], cases.RHO0, x["u"],
+                                  x["force"])
+    assert int(side.cnt.sum()) > 0
+    assert torch.equal(got, walk)
 
 
 @pytest.mark.cuda
@@ -675,9 +703,46 @@ def test_coupled_dfsph_steps_on_the_card_match_the_cpu(cuda, squeeze, steps):
     if squeeze < 0.9:
         assert forces[0] > 0
     for name in ("rigid_terms", "rigid_contact_dot", "rigid_viscosity",
-                 "rigid_side_force"):
+                 "rigid_side_rows", "rigid_side_list",
+                 "rigid_side_force_list"):
         kern = stencil.KERNELS[name]
         assert kern.launches > 0 and kern.launches == kern.plain_calls, name
+    assert stencil.KERNELS["rigid_side_force"].launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["dfsph", "pcisph"])
+def test_coupled_steps_stream_the_walks_bits(cuda, solver):
+    """RIGID_CFG squeezed by 0.85 about its mean (pressure acts), 3 steps
+    with rigid steps on the card: streaming the reaction's list and
+    walking it (`dfsph.walked_reaction`) give the same fluid, body, dt and
+    diag, and the same force, bit for bit."""
+    raw = copy.deepcopy(RIGID_CFG)
+    raw["solver"]["name"] = solver
+    step = {"dfsph": dfsph.step, "pcisph": pcisph.step}[solver]
+    sims = [Simulation(parse_config(copy.deepcopy(raw)), device=cuda)
+            for _ in range(2)]
+    pos = sims[0].state.fluid.pos
+    mid = pos.mean(dim=0)
+    for s in sims:
+        s.state = s.state._replace(fluid=s.state.fluid._replace(
+            pos=mid + (pos - mid) * 0.85))
+    largest = 0.0
+    for _ in range(3):
+        forces = []
+        for s, walk in zip(sims, (False, True)):
+            with (dfsph.walked_reaction() if walk
+                  else contextlib.nullcontext()):
+                s.state = step(s.scene, s.state)
+            forces.append(s.state.rigid.force)
+            s.rigid_step()
+        a, b = (s.state for s in sims)
+        assert torch.equal(forces[0], forces[1])
+        for x, y in (*zip(a.fluid, b.fluid), *zip(a.rigid, b.rigid),
+                     (a.dt, b.dt), (a.diag, b.diag)):
+            assert torch.equal(x, y)
+        largest = max(largest, float(forces[0].abs().max()))
+    assert largest > 0
 
 
 @pytest.mark.cuda
@@ -934,5 +999,8 @@ def test_coupled_sharded_frame_on_nccl_world_one_is_the_single_device(
     assert all(plain == 0 for _, plain in r["counts"]["sharded"].values())
     launched = {k for k, (n, _) in r["counts"]["sharded"].items() if n}
     if solver != "pbf":
-        assert {"rigid_terms", "rigid_viscosity",
-                "rigid_side_force"} <= launched
+        reaction = ({"rigid_side_rows", "rigid_side_list",
+                     "rigid_side_force_list"}
+                    if solver in ("dfsph", "pcisph") else
+                    {"rigid_side_force"})
+        assert {"rigid_terms", "rigid_viscosity"} | reaction <= launched

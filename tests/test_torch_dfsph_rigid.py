@@ -75,7 +75,8 @@ DENSE_GATE = {"dfsph": jdfsph, "iisph": jdfsph, "pcisph": jpcisph,
               "wcsph": jwcsph}
 SOLVERS = ("dfsph", "wcsph", "iisph", "pcisph", "pbf")
 RIGID_KERNELS = ("rigid_terms", "rigid_contact_dot", "rigid_viscosity",
-                 "rigid_side_force", "pcisph_predict_rho_rigid")
+                 "rigid_side_force", "rigid_side_rows", "rigid_side_list",
+                 "rigid_side_force_list", "pcisph_predict_rho_rigid")
 
 
 @pytest.fixture(autouse=True)
@@ -197,15 +198,19 @@ def test_coupled_steps_match_jax_pressure_dormant(jax_runs):
         assert _counts(g["state"].diag.numpy()) == _counts(snap["diag"]), k
         assert cerr < 1e-5, (k, cerr)
     # every solid term ran: the sums once a step, the contact dot once a
-    # loop, the solid viscosity once a step; the reaction once a density
-    # iteration
+    # loop, the solid viscosity once a step; the reaction list's rows and
+    # the list once a step and its stream once a density iteration, never
+    # the walk
     k = stencil.KERNELS
     steps = len(got)
     dens = sum(g["state"].diag.numpy()[2] for g in got)
     assert k["rigid_terms"].plain_calls == steps
     assert k["rigid_contact_dot"].plain_calls == 2 * steps
     assert k["rigid_viscosity"].plain_calls == steps
-    assert k["rigid_side_force"].plain_calls == dens
+    assert k["rigid_side_force_list"].plain_calls == dens
+    assert k["rigid_side_rows"].plain_calls == steps
+    assert k["rigid_side_list"].plain_calls == steps
+    assert k["rigid_side_force"].plain_calls == 0
 
 
 def test_coupled_step_matches_jax_pressure_active(jax_runs):
@@ -231,7 +236,9 @@ def test_one_way_coupling_leaves_the_force_zero(jax_runs):
     stencil.reset_counts()
     sim, got = run_port(jax_runs["pressure"]["leaves"], 2, raw)
     assert all(g["fmax"] == 0.0 for g in got)
-    assert stencil.KERNELS["rigid_side_force"].plain_calls == 0
+    for name in ("rigid_side_force", "rigid_side_rows", "rigid_side_list",
+                 "rigid_side_force_list"):
+        assert stencil.KERNELS[name].plain_calls == 0
     assert stencil.KERNELS["rigid_terms"].plain_calls == 2
     # the body still falls under gravity alone
     assert float(sim.state.rigid.vel[1]) < 0.0
@@ -254,7 +261,8 @@ def test_inactive_body_is_ignored():
         bare.frame()
     assert all(stencil.KERNELS[name].plain_calls == 0 for name in (
         "rigid_terms", "rigid_contact_dot", "rigid_viscosity",
-        "rigid_side_force"))
+        "rigid_side_force", "rigid_side_rows", "rigid_side_list",
+        "rigid_side_force_list"))
     for a, b in zip(body.state.rigid, rigid0):
         assert torch.equal(a, b)
     assert torch.equal(body.state.fluid.pos, bare.state.fluid.pos)

@@ -69,15 +69,20 @@ def test_coupled_steps_match_jax_pressure_dormant(jax_runs):
         assert err < 5e-6, (k, err)
         assert _counts(g["state"].diag.numpy()) == _counts(snap["diag"]), k
         assert cerr < 1e-5, (k, cerr)
-    # the solid sums and viscosity once a step, the reaction once an
-    # iteration, the body's predicted density once a predict
+    # the solid sums and viscosity once a step, the reaction list's rows
+    # and the list once a step and its stream once an iteration (never
+    # the walk), the
+    # body's predicted density once a predict
     k = stencil.KERNELS
     steps = len(got)
     iters = sum(g["state"].diag.numpy()[0] for g in got)
     assert iters >= steps
     assert k["rigid_terms"].plain_calls == k["rigid_viscosity"].plain_calls \
         == steps
-    assert k["rigid_side_force"].plain_calls == iters
+    assert k["rigid_side_force_list"].plain_calls == iters
+    assert k["rigid_side_rows"].plain_calls == steps
+    assert k["rigid_side_list"].plain_calls == steps
+    assert k["rigid_side_force"].plain_calls == 0
     assert k["pcisph_predict_rho_rigid"].plain_calls == \
         k["pcisph_predict_rho"].plain_calls == iters + steps
     assert k["rigid_contact_dot"].plain_calls == 0
@@ -105,7 +110,9 @@ def test_one_way_coupling_leaves_the_force_zero(jax_runs):
     stencil.reset_counts()
     sim, got = run_port(jax_runs["pressure"]["leaves"], 2, raw)
     assert all(g["fmax"] == 0.0 for g in got)
-    assert stencil.KERNELS["rigid_side_force"].plain_calls == 0
+    for name in ("rigid_side_force", "rigid_side_rows", "rigid_side_list",
+                 "rigid_side_force_list"):
+        assert stencil.KERNELS[name].plain_calls == 0
     assert stencil.KERNELS["pcisph_predict_rho_rigid"].plain_calls > 0
     assert float(sim.state.rigid.vel[1]) < 0.0
 

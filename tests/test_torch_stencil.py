@@ -184,6 +184,11 @@ def test_cpu_tensors_take_the_plain_versions(case):
                           v, rho, rho[:24], v[0], **VISC)
     rigid.rigid_side_force(rpos, rvol, pos, starts, sc.grid, sc.h, 1000.0,
                            k, v[:24])
+    # the reaction's list, built once, and its stream
+    offs = rigid.rigid_side_rows(rpos, starts, sc.grid)
+    side = rigid.rigid_side_list(rpos, rvol, pos, starts, sc.grid, sc.h,
+                                 1000.0, offs, rigid.list_slots(offs))
+    rigid.rigid_side_force_list(side, k, v[:24])
     # PCISPH's predicted density with its walls' and the body's walks
     stencil.pcisph_predict_rho(pos, starts, sc.grid, sc.h, sc.particle_m,
                                pos + 0.01 * v, base.walls(sc), 1000.0, table)

@@ -58,6 +58,10 @@ def test_coupled_steps_match_jax_pressure_dormant(jax_runs):
         assert k[name].plain_calls == steps, name
     assert k["rigid_contact_dot"].plain_calls == 0
     assert k["pcisph_predict_rho_rigid"].plain_calls == 0
+    # the reaction walks once a step: no list is built or streamed
+    assert k["rigid_side_rows"].plain_calls == 0
+    assert k["rigid_side_list"].plain_calls == 0
+    assert k["rigid_side_force_list"].plain_calls == 0
 
 
 def test_coupled_step_matches_jax_pressure_active(jax_runs):
