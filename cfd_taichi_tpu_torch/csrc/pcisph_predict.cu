@@ -149,10 +149,7 @@ __device__ __forceinline__ float add_solids(float fluid, bool live, int i,
   }
   float body = 0.f;
   if (s.nr > 0) {
-    const bool near = live && xi >= __ldg(s.rbox) &&
-                      yi >= __ldg(s.rbox + 1) && zi >= __ldg(s.rbox + 2) &&
-                      xi <= __ldg(s.rbox + 3) && yi <= __ldg(s.rbox + 4) &&
-                      zi <= __ldg(s.rbox + 5);
+    const bool near = live && in_body_box(s.rbox, xi, yi, zi);
     if (__any_sync(kFullWarp, near)) {
       acc.tpos = s.rpos;
       acc.vol = s.rvol;

@@ -18,17 +18,44 @@
 //
 // Bound on the card: the bytes of the fluid positions and the outputs
 // (perf/bounds.py), a few microseconds at 1M particles; only fluid near the
-// body has pairs. What the first form spends is the walk itself: every
-// query loads its 9 stencil runs of the rigid table, and all but the
-// queries near the body find them empty.
+// body has pairs. What the first form spent was the walk itself: every
+// query loaded its 9 stencil runs of the rigid table, each with a warp
+// vote, and all but the queries near the body (~3 % at 1M) found them
+// empty: 48.6 us for rigid_contact_dot at 1M against a 5.5 us bound
+// (PERF.md section 6).
 //
 // Design: one thread per query on the queued walk (queued_walk_of,
 // stencil.cuh) over the rigid table, as pcisph_predict_rho's boundary walk
 // does over the walls; the drain runs the pair term on lanes that nearly
 // all hold a pair. Hits drain in walk order, sums stay in registers and
 // each output is written once by its thread: no atomics, a run repeats bit
-// for bit. Queries far from the body walk 27 empty cells; a list of the
-// queries near the body, which would skip them, is later work.
+// for bit. rigid_contact_dot, launched two or three times a step, walks
+// only from warps with a lane inside the body's gate (in_body_box,
+// stencil.cuh; rbox, made once a step by stencil.make_body_box and shared
+// with the step's other gated walks), and only from those lanes: a query
+// outside the box has no pair and writes the 0.f its walk would sum, so
+// every output keeps its bits, and a far warp reads its positions, votes
+// once and leaves. The pair work is an irregular gather of a few pairs a
+// near query, with no tile for TMA or wgmma to feed. rigid_terms, once a
+// step, still walks from every query.
+//
+// Measured on an NVIDIA H100 80GB HBM3 (PERF.md section 6, perf/
+// coef_compare.py --kernel rigid_gate; device us at 1M / 30k / the half-
+// immersed torus): the contact dot gated 40.7 / 20.3 / 23.9, ungated 51.0
+// / 20.2 / 23.5, the first form 48.7-49.2 / 19.4-19.5 / 22.0-22.7. With a
+// gate that holds no query a launch still takes 19.6 us at 1M: waves of
+// the blocks an SM holds (8: 64 registers a thread, the queue's 20 KB),
+// each loading positions, voting and storing; handing tiles of 32 queries
+// to warps from one counter instead took 29.4 (31k atomics on one
+// address). At 30k the near warps' own walks set the time (1.8 us with no
+// walk): a near query tests ~60 candidates (up to 144) of a table packed 8
+// to a cell, a chain of dependent loads that 1-2 warps an SM cannot hide.
+// Swept at 1M (contact dot / solid viscosity, the latter loading vel and
+// rho for the lanes inside the box alone; us): chunks of 4, 8, 12, 16
+// candidates 41.7, 40.3, 39.3, 42.5 / 47.7, 45.3, 45.8, 48.3; drain turns
+// of 1, 2, 4, 8 hits 40.5, 40.3, 41.1, 40.7 / 45.3, 45.3, 45.9, 46.9; at
+// 30k all within 1 us but chunks of 4 (+2); the 9 runs walked as one list
+// with their bounds loaded first, 46.3 / 52.3. So 40 / 8 / 2 stay.
 #include "stencil.cuh"
 
 constexpr int kRigidQueue = 40;  // hits a thread can hold
@@ -115,14 +142,18 @@ rigid_contact_dot_kernel(const float* __restrict__ pos, int n,
                          const int* __restrict__ rstarts, int nr,
                          StencilParams p, float rho0,
                          const float* __restrict__ v_r,
+                         const float* __restrict__ rbox,
                          float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < n;
   float xi = 0.f, yi = 0.f, zi = 0.f;
   if (live) xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
+  const bool near = live && in_body_box(rbox, xi, yi, zi);
   ContactDot acc{rvol, rlid, v_r, &p, rho0, 0.f};
-  queued_walk_of<kRigidQueue, kRigidChunk, kDrainUnroll>(
-      XyzRows{rpos}, nr, rstarts, p, live, -1, xi, yi, zi, acc);
+  if (__any_sync(kFullWarp, near)) {
+    queued_walk_of<kRigidQueue, kRigidChunk, kDrainUnroll>(
+        XyzRows{rpos}, nr, rstarts, p, near, -1, xi, yi, zi, acc);
+  }
   if (live) out[i] = acc.sum;
 }
 
@@ -144,13 +175,13 @@ extern "C" int rigid_contact_dot_launch(const float* pos, int n,
                                         const float* rpos, const float* rvol,
                                         const int* rlid, const int* rstarts,
                                         int nr, const StencilParams* p,
-                                        float rho0,
-                                        const float* v_r, float* out,
+                                        float rho0, const float* v_r,
+                                        const float* rbox, float* out,
                                         void* stream) {
   if (n > 0) {
     rigid_contact_dot_kernel<<<grid_blocks(n), kThreads, 0,
                                (cudaStream_t)stream>>>(
-        pos, n, rpos, rvol, rlid, rstarts, nr, *p, rho0, v_r, out);
+        pos, n, rpos, rvol, rlid, rstarts, nr, *p, rho0, v_r, rbox, out);
   }
   return (int)cudaGetLastError();
 }

@@ -15,17 +15,34 @@
 // sorted slot j. W's gradient takes q = r * f32(1/h), as XLA computes
 // JAX's r / h (cubic_grad_coeff, stencil.cuh).
 //
-// Bound on the card: the bytes of the fluid positions, velocities,
-// densities and the output (perf/bounds.py). As for rigid_terms, the
-// first form's time goes to the walk: every query loads its stencil runs
-// of the rigid table, and only queries near the body find pairs.
+// Bound on the card: the bytes of the fluid positions and the output, and
+// of the velocities and densities of the queries with a body pair
+// (perf/bounds.py). The first form spent its time on the walk: every query
+// loaded its velocity and density, then its 9 stencil runs of the rigid
+// table, each with a warp vote, and only queries near the body (~3 % at
+// 1M) found pairs: 56.5 us at 1M against a 12.3 us bound (PERF.md section
+// 6).
 //
 // Design: one thread per query on the queued walk (queued_walk_of,
-// stencil.cuh) over the rigid table, the pair term in the drain. The
-// body's velocity is read from device memory (a (3,) tensor), so that a
-// step reads nothing back to the host. Hits drain in walk order, sums stay
-// in registers, each output is written once: no atomics, a run repeats bit
-// for bit.
+// stencil.cuh) over the rigid table, the pair term in the drain, walked
+// only from warps with a lane inside the body's gate (in_body_box,
+// stencil.cuh; rbox, made once a step by stencil.make_body_box and shared
+// with the step's other gated walks) and only from those lanes. Such a
+// warp alone loads its queries' velocities and densities and the body's
+// velocity, read from device memory (a (3,) tensor) so that a step reads
+// nothing back to the host; a far warp reads its positions, votes once
+// and writes 0.f * m, what its empty walk would give: every output keeps
+// its bits. Hits drain in walk order, sums stay in registers, each output
+// is written once: no atomics, a run repeats bit for bit.
+//
+// Measured on an NVIDIA H100 80GB HBM3 (PERF.md section 6, perf/
+// coef_compare.py --kernel rigid_gate; device us at 1M / 30k / the half-
+// immersed torus): gated 43.9 / 20.4 / 24.0, ungated 60.0 / 20.5 / 23.7,
+// the first form 56.2-56.9 / 20.0-20.2 / 23.5; loading vel and rho for the
+// lanes inside the box alone, not every live lane of a warp that walks,
+// took 45.6 / 22.0 / 27.5. The floor with no walk, the sweep of the
+// queue's constants and why the near warps set the time at 30k:
+// rigid_terms.cu.
 #include "stencil.cuh"
 
 constexpr int kViscQueue = 40;  // hits a thread can hold
@@ -70,21 +87,25 @@ rigid_viscosity_kernel(const float* __restrict__ pos, int n,
                        const float* __restrict__ rho,
                        const float* __restrict__ rho_q,
                        const float* __restrict__ body_vel,
+                       const float* __restrict__ rbox,
                        float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < n;
   float xi = 0.f, yi = 0.f, zi = 0.f;
+  if (live) xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
+  const bool near = live && in_body_box(rbox, xi, yi, zi);
   SolidViscosity acc{rvol, rlid, rho_q, &p, rho0, nu_num, q2e_add,
                      0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (live) {
-    xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
-    acc.vx = vel[3 * i] - __ldg(body_vel);
-    acc.vy = vel[3 * i + 1] - __ldg(body_vel + 1);
-    acc.vz = vel[3 * i + 2] - __ldg(body_vel + 2);
-    acc.rho_i = rho[i];
+  if (__any_sync(kFullWarp, near)) {
+    if (live) {
+      acc.vx = vel[3 * i] - __ldg(body_vel);
+      acc.vy = vel[3 * i + 1] - __ldg(body_vel + 1);
+      acc.vz = vel[3 * i + 2] - __ldg(body_vel + 2);
+      acc.rho_i = rho[i];
+    }
+    queued_walk_of<kViscQueue, kViscChunk, kDrainUnroll>(
+        XyzRows{rpos}, nr, rstarts, p, near, -1, xi, yi, zi, acc);
   }
-  queued_walk_of<kViscQueue, kViscChunk, kDrainUnroll>(
-      XyzRows{rpos}, nr, rstarts, p, live, -1, xi, yi, zi, acc);
   if (live) {
     out[3 * i] = acc.fx * m;
     out[3 * i + 1] = acc.fy * m;
@@ -97,12 +118,12 @@ extern "C" int rigid_viscosity_launch(
     const int* rlid, const int* rstarts, int nr, const StencilParams* p,
     float rho0, float m, float nu_num, float q2e_add,
     const float* vel, const float* rho, const float* rho_q,
-    const float* body_vel, float* out, void* stream) {
+    const float* body_vel, const float* rbox, float* out, void* stream) {
   if (n > 0) {
     rigid_viscosity_kernel<<<grid_blocks(n), kThreads, 0,
                              (cudaStream_t)stream>>>(
         pos, n, rpos, rvol, rlid, rstarts, nr, *p, rho0, m, nu_num,
-        q2e_add, vel, rho, rho_q, body_vel, out);
+        q2e_add, vel, rho, rho_q, body_vel, rbox, out);
   }
   return (int)cudaGetLastError();
 }

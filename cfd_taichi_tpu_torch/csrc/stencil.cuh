@@ -147,6 +147,18 @@ __device__ __forceinline__ float dist2(float dx, float dy, float dz) {
   return dx * dx + dy * dy + dz * dz;
 }
 
+// Whether (x, y, z) lies inside the body's gate rbox (lo x, y, z, hi x, y,
+// z; stencil.make_body_box: the body's box grown by a little more than h).
+// A query outside it has no pair with the body, so a walk of the body's
+// table from it finds nothing: the kernels that walk the body let a warp
+// walk only where one of its lanes is inside.
+__device__ __forceinline__ bool in_body_box(const float* __restrict__ rbox,
+                                            float x, float y, float z) {
+  return x >= __ldg(rbox) && y >= __ldg(rbox + 1) && z >= __ldg(rbox + 2) &&
+         x <= __ldg(rbox + 3) && y <= __ldg(rbox + 4) &&
+         z <= __ldg(rbox + 5);
+}
+
 // ---------------------------------------------------------------------------
 // The queued walk: one thread per query, the pair term out of the
 // candidate loop.

@@ -134,15 +134,19 @@ def rigid_contact_vel(rigid: RigidBodyState, dt: torch.Tensor,
 
 def body_terms(scene: Scene, rigid: RigidBodyState, pos: torch.Tensor
                ) -> tuple[rigid_ops.RigidTable | None,
-                          rigid_ops.RigidTerms | None]:
+                          rigid_ops.RigidTerms | None, torch.Tensor | None]:
     """The body's cell table, sorted anew each step (the body moved in the
-    last rigid step), and its solid sums at the cell-sorted fluid `pos`;
-    (None, None) on a scene without a coupled body."""
+    last rigid step), its solid sums at the cell-sorted fluid `pos`, and
+    its gate (`stencil.make_body_box`): the one box of the step, which
+    every gated walk of the body takes (the contact dot, the solid
+    viscosity, PCISPH's predicted density); (None, None, None) on a scene
+    without a coupled body."""
     if not scene.coupled:
-        return None, None
+        return None, None, None
     table = rigid_ops.rigid_table(scene.grid, rigid.pos, scene.rigid_volume)
-    return table, rigid_ops.rigid_terms(pos, table, scene.grid, scene.h,
-                                        RHO_0)
+    return (table, rigid_ops.rigid_terms(pos, table, scene.grid, scene.h,
+                                         RHO_0),
+            stencil.make_body_box(table.pos, scene.h))
 
 
 def rho_quirk(rho: torch.Tensor, oid: torch.Tensor, n_rigid: int,
@@ -174,17 +178,18 @@ def rho_quirk(rho: torch.Tensor, oid: torch.Tensor, n_rigid: int,
 
 
 def solid_viscosity(scene: Scene, rigid: RigidBodyState,
-                    table: rigid_ops.RigidTable, pos: torch.Tensor,
-                    vel: torch.Tensor, rho: torch.Tensor, oid: torch.Tensor,
-                    c_s: float, alpha: float,
+                    table: rigid_ops.RigidTable, box: torch.Tensor,
+                    pos: torch.Tensor, vel: torch.Tensor, rho: torch.Tensor,
+                    oid: torch.Tensor, c_s: float, alpha: float,
                     shard: Shard | None = None) -> torch.Tensor:
     """(N, 3) the solid branch of the solver's viscosity: the body's
     linear velocity and the rho quirk on the rigid side (on a rank, its
-    table summed over the ranks)."""
+    table summed over the ranks), walked from the step's `box`
+    (`body_terms`)."""
     return rigid_ops.rigid_viscosity(
         pos, table, scene.grid, scene.h, RHO_0, scene.particle_m, vel, rho,
         rho_quirk(rho, oid, scene.n_rigid, shard, scene.n_fluid), rigid.vel,
-        c_s, alpha)
+        c_s, alpha, body_box=box)
 
 
 def body_reaction(scene: Scene, rigid: RigidBodyState, pos: torch.Tensor,

@@ -313,7 +313,7 @@ def prepare_sorted(scene: Scene, rigid: base.RigidBodyState,
     reaction list is built on the rank's rows."""
     grid, h, m = scene.grid, scene.h, scene.particle_m
     ft, bt = base.one_shot_terms(scene, pos, starts)
-    table, rt = base.body_terms(scene, rigid, pos)
+    table, rt, box = base.body_terms(scene, rigid, pos)
     rho, alpha, S, tension = dense_pre_terms(scene, ft, bt, rt)
     mv, mvd, _, side = loop_lists(scene, rigid, pos, starts, ft)
 
@@ -321,8 +321,8 @@ def prepare_sorted(scene: Scene, rigid: base.RigidBodyState,
         visc = stencil.viscosity(pos, starts, grid, h, m, v, rho,
                                  VISCOSITY_C_S, VISCOSITY_ALPHA)
         if table is not None:
-            visc = visc + base.solid_viscosity(scene, rigid, table, pos, v,
-                                               rho, oid, VISCOSITY_C_S,
+            visc = visc + base.solid_viscosity(scene, rigid, table, box, pos,
+                                               v, rho, oid, VISCOSITY_C_S,
                                                VISCOSITY_ALPHA, shard)
         return tension + visc
 
@@ -331,7 +331,7 @@ def prepare_sorted(scene: Scene, rigid: base.RigidBodyState,
         def cs_fn(include_alpha, dt):
             return rigid_ops.rigid_contact_dot(
                 pos, table, grid, h, RHO_0,
-                base.rigid_contact_vel(rigid, dt, include_alpha))
+                base.rigid_contact_vel(rigid, dt, include_alpha), box)
 
         if scene.fs_couple:
             def scatter_fn(k_over_rho, force):

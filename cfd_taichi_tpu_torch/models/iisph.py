@@ -199,7 +199,7 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
     grid, m = scene.grid, scene.particle_m
     dt2 = dt * dt
     ft, bt = base.one_shot_terms(scene, pos, starts)
-    table, rt = base.body_terms(scene, rigid, pos)
+    table, rt, box = base.body_terms(scene, rigid, pos)
     rho, S_all, g2_sb, tension = dense_pre_terms(scene, ft, bt, rt)
     inv_rho2 = torch.reciprocal(rho * rho)
     mv, mvd, _ = loop_engine(scene, pos, starts, ft)
@@ -209,7 +209,7 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
                                   VISCOSITY_C_S, VISCOSITY_ALPHA)
     if table is not None:
         viscosity = viscosity + base.solid_viscosity(
-            scene, rigid, table, pos, vel, rho, oid, VISCOSITY_C_S,
+            scene, rigid, table, box, pos, vel, rho, oid, VISCOSITY_C_S,
             VISCOSITY_ALPHA, shard)
     f_adv = base.gravity_acc(scene) + tension + viscosity
     v_adv = vel + f_adv * true_div(dt, f32(m))
@@ -221,7 +221,7 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
         # with alpha dt (iisph_solver.py:325-334).
         rho_adv = rho_adv - dt * rigid_ops.rigid_contact_dot(
             pos, table, grid, scene.h, RHO_0,
-            base.rigid_contact_vel(rigid, dt, include_alpha=True))
+            base.rigid_contact_vel(rigid, dt, include_alpha=True), box)
     a_ii = (dot(d_ii, S_all)
             - dt2 * f32(m) * inv_rho2 * (true_div(ft.qsum, f32(m)) + g2_sb))
 

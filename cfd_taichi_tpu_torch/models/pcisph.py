@@ -28,7 +28,9 @@ scenes with a rigid body:
   external force, the pressure force gains -S_s u with u = p m / rho^2,
   the predicted density a third walk over the body (which keeps its
   positions through the step; only queries inside the body's box grown by
-  h take it, the box made once a step), and in a two-way coupled scene each
+  h take it: the step's one box, made with the body's table in
+  `base.body_terms`, which the solid viscosity's walk takes too), and in a
+  two-way coupled scene each
   iteration adds the fluid's reaction u to the body's force, a stream over
   the body's fluid pairs listed once a step (`dfsph.loop_lists`);
 * the loop p <- max(p + err delta, 0) while the average positive density
@@ -153,13 +155,12 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
     rho = f32(base.DENSITY_EPS) + ft.rho
     if bt is not None:
         rho = rho + bt.rho
-    table, rt = base.body_terms(scene, rigid, pos)
+    table, rt, box = base.body_terms(scene, rigid, pos)
     if rt is not None:
         rho = rho + rt.rho
     inv_rho2 = torch.reciprocal(rho * rho)
     mv, _, store, side = loop_lists(scene, rigid, pos, starts, ft)
     walls = base.walls(scene)
-    box = None if table is None else stencil.make_body_box(table.pos, h)
 
     # --- external forces (pcisph_solver.py:220-226) -------------------------
     tension = ft.tvec * f32(-TENSION_K * m)
@@ -167,7 +168,7 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
                                   VISCOSITY_C_S, VISCOSITY_ALPHA)
     if table is not None:
         viscosity = viscosity + base.solid_viscosity(
-            scene, rigid, table, pos, vel, rho, oid, VISCOSITY_C_S,
+            scene, rigid, table, box, pos, vel, rho, oid, VISCOSITY_C_S,
             VISCOSITY_ALPHA, shard)
     ext_force = base.gravity_acc(scene) + tension + viscosity
     dt_over_m = true_div(dt, f32(m))

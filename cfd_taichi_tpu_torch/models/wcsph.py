@@ -79,7 +79,7 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
     rho quirk's table and the reaction of its owned rows, summed over the
     ranks."""
     grid, h, m = scene.grid, scene.h, scene.particle_m
-    table, rt = base.body_terms(scene, rigid, pos)
+    table, rt, box = base.body_terms(scene, rigid, pos)
     if rt is not None:
         rho = rho + rt.rho
 
@@ -96,9 +96,9 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
         # The solid pressure term -p' S_s, the solid viscosity and the
         # reaction p' m (wcsph_solver.py:117-129).
         acc = acc - rt.s * p_over_rho2[:, None]
-        acc = acc + base.solid_viscosity(scene, rigid, table, pos, vel, rho,
-                                         oid, VISCOSITY_C_S, VISCOSITY_ALPHA,
-                                         shard)
+        acc = acc + base.solid_viscosity(scene, rigid, table, box, pos, vel,
+                                         rho, oid, VISCOSITY_C_S,
+                                         VISCOSITY_ALPHA, shard)
         if scene.fs_couple:
             rigid_force = base.step_reaction(scene, rigid, pos, starts,
                                              p_over_rho2 * f32(m), shard)

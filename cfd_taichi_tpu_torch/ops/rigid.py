@@ -22,6 +22,11 @@ fit together; the launch counts are rows of `stencil.KERNELS`):
   Monaghan viscosity, the body's linear velocity on the rigid side and
   the neighbour density read through `lid` from a per-rigid table (the
   reference's rho quirk, models/dfsph.py says which);
+
+  these two walk the body only from warps with a query inside its gate
+  (`stencil.make_body_box`, made once a step with the table,
+  `models/base.body_terms`), which leaves every output bit as it is: a
+  query outside the box has no pair;
 * `rigid_side_force` (csrc/rigid_side_force.cu): the fluid's reaction on
   each rigid particle, in original order, over the cell-sorted fluid's CSR
   table: F_j += sum_i rho0 V_j c (x_i - x_j) u_i. JAX computes it from the
@@ -61,8 +66,8 @@ from cfd_taichi_tpu_torch.ops.stencil import (KERNELS, LIST_STRIDE, _check,
                                               _launch, _on_cuda,
                                               _pair_chunks, _params, _rowsum,
                                               _rowsum3, checked_slots,
-                                              walk_offsets, warp_bases,
-                                              warp_offsets)
+                                              make_body_box, walk_offsets,
+                                              warp_bases, warp_offsets)
 
 
 class RigidTable(NamedTuple):
@@ -112,6 +117,19 @@ def _check_table(t: RigidTable, grid: nb.GridSpec,
     return nr
 
 
+def _gate(body_box: torch.Tensor | None, pos: torch.Tensor,
+          table: RigidTable, h: float) -> torch.Tensor | None:
+    """The body's gate of a gated pass: `body_box` checked as (2, 3) f32
+    on the queries' device, or on the card one made from the table where
+    the caller has none (the plain versions compute every pair and take
+    none)."""
+    if body_box is not None:
+        _check("body_box", body_box, torch.float32, (2, 3), pos.device)
+    elif pos.is_cuda:
+        body_box = make_body_box(table.pos, h)
+    return body_box
+
+
 def _rigid_viscosity_constants(h: float, c_s: float, alpha: float,
                                eps: float) -> tuple[float, float]:
     """nu = f32(2 alpha h c_s) and (f32(eps) h) h in f32, as
@@ -144,10 +162,14 @@ def rigid_terms(pos: torch.Tensor, table: RigidTable, grid: nb.GridSpec,
 
 def rigid_contact_dot(pos: torch.Tensor, table: RigidTable,
                       grid: nb.GridSpec, h: float, rho0: float,
-                      v_r: torch.Tensor) -> torch.Tensor:
+                      v_r: torch.Tensor,
+                      body_box: torch.Tensor | None = None) -> torch.Tensor:
     """R2: (N,) sum_j w_s c x_ij . v_r[lid_j] of the (Nr, 3) rigid
     velocities `v_r` in original order (replaces rigid_dense.
-    contact_dot_op)."""
+    contact_dot_op). Only queries inside `body_box` walk the body
+    (`stencil.make_body_box`; made here from the table where the caller
+    has none)."""
+    body_box = _gate(body_box, pos, table, h)
     if not _on_cuda("rigid_contact_dot", pos):
         return rigid_contact_dot_plain(pos, table, grid, h, rho0, v_r)
     n = pos.shape[0]
@@ -157,7 +179,7 @@ def rigid_contact_dot(pos: torch.Tensor, table: RigidTable,
     out = pos.new_empty(n)
     _launch("rigid_contact_dot", pos.device, pos, n, table.pos, table.vol,
             table.lid, table.starts, nr, ctypes.byref(_params(grid, h)),
-            f32(rho0), v_r, out)
+            f32(rho0), v_r, body_box, out)
     return out
 
 
@@ -165,12 +187,15 @@ def rigid_viscosity(pos: torch.Tensor, table: RigidTable, grid: nb.GridSpec,
                     h: float, rho0: float, m: float, vel: torch.Tensor,
                     rho: torch.Tensor, rho_quirk: torch.Tensor,
                     body_vel: torch.Tensor, c_s: float, alpha: float,
-                    eps: float = 0.01) -> torch.Tensor:
+                    eps: float = 0.01,
+                    body_box: torch.Tensor | None = None) -> torch.Tensor:
     """R3: (N, 3) the solid branch of the Monaghan viscosity under
     compression, already scaled by m: the body's linear velocity
     `body_vel` (3,) on the rigid side and the neighbour density
     rho_quirk[lid_j] of the (Nr,) table in original order (replaces
-    rigid_dense.viscosity_op)."""
+    rigid_dense.viscosity_op). Only queries inside `body_box` walk the
+    body, as in `rigid_contact_dot`."""
+    body_box = _gate(body_box, pos, table, h)
     if not _on_cuda("rigid_viscosity", pos):
         return rigid_viscosity_plain(pos, table, grid, h, rho0, m, vel, rho,
                                      rho_quirk, body_vel, c_s, alpha, eps)
@@ -186,7 +211,7 @@ def rigid_viscosity(pos: torch.Tensor, table: RigidTable, grid: nb.GridSpec,
             table.lid, table.starts, nr, ctypes.byref(_params(grid, h)),
             f32(rho0), f32(m),
             *_rigid_viscosity_constants(h, c_s, alpha, eps), vel, rho,
-            rho_quirk, body_vel, out)
+            rho_quirk, body_vel, body_box, out)
     return out
 
 

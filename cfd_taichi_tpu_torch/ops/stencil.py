@@ -129,6 +129,10 @@ KERNELS = {k.name: k for k in (
            "cfd_taichi_tpu/ops/rigid_dense.py:255"),
     Kernel("rigid_side_force_list", _CSRC + "rigid_side_force.cu",
            "cfd_taichi_tpu/ops/rigid_dense.py:281"),
+    # The body's gate, made once a coupled step (`make_body_box`): it
+    # stands in for JAX's selection of the fluid groups near the body.
+    Kernel("body_box", _CSRC + "body_box.cu",
+           "cfd_taichi_tpu/ops/rigid_dense.py:63"),
     # The stored-coefficient engine (ops/coef.py).
     Kernel("coef_build", _CSRC + "coef_build.cu",
            "cfd_taichi_tpu/ops/bandmat.py:682"),
@@ -499,24 +503,41 @@ BOX_SLACK = 2.0**-20
 
 
 def make_body_box(bpos: torch.Tensor, h: float) -> torch.Tensor:
-    """(2, 3) f32 corners lo, hi of the body's gate: the box of its (Nr, 3)
-    positions `bpos` grown by h (1 + BOX_MARGIN) and BOX_SLACK of each
-    axis' largest |coordinate|, made on the device with no host read. A
-    query with a body pair lies inside it (`in_body_box`); on a body of no
-    particles it holds nothing."""
-    if bpos.shape[0] == 0:
+    """R5: (2, 3) f32 corners lo, hi of the body's gate: the box of its
+    (Nr, 3) positions `bpos` grown by h (1 + BOX_MARGIN) and BOX_SLACK of
+    each axis' largest |coordinate|, made on the device with no host read
+    (csrc/body_box.cu, one launch). A query with a body pair lies inside it
+    (`in_body_box`); on a body of no particles it holds nothing."""
+    nr = bpos.shape[0]
+    if nr == 0:
         inf = float("inf")
         return torch.tensor([[inf] * 3, [-inf] * 3], dtype=torch.float32,
                             device=bpos.device)
+    if not _on_cuda("body_box", bpos):
+        return make_body_box_plain(bpos, h)
+    _check("body pos", bpos, torch.float32, (nr, 3), bpos.device)
+    box = bpos.new_empty(2, 3)
+    _launch("body_box", bpos.device, bpos, nr, _box_grow(h),
+            f32(BOX_SLACK), box)
+    return box
+
+
+def _box_grow(h: float) -> float:
+    """f32(h (1 + BOX_MARGIN)), the part of the gate's margin common to
+    every axis."""
+    return f32(CubicConstants.of(h).h * (1.0 + BOX_MARGIN))
+
+
+def make_body_box_plain(bpos: torch.Tensor, h: float) -> torch.Tensor:
+    KERNELS["body_box"].plain_calls += 1
     lo, hi = bpos.amin(dim=0), bpos.amax(dim=0)
-    grow = f32(CubicConstants.of(h).h * (1.0 + BOX_MARGIN)) \
-        + torch.maximum(lo.abs(), hi.abs()) * f32(BOX_SLACK)
+    grow = _box_grow(h) + torch.maximum(lo.abs(), hi.abs()) * f32(BOX_SLACK)
     return torch.stack([lo - grow, hi + grow])
 
 
 def in_body_box(pos: torch.Tensor, box: torch.Tensor) -> torch.Tensor:
     """(N,) bool: the queries at `pos` that the kernels let walk the body,
-    by the same f32 comparisons as theirs (csrc/pcisph_predict.cu)."""
+    by the same f32 comparisons as theirs (csrc/stencil.cuh, in_body_box)."""
     return ((pos >= box[0]) & (pos <= box[1])).all(dim=1)
 
 

@@ -178,10 +178,12 @@ def stencil_cells(qpos: torch.Tensor, grid: GridSpec) -> int:
 def rigid_work(x: dict) -> dict[str, Work]:
     """Work of the fluid-rigid kernels on coupled inputs `x`
     (perf/inputs.coupled_inputs): n cell-sorted fluid queries against the
-    body's table for three of them, and the body's Nr particles against the
-    fluid's table for the reaction, whose function needs only the fluid
-    rows within h of the body (their positions and u) and the offsets of
-    the cells its stencils cover; and PCISPH's predicted density as the
+    body's table for three of them (the solid viscosity reading the
+    velocity and density of only the queries within h of the body), and
+    the body's Nr particles against the fluid's table for the reaction,
+    whose function needs only the fluid rows within h of the body (their
+    positions and u) and the offsets of the cells its stencils cover; and
+    PCISPH's predicted density as the
     coupled step launches it, its fluid and wall walks (`scene_work`'s)
     with the body's walk: the body's table and its pairs' terms beside the
     bytes of x~ and the output that the fluid walk counts; under
@@ -191,26 +193,34 @@ def rigid_work(x: dict) -> dict[str, Work]:
     n, nr, cells = p.shape[0], t.pos.shape[0], g.num_cells
     pairs = count_pairs(p, t.pos, t.starts, g, x["h"], exclude_self=False)
     cand = candidates(p, t.starts, g)
+    # The fluid queries with a body pair: the rows whose inputs beyond
+    # their positions the function reads.
+    partners = torch.zeros(n, dtype=torch.bool, device=p.device)
+    for _, pr in _pair_chunks(x["rpos"], p, x["st"], g, x["h"],
+                              exclude_self=False):
+        partners[pr.slot[pr.valid]] = True
+    partners = int(partners.sum())
     table = 16 * nr + 4 * (cells + 1)     # sorted pos and V_j, offsets
     f = 4 * n
+    # Every query's position is read (whether a query has a body pair
+    # depends on it) and every output written (it is the function's); the
+    # contact dot reads nothing else a query. The solid viscosity's other
+    # inputs, vel and rho, enter only the pair terms, so the least work
+    # reads them for the partners alone, as the gated kernel does.
     nbytes = {
         # pos; rho, s, qsum, g2
         "rigid_terms": 3 * f + table + 6 * f,
         # pos, lid, v_r; out
         "rigid_contact_dot": 3 * f + table + 4 * nr + 12 * nr + f,
-        # pos, lid, vel, rho, rho_q, the body's velocity; out
-        "rigid_viscosity": (3 * f + table + 4 * nr + 3 * f + f + 4 * nr
-                            + 12 + 3 * f),
+        # pos, lid, the partners' vel and rho, rho_q, the body's velocity;
+        # out
+        "rigid_viscosity": (3 * f + table + 4 * nr + 16 * partners
+                            + 4 * nr + 12 + 3 * f),
     }
     out = {name: _pair_work(name, b, cand, pairs)
            for name, b in nbytes.items()}
-    partners = torch.zeros(n, dtype=torch.bool, device=p.device)
-    for _, pr in _pair_chunks(x["rpos"], p, x["st"], g, x["h"],
-                              exclude_self=False):
-        partners[pr.slot[pr.valid]] = True
     # the body's pos, V_j and force in, force out; the partners' pos and
     # u; the offsets of the cells of the body's stencils
-    partners = int(partners.sum())
     cells_side = 8 * stencil_cells(x["rpos"], g)
     side = 40 * nr + 16 * partners + cells_side
     side_cand = candidates(x["rpos"], x["st"], g)
@@ -233,6 +243,11 @@ def rigid_work(x: dict) -> dict[str, Work]:
     out["rigid_side_force_list"] = Work(
         walk.bytes, walk.ops, walk.ops,
         8 * nr + 16 * pairs + 4 * partners + 24 * nr)
+    # the body's gate: its positions in, the box out; a min and a max a
+    # coordinate, and a multiply, an add, a max, two abs and the two
+    # corners' add or subtract an axis
+    box_ops = 6 * nr + 18
+    out["body_box"] = Work(12 * nr + 24, box_ops, box_ops)
     sc, st = x["sc"], x["st"]
     pairs_f = count_pairs(p, p, st, g, x["h"], exclude_self=True)
     walks = [stencil_work("pcisph_predict_rho", n, cells,

@@ -122,11 +122,35 @@ def pair_store(p, st, g, h: float, m: float) -> coef.CoefEngine:
 
 
 def ungated_box(device) -> torch.Tensor:
-    """A body gate that holds every query: the predicted density's body
-    walk taken by every warp, as before the gate."""
+    """A body gate that holds every query: the body's walk of a gated pass
+    (the predicted density, the contact dot, the solid viscosity) taken by
+    every warp, as before the gate."""
     inf = float("inf")
     return torch.tensor([[-inf] * 3, [inf] * 3], dtype=torch.float32,
                         device=device)
+
+
+def gate_box(x: dict) -> torch.Tensor:
+    """The body's gate of coupled inputs `x`, made as a step makes it
+    (`models/base.body_terms`)."""
+    return S.make_body_box(x["table"].pos, x["h"])
+
+
+def gated_calls(x: dict) -> dict:
+    """{kernel: (call, plain)} of the two fluid-side passes that gate their
+    walk of the body, on coupled inputs `x`: each call takes a gate,
+    `gate_box(x)` or `ungated_box`, so that the two launches can be held
+    to each other bit for bit and timed in turns."""
+    g, h, m, p, t = (x[k] for k in ("grid", "h", "m", "p", "table"))
+    dot = (p, t, g, h, RHO0, x["v_r"])
+    visc = (p, t, g, h, RHO0, m, x["v"], x["rho"], x["rho_quirk"],
+            x["body_vel"], VISC["c_s"], VISC["alpha"])
+    return {"rigid_contact_dot": (
+                lambda b: R.rigid_contact_dot(*dot, body_box=b),
+                lambda: R.rigid_contact_dot_plain(*dot)),
+            "rigid_viscosity": (
+                lambda b: R.rigid_viscosity(*visc, body_box=b),
+                lambda: R.rigid_viscosity_plain(*visc))}
 
 
 def coef_lanes(dot: bool, pos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -240,12 +264,13 @@ def solver_cases(p, st, g, h: float, m: float, walls: S.Walls, x: dict,
 
 def rigid_cases(x: dict, work: dict | None = None) -> Iterator[Case]:
     """The fluid-rigid kernels on coupled inputs `x` (perf/inputs.
-    coupled_inputs), as a coupled step calls them: the solid sums, the
-    contact dot of x["v_r"], the solid viscosity, the reaction of x["u"]
+    coupled_inputs), as a coupled step calls them, the body's gate made
+    once (`gate_box`): the solid sums, the contact dot of x["v_r"], the
+    solid viscosity, the reaction of x["u"]
     on x["force"] by the walk, the reaction list's rows, the list, and its
     stream over the list that the wrappers made here once (`side_list`;
-    its library yardstick `side_library_calls`), and PCISPH's predicted
-    density at x["shifted"] with its
+    its library yardstick `side_library_calls`), the gate itself, and
+    PCISPH's predicted density at x["shifted"] with its
     walk over the body (and the walls, where the scene has them): its
     stream form over the pair store of x["p"] as pcisph_predict_rho_rigid
     (the coupled PCISPH step's on the stored-coefficient engine), and its
@@ -254,11 +279,12 @@ def rigid_cases(x: dict, work: dict | None = None) -> Iterator[Case]:
     or None. No one PyTorch call computes any of the others."""
     g, h, m, p, t = (x[k] for k in ("grid", "h", "m", "p", "table"))
     work = work or {}
+    box = gate_box(x)
     predict = (p, x["st"], g, h, m, x["shifted"], base.walls(x["sc"]), RHO0,
                t)
     eng = pair_store(p, x["st"], g, h, m)
-    visc = (p, t, g, h, RHO0, m, x["v"], x["rho"], x["rho_quirk"],
-            x["body_vel"], VISC["c_s"], VISC["alpha"])
+    gated = {name: (functools.partial(call, box), plain)
+             for name, (call, plain) in gated_calls(x).items()}
     side = (x["rpos"], x["rvol"], p, x["st"], g, h, RHO0, x["u"],
             x["force"])
     build, listed = side_list(x)
@@ -267,11 +293,8 @@ def rigid_cases(x: dict, work: dict | None = None) -> Iterator[Case]:
     for name, kern, plain in (
             ("rigid_terms", lambda: R.rigid_terms(p, t, g, h, RHO0),
              lambda: R.rigid_terms_plain(p, t, g, h, RHO0)),
-            ("rigid_contact_dot",
-             lambda: R.rigid_contact_dot(p, t, g, h, RHO0, x["v_r"]),
-             lambda: R.rigid_contact_dot_plain(p, t, g, h, RHO0, x["v_r"])),
-            ("rigid_viscosity", lambda: R.rigid_viscosity(*visc),
-             lambda: R.rigid_viscosity_plain(*visc)),
+            ("rigid_contact_dot", *gated["rigid_contact_dot"]),
+            ("rigid_viscosity", *gated["rigid_viscosity"]),
             ("rigid_side_force", lambda: R.rigid_side_force(*side),
              lambda: R.rigid_side_force_plain(*side)),
             ("rigid_side_rows", lambda: R.rigid_side_rows(*rows),
@@ -281,15 +304,17 @@ def rigid_cases(x: dict, work: dict | None = None) -> Iterator[Case]:
             ("rigid_side_force_list",
              lambda: R.rigid_side_force_list(*stream),
              lambda: R.rigid_side_force_list_plain(*stream)),
+            ("body_box", lambda: S.make_body_box(t.pos, h),
+             lambda: S.make_body_box_plain(t.pos, h)),
             ("pcisph_predict_rho_rigid",
-             lambda: S.pcisph_predict_rho(*predict, eng=eng),
+             lambda: S.pcisph_predict_rho(*predict, eng=eng, body_box=box),
              lambda: S.pcisph_predict_rho_list_plain(eng, p, *predict[2:]))):
         yield Case(name, name, kern, plain, work.get(name),
                    side_library_calls(*stream)
                    if name == "rigid_side_force_list" else {},
                    side_list_view if name == "rigid_side_list" else None)
     yield Case("pcisph_predict_rho", "pcisph_predict_rho_body",
-               lambda: S.pcisph_predict_rho(*predict),
+               lambda: S.pcisph_predict_rho(*predict, body_box=box),
                lambda: S.pcisph_predict_rho_plain(*predict),
                work.get("pcisph_predict_rho"))
 

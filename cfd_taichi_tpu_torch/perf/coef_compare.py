@@ -4,7 +4,7 @@ on one card:
     python -m cfd_taichi_tpu_torch.perf.coef_compare \\
         [--kernel coef_matvec|coef_build|viscosity|fluid_terms|
                   boundary_terms|matvec|wcsph_forces|pcisph_predict|
-                  pbf|rigid_side] \\
+                  pbf|rigid_side|rigid_gate] \\
         [--variant NAME=PATH ...] [--bit-equal NAME] [--out PATH]
 
 `--kernel` picks the source: csrc/coef_matvec.cu (the default, both
@@ -20,7 +20,14 @@ streams over the tree's list, "lambda" and "xsph"), or, for
 `rigid_side`, csrc/rigid_side_force.cu (the body's reaction: the walk,
 "walk", the list's rows, "rows", the list's build, "list", and the
 stream over the tree's list, "stream", on perf/inputs.body_inputs and
-torus_inputs). A
+torus_inputs), or, for `rigid_gate`, csrc/rigid_terms.cu and
+csrc/rigid_viscosity.cu (the contact dot, "dot", and the solid
+viscosity, "visc", each with the body's gate made once as a step makes
+it, with a gate that holds every query, "dot_ungated" and
+"visc_ungated" (a gated call that differs from its ungated one by a bit
+fails its check), and with one that holds none, "dot_closed" and
+"visc_closed"; and csrc/body_box.cu, the gate's kernel, "box", beside
+its plain version, "box_plain"; on the same inputs as rigid_side). A
 variant's PATH is a source of one of those files (it replaces the
 tree's of its name), or
 a directory: its `.cu` of the kernel's names
@@ -100,6 +107,20 @@ kSideAhead), each against one lane a row bit for bit:
         --variant s1a4=build/s1a4 --variant s1a16=build/s1a16 \\
         --variant s2a8=build/s2a8 --variant s4a4=build/s4a4 --bit-equal tree
 
+The contact dot and the solid viscosity with chunks of 16 candidates
+(kRigidChunk, kViscChunk) and with 4 hits a drain turn (kDrainUnroll, in
+a copy of stencil.cuh), each against the tree's bit for bit:
+
+    mkdir -p build/c16 build/u4
+    for f in rigid_terms rigid_viscosity; do
+        sed 's/Chunk = 8;/Chunk = 16;/' cfd_taichi_tpu_torch/csrc/$f.cu \\
+            > build/c16/$f.cu
+    done
+    sed 's/kDrainUnroll = 2;/kDrainUnroll = 4;/' \\
+        cfd_taichi_tpu_torch/csrc/stencil.cuh > build/u4/stencil.cuh
+    python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel rigid_gate \\
+        --variant c16=build/c16 --variant u4=build/u4 --bit-equal tree
+
 The recompute products before they took the queued walk (pair term in the
 candidate loop), and the tree's with a queue of 32 hits a thread:
 
@@ -135,10 +156,11 @@ Each source, the tree's ("tree") first, is built into its own library
 (build/compare/<kernel>/<name>/; one that does not build is reported and
 left out) and called through the port's wrappers with that library in
 place of the tree's. It is checked against the plain version on
-breaking_dam_1m's and breaking_dam_30k's jittered lattices (rigid_side:
-on their blocks with a body, perf/inputs.body_inputs) and, for the
+breaking_dam_1m's and breaking_dam_30k's jittered lattices (rigid_side
+and rigid_gate: on their blocks with a body, perf/inputs.body_inputs)
+and, for the
 contraction, on two ragged engines of 1000 and 1003 rows (lane sums to
-1e-5 of each lane's largest value), for rigid_side on the half-immersed
+1e-5 of each lane's largest value), for those two on the half-immersed
 torus (perf/inputs.torus_inputs), else on the clustered cloud of
 chip_smoke.py
 (perf/inputs.py; coef_build: nbr exactly, w as perf/cases.build_error
@@ -192,7 +214,9 @@ SOURCES = {"coef_matvec": ("coef_matvec.cu",),
            "matvec": ("matvec.cu",), "wcsph_forces": ("wcsph_forces.cu",),
            "pcisph_predict": ("pcisph_predict.cu",),
            "pbf": ("pbf_terms.cu", "pbf_lambda.cu", "pbf_xsph.cu"),
-           "rigid_side": ("rigid_side_force.cu",)}
+           "rigid_side": ("rigid_side_force.cu",),
+           "rigid_gate": ("rigid_terms.cu", "rigid_viscosity.cu",
+                          "body_box.cu")}
 # The entry point of a wcsph_forces source from before the packed records,
 # renamed so (see above): (pos, starts, n, params, m, nu_num, q2e_add,
 # tension_mk, vel, rho, p', out, stream).
@@ -371,6 +395,8 @@ def entries(kernel: str, x: dict) -> list[Entry]:
         return pbf_entries(x, p, st, g, h, m)
     if kernel == "rigid_side":
         return rigid_side_entries(x)
+    if kernel == "rigid_gate":
+        return rigid_gate_entries(x)
     if kernel == "viscosity":
         args = (p, st, g, h, m, x["v"], x["rho"])
         want = S.viscosity_plain(*args, **cases.VISC)
@@ -476,11 +502,54 @@ def rigid_side_entries(x: dict) -> list[Entry]:
                   lambda: cases.scaled_error(addmv(), stream_want))]
 
 
+def rigid_gate_entries(x: dict) -> list[Entry]:
+    """The contact dot ("dot") and the solid viscosity ("visc") on coupled
+    inputs `x`, gated by the body's box (perf/cases.gated_calls),
+    ungated ("..._ungated"), each against the plain version (a gated call
+    must also give its ungated call's bits), and with a gate that holds
+    no query ("..._closed": every output 0; what the warps that take no
+    walk cost, the gated kernel's floor); and the gate's kernel ("box",
+    bit for bit with its plain version, "box_plain", timed by all its
+    kernels)."""
+    box = cases.gate_box(x)
+    open_box = cases.ungated_box(box.device)
+    closed = open_box.flip(0).contiguous()
+    out = []
+    for label, (name, (call, plain)) in zip(
+            ("dot", "visc"), cases.gated_calls(x).items()):
+        want = plain()
+
+        def check(call=call, want=want, gated=True):
+            got = call(box if gated else open_box)
+            if gated and not torch.equal(got, call(open_box)):
+                return float("inf")
+            return cases.scaled_error(got, want)
+
+        def check_closed(call=call):
+            return 0.0 if bool((call(closed) == 0).all()) else float("inf")
+        out += [Entry(label, name, functools.partial(call, box), check),
+                Entry(f"{label}_ungated", name,
+                      functools.partial(call, open_box),
+                      functools.partial(check, gated=False)),
+                Entry(f"{label}_closed", name,
+                      functools.partial(call, closed), check_closed)]
+    bpos, h = x["table"].pos, x["h"]
+    want = S.make_body_box_plain(bpos, h)
+    return out + [
+        Entry("box", "body_box", functools.partial(S.make_body_box, bpos, h),
+              lambda: 0.0 if torch.equal(S.make_body_box(bpos, h), want)
+              else float("inf")),
+        Entry("box_plain", None,
+              functools.partial(S.make_body_box_plain, bpos, h),
+              lambda: 0.0)]
+
+
 def cells(kernel: str) -> list[tuple[str, Callable, bool]]:
     """(case, inputs, timed with events) in the order they run: the 1M
     inputs, then the contraction's ragged engines (checked only), the
-    half-immersed torus (rigid_side) or the clustered cloud, then 30k."""
-    if kernel == "rigid_side":
+    half-immersed torus (rigid_side, rigid_gate) or the clustered cloud,
+    then 30k."""
+    if kernel in ("rigid_side", "rigid_gate"):
         return [("1m", lambda: inputs.body_inputs("breaking_dam_1m.json",
                                                   3), True),
                 ("torus", lambda: inputs.torus_inputs(3), True),

@@ -13,7 +13,9 @@ their centre (perf/inputs.body_scene, DFSPH) and configs/
 coupling_demo.json (PCISPH), each measured as a step below; the digest
 also covers the body's particles, velocity and spin, and the device
 times of the body's reaction (its walk, or its list's rows, the list and
-the list's stream) are printed.
+the list's stream) and of the fluid side's passes over the body (the
+solid sums, and the contact dot and solid viscosity, which a tree since
+their gate walks only near the body) are printed.
 
 The package is imported from PYTHONPATH, so that the same script measures
 an older tree unpacked beside this one (`git archive`); run the trees in
@@ -56,11 +58,20 @@ BODY_BLOCKS = {"body_30k": "breaking_dam_30k.json",
 # The reaction's kernels, whose device times a coupled cell prints
 REACTION = ("rigid_side_force", "rigid_side_rows", "rigid_side_list",
             "rigid_side_force_list")
+# The fluid side's passes over the body, whose device times it prints too
+FLUID_SIDE = ("rigid_terms", "rigid_contact_dot", "rigid_viscosity")
 UNTIMED, TIMED, PROFILED = 5, 10, 3
 
 
 def _digest(t: torch.Tensor) -> str:
     return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _listed(kernels: dict, names: tuple) -> str:
+    """Launches a step and device us a launch of the kernels `names`."""
+    return "; ".join(f"{name} {k['launches_per_step']:.1f} x "
+                     f"{k['us_per_launch']:.2f} us"
+                     for name, k in kernels.items() if name in names)
 
 
 def pbf_digests(cfg_name: str) -> dict:
@@ -182,11 +193,9 @@ def main() -> int:
                   f"{k['us_per_launch']:.2f} us" for name, k in top))
         if solver == "coupled":
             print(f"[coupled] {args.label} {tag}: diag of the last step "
-                  f"{row['diags'][-1]}; reaction " + "; ".join(
-                      f"{name} {k['launches_per_step']:.1f} x "
-                      f"{k['us_per_launch']:.2f} us"
-                      for name, k in row["kernels"].items()
-                      if name in REACTION))
+                  f"{row['diags'][-1]}; reaction "
+                  f"{_listed(row['kernels'], REACTION)}; fluid side "
+                  f"{_listed(row['kernels'], FLUID_SIDE)}")
         torch.cuda.empty_cache()
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

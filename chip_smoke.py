@@ -74,7 +74,12 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 body gate must give the bits of the same launch ungated
                 (every warp walking the body), and the body's walk is
                 timed as the call less the call without the body, gated
-                and ungated (events around 20 calls). Each
+                and ungated (events around 20 calls); so must
+                rigid_contact_dot and rigid_viscosity, which take the same
+                gate (its queries inside printed), each timed gated and
+                ungated in turns (events around 20 calls, and
+                torch.profiler); the gate's kernel, body_box, must give
+                its plain version's bits. Each
                 kernel's bound (perf/bounds.py: the bytes and
                 f32 operations of the call's inputs at the H100's peaks)
                 and, for the coef contraction, the one PyTorch call that
@@ -323,7 +328,8 @@ RIGID_CFG = {
 }
 RIGID_PATH = ("rigid_terms", "rigid_contact_dot", "rigid_viscosity",
               "rigid_side_force", "rigid_side_rows", "rigid_side_list",
-              "rigid_side_force_list", "pcisph_predict_rho_rigid")
+              "rigid_side_force_list", "pcisph_predict_rho_rigid",
+              "body_box")
 # [agree]: the solvers that couple a body, each run on RIGID_CFG
 AGREE_COUPLED = ("dfsph", "pcisph", "iisph", "wcsph")
 # [rigid]: (tag, config, frames) of torus_flush as written (DFSPH) and its
@@ -631,7 +637,8 @@ def rigid_checks(torch, results: dict) -> None:
     water at 30k and 1M and on the half-immersed torus scene, timed;
     rigid_side_force, its list's stream and the stream form with the
     body's walk repeat bit for bit; the list's stream gives the walk's bits
-    (`stream_bits`); the body gate (`body_gate`)."""
+    (`stream_bits`); the body gate of the predicted density (`body_gate`)
+    and of the contact dot and the solid viscosity (`rigid_gate`)."""
     from cfd_taichi_tpu_torch.perf import bounds, cases, inputs
 
     for tag, make in (
@@ -650,6 +657,7 @@ def rigid_checks(torch, results: dict) -> None:
                 repeats(case, tag, torch)
         stream_bits(torch, results, x, tag)
         body_gate(torch, results, x, tag)
+        rigid_gate(torch, results, x, tag)
         del x
         torch.cuda.empty_cache()
 
@@ -715,6 +723,50 @@ def body_gate(torch, results: dict, x: dict, tag: str) -> None:
               f"{ungated:.4f}), without {none:.4f} ms (in turns "
               f"{[round(t, 4) for t in ms]}), so the body's walk "
               f"{gated - none:.4f} ms (ungated {ungated - none:.4f})")
+
+
+def rigid_gate(torch, results: dict, x: dict, tag: str) -> None:
+    """The contact dot's and the solid viscosity's body gate on coupled
+    inputs `x`: each with the gate made once, as a step makes it, against
+    the same launch ungated, bit for bit; then both timed in turns (gated,
+    ungated, ungated, gated: CUDA events around 20 back-to-back calls, over
+    the count) and by torch.profiler's device time a launch; and the gate
+    (body_box) against its plain version bit for bit, the plain version's
+    kernels timed by torch.profiler."""
+    from cfd_taichi_tpu_torch.ops import stencil as S
+    from cfd_taichi_tpu_torch.perf import cases, timing
+
+    box = cases.gate_box(x)
+    open_box = cases.ungated_box(box.device)
+    inside = int(S.in_body_box(x["p"], box).sum())
+    same = torch.equal(box, S.make_body_box_plain(x["table"].pos, x["h"]))
+    found, _ = timing.profile_kernels(lambda: [
+        S.make_body_box_plain(x["table"].pos, x["h"]) for _ in range(20)])
+    plain_us = sum(t for _, t in found.values()) / 20
+    print(f"  body gate {tag}: {inside} of {x['p'].shape[0]} queries "
+          f"inside; body_box bit-equal to its plain version {same}; the "
+          f"plain version's {sum(c for c, _ in found.values()) / 20:.0f} "
+          f"kernels {plain_us:.2f} device us a call")
+    check(same, f"body_box {tag}: not its plain version's bits")
+    results["body_box"][f"plain_device_us_{tag}"] = plain_us
+    for name, (call, _) in cases.gated_calls(x).items():
+        same = torch.equal(call(box), call(open_box))
+        print(f"    {name} {tag}: gated bit-equal to ungated {same}")
+        check(same, f"{name} {tag}: the body gate changed the output")
+        ms = [timing.batch_ms(lambda b=b: call(b))
+              for b in (box, open_box, open_box, box)]
+        us = [timing.kernel_device_us(lambda b=b: call(b), name)
+              for b in (box, open_box)]
+        row = results[name]
+        row.update({f"ms_gated_{tag}": (ms[0] + ms[3]) / 2,
+                    f"ms_ungated_{tag}": (ms[1] + ms[2]) / 2,
+                    f"device_us_gated_{tag}": us[0],
+                    f"device_us_ungated_{tag}": us[1],
+                    f"gate_inside_{tag}": inside})
+        print(f"  {name} {tag}: gated {(ms[0] + ms[3]) / 2:.4f} ms, "
+              f"ungated {(ms[1] + ms[2]) / 2:.4f} ms (in turns "
+              f"{[round(t, 4) for t in ms]}); device {us[0]:.2f} us "
+              f"gated, {us[1]:.2f} ungated; {inside} queries inside")
 
 
 # ---------------------------------------------------------------------------
@@ -1289,7 +1341,8 @@ def phase_wcsph(torch, results: dict) -> None:
 def rigid_launches(solver: str, diags, unroll: int) -> dict:
     """The solid passes a coupled step of `solver` launches over the
     steps with these diags, at `unroll` loop iterations a trip, by kernel:
-    the sums and the solid viscosity once a step; the reaction list's rows
+    the sums, the body's gate and the solid viscosity once a step; the
+    reaction list's rows
     and the list once a step and its stream once a density sub-iteration
     (DFSPH) or once a
     loop sub-iteration (PCISPH), or its walk once a step (IISPH, WCSPH);
@@ -1299,7 +1352,7 @@ def rigid_launches(solver: str, diags, unroll: int) -> dict:
     are its trips x U."""
     steps = len(diags)
     loop = looped(diags, (2,) if solver == "dfsph" else (0,), unroll)
-    want = dict(rigid_terms=steps, rigid_viscosity=steps)
+    want = dict(rigid_terms=steps, rigid_viscosity=steps, body_box=steps)
     if solver in ("dfsph", "pcisph"):
         want.update(rigid_side_rows=steps, rigid_side_list=steps,
                     rigid_side_force_list=loop)

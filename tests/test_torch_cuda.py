@@ -92,9 +92,10 @@ def _all_outputs(sc, pos, starts, k, v, rho):
 
 def _body_outputs(sc, pos, starts, v, rho):
     """The fluid-rigid wrappers (the reaction's walk, and its list's rows,
-    the list and its stream among them) and PCISPH's predicted density
-    with its walks over the body and the walls once, for a 24-voxel box
-    body in TINY's block with numpy-seeded volumes and velocities."""
+    the list and its stream among them; the body's gate, made once and
+    taken by the three gated passes) and PCISPH's predicted density with
+    its walks over the body and the walls once, for a 24-voxel box body in
+    TINY's block with numpy-seeded volumes and velocities."""
     dev = pos.device
     rng = np.random.default_rng(13)
     vox = np.ascontiguousarray(geo.voxelize_mesh(
@@ -107,20 +108,23 @@ def _body_outputs(sc, pos, starts, v, rho):
          rng.uniform(900.0, 1100.0, nr), rng.standard_normal((nr, 3))))
     table = rigid.rigid_table(sc.grid, rpos, rvol)
     g, h, m = sc.grid, sc.h, sc.particle_m
+    box = stencil.make_body_box(table.pos, h)
     offs = rigid.rigid_side_rows(rpos, starts, g)
     side = rigid.rigid_side_list(rpos, rvol, pos, starts, g, h, 1000.0,
                                  offs, rigid.list_slots(offs))
     _, fluid, pair_g = rigid.side_pairs(side)
-    return [*rigid.rigid_terms(pos, table, g, h, 1000.0),
-            rigid.rigid_contact_dot(pos, table, g, h, 1000.0, v_r),
+    return [*rigid.rigid_terms(pos, table, g, h, 1000.0), box,
+            rigid.rigid_contact_dot(pos, table, g, h, 1000.0, v_r, box),
             rigid.rigid_viscosity(pos, table, g, h, 1000.0, m, v, rho, rq,
-                                  v_r[0].contiguous(), **VISC),
+                                  v_r[0].contiguous(), **VISC,
+                                  body_box=box),
             rigid.rigid_side_force(rpos, rvol, pos, starts, g, h, 1000.0,
                                    1e-4 * rho, force),
             offs.to(torch.int32), side.cnt, fluid.to(torch.int32), pair_g,
             rigid.rigid_side_force_list(side, 1e-4 * rho, force),
             stencil.pcisph_predict_rho(pos, starts, g, h, m, pos + 0.01 * v,
-                                       base.walls(sc), 1000.0, table)]
+                                       base.walls(sc), 1000.0, table,
+                                       body_box=box)]
 
 
 def _tiny_inputs(dev, seed=11):
@@ -569,6 +573,33 @@ def test_predicted_density_body_gate_keeps_every_bit(cuda, where):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("where", ["30k", "1m", "torus"])
+def test_contact_dot_and_viscosity_body_gate_keeps_every_bit(cuda, where):
+    """rigid_contact_dot and rigid_viscosity with the body's gate (made
+    once, as a step makes it, by body_box: its plain version's bits)
+    against the same launch with a gate that holds every query, bit for
+    bit, on a body in water at 30k and 1M and on the half-immersed torus;
+    both against the plain version to 1e-5 of scale; one launch a call, no
+    plain call."""
+    x = (inputs.torus_inputs(seed=3, device=cuda) if where == "torus" else
+         inputs.body_inputs({"30k": "breaking_dam_30k.json",
+                             "1m": "breaking_dam_1m.json"}[where], seed=3,
+                            device=cuda))
+    box = cases.gate_box(x)
+    assert torch.equal(box, stencil.make_body_box_plain(x["table"].pos,
+                                                        x["h"]))
+    assert int(stencil.in_body_box(x["p"], box).sum()) < x["p"].shape[0]
+    for name, (call, plain) in cases.gated_calls(x).items():
+        want = plain()
+        stencil.reset_counts()
+        gated = call(box)
+        assert stencil.KERNELS[name].launches == 1, name
+        assert stencil.KERNELS[name].plain_calls == 0, name
+        assert torch.equal(gated, call(cases.ungated_box(cuda))), name
+        assert cases.scaled_error(gated, want) <= 1e-5, name
+
+
+@pytest.mark.cuda
 def test_pcisph_recompute_engine_launches_the_stencil_form(cuda,
                                                             monkeypatch):
     """TINY squeezed by 0.85 as PCISPH, 3 steps on the card: on the
@@ -704,7 +735,7 @@ def test_coupled_dfsph_steps_on_the_card_match_the_cpu(cuda, squeeze, steps):
         assert forces[0] > 0
     for name in ("rigid_terms", "rigid_contact_dot", "rigid_viscosity",
                  "rigid_side_rows", "rigid_side_list",
-                 "rigid_side_force_list"):
+                 "rigid_side_force_list", "body_box"):
         kern = stencil.KERNELS[name]
         assert kern.launches > 0 and kern.launches == kern.plain_calls, name
     assert stencil.KERNELS["rigid_side_force"].launches == 0

@@ -178,6 +178,7 @@ def test_cpu_tensors_take_the_plain_versions(case):
     rpos = pos[:24] + 0.01
     rvol = torch.full((24,), 1e-4)
     table = rigid.rigid_table(sc.grid, rpos, rvol)
+    stencil.make_body_box(table.pos, sc.h)   # the body's gate
     rigid.rigid_terms(pos, table, sc.grid, sc.h, 1000.0)
     rigid.rigid_contact_dot(pos, table, sc.grid, sc.h, 1000.0, v[:24])
     rigid.rigid_viscosity(pos, table, sc.grid, sc.h, 1000.0, sc.particle_m,
@@ -220,6 +221,7 @@ def test_wrappers_reject_other_devices(case):
             lambda: stencil.pbf_boundary_terms(meta, walls, grid, 0.1,
                                                1000.0, 1e3, 1e-7),
             lambda: stencil.pbf_lambda(meta, pairs, 0.1, meta[:, 0]),
-            lambda: stencil.pbf_xsph(pairs, 0.1, meta, meta)):
+            lambda: stencil.pbf_xsph(pairs, 0.1, meta, meta),
+            lambda: stencil.make_body_box(meta, 0.1)):
         with pytest.raises(ValueError, match="no kernel for device"):
             call()
