@@ -28,15 +28,38 @@
 // and the u it gathers, and the latency of those two dependent loads sets
 // its time.
 //
-// The walk: one thread per rigid particle on the queued walk
-// (queued_walk_of, stencil.cuh) over the fluid's table, the pair term in
-// the drain; nothing per pair is stored. A thread owns its particle's sum,
-// so there are no atomics: a run repeats bit for bit, and the card can be
-// held to the CPU. The voxels come in the mesh's lattice order, so
-// neighbouring threads walk neighbouring cells.
+// The walk: a group of kSideWalkGroup lanes per rigid particle on the
+// ordered group walk (ordered_group_walk, stencil.cuh) over the fluid's
+// table; nothing per pair is stored. A body of a few thousand particles
+// leaves one thread a particle too few warps to hide a warp's chain of
+// waits (the 9 runs' bounds, a vote after each chunk of candidates, the
+// drain): the first form took 22.1 us at 30k, all of it that chain. The
+// group loads the 9 runs' bounds at once, tests kSideWalkChunk candidates
+// a lane a round with the next round's loads in flight, and hands its hits
+// out in walk order; every lane of the group adds each batch's terms
+// ((-dx) coeff) u_i in that order (SideWalk: shuffles, not walk_sum's
+// tree), so its sum rounds as a thread that walks alone rounds it, built
+// with -fmad=false: the walk is bit-equal to the first form's one-thread
+// walk and to the stream below. A group owns its particle's sum, so there
+// are no atomics: a run repeats bit for bit, and the card can be held to
+// the CPU. The voxels come in the mesh's lattice order, so neighbouring
+// groups walk neighbouring cells.
+// Measured on an H100 80GB HBM3 at 700 W (perf/coef_compare.py --kernel
+// rigid_side, device us at 1M / 30k / the half-immersed torus; the first
+// form 29.6-29.9 / 22.2-22.4 / 16.2-17.1), lanes x candidates a lane a
+// round: 16 x 2 22.9-23.1 / 6.5 / 4.6-4.7 (kept), 8 x 2 19.8-20.0 / 7.9 /
+// 6.8, 8 x 4 20.7 / 7.7 / 6.4, 16 x 1 22.9 / 7.1 / 5.4, 32 x 1 35.6 / 8.3
+// / 4.5, 4 x 4 20.4 / 11.2 / 9.7, 8 x 1 22.2 / 9.7 / 8.2; without the next
+// round's loads in flight 16 x 2 22.5-22.7 / 6.5-6.6 / 5.0, 8 x 1 22.5 /
+// 11.0 / 9.3; 16 x 2 with 2 hits a lane a batch 34.6 / 7.8 / 5.7, with 16
+// blocks an SM (32 registers) 27.1 / 7.4 / 5.4; the 9 runs walked as one
+// list of candidates (63-64 registers) 27.9 / 7.4 / 5.8, 8 x 4 that way
+// 110.3 (spills). At 1M the 39k particles' groups take ~4 waves of
+// resident blocks, each as long as its slowest warp's chain.
 //
-// The list: the same walk, which stores each pair it charges, as the JAX
-// package hoists the pair vectors once a step: rec[base_j + kListStride
+// The list: one thread a rigid particle on the queued walk (queued_walk_of,
+// stencil.cuh), which stores each pair it charges in walk order, as the
+// JAX package hoists the pair vectors once a step: rec[base_j + kListStride
 // t] = (i, g) for its t-th pair in walk order, g = (x_i - x_j) rho0 V_j c(r)
 // as three f32 bit patterns, and cnt_j. A warp's 32 rows interleave, as
 // pbf_terms' (stencil.cuh, stream_rows), each with room for the largest
@@ -62,8 +85,10 @@
 // to the walk. Kept: one lane, 1 ahead.
 #include "stencil.cuh"
 
-constexpr int kSideQueue = 40;  // hits a thread can hold
-constexpr int kSideChunk = 8;   // candidates tested between two votes
+constexpr int kSideWalkGroup = 16;  // the walk: lanes a rigid particle
+constexpr int kSideWalkChunk = 2;  // the walk: candidates a lane tests a round
+constexpr int kSideQueue = 40;  // the list: hits a thread can hold
+constexpr int kSideChunk = 8;   // the list: candidates tested between votes
 constexpr int kSideGroup = 1;   // stream: lanes per row
 constexpr int kSideAhead = 1;   // stream: records a lane loads ahead
 
@@ -81,22 +106,36 @@ struct SidePair {
   }
 };
 
-struct SideForce {
+// The walk's sums of one rigid particle, kept alike on every lane of its
+// group: a batch's terms ((-dx) coeff) u_i, each on the lane that holds
+// its hit, are added in walk order (hit done + l: lane order), each term
+// whose pair the reaction charges, by shuffles into every lane.
+template <int kG>
+struct SideWalk {
   const float* u;
   SidePair k;
+  int base;  // the group's first lane within its warp
   float fx, fy, fz;
 
-  __device__ __forceinline__ void operator()(int i, const XyzRows::Record&,
-                                             float dx, float dy, float dz,
-                                             float r2, bool take) {
+  __device__ __forceinline__ void operator()(const Pair& h, int) {
     // dx is the query (rigid) minus the source (fluid): x_i - x_j = -dx.
     bool charged;
-    const float coeff = k.coeff(r2, take, charged);
-    const float ui = __ldg(u + i);
-    if (charged) {
-      fx += ((-dx) * coeff) * ui;
-      fy += ((-dy) * coeff) * ui;
-      fz += ((-dz) * coeff) * ui;
+    const float coeff = k.coeff(h.r2, h.hit, charged);
+    const float ui = __ldg(u + h.j);
+    const float tx = ((-h.dx) * coeff) * ui;
+    const float ty = ((-h.dy) * coeff) * ui;
+    const float tz = ((-h.dz) * coeff) * ui;
+    const unsigned add = __ballot_sync(kFullWarp, charged) >> base;
+#pragma unroll
+    for (int l = 0; l < kG; ++l) {
+      const float ax = __shfl_sync(kFullWarp, tx, l, kG);
+      const float ay = __shfl_sync(kFullWarp, ty, l, kG);
+      const float az = __shfl_sync(kFullWarp, tz, l, kG);
+      if ((add >> l) & 1u) {
+        fx += ax;
+        fy += ay;
+        fz += az;
+      }
     }
   }
 };
@@ -162,17 +201,17 @@ rigid_side_force_kernel(const float* __restrict__ rpos,
                         const float* __restrict__ u,
                         const float* __restrict__ force,
                         float* __restrict__ out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = j < nr;
+  const LaneGroup<kSideWalkGroup> g = lane_group<kSideWalkGroup>(nr);
+  const int j = g.q;
   float xj = 0.f, yj = 0.f, zj = 0.f;
-  SideForce acc{u, {&p, 0.f}, 0.f, 0.f, 0.f};
-  if (live) {
+  SideWalk<kSideWalkGroup> acc{u, {&p, 0.f}, g.base, 0.f, 0.f, 0.f};
+  if (g.live) {
     xj = rpos[3 * j], yj = rpos[3 * j + 1], zj = rpos[3 * j + 2];
     acc.k.coeff_v = rho0 * rvol[j];
   }
-  queued_walk_of<kSideQueue, kSideChunk, kDrainUnroll>(
-      XyzRows{pos}, n, starts, p, live, -1, xj, yj, zj, acc);
-  if (live) {
+  ordered_group_walk<kSideWalkGroup, kSideWalkChunk>(pos, n, starts, p, g,
+                                                     xj, yj, zj, acc);
+  if (g.live && g.lane == 0) {
     out[3 * j] = force[3 * j] + acc.fx;
     out[3 * j + 1] = force[3 * j + 1] + acc.fy;
     out[3 * j + 2] = force[3 * j + 2] + acc.fz;
@@ -247,8 +286,8 @@ extern "C" int rigid_side_force_launch(const float* rpos, const float* rvol,
                                        const float* force, float* out,
                                        void* stream) {
   if (nr > 0) {
-    rigid_side_force_kernel<<<grid_blocks(nr), kThreads, 0,
-                              (cudaStream_t)stream>>>(
+    rigid_side_force_kernel<<<lane_group_blocks<kSideWalkGroup>(nr),
+                              kThreads, 0, (cudaStream_t)stream>>>(
         rpos, rvol, nr, pos, starts, n, *p, rho0, u, force, out);
   }
   return (int)cudaGetLastError();

@@ -29,27 +29,31 @@
 // does over the walls; the drain runs the pair term on lanes that nearly
 // all hold a pair. Hits drain in walk order, sums stay in registers and
 // each output is written once by its thread: no atomics, a run repeats bit
-// for bit. rigid_contact_dot, launched two or three times a step, walks
-// only from warps with a lane inside the body's gate (in_body_box,
-// stencil.cuh; rbox, made once a step by stencil.make_body_box and shared
-// with the step's other gated walks), and only from those lanes: a query
-// outside the box has no pair and writes the 0.f its walk would sum, so
-// every output keeps its bits, and a far warp reads its positions, votes
-// once and leaves. The pair work is an irregular gather of a few pairs a
-// near query, with no tile for TMA or wgmma to feed. rigid_terms, once a
-// step, still walks from every query.
+// for bit. Both entries walk only from warps with a lane inside the body's
+// gate (in_body_box, stencil.cuh; rbox, made once a step by
+// stencil.make_body_box before rigid_terms, and shared with the step's
+// other gated walks), and only from those lanes: a query outside the box
+// has no pair and writes the 0.f its walk would sum (all six of
+// rigid_terms' outputs), so every output keeps its bits, and a far warp
+// reads its positions, votes once and leaves. The pair work is an
+// irregular gather of a few pairs a near query, with no tile for TMA or
+// wgmma to feed.
 //
 // Measured on an NVIDIA H100 80GB HBM3 (PERF.md section 6, perf/
 // coef_compare.py --kernel rigid_gate; device us at 1M / 30k / the half-
 // immersed torus): the contact dot gated 40.7 / 20.3 / 23.9, ungated 51.0
-// / 20.2 / 23.5, the first form 48.7-49.2 / 19.4-19.5 / 22.0-22.7. With a
-// gate that holds no query a launch still takes 19.6 us at 1M: waves of
-// the blocks an SM holds (8: 64 registers a thread, the queue's 20 KB),
-// each loading positions, voting and storing; handing tiles of 32 queries
-// to warps from one counter instead took 29.4 (31k atomics on one
-// address). At 30k the near warps' own walks set the time (1.8 us with no
-// walk): a near query tests ~60 candidates (up to 144) of a table packed 8
-// to a cell, a chain of dependent loads that 1-2 warps an SM cannot hide.
+// / 20.2 / 23.5, the first form 48.7-49.2 / 19.4-19.5 / 22.0-22.7; the
+// solid sums gated 42.4-43.0 / 15.4-15.8 / 16.2-16.7, ungated 52.1-52.6 /
+// 15.4-15.7 / 15.8-16.1, the first form 51.7 / 15.2 / 15.8, and 26.3 / 1.8
+// at 1M / 30k with a gate that holds no query (its 24 bytes of sums a
+// query). With a gate that holds no query a launch still takes 19.6 us at
+// 1M (the contact dot): waves of the blocks an SM holds (8: 64 registers
+// a thread, the queue's 20 KB), each loading positions, voting and
+// storing; handing tiles of 32 queries to warps from one counter instead
+// took 29.4 (31k atomics on one address). At 30k the near warps' own
+// walks set the time (1.8 us with no walk): a near query tests ~60
+// candidates (up to 144) of a table packed 8 to a cell, a chain of
+// dependent loads that 1-2 warps an SM cannot hide.
 // Swept at 1M (contact dot / solid viscosity, the latter loading vel and
 // rho for the lanes inside the box alone; us): chunks of 4, 8, 12, 16
 // candidates 41.7, 40.3, 39.3, 42.5 / 47.7, 45.3, 45.8, 48.3; drain turns
@@ -114,16 +118,19 @@ rigid_terms_kernel(const float* __restrict__ pos, int n,
                    const float* __restrict__ rpos,
                    const float* __restrict__ rvol,
                    const int* __restrict__ rstarts, int nr, StencilParams p,
-                   float rho0, float* __restrict__ rho,
-                   float* __restrict__ s, float* __restrict__ qsum,
-                   float* __restrict__ g2) {
+                   float rho0, const float* __restrict__ rbox,
+                   float* __restrict__ rho, float* __restrict__ s,
+                   float* __restrict__ qsum, float* __restrict__ g2) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < n;
   float xi = 0.f, yi = 0.f, zi = 0.f;
   if (live) xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
+  const bool near = live && in_body_box(rbox, xi, yi, zi);
   RigidSums acc{rvol, &p, rho0, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  queued_walk_of<kRigidQueue, kRigidChunk, kDrainUnroll>(
-      XyzRows{rpos}, nr, rstarts, p, live, -1, xi, yi, zi, acc);
+  if (__any_sync(kFullWarp, near)) {
+    queued_walk_of<kRigidQueue, kRigidChunk, kDrainUnroll>(
+        XyzRows{rpos}, nr, rstarts, p, near, -1, xi, yi, zi, acc);
+  }
   if (live) {
     rho[i] = acc.rho;
     s[3 * i] = acc.sx;
@@ -160,12 +167,13 @@ rigid_contact_dot_kernel(const float* __restrict__ pos, int n,
 extern "C" int rigid_terms_launch(const float* pos, int n, const float* rpos,
                                   const float* rvol, const int* rstarts,
                                   int nr, const StencilParams* p,
-                                  float rho0, float* rho, float* s,
-                                  float* qsum, float* g2, void* stream) {
+                                  float rho0, const float* rbox, float* rho,
+                                  float* s, float* qsum, float* g2,
+                                  void* stream) {
   if (n > 0) {
     rigid_terms_kernel<<<grid_blocks(n), kThreads, 0,
                          (cudaStream_t)stream>>>(pos, n, rpos, rvol, rstarts,
-                                                 nr, *p, rho0, rho, s,
+                                                 nr, *p, rho0, rbox, rho, s,
                                                  qsum, g2);
   }
   return (int)cudaGetLastError();

@@ -5,13 +5,15 @@
 // stencil as 9 contiguous runs of the source CSR table: the fast axis has
 // stride 1, so the three cells of one stencil row are adjacent in the
 // sorted order. fluid_terms, boundary_terms, matvec, matvec_dot,
-// wcsph_forces, pcisph_predict_rho, pbf_terms and the four fluid-rigid
-// kernels (rigid_terms.cu, rigid_viscosity.cu, rigid_side_force.cu) run one
-// thread per query that queues its hits and takes the pair term out of the
-// candidate loop (queued_walk_of below); coef_build and viscosity run a
-// group of kGroupWalk lanes per query (group_walk below). pbf_lambda,
-// pbf_xsph and rigid_side_force_list walk no stencil: they stream a pair
-// list that a walk stored once a step (stream_rows below).
+// wcsph_forces, pcisph_predict_rho, pbf_terms and the fluid-rigid kernels
+// rigid_terms, rigid_contact_dot, rigid_viscosity and rigid_side_list run
+// one thread per query that queues its hits and takes the pair term out of
+// the candidate loop (queued_walk_of below); coef_build and viscosity run
+// a group of kGroupWalk lanes per query (group_walk below), and the
+// reaction's walk, rigid_side_force, a group of lanes per body particle
+// that hands its hits out in walk order (ordered_group_walk below).
+// pbf_lambda, pbf_xsph and rigid_side_force_list walk no stencil: they
+// stream a pair list that a walk stored once a step (stream_rows below).
 // Sums stay in f32 registers and each query's row is written by its own
 // thread or group, so there are no atomics and every run gives
 // bit-identical results.
@@ -533,4 +535,183 @@ __device__ __forceinline__ void group_walk(const float* __restrict__ pos,
     }
   }
   if (__any_sync(0xffffffffu, held > 0)) batch();
+}
+
+// ---------------------------------------------------------------------------
+// The ordered group walk: kG consecutive lanes share one query, and hand
+// its hits to the caller in walk order, one a lane a batch.
+//
+// A variant of the group walk above for a query set that is too small to
+// fill the card: rigid_side_force's walk of the fluid from each body
+// particle, a few thousand queries, where one thread a query leaves each
+// warp a chain of dependent loads (the 9 runs' bounds, then a vote after
+// each chunk of candidates) that nothing else hides. Here:
+//
+// * the group loads the 9 runs' bounds at once (lane l those of runs l,
+//   l + kG, ...) and takes each run's by shuffle: one wait, not nine;
+// * each round loads the next round's candidates (the next run's first,
+//   past the last round of a run) before it ranks its own hits and hands
+//   out batches: the loads wait under that work, not after it;
+// * a round tests kC candidates a lane, kC kG a group (lane l the
+//   candidates lo + t kC kG + c kG + l, c < kC): the group's loads of a
+//   round are kC contiguous 12 kG-byte reads, all in flight together;
+// * a ballot ranks each c's hits, ascending lanes holding ascending j, and
+//   the group queues them in a ring in shared memory in walk order (the
+//   runs in the one-thread order, dm outer, ds inner, ascending j);
+// * whenever a group of the warp holds kG hits, every group hands its
+//   oldest min(held, kG) to its lanes, lane l taking hit done + l, and once
+//   more at the end;
+// * no query is its own source: the sources are another set.
+//
+// batch(const Pair& h, int taken) runs on every lane of the warp together;
+// h.hit says whether the lane holds hit done + l (false beyond taken; j is
+// then 0). A caller that adds the batch's terms into its sum in lane order
+// (shuffles into every lane of the group) adds them as a thread that walks
+// alone adds them as it finds them: its sums keep that walk's bits, where
+// walk_sum's tree would not.
+//
+// The whole warp walks together: each run takes the most rounds any of
+// its groups needs. A lane whose candidate lies past its run's end, or
+// whose group has no query (live == false), takes part with hit = false.
+// ---------------------------------------------------------------------------
+
+template <int kG>
+struct LaneGroup {
+  int q;          // the group's query
+  bool live;      // q < n: the group has a query
+  int lane;       // 0 .. kG - 1
+  int base;       // the group's first lane within its warp
+  unsigned mask;  // the group's lanes within its warp
+};
+
+template <int kG>
+__device__ __forceinline__ LaneGroup<kG> lane_group(int n) {
+  static_assert(kG >= 1 && kG <= 32 && (kG & (kG - 1)) == 0,
+                "a lane group is a power of two no larger than a warp");
+  LaneGroup<kG> g;
+  g.q = blockIdx.x * (kThreads / kG) + threadIdx.x / kG;
+  g.live = g.q < n;
+  g.lane = threadIdx.x & (kG - 1);
+  g.base = (threadIdx.x & 31) & ~(kG - 1);
+  g.mask = ((2u << (kG - 1)) - 1u) << g.base;  // kG = 32: every lane
+  return g;
+}
+
+// Blocks of kThreads lanes for n queries of kG lanes each.
+template <int kG>
+inline int lane_group_blocks(int n) {
+  const int per_block = kThreads / kG;
+  return (n + per_block - 1) / per_block;
+}
+
+__host__ __device__ constexpr int pow2_at_least(int x, int p = 1) {
+  return p >= x ? p : pow2_at_least(x, 2 * p);
+}
+
+template <int kG, int kC, typename Batch>
+__device__ __forceinline__ void ordered_group_walk(
+    const float* __restrict__ pos, int ns, const int* __restrict__ starts,
+    const StencilParams& p, const LaneGroup<kG>& g, float xi, float yi,
+    float zi, Batch&& batch) {
+  static_assert(kC >= 1, "a lane tests a candidate or more a round");
+  // held < kG before a round, which adds at most kC kG
+  constexpr int kRing = pow2_at_least((1 + kC) * kG);
+  constexpr int kSlots = (9 + kG - 1) / kG;  // runs whose bounds a lane holds
+  __shared__ QueuedHit rings[(kThreads / kG) * kRing];
+  QueuedHit* const ring = rings + (threadIdx.x / kG) * kRing;
+  const unsigned below = g.mask & ((1u << (threadIdx.x & 31)) - 1u);
+  const float h2 = p.h2;
+  int head = 0, held = 0;  // the oldest queued hit's ring slot; hits queued
+
+  auto hand = [&]() {
+    __syncwarp();
+    const int taken = min(held, kG);
+    const QueuedHit q = ring[(head + g.lane) & (kRing - 1)];
+    __syncwarp();
+    head += taken;
+    held -= taken;
+    const bool hit = g.lane < taken;
+    batch(Pair{hit ? q.j : 0, hit, q.dx, q.dy, q.dz,
+               dist2(q.dx, q.dy, q.dz)},
+          taken);
+  };
+
+  int c[3];
+  cell_of(xi, yi, zi, p, c);
+  int lo_s[kSlots], hi_s[kSlots];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int r = g.lane + k * kG;
+    lo_s[k] = hi_s[k] = 0;
+    int lo, hi;
+    if (g.live && r < 9 && stencil_run(c, r / 3 - 1, r % 3 - 1, starts, p,
+                                       lo, hi))
+      lo_s[k] = lo, hi_s[k] = hi;
+  }
+  // Run r's bounds from the lane that loaded them (every lane calls it).
+  auto run_bounds = [&](int r, int& lo, int& hi) {
+    int mine_lo = lo_s[0], mine_hi = hi_s[0];
+#pragma unroll
+    for (int k = 1; k < kSlots; ++k)
+      if (r / kG == k) mine_lo = lo_s[k], mine_hi = hi_s[k];
+    lo = __shfl_sync(kFullWarp, mine_lo, r % kG, kG);
+    hi = __shfl_sync(kFullWarp, mine_hi, r % kG, kG);
+  };
+  // The first run from r on that a group of the warp walks, with its
+  // bounds and the rounds the warp takes over it; 9 where none is left.
+  auto next_run = [&](int r, int& lo, int& hi, int& rounds) {
+    for (; r < 9; ++r) {
+      run_bounds(r, lo, hi);
+      rounds = __reduce_max_sync(kFullWarp,
+                                 (hi - lo + kC * kG - 1) / (kC * kG));
+      if (rounds > 0) break;
+    }
+    return r;
+  };
+  // The positions of the lane's candidates of round t of the run from lo.
+  auto load = [&](int lo, int t, float (&x)[kC], float (&y)[kC],
+                  float (&z)[kC]) {
+#pragma unroll
+    for (int k = 0; k < kC; ++k) {
+      const int jl = min(lo + (t * kC + k) * kG + g.lane, ns - 1);
+      x[k] = __ldg(pos + 3 * jl);
+      y[k] = __ldg(pos + 3 * jl + 1);
+      z[k] = __ldg(pos + 3 * jl + 2);
+    }
+  };
+
+  // The steps (run r, round t) in walk order; each loads the next step's
+  // candidates before it ranks its own hits and hands batches out, so that
+  // those loads wait under its work.
+  int lo = 0, hi = 0, rounds = 0, t = 0;
+  int r = next_run(0, lo, hi, rounds);
+  float px[kC], py[kC], pz[kC];
+  if (r < 9) load(lo, 0, px, py, pz);
+  while (r < 9) {
+    int nlo = lo, nhi = hi, nrounds = rounds, nt = t + 1, nr = r;
+    if (nt == rounds) {
+      nt = 0;
+      nr = next_run(r + 1, nlo, nhi, nrounds);
+    }
+    float qx[kC] = {}, qy[kC] = {}, qz[kC] = {};
+    if (nr < 9) load(nlo, nt, qx, qy, qz);
+#pragma unroll
+    for (int k = 0; k < kC; ++k) {
+      const int j = lo + (t * kC + k) * kG + g.lane;
+      const float dx = xi - px[k];
+      const float dy = yi - py[k];
+      const float dz = zi - pz[k];
+      const bool hit = (j < hi) & (dist2(dx, dy, dz) <= h2);
+      const unsigned ballot = __ballot_sync(kFullWarp, hit);
+      if (hit)
+        ring[(head + held + __popc(ballot & below)) & (kRing - 1)] =
+            QueuedHit{j, dx, dy, dz};
+      held += __popc(ballot & g.mask);
+    }
+    while (__any_sync(kFullWarp, held >= kG)) hand();
+    r = nr, t = nt, lo = nlo, hi = nhi, rounds = nrounds;
+#pragma unroll
+    for (int k = 0; k < kC; ++k) px[k] = qx[k], py[k] = qy[k], pz[k] = qz[k];
+  }
+  while (__any_sync(kFullWarp, held > 0)) hand();
 }

@@ -137,16 +137,16 @@ def body_terms(scene: Scene, rigid: RigidBodyState, pos: torch.Tensor
                           rigid_ops.RigidTerms | None, torch.Tensor | None]:
     """The body's cell table, sorted anew each step (the body moved in the
     last rigid step), its solid sums at the cell-sorted fluid `pos`, and
-    its gate (`stencil.make_body_box`): the one box of the step, which
-    every gated walk of the body takes (the contact dot, the solid
-    viscosity, PCISPH's predicted density); (None, None, None) on a scene
-    without a coupled body."""
+    its gate (`stencil.make_body_box`): the one box of the step, made
+    first, which every gated walk of the body takes (the solid sums, the
+    contact dot, the solid viscosity, PCISPH's predicted density); (None,
+    None, None) on a scene without a coupled body."""
     if not scene.coupled:
         return None, None, None
     table = rigid_ops.rigid_table(scene.grid, rigid.pos, scene.rigid_volume)
+    box = stencil.make_body_box(table.pos, scene.h)
     return (table, rigid_ops.rigid_terms(pos, table, scene.grid, scene.h,
-                                         RHO_0),
-            stencil.make_body_box(table.pos, scene.h))
+                                         RHO_0, body_box=box), box)
 
 
 def rho_quirk(rho: torch.Tensor, oid: torch.Tensor, n_rigid: int,

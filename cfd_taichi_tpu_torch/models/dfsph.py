@@ -47,7 +47,7 @@ from cfd_taichi_tpu_torch.ops import coef, loops
 from cfd_taichi_tpu_torch.ops import neighbors as nb
 from cfd_taichi_tpu_torch.ops import rigid as rigid_ops
 from cfd_taichi_tpu_torch.ops import stencil
-from cfd_taichi_tpu_torch.ops.smoothing import f32, true_div
+from cfd_taichi_tpu_torch.ops.smoothing import f32, ieee_sqrt, true_div
 from cfd_taichi_tpu_torch.scene import RHO_0, Scene
 
 MIN_ITER_DENSITY = 2          # dfsph_solver.py:21
@@ -422,14 +422,14 @@ def solve(scene: Scene, pre: _Pre, dt: torch.Tensor,
     # Reference quirk kept: gravity joins the force and is divided by m.
     force_ext = base.gravity_acc(scene) + pre.ext_force_fn(vel)
     vel_adv = vel + force_ext * true_div(dt, f32(scene.particle_m))
-    speed = torch.sqrt(dot(vel_adv, vel_adv))
+    speed = ieee_sqrt(dot(vel_adv, vel_adv))
     vel_adv = base.synced(shard, vel_adv)
     max_vel = speed.max() if shard is None else shard.max(speed)
     if scene.coupled:
         # The body's fastest particle joins the CFL velocity.
         spin = base.cross(rigid.omega, rigid.pos - rigid.centroid)
-        max_vel = max_vel + (torch.sqrt((rigid.vel * rigid.vel).sum())
-                             + torch.sqrt(dot(spin, spin))).max()
+        max_vel = max_vel + (ieee_sqrt((rigid.vel * rigid.vel).sum())
+                             + ieee_sqrt(dot(spin, spin))).max()
     cfl_dt = f32(0.4 * (2.0 * scene.particle_radius)) / max_vel * f32(0.2)
     dt = torch.clamp(cfl_dt, min=f32(MIN_DT), max=f32(MAX_DT))
     dt2 = dt * dt

@@ -54,7 +54,7 @@ from cfd_taichi_tpu_torch.ops import rigid as rigid_ops
 from cfd_taichi_tpu_torch.ops import stencil
 from cfd_taichi_tpu_torch.ops.smoothing import (CubicConstants,
                                                 cubic_grad_coeff, f32,
-                                                true_div)
+                                                ieee_sqrt, true_div)
 from cfd_taichi_tpu_torch.scene import RHO_0, Scene
 
 RHO_MAX_ERR_PERCENT = 0.1   # pcisph_solver.py:19
@@ -93,7 +93,7 @@ def stiffness(scene: Scene) -> torch.Tensor:
     r2 = x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1] + x[:, 2] * x[:, 2]
     pairs = (r2 <= CubicConstants.of(h).h2) & (rows != i)
     x = x[pairs]
-    gradw = x * cubic_grad_coeff(torch.sqrt(r2[pairs]), h)[:, None]
+    gradw = x * cubic_grad_coeff(ieee_sqrt(r2[pairs]), h)[:, None]
     grad_sum = gradw.sum(dim=0, keepdim=True)
     grad_sq_sum = dot(gradw, gradw).sum()
     beta = scene.dt0**2 * m**2 * 2.0 / RHO_0**2

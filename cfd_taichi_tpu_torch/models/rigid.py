@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from cfd_taichi_tpu_torch.models.base import RigidBodyState, cross
-from cfd_taichi_tpu_torch.ops.smoothing import f32
+from cfd_taichi_tpu_torch.ops.smoothing import f32, ieee_sqrt
 from cfd_taichi_tpu_torch.scene import Scene, rotation3d_swapped
 
 MU_T = 0.8       # friction (rigid_solver.py:108)
@@ -41,7 +41,7 @@ def _skew(v: torch.Tensor) -> torch.Tensor:
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt((v * v).sum())
+    return ieee_sqrt((v * v).sum())
 
 
 def _collision_response(v: torch.Tensor, n: torch.Tensor) -> torch.Tensor:

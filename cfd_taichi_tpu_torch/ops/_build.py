@@ -76,7 +76,7 @@ _SIGNATURES = {
     "pbf_lambda_launch": (_P, _I, _P, _P, _P, _SP, _P, _P, _P),
     "pbf_xsph_launch": (_I, _P, _P, _P, _SP, _P, _P, _P, _P),
     "rigid_terms_launch": (_P, _I, _P, _P, _P, _I, _PP, _F, _P, _P, _P, _P,
-                           _P),
+                           _P, _P),
     "rigid_contact_dot_launch": (_P, _I, _P, _P, _P, _P, _I, _PP, _F, _P,
                                  _P, _P, _P),
     "rigid_viscosity_launch": (_P, _I, _P, _P, _P, _P, _I, _PP, _F, _F, _F,

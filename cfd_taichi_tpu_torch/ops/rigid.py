@@ -23,10 +23,10 @@ fit together; the launch counts are rows of `stencil.KERNELS`):
   the neighbour density read through `lid` from a per-rigid table (the
   reference's rho quirk, models/dfsph.py says which);
 
-  these two walk the body only from warps with a query inside its gate
-  (`stencil.make_body_box`, made once a step with the table,
-  `models/base.body_terms`), which leaves every output bit as it is: a
-  query outside the box has no pair;
+  these two and `rigid_terms` walk the body only from warps with a query
+  inside its gate (`stencil.make_body_box`, made once a step with the
+  table, `models/base.body_terms`), which leaves every output bit as it
+  is: a query outside the box has no pair;
 * `rigid_side_force` (csrc/rigid_side_force.cu): the fluid's reaction on
   each rigid particle, in original order, over the cell-sorted fluid's CSR
   table: F_j += sum_i rho0 V_j c (x_i - x_j) u_i. JAX computes it from the
@@ -143,10 +143,13 @@ def _rigid_viscosity_constants(h: float, c_s: float, alpha: float,
 # ---------------------------------------------------------------------------
 
 def rigid_terms(pos: torch.Tensor, table: RigidTable, grid: nb.GridSpec,
-                h: float, rho0: float) -> RigidTerms:
+                h: float, rho0: float,
+                body_box: torch.Tensor | None = None) -> RigidTerms:
     """R1: the four solid sums of the cell-sorted fluid `pos` over the
     body's `table` (replaces rigid_dense.build_rigid_windows +
-    rigid_terms)."""
+    rigid_terms). Only queries inside `body_box` walk the body, as in
+    `rigid_contact_dot`."""
+    body_box = _gate(body_box, pos, table, h)
     if not _on_cuda("rigid_terms", pos):
         return rigid_terms_plain(pos, table, grid, h, rho0)
     n = pos.shape[0]
@@ -156,7 +159,7 @@ def rigid_terms(pos: torch.Tensor, table: RigidTable, grid: nb.GridSpec,
                      qsum=pos.new_empty(n), g2=pos.new_empty(n))
     _launch("rigid_terms", pos.device, pos, n, table.pos, table.vol,
             table.starts, nr, ctypes.byref(_params(grid, h)), f32(rho0),
-            *out)
+            body_box, *out)
     return out
 
 

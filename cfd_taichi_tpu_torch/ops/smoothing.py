@@ -63,6 +63,20 @@ def true_div(t: torch.Tensor, x: float) -> torch.Tensor:
     return t / torch.full((), x, dtype=t.dtype, device=t.device)
 
 
+def ieee_sqrt(t: torch.Tensor) -> torch.Tensor:
+    """The square root of each element, rounded as IEEE 754 rounds it (as
+    XLA's and the CUDA kernels' sqrt round it), on every device, the same
+    in every process. On the CPU torch.sqrt runs MKL's vector math
+    (vmsSqrt), which rounds up to an ulp off the exact root, and which, on
+    its first call in a process, when the intra-op threads enter it
+    together, has returned whole threads' chunks up to 3.2e-4 off in about
+    one process in forty: the processor's sqrt instruction, through numpy,
+    takes its place there."""
+    if t.device.type == "cpu":
+        return torch.from_numpy(np.asarray(np.sqrt(t.numpy())))
+    return torch.sqrt(t)
+
+
 def cubic_w(r: torch.Tensor, h: float) -> torch.Tensor:
     """W(q) = k(6(q^3-q^2)+1) for q <= 0.5, 2k(1-q)^3 for q <= 1, else 0,
     with q = r * f32(1/h)."""

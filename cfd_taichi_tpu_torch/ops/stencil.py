@@ -56,7 +56,7 @@ from cfd_taichi_tpu_torch.ops.neighbors import (GridSpec, cell_coords,
 from cfd_taichi_tpu_torch.ops.smoothing import (CubicConstants,
                                                 SpikyPoly6Constants,
                                                 cubic_grad_coeff, cubic_w,
-                                                f32, poly6_w,
+                                                f32, ieee_sqrt, poly6_w,
                                                 spiky_grad_coeff)
 
 if TYPE_CHECKING:
@@ -721,7 +721,7 @@ class _Pairs(NamedTuple):
     valid: torch.Tensor  # in-grid cell, real slot, r2 <= h2 (and j != i)
     d: tuple             # (dx, dy, dz), x_i - x_j per axis
     r2: torch.Tensor
-    r: torch.Tensor      # sqrt(max(r2, 1e-24)), as every JAX pass takes it
+    r: torch.Tensor      # sqrt(max(r2, 1e-24)) (ieee_sqrt), as JAX takes it
 
 
 def _pair_chunks(qpos: torch.Tensor, spos: torch.Tensor, starts: torch.Tensor,
@@ -761,7 +761,7 @@ def _pair_chunks(qpos: torch.Tensor, spos: torch.Tensor, starts: torch.Tensor,
         if exclude_self:
             rows = torch.arange(lo, lo + nq, device=dev)[:, None]
             valid &= slot != rows
-        r = torch.sqrt(torch.clamp(r2, min=f32(1e-24)))
+        r = ieee_sqrt(torch.clamp(r2, min=f32(1e-24)))
         yield slice(lo, lo + nq), _Pairs(slot, valid, d, r2, r)
 
 
@@ -902,7 +902,7 @@ def _pair_r(q: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     their (Q, W, 3) candidates, summed x + y + z like every JAX pass."""
     d = q[:, None, :] - src
     r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
-    return torch.sqrt(torch.clamp(r2, min=f32(1e-24)))
+    return ieee_sqrt(torch.clamp(r2, min=f32(1e-24)))
 
 
 def _predict_solid(pos: torch.Tensor, pos_p: torch.Tensor,
@@ -1058,8 +1058,8 @@ def pbf_lambda_list_plain(pairs: PairList, pos: torch.Tensor, h: float,
     KERNELS["pbf_lambda"].plain_calls += 1
     rows, j = stored_pairs(pairs)
     d = pos[rows] - pos[j]
-    r = torch.sqrt(torch.clamp(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
-                               + d[:, 2] * d[:, 2], min=f32(1e-24)))
+    r = ieee_sqrt(torch.clamp(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
+                              + d[:, 2] * d[:, 2], min=f32(1e-24)))
     lw = lam[j] * spiky_grad_coeff(r, h)
     return pos.new_zeros(pos.shape[0], 3).index_add_(0, rows, lw[:, None] * d)
 

@@ -188,7 +188,15 @@ def rigid_work(x: dict) -> dict[str, Work]:
     with the body's walk: the body's table and its pairs' terms beside the
     bytes of x~ and the output that the fluid walk counts; under
     pcisph_predict_rho_rigid with the stream form's bytes (`streamed`),
-    under pcisph_predict_rho without."""
+    under pcisph_predict_rho without.
+
+    The bounds count what each function needs, so how a kernel walks does
+    not move them: the body's gate of the solid sums, the contact dot and
+    the solid viscosity, and the reaction walk's group of lanes a body
+    particle, leave their work as it is. Only the walks' candidate counts
+    (`Work.walk_ops`, never a bound) count more than a gated kernel tests:
+    every fluid query's stencil, where a gated kernel tests the stencils
+    of the warps with a query inside the gate."""
     g, p, t = x["grid"], x["p"], x["table"]
     n, nr, cells = p.shape[0], t.pos.shape[0], g.num_cells
     pairs = count_pairs(p, t.pos, t.starts, g, x["h"], exclude_self=False)

@@ -137,20 +137,36 @@ def gate_box(x: dict) -> torch.Tensor:
 
 
 def gated_calls(x: dict) -> dict:
-    """{kernel: (call, plain)} of the two fluid-side passes that gate their
-    walk of the body, on coupled inputs `x`: each call takes a gate,
+    """{kernel: (call, plain)} of the three fluid-side passes that gate
+    their walk of the body, on coupled inputs `x`: each call takes a gate,
     `gate_box(x)` or `ungated_box`, so that the two launches can be held
-    to each other bit for bit and timed in turns."""
+    to each other bit for bit (`same_bits`) and timed in turns."""
     g, h, m, p, t = (x[k] for k in ("grid", "h", "m", "p", "table"))
+    terms = (p, t, g, h, RHO0)
     dot = (p, t, g, h, RHO0, x["v_r"])
     visc = (p, t, g, h, RHO0, m, x["v"], x["rho"], x["rho_quirk"],
             x["body_vel"], VISC["c_s"], VISC["alpha"])
-    return {"rigid_contact_dot": (
+    return {"rigid_terms": (
+                lambda b: R.rigid_terms(*terms, body_box=b),
+                lambda: R.rigid_terms_plain(*terms)),
+            "rigid_contact_dot": (
                 lambda b: R.rigid_contact_dot(*dot, body_box=b),
                 lambda: R.rigid_contact_dot_plain(*dot)),
             "rigid_viscosity": (
                 lambda b: R.rigid_viscosity(*visc, body_box=b),
                 lambda: R.rigid_viscosity_plain(*visc))}
+
+
+def tensors(out) -> tuple:
+    """A call's output as a tuple of tensors: its own (rigid_terms' four
+    sums), or the one it is."""
+    return tuple(out) if isinstance(out, tuple) else (out,)
+
+
+def same_bits(a, b) -> bool:
+    """Whether two calls' outputs are equal bit for bit, tensor by
+    tensor."""
+    return all(torch.equal(u, v) for u, v in zip(tensors(a), tensors(b)))
 
 
 def coef_lanes(dot: bool, pos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -291,8 +307,7 @@ def rigid_cases(x: dict, work: dict | None = None) -> Iterator[Case]:
     stream = (listed, x["u"], x["force"])
     rows = (x["rpos"], x["st"], g)
     for name, kern, plain in (
-            ("rigid_terms", lambda: R.rigid_terms(p, t, g, h, RHO0),
-             lambda: R.rigid_terms_plain(p, t, g, h, RHO0)),
+            ("rigid_terms", *gated["rigid_terms"]),
             ("rigid_contact_dot", *gated["rigid_contact_dot"]),
             ("rigid_viscosity", *gated["rigid_viscosity"]),
             ("rigid_side_force", lambda: R.rigid_side_force(*side),
@@ -332,12 +347,13 @@ def scaled_error(got: torch.Tensor, want: torch.Tensor) -> float:
                                                   1e-30)
 
 
-def terms_error(got: tuple, want: tuple) -> float:
-    """fluid_terms' or boundary_terms' outputs against the plain
-    version's: the largest `scaled_error` of the float outputs, or inf
-    where an integer output (the pair count) differs anywhere."""
+def terms_error(got, want) -> float:
+    """fluid_terms', boundary_terms' or rigid_terms' outputs (or one
+    tensor) against the plain version's: the largest `scaled_error` of the
+    float outputs, or inf where an integer output (the pair count) differs
+    anywhere."""
     worst = 0.0
-    for a, b in zip(got, want):
+    for a, b in zip(tensors(got), tensors(want)):
         if not b.dtype.is_floating_point:
             if not torch.equal(a, b):
                 return float("inf")

@@ -21,13 +21,14 @@ streams over the tree's list, "lambda" and "xsph"), or, for
 "walk", the list's rows, "rows", the list's build, "list", and the
 stream over the tree's list, "stream", on perf/inputs.body_inputs and
 torus_inputs), or, for `rigid_gate`, csrc/rigid_terms.cu and
-csrc/rigid_viscosity.cu (the contact dot, "dot", and the solid
-viscosity, "visc", each with the body's gate made once as a step makes
-it, with a gate that holds every query, "dot_ungated" and
-"visc_ungated" (a gated call that differs from its ungated one by a bit
-fails its check), and with one that holds none, "dot_closed" and
-"visc_closed"; and csrc/body_box.cu, the gate's kernel, "box", beside
-its plain version, "box_plain"; on the same inputs as rigid_side). A
+csrc/rigid_viscosity.cu (the solid sums, "terms", the contact dot,
+"dot", and the solid viscosity, "visc", each with the body's gate made
+once as a step makes it, with a gate that holds every query,
+"terms_ungated", "dot_ungated" and "visc_ungated" (a gated call that
+differs from its ungated one by a bit fails its check), and with one
+that holds none, "terms_closed", "dot_closed" and "visc_closed"; and
+csrc/body_box.cu, the gate's kernel, "box", beside its plain version,
+"box_plain"; on the same inputs as rigid_side). A
 variant's PATH is a source of one of those files (it replaces the
 tree's of its name), or
 a directory: its `.cu` of the kernel's names
@@ -106,6 +107,49 @@ kSideAhead), each against one lane a row bit for bit:
     python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel rigid_side \\
         --variant s1a4=build/s1a4 --variant s1a16=build/s1a16 \\
         --variant s2a8=build/s2a8 --variant s4a4=build/s4a4 --bit-equal tree
+
+The reaction's walk (a group of kSideWalkGroup lanes a body particle,
+kSideWalkChunk candidates a lane a round) beside the one-thread walk of
+commit 643b61d, every output bit for bit with it, and with other groups
+and chunks:
+
+    mkdir -p build/side_before
+    for f in stencil.cuh rigid_side_force.cu; do
+        git show 643b61d:cfd_taichi_tpu_torch/csrc/$f > build/side_before/$f
+    done
+    for v in "8 2" "8 4" "16 1" "32 1"; do
+        set -- $v; mkdir -p build/w$1c$2
+        sed -e "s/kSideWalkGroup = [0-9]*;/kSideWalkGroup = $1;/" \\
+            -e "s/kSideWalkChunk = [0-9]*;/kSideWalkChunk = $2;/" \\
+            cfd_taichi_tpu_torch/csrc/rigid_side_force.cu \\
+            > build/w$1c$2/rigid_side_force.cu
+    done
+    python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel rigid_side \\
+        --variant before=build/side_before --variant w8c2=build/w8c2 \\
+        --variant w8c4=build/w8c4 --variant w16c1=build/w16c1 \\
+        --variant w32c1=build/w32c1 --bit-equal before
+
+The solid sums before their gate (commit 643b61d, whose entry point has
+no gate: renamed, and called through one that takes it and ignores it),
+bit for bit against the tree's gated and ungated launches (its "closed"
+entries walk every query all the same, so their checks fail):
+
+    mkdir -p build/terms_before
+    git show 643b61d:cfd_taichi_tpu_torch/csrc/rigid_terms.cu \\
+        | sed s/rigid_terms_launch/rigid_terms_before/ \\
+        > build/terms_before/rigid_terms.cu
+    cat >> build/terms_before/rigid_terms.cu <<'END'
+    extern "C" int rigid_terms_launch(
+        const float* pos, int n, const float* rpos, const float* rvol,
+        const int* rstarts, int nr, const StencilParams* p, float rho0,
+        const float*, float* rho, float* s, float* qsum, float* g2,
+        void* stream) {
+      return rigid_terms_before(pos, n, rpos, rvol, rstarts, nr, p, rho0,
+                                rho, s, qsum, g2, stream);
+    }
+    END
+    python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel rigid_gate \\
+        --variant before=build/terms_before --bit-equal before
 
 The contact dot and the solid viscosity with chunks of 16 candidates
 (kRigidChunk, kViscChunk) and with 4 hits a drain turn (kDrainUnroll, in
@@ -503,30 +547,31 @@ def rigid_side_entries(x: dict) -> list[Entry]:
 
 
 def rigid_gate_entries(x: dict) -> list[Entry]:
-    """The contact dot ("dot") and the solid viscosity ("visc") on coupled
-    inputs `x`, gated by the body's box (perf/cases.gated_calls),
-    ungated ("..._ungated"), each against the plain version (a gated call
-    must also give its ungated call's bits), and with a gate that holds
-    no query ("..._closed": every output 0; what the warps that take no
-    walk cost, the gated kernel's floor); and the gate's kernel ("box",
-    bit for bit with its plain version, "box_plain", timed by all its
-    kernels)."""
+    """The solid sums ("terms"), the contact dot ("dot") and the solid
+    viscosity ("visc") on coupled inputs `x`, gated by the body's box
+    (perf/cases.gated_calls), ungated ("..._ungated"), each against the
+    plain version (a gated call must also give its ungated call's bits),
+    and with a gate that holds no query ("..._closed": every output 0;
+    what the warps that take no walk cost, the gated kernel's floor); and
+    the gate's kernel ("box", bit for bit with its plain version,
+    "box_plain", timed by all its kernels)."""
     box = cases.gate_box(x)
     open_box = cases.ungated_box(box.device)
     closed = open_box.flip(0).contiguous()
     out = []
     for label, (name, (call, plain)) in zip(
-            ("dot", "visc"), cases.gated_calls(x).items()):
+            ("terms", "dot", "visc"), cases.gated_calls(x).items()):
         want = plain()
 
         def check(call=call, want=want, gated=True):
             got = call(box if gated else open_box)
-            if gated and not torch.equal(got, call(open_box)):
+            if gated and not cases.same_bits(got, call(open_box)):
                 return float("inf")
-            return cases.scaled_error(got, want)
+            return cases.terms_error(got, want)
 
         def check_closed(call=call):
-            return 0.0 if bool((call(closed) == 0).all()) else float("inf")
+            return 0.0 if all(bool((t == 0).all()) for t in cases.tensors(
+                call(closed))) else float("inf")
         out += [Entry(label, name, functools.partial(call, box), check),
                 Entry(f"{label}_ungated", name,
                       functools.partial(call, open_box),

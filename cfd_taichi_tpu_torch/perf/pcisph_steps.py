@@ -9,8 +9,9 @@ port are compared in one call.
 With --solver coupled the cells are frames (a fluid step and a rigid
 step) from rest of the half-immersed torus (perf/inputs.torus_immersed,
 DFSPH), breaking_dam_30k's and breaking_dam_1m's blocks with a body at
-their centre (perf/inputs.body_scene, DFSPH) and configs/
-coupling_demo.json (PCISPH), each measured as a step below; the digest
+their centre (perf/inputs.body_scene) as DFSPH, IISPH and WCSPH (the two
+whose step walks the body's reaction) and configs/coupling_demo.json
+(PCISPH), each measured as a step below; the digest
 also covers the body's particles, velocity and spin, and the device
 times of the body's reaction (its walk, or its list's rows, the list and
 the list's stream) and of the fluid side's passes over the body (the
@@ -52,9 +53,15 @@ from cfd_taichi_tpu_torch.ops import stencil as S
 from cfd_taichi_tpu_torch.perf import inputs, timing
 
 SCENES = (("30k", "breaking_dam_30k.json"), ("1m", "breaking_dam_1m.json"))
-COUPLED = ("torus", "body_30k", "coupling_demo", "body_1m")
-BODY_BLOCKS = {"body_30k": "breaking_dam_30k.json",
-               "body_1m": "breaking_dam_1m.json"}
+COUPLED = ("torus", "body_30k", "coupling_demo", "body_1m", "body_30k_iisph",
+           "body_1m_iisph", "body_30k_wcsph", "body_1m_wcsph")
+# (block, solver) of a body-in-water cell
+BODY_BLOCKS = {"body_30k": ("breaking_dam_30k.json", "dfsph"),
+               "body_1m": ("breaking_dam_1m.json", "dfsph"),
+               "body_30k_iisph": ("breaking_dam_30k.json", "iisph"),
+               "body_1m_iisph": ("breaking_dam_1m.json", "iisph"),
+               "body_30k_wcsph": ("breaking_dam_30k.json", "wcsph"),
+               "body_1m_wcsph": ("breaking_dam_1m.json", "wcsph")}
 # The reaction's kernels, whose device times a coupled cell prints
 REACTION = ("rigid_side_force", "rigid_side_rows", "rigid_side_list",
             "rigid_side_force_list")
@@ -107,9 +114,9 @@ def simulation(tag: str, solver: str):
                                          "coupling_demo.json")),
                          device="cuda")
     else:
-        block = BODY_BLOCKS[tag]
-        sim = Simulation(inputs.solver_config(block), device="cuda",
-                         scene=inputs.body_scene(block))
+        block, body_solver = BODY_BLOCKS[tag]
+        sim = Simulation(inputs.solver_config(block, body_solver),
+                         device="cuda", scene=inputs.body_scene(block))
     return sim, sim.frame
 
 

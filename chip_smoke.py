@@ -75,8 +75,10 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 (every warp walking the body), and the body's walk is
                 timed as the call less the call without the body, gated
                 and ungated (events around 20 calls); so must
-                rigid_contact_dot and rigid_viscosity, which take the same
-                gate (its queries inside printed), each timed gated and
+                rigid_terms, rigid_contact_dot and rigid_viscosity, which
+                take the same gate (its queries inside printed; the
+                reaction's walk runs a group of lanes a body particle and
+                adds its terms in walk order), each timed gated and
                 ungated in turns (events around 20 calls, and
                 torch.profiler); the gate's kernel, body_box, must give
                 its plain version's bits. Each
@@ -726,8 +728,9 @@ def body_gate(torch, results: dict, x: dict, tag: str) -> None:
 
 
 def rigid_gate(torch, results: dict, x: dict, tag: str) -> None:
-    """The contact dot's and the solid viscosity's body gate on coupled
-    inputs `x`: each with the gate made once, as a step makes it, against
+    """The body gate of the solid sums, the contact dot and the solid
+    viscosity on coupled inputs `x`: each with the gate made once, as a
+    step makes it, against
     the same launch ungated, bit for bit; then both timed in turns (gated,
     ungated, ungated, gated: CUDA events around 20 back-to-back calls, over
     the count) and by torch.profiler's device time a launch; and the gate
@@ -750,7 +753,7 @@ def rigid_gate(torch, results: dict, x: dict, tag: str) -> None:
     check(same, f"body_box {tag}: not its plain version's bits")
     results["body_box"][f"plain_device_us_{tag}"] = plain_us
     for name, (call, _) in cases.gated_calls(x).items():
-        same = torch.equal(call(box), call(open_box))
+        same = cases.same_bits(call(box), call(open_box))
         print(f"    {name} {tag}: gated bit-equal to ungated {same}")
         check(same, f"{name} {tag}: the body gate changed the output")
         ms = [timing.batch_ms(lambda b=b: call(b))

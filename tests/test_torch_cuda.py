@@ -93,7 +93,7 @@ def _all_outputs(sc, pos, starts, k, v, rho):
 def _body_outputs(sc, pos, starts, v, rho):
     """The fluid-rigid wrappers (the reaction's walk, and its list's rows,
     the list and its stream among them; the body's gate, made once and
-    taken by the three gated passes) and PCISPH's predicted density with
+    taken by the four gated passes) and PCISPH's predicted density with
     its walks over the body and the walls once, for a 24-voxel box body in
     TINY's block with numpy-seeded volumes and velocities."""
     dev = pos.device
@@ -113,7 +113,7 @@ def _body_outputs(sc, pos, starts, v, rho):
     side = rigid.rigid_side_list(rpos, rvol, pos, starts, g, h, 1000.0,
                                  offs, rigid.list_slots(offs))
     _, fluid, pair_g = rigid.side_pairs(side)
-    return [*rigid.rigid_terms(pos, table, g, h, 1000.0), box,
+    return [*rigid.rigid_terms(pos, table, g, h, 1000.0, body_box=box), box,
             rigid.rigid_contact_dot(pos, table, g, h, 1000.0, v_r, box),
             rigid.rigid_viscosity(pos, table, g, h, 1000.0, m, v, rho, rq,
                                   v_r[0].contiguous(), **VISC,
@@ -575,12 +575,12 @@ def test_predicted_density_body_gate_keeps_every_bit(cuda, where):
 @pytest.mark.cuda
 @pytest.mark.parametrize("where", ["30k", "1m", "torus"])
 def test_contact_dot_and_viscosity_body_gate_keeps_every_bit(cuda, where):
-    """rigid_contact_dot and rigid_viscosity with the body's gate (made
-    once, as a step makes it, by body_box: its plain version's bits)
-    against the same launch with a gate that holds every query, bit for
-    bit, on a body in water at 30k and 1M and on the half-immersed torus;
-    both against the plain version to 1e-5 of scale; one launch a call, no
-    plain call."""
+    """rigid_terms, rigid_contact_dot and rigid_viscosity with the body's
+    gate (made once, as a step makes it, by body_box: its plain version's
+    bits) against the same launch with a gate that holds every query, bit
+    for bit (all four of rigid_terms' sums), on a body in water at 30k and
+    1M and on the half-immersed torus; each against the plain version to
+    1e-5 of scale; one launch a call, no plain call."""
     x = (inputs.torus_inputs(seed=3, device=cuda) if where == "torus" else
          inputs.body_inputs({"30k": "breaking_dam_30k.json",
                              "1m": "breaking_dam_1m.json"}[where], seed=3,
@@ -595,8 +595,8 @@ def test_contact_dot_and_viscosity_body_gate_keeps_every_bit(cuda, where):
         gated = call(box)
         assert stencil.KERNELS[name].launches == 1, name
         assert stencil.KERNELS[name].plain_calls == 0, name
-        assert torch.equal(gated, call(cases.ungated_box(cuda))), name
-        assert cases.scaled_error(gated, want) <= 1e-5, name
+        assert cases.same_bits(gated, call(cases.ungated_box(cuda))), name
+        assert cases.terms_error(gated, want) <= 1e-5, name
 
 
 @pytest.mark.cuda
@@ -687,8 +687,9 @@ def test_rigid_kernels_repeat_bit_for_bit(cuda):
 @pytest.mark.parametrize("where", ["30k", "torus"])
 def test_the_reaction_stream_gives_the_walks_bits(cuda, where):
     """The reaction's list, built by its kernel, streamed: the walk's
-    output bit for bit on a body in water and on the half-immersed
-    torus."""
+    output bit for bit on a body in water and on the half-immersed torus
+    (the walk's lane groups add their terms in walk order); the walk
+    repeats bit for bit."""
     x = (inputs.body_inputs("breaking_dam_30k.json", seed=3, device=cuda)
          if where == "30k" else inputs.torus_inputs(seed=3, device=cuda))
     _, side = cases.side_list(x)
@@ -698,6 +699,30 @@ def test_the_reaction_stream_gives_the_walks_bits(cuda, where):
                                   x["force"])
     assert int(side.cnt.sum()) > 0
     assert torch.equal(got, walk)
+    assert torch.equal(walk, rigid.rigid_side_force(
+        x["rpos"], x["rvol"], x["p"], x["st"], x["grid"], x["h"],
+        cases.RHO0, x["u"], x["force"]))
+
+
+@pytest.mark.cuda
+def test_the_reaction_walk_of_a_body_far_from_the_fluid(cuda):
+    """A body moved out of the water (its stencils hold no fluid) and one
+    half in it, with a body count that leaves the last warp's groups
+    partly empty: the walk against its plain version, the far body's
+    force as it was, bit for bit."""
+    x = inputs.body_inputs("breaking_dam_30k.json", seed=3, device=cuda)
+    nr = x["rpos"].shape[0]
+    for shift, n in ((10.0, nr), (0.0, nr - 5)):
+        rpos = (x["rpos"][:n] + torch.tensor([shift, 0.0, 0.0],
+                                              device=cuda)).contiguous()
+        args = (rpos, x["rvol"][:n].contiguous(), x["p"], x["st"],
+                x["grid"], x["h"], cases.RHO0, x["u"],
+                x["force"][:n].contiguous())
+        got = rigid.rigid_side_force(*args)
+        if shift:
+            assert torch.equal(got, args[-1])
+        assert cases.scaled_error(got, rigid.rigid_side_force_plain(
+            *args)) <= 1e-5
 
 
 @pytest.mark.cuda

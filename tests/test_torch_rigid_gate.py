@@ -1,23 +1,24 @@
-"""The body gate of the contact dot and the solid viscosity, held on the
-CPU:
+"""The body gate of the solid sums, the contact dot and the solid
+viscosity, held on the CPU:
 
 * on perf/inputs.coupled_inputs of TINY's block with a box body across
   its water surface, RIGID_CFG (tests/test_rigid.py:12-21), the
   half-immersed torus (perf/inputs.torus_immersed) and RIGID_CFG's cube
   at two corners of the domain (over the fluid block's corner against the
   walls, and across the domain's far corner, its cells clamped): every
-  query with a pair in the pair sets of `rigid_contact_dot_plain` and
-  `rigid_viscosity_plain` (`ops/rigid._solid_pairs`, the f32 test r2 <=
-  h2 at the start-of-step positions) lies inside the step's
-  `stencil.make_body_box`, and the plain outputs with the queries outside
-  it set to 0 are the outputs, bit for bit: what the kernels, which walk
-  only from the box, write;
+  query with a pair in the pair sets of `rigid_terms_plain`,
+  `rigid_contact_dot_plain` and `rigid_viscosity_plain`
+  (`ops/rigid._solid_pairs`, the f32 test r2 <= h2 at the start-of-step
+  positions) lies inside the step's `stencil.make_body_box`, and the
+  plain outputs (all four of the solid sums) with the queries outside it
+  set to 0 are the outputs, bit for bit: what the kernels, which walk only
+  from the box, write;
 * the wrappers take `body_box` and check it (shape, dtype, device), and
   the plain versions they run here ignore it;
 * a coupled step of each solver with a body (DFSPH, PCISPH, IISPH,
-  WCSPH) makes one box (`base.body_terms`) and hands that box to every
-  gated pass: the contact dot, the solid viscosity and PCISPH's predicted
-  density.
+  WCSPH) makes one box (`base.body_terms`), before the solid sums, and
+  hands that box to every gated pass: the solid sums, the contact dot,
+  the solid viscosity and PCISPH's predicted density.
 
 Torch on one thread; no JAX runs here.
 """
@@ -97,12 +98,12 @@ def test_plain_outputs_outside_the_gate_are_zero_bit_for_bit(coupled, tag):
     x = coupled[tag]
     inside = stencil.in_body_box(x["p"], cases.gate_box(x))
     for name, (_, plain) in cases.gated_calls(x).items():
-        out = plain()
-        keep = inside if out.dim() == 1 else inside[:, None]
-        masked = torch.where(keep, out, torch.zeros_like(out))
-        assert bool((out[~inside] == 0).all()), name
-        assert torch.equal(_bits(masked), _bits(out)), name
-        assert bool((out != 0).any()), name
+        for out in cases.tensors(plain()):
+            keep = inside if out.dim() == 1 else inside[:, None]
+            masked = torch.where(keep, out, torch.zeros_like(out))
+            assert bool((out[~inside] == 0).all()), name
+            assert torch.equal(_bits(masked), _bits(out)), name
+            assert bool((out != 0).any()), name
 
 
 def test_wrappers_take_and_check_the_gate(coupled):
@@ -111,7 +112,7 @@ def test_wrappers_take_and_check_the_gate(coupled):
     for name, (call, plain) in cases.gated_calls(x).items():
         want = plain()
         for gate in (None, box, cases.ungated_box("cpu")):
-            assert torch.equal(call(gate), want), name
+            assert cases.same_bits(call(gate), want), name
         for bad in (box.T.contiguous(), box.double(), box.reshape(6),
                     box[:, :2].contiguous()):
             with pytest.raises(ValueError, match="body_box"):
@@ -122,9 +123,9 @@ def test_wrappers_take_and_check_the_gate(coupled):
 def test_a_coupled_step_makes_one_gate_for_every_gated_pass(solver,
                                                             monkeypatch):
     """RIGID_CFG squeezed by 0.85 about its mean (pressure acts), one step:
-    `stencil.make_body_box` runs once, in `base.body_terms`, and the
-    contact dot, the solid viscosity and the predicted density each get
-    that box."""
+    `stencil.make_body_box` runs once, in `base.body_terms`, before the
+    solid sums, and the solid sums, the contact dot, the solid viscosity
+    and the predicted density each get that box."""
     sim = Simulation(parse_config(rigid_cfg(**{"solver.name": solver})),
                      device="cpu")
     sim.state = inputs.squeezed(sim.state)
@@ -133,6 +134,7 @@ def test_a_coupled_step_makes_one_gate_for_every_gated_pass(solver,
 
     def making(*args, **kw):
         made.append(make(*args, **kw))
+        got.append(("make_body_box", made[-1]))
         return made[-1]
 
     def spy(module, name):
@@ -146,13 +148,15 @@ def test_a_coupled_step_makes_one_gate_for_every_gated_pass(solver,
         monkeypatch.setattr(module, name, call)
 
     monkeypatch.setattr(stencil, "make_body_box", making)
-    for module, name in ((R, "rigid_contact_dot"), (R, "rigid_viscosity"),
+    for module, name in ((R, "rigid_terms"), (R, "rigid_contact_dot"),
+                         (R, "rigid_viscosity"),
                          (stencil, "pcisph_predict_rho")):
         spy(module, name)
     sim.step()
-    want = {"rigid_viscosity"} | {
+    want = {"rigid_terms", "rigid_viscosity"} | {
         "dfsph": {"rigid_contact_dot"}, "iisph": {"rigid_contact_dot"},
         "pcisph": {"pcisph_predict_rho"}, "wcsph": set()}[solver]
     assert len(made) == 1
-    assert {name for name, _ in got} == want
+    assert [name for name, _ in got[:2]] == ["make_body_box", "rigid_terms"]
+    assert {name for name, _ in got[1:]} == want
     assert all(box is made[0] for _, box in got), got
