@@ -240,12 +240,14 @@ struct Float4Rows {  // (ns, 4) f32 records, 16-byte aligned: one 16-byte load
 // for the lane: it computes its terms in either case, so that the turn's
 // kUnroll terms overlap, and adds them only under take. rec is src(j).
 // self is the query's own slot where the sources are the queries, else
-// -1. kQueueDepth is the hits a thread can hold, 4 bytes each in shared
-// memory; kWalkChunk the candidates tested between two votes; kUnroll the
-// hits a thread's drain turn works on.
+// -1. queue is the block's kQueueDepth x kThreads ints of shared memory
+// (queue[depth][thread]), empty on entry and on return, so that two walks
+// of one kernel may share it. kWalkChunk is the candidates tested between
+// two votes; kUnroll the hits a thread's drain turn works on.
 template <int kQueueDepth, int kWalkChunk, int kUnroll, typename Source,
           typename PairFn>
-__device__ __forceinline__ void queued_walk_of(const Source& src, int ns,
+__device__ __forceinline__ void queued_walk_in(int* queue, const Source& src,
+                                               int ns,
                                                const int* __restrict__ starts,
                                                const StencilParams& p,
                                                bool live, int self, float xi,
@@ -253,7 +255,6 @@ __device__ __forceinline__ void queued_walk_of(const Source& src, int ns,
                                                PairFn&& pair) {
   static_assert(kWalkChunk >= 1 && kWalkChunk < kQueueDepth,
                 "a queue must take a chunk's hits after a vote let it pass");
-  __shared__ int queue[kQueueDepth * kThreads];
   int* const q = queue + threadIdx.x;
   const float h2 = p.h2;
   int held = 0;
@@ -300,6 +301,20 @@ __device__ __forceinline__ void queued_walk_of(const Source& src, int ns,
     }
   }
   drain();
+}
+
+// queued_walk_in with a queue of its own.
+template <int kQueueDepth, int kWalkChunk, int kUnroll, typename Source,
+          typename PairFn>
+__device__ __forceinline__ void queued_walk_of(const Source& src, int ns,
+                                               const int* __restrict__ starts,
+                                               const StencilParams& p,
+                                               bool live, int self, float xi,
+                                               float yi, float zi,
+                                               PairFn&& pair) {
+  __shared__ int queue[kQueueDepth * kThreads];
+  queued_walk_in<kQueueDepth, kWalkChunk, kUnroll>(
+      queue, src, ns, starts, p, live, self, xi, yi, zi, pair);
 }
 
 // ---------------------------------------------------------------------------

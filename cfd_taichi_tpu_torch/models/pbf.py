@@ -9,9 +9,10 @@ its own step (`cfd_taichi_tpu/models/pbf.py:21, 53`). The step:
 * predicted positions from gravity (pbf_solver.py:26-30);
 * density by poly6, C = max(rho / rho0 - 1, 0), lambda = -C / (|grad C_i|^2
   + sum_j |grad C_j|^2 + 1e-6) with spiky gradients over rho0, all at the
-  start-of-step positions: the one-shot kernel `pbf_terms` and, on walls,
-  its boundary entry, where the volume weights the density only (JAX's
-  quirk, kept). Its fluid entry also stores the pairs it finds
+  start-of-step positions: one launch of the kernel `pbf_terms`
+  (`stencil.pbf_constraint`), its fluid walk, its walls' walk, where the
+  volume weights the density only (JAX's quirk, kept), and each row's C
+  and lambda. Its fluid walk also stores the pairs it finds
   (`stencil.PairList`), which the two later passes stream;
 * the position change (lambda_i gsum + sum_j lambda_j spiky_c x_ij + ssum)
   / rho0 with the quartic s_corr (k 1e-7 at 0.3 h) in ssum: the kernel
@@ -23,8 +24,8 @@ its own step (`cfd_taichi_tpu/models/pbf.py:21, 53`). The step:
 
 No loop, and one host read: the size of the pair list (`stencil.
 pair_rows`), read right after the cell sort, so that the host waits on the
-sort alone. A step is the cell sort, three or four pair passes and
-elementwise work. JAX's dense step takes w_ref = poly6(0.3 h) as
+sort alone. A step is the cell sort, three pair passes and elementwise
+work. JAX's dense step takes w_ref = poly6(0.3 h) as
 a host double closed form and uses f32(1 / w_ref) (`cfd_taichi_tpu/models/
 pbf.py:74-75`); so does this one.
 """
@@ -36,7 +37,6 @@ import math
 import torch
 
 from cfd_taichi_tpu_torch.models import base
-from cfd_taichi_tpu_torch.models.dfsph import dot
 from cfd_taichi_tpu_torch.ops import neighbors as nb
 from cfd_taichi_tpu_torch.ops import stencil
 from cfd_taichi_tpu_torch.ops.smoothing import f32
@@ -46,6 +46,9 @@ EPSILON = 1.0e-6          # pbf_solver.py:17
 TENSION_K = 1e-7          # s_corr strength k (pbf_solver.py:19)
 XSPH_C = 9e-6             # viscosity c (pbf_solver.py:20)
 S_CORR_FACTOR = 0.3       # pbf_solver.py:21
+# rho0, epsilon and the density's seed of the constraint pass
+# (stencil.pbf_constraint's last three arguments)
+ROW_CONSTANTS = (RHO_0, EPSILON, base.DENSITY_EPS)
 
 
 def init_state(scene: Scene) -> base.SimState:
@@ -95,27 +98,12 @@ def solve(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
     vel = vel_s + base.gravity_acc(scene) * dt
     pos_predict = pos + vel * dt
 
-    # --- density + constraint (pbf_solver.py:127-130, 166-174) --------------
-    terms, pairs = stencil.pbf_terms(pos, starts, grid, h, m, wr, TENSION_K,
-                                     rows)
-    rho = f32(base.DENSITY_EPS) + terms.rho
-    gsum, around, ssum = terms.gsum, terms.around, terms.ssum
+    # --- density, constraint and lambda (pbf_solver.py:32-52, 127-130,
+    # 166-174): one launch, the rows' algebra in its epilogue -------------
     walls = base.walls(scene)
-    if walls is not None:
-        bt = stencil.pbf_boundary_terms(pos, walls, grid, h, RHO_0, wr,
-                                        TENSION_K)
-        rho = rho + bt.rho
-        gsum = gsum + bt.gsum
-        around = around + bt.around
-        ssum = ssum + bt.ssum
-    # XLA divides by the constant rho0 as a product with f32(1 / rho0).
-    constraint = torch.clamp(rho * f32(1.0 / RHO_0) - 1.0, min=0.0)
-
-    # --- lambda (pbf_solver.py:32-52) ----------------------------------------
-    grad_c_i = gsum * f32(1.0 / RHO_0)
-    denom = dot(grad_c_i, grad_c_i) + around * f32(1.0 / RHO_0**2)
-    lam = torch.where(constraint == 0.0, torch.zeros_like(constraint),
-                      -constraint / (denom + f32(EPSILON)))
+    (constraint, lam, gsum, ssum), pairs = stencil.pbf_constraint(
+        pos, starts, grid, h, m, wr, TENSION_K, rows, walls,
+        *ROW_CONSTANTS)
 
     # --- delta positions with s_corr (pbf_solver.py:55-65, 144-164) ---------
     # Fluid pairs: sum (lam_i + lam_j + s_corr) spiky_c x_ij

@@ -69,10 +69,9 @@ _SIGNATURES = {
     "pcisph_predict_rho_list_launch": (_P, _I, _P, _P, _PP, _F, _P, _P, _P,
                                        _P, _P, _I, _P, _P, _P, _P, _I, _F,
                                        _P, _P),
-    "pbf_terms_launch": (_P, _P, _I, _PP, _SP, _F, _F, _F, _P, _P, _P, _P,
-                         _P, _P, _P, _P),
-    "pbf_boundary_terms_launch": (_P, _I, _P, _P, _P, _P, _I, _PP, _SP, _F,
-                                  _F, _F, _P, _P, _P, _P, _P),
+    "pbf_constraint_launch": (_P, _P, _I, _PP, _SP, _F, _F, _F, _P, _P, _P,
+                              _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _P, _P,
+                              _P, _P, _P),
     "pbf_lambda_launch": (_P, _I, _P, _P, _P, _SP, _P, _P, _P),
     "pbf_xsph_launch": (_I, _P, _P, _P, _SP, _P, _P, _P, _P),
     "rigid_terms_launch": (_P, _I, _P, _P, _P, _I, _PP, _F, _P, _P, _P, _P,

@@ -9,7 +9,9 @@ Each pass has three parts:
   and sums in registers: one thread per query that queues its hits and
   runs the pair term outside the candidate loop in fluid_terms,
   boundary_terms, matvec, matvec_dot, wcsph_forces, pcisph_predict_rho,
-  pbf_terms and the fluid-rigid passes of ops/rigid.py
+  pbf_terms (PBF's constraint pass: its fluid walk, its walls' walk and
+  each row's lambda in one launch) and the fluid-rigid passes of
+  ops/rigid.py
   (`csrc/stencil.cuh`, queued_walk),
   a group of lanes per query in viscosity and coef_build (group_walk);
   pcisph_predict_rho_list streams the rows of the step's stored pair list
@@ -102,8 +104,9 @@ KERNELS = {k.name: k for k in (
     # walk a rigid table, counted here as well.
     Kernel("pcisph_predict_rho_rigid", _CSRC + "pcisph_predict.cu",
            "cfd_taichi_tpu/ops/rigid_dense.py:179"),
-    # Two entry points, fluid (which also stores the step's pair list) and
-    # boundary, both counted here.
+    # PBF's constraint pass in one launch (pbf_constraint: the fluid walk,
+    # which also stores the step's pair list, the walls' walk and the rows'
+    # lambda).
     Kernel("pbf_terms", _CSRC + "pbf_terms.cu",
            "cfd_taichi_tpu/ops/bandmat.py:1735-1792, :1811"),
     # PBF's two later passes: stream forms over pbf_terms' pair list.
@@ -174,6 +177,16 @@ class PbfTerms(NamedTuple):
     gsum: torch.Tensor    # (N, 3) sum spiky_c x_ij
     around: torch.Tensor  # (N,)  sum (r spiky_c)^2
     ssum: torch.Tensor    # (N, 3) sum s_corr spiky_c x_ij
+
+
+class PbfConstraint(NamedTuple):
+    """PBF's constraint pass per row: C = max(rho / rho0 - 1, 0) with rho
+    the fluid's and the walls' density, lambda, and the fluid's plus the
+    walls' gsum and ssum (`PbfTerms`), which the position change reads."""
+    constraint: torch.Tensor  # (N,)
+    lam: torch.Tensor         # (N,)
+    gsum: torch.Tensor        # (N, 3)
+    ssum: torch.Tensor        # (N, 3)
 
 
 # Slots between a row's pairs in the pair list: the 32 rows of a warp
@@ -550,12 +563,6 @@ def _s_corr_constants(w_ref: float, k_corr: float) -> tuple[float, float]:
     return f32(1.0 / w_ref), f32(-k_corr)
 
 
-def _pbf_out(pos: torch.Tensor) -> PbfTerms:
-    n = pos.shape[0]
-    return PbfTerms(rho=pos.new_empty(n), gsum=pos.new_empty(n, 3),
-                    around=pos.new_empty(n), ssum=pos.new_empty(n, 3))
-
-
 def warp_offsets(counts: torch.Tensor) -> torch.Tensor:
     """(warps + 1,) int64 offsets of a pair list whose N rows hold at most
     `counts` ((N,) int) pairs each: 0, then the running sum of each warp's
@@ -602,49 +609,49 @@ def pair_rows(starts: torch.Tensor, grid: GridSpec,
     return PairRows(warp_bases(offs, n), size)
 
 
-def pbf_terms(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
-              h: float, m: float, w_ref: float, k_corr: float,
-              rows: PairRows | None = None) -> tuple[PbfTerms, PairList]:
-    """K7, fluid entry: PBF's one-shot fluid-fluid sums at the start-of-
-    step positions (replaces the terms of bandmat.dense_pbf_ops), and the
-    pairs it finds, stored in `rows` (`pair_rows`; made here, with its host
-    read, where the caller has none) for pbf_lambda and pbf_xsph."""
+def _rows_constants(rho0: float, epsilon: float,
+                    rho_seed: float) -> tuple[float, ...]:
+    """f32(rho_seed), f32(1 / rho0), f32(1 / rho0^2), f32(epsilon): the
+    scalars of the rows' algebra (`pbf_rows_plain`)."""
+    return (f32(rho_seed), f32(1.0 / rho0), f32(1.0 / rho0**2),
+            f32(epsilon))
+
+
+def pbf_constraint(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
+                   h: float, m: float, w_ref: float, k_corr: float,
+                   rows: PairRows | None, walls: Walls | None, rho0: float,
+                   epsilon: float, rho_seed: float
+                   ) -> tuple[PbfConstraint, PairList]:
+    """K7: PBF's constraint pass in one launch of pbf_terms' kernel: the
+    fluid walk, which stores the pairs it finds in `rows` (`pair_rows`;
+    made here, with its host read, where the caller has none) for
+    pbf_lambda and pbf_xsph, the walls' walk where there are `walls`
+    (`None`: the clamp scenes), and each row's constraint and lambda
+    (`pbf_rows_plain`, bit for bit), rho0 the density of the constraint and
+    of the walls' weights, epsilon lambda's regulariser, rho_seed the
+    density's seed."""
     cuda = _on_cuda("pbf_terms", pos)
     if rows is None:
         rows = pair_rows(starts, grid, cell_id(pos, grid))
     if not cuda:
-        return pbf_terms_plain(pos, starts, grid, h, m, w_ref, k_corr, rows)
+        return pbf_constraint_plain(pos, starts, grid, h, m, w_ref, k_corr,
+                                    rows, walls, rho0, epsilon, rho_seed)
     n = _check_pos_starts(pos, starts, grid)
     _check("rows.base", rows.base, torch.int32, (n,), pos.device)
-    out = _pbf_out(pos)
+    bnd = (None, None, None, None, 0)
+    if walls is not None:
+        bnd = (*walls, _check_walls(walls, grid.num_cells, pos.device))
+    out = PbfConstraint(pos.new_empty(n), pos.new_empty(n),
+                        pos.new_empty(n, 3), pos.new_empty(n, 3))
     pairs = PairList(rows.base, torch.empty_like(rows.base),
                      torch.empty(rows.size, dtype=torch.int32,
                                  device=pos.device))
     _launch("pbf_terms", pos.device, pos, starts, n,
             ctypes.byref(_params(grid, h)), ctypes.byref(_spiky_poly6(h)),
-            f32(m), *_s_corr_constants(w_ref, k_corr), *pairs, *out)
+            f32(m), *_s_corr_constants(w_ref, k_corr), *pairs, *bnd,
+            f32(rho0), *_rows_constants(rho0, epsilon, rho_seed), *out,
+            entry="pbf_constraint")
     return out, pairs
-
-
-def pbf_boundary_terms(pos: torch.Tensor, walls: Walls, grid: GridSpec,
-                       h: float, rho0: float, w_ref: float,
-                       k_corr: float) -> PbfTerms:
-    """K7, boundary entry: the boundary's share of PBF's sums, rho =
-    sum rho0 V_b poly6 and the other three with the bare spiky factor
-    (replaces bandmat.pbf_boundary_terms). Counted under pbf_terms."""
-    if not _on_cuda("pbf_terms", pos):
-        return pbf_boundary_terms_plain(pos, walls, grid, h, rho0, w_ref,
-                                        k_corr)
-    n = pos.shape[0]
-    _check("pos", pos, torch.float32, (n, 3), pos.device)
-    nb = _check_walls(walls, grid.num_cells, pos.device)
-    out = _pbf_out(pos)
-    _launch("pbf_terms", pos.device, pos, n, *walls, nb,
-            ctypes.byref(_params(grid, h)),
-            ctypes.byref(_spiky_poly6(h)), f32(rho0),
-            *_s_corr_constants(w_ref, k_corr), *out,
-            entry="pbf_boundary_terms")
-    return out
 
 
 def _check_pairs(pairs: PairList, n: int, device: torch.device) -> None:
@@ -998,10 +1005,19 @@ def pbf_terms_plain(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
                     h: float, m: float, w_ref: float, k_corr: float,
                     rows: PairRows | None = None
                     ) -> tuple[PbfTerms, PairList]:
-    """The four sums, and the pairs in the kernel's walk order stored in
-    `rows` as the kernel stores them (the slots past a row's count hold
-    -1), so that each row's nbr compares exactly."""
+    """The fluid walk of PBF's constraint pass alone (the terms of
+    bandmat.dense_pbf_ops): its four raw sums, and the pairs in the
+    kernel's walk order stored in `rows` (`pair_rows`; made here where the
+    caller has none) as the kernel stores them (the slots past a row's
+    count hold -1), so that each row's nbr compares exactly. A plain
+    function only: the step takes the walk in `pbf_constraint`."""
     KERNELS["pbf_terms"].plain_calls += 1
+    return _pbf_fluid_sums(pos, starts, grid, h, m, w_ref, k_corr, rows)
+
+
+def _pbf_fluid_sums(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
+                    h: float, m: float, w_ref: float, k_corr: float,
+                    rows: PairRows | None) -> tuple[PbfTerms, PairList]:
     if rows is None:
         rows = pair_rows(starts, grid, cell_id(pos, grid))
     n, dev = pos.shape[0], pos.device
@@ -1030,13 +1046,68 @@ def pbf_terms_plain(pos: torch.Tensor, starts: torch.Tensor, grid: GridSpec,
 def pbf_boundary_terms_plain(pos: torch.Tensor, walls: Walls, grid: GridSpec,
                              h: float, rho0: float, w_ref: float,
                              k_corr: float) -> PbfTerms:
+    """The walls' walk of PBF's constraint pass alone (bandmat.
+    pbf_boundary_terms): rho = sum rho0 V_b poly6 and the other three sums
+    with the bare spiky factor. A plain function only, as
+    `pbf_terms_plain`."""
     KERNELS["pbf_terms"].plain_calls += 1
+    return _pbf_wall_sums(pos, walls, grid, h, rho0, w_ref, k_corr)
+
+
+def _pbf_wall_sums(pos: torch.Tensor, walls: Walls, grid: GridSpec, h: float,
+                   rho0: float, w_ref: float, k_corr: float) -> PbfTerms:
     out = _pbf_zeros(pos)
     for rows, pr in _pair_chunks(pos, walls.pos, walls.starts, grid, h,
                                  exclude_self=False):
         _pbf_sums(out, rows, pr, f32(rho0) * walls.vol[pr.slot], h, w_ref,
                   k_corr)
     return out
+
+
+def pbf_rows_plain(fluid: PbfTerms, walls: PbfTerms | None, rho0: float,
+                   epsilon: float, rho_seed: float) -> PbfConstraint:
+    """The rows of PBF's constraint pass from the fluid walk's and the
+    walls' walk's raw sums (`walls` None: a clamp scene), in f32, each
+    product and sum rounded on its own in this order (the kernel's
+    epilogue is held to it bit for bit; JAX's, cfd_taichi_tpu/models/
+    pbf.py:96-115): rho = (rho_seed + rho_f) + rho_b, C = max(rho / rho0 -
+    1, 0) with / rho0 a product with f32(1 / rho0), as XLA takes it; with
+    g' = gsum / rho0 likewise, denom = ((g'x g'x + g'y g'y) + g'z g'z) +
+    around f32(1 / rho0^2); lambda = -C / (denom + epsilon), 0 where C is
+    0."""
+    seed, inv_rho0, inv_rho0_sq, eps = _rows_constants(rho0, epsilon,
+                                                       rho_seed)
+    rho = seed + fluid.rho
+    gsum, around, ssum = fluid.gsum, fluid.around, fluid.ssum
+    if walls is not None:
+        rho = rho + walls.rho
+        gsum = gsum + walls.gsum
+        around = around + walls.around
+        ssum = ssum + walls.ssum
+    constraint = torch.clamp(rho * inv_rho0 - 1.0, min=0.0)
+    g = gsum * inv_rho0
+    denom = (g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1] + g[:, 2] * g[:, 2]
+             + around * inv_rho0_sq)
+    lam = torch.where(constraint == 0.0, torch.zeros_like(constraint),
+                      -constraint / (denom + eps))
+    return PbfConstraint(constraint, lam, gsum, ssum)
+
+
+def pbf_constraint_plain(pos: torch.Tensor, starts: torch.Tensor,
+                         grid: GridSpec, h: float, m: float, w_ref: float,
+                         k_corr: float, rows: PairRows | None,
+                         walls: Walls | None, rho0: float, epsilon: float,
+                         rho_seed: float
+                         ) -> tuple[PbfConstraint, PairList]:
+    """The fluid walk's sums and list (`pbf_terms_plain`), the walls' sums
+    (`pbf_boundary_terms_plain`) and the rows' algebra (`pbf_rows_plain`):
+    one plain call of pbf_terms."""
+    KERNELS["pbf_terms"].plain_calls += 1
+    fluid, pairs = _pbf_fluid_sums(pos, starts, grid, h, m, w_ref, k_corr,
+                                   rows)
+    wall = None if walls is None else _pbf_wall_sums(pos, walls, grid, h,
+                                                      rho0, w_ref, k_corr)
+    return pbf_rows_plain(fluid, wall, rho0, epsilon, rho_seed), pairs
 
 
 def stored_pairs(pairs: PairList) -> tuple[torch.Tensor, torch.Tensor]:

@@ -22,7 +22,8 @@ function needs:
 needs, so it is reported beside the bound and never sets it. So is
 `Work.stream_bytes`, the bytes a kernel that streams a stored pair list
 (pcisph_predict_rho_list, pbf_lambda, pbf_xsph, rigid_side_force_list)
-must read, or that pbf_terms moves with the list it stores: the list is
+must read, or that pbf_terms (PBF's constraint pass) moves with the list
+it stores: the list is
 the design's, not the function's input or output (rigid_side_list, whose
 function is to list the pairs, writes it as its output). Where a
 kernel does more work than counted (viscosity evaluates its force only on
@@ -63,9 +64,9 @@ PAIR_OPS = {
     "pcisph_predict_rho": 25,
     "pcisph_predict_rho_walls": 27,
     # r, spiky_c, poly6, s, s^2, s_corr, r spiky_c, the ten terms and sums;
-    # on the boundary also rho0 V_b
+    # on the walls also rho0 V_b
     "pbf_terms": 40,
-    "pbf_boundary_terms": 41,
+    "pbf_walls": 41,
     "pbf_lambda": 18,      # r, spiky_c, lambda_j spiky_c, three products
     # the updated distance (8), r, poly6, three products, four sums
     "pbf_xsph": 24,
@@ -85,6 +86,13 @@ PAIR_OPS = {
     # sum (as the boundary walk)
     "pcisph_predict_rho_rigid": 27,
 }
+
+
+# f32 operations of a row of PBF's constraint pass beyond its pair terms:
+# rho_seed + m S_f (2), the walls' eight sums added (8), the constraint (3),
+# g' (3), |g'|^2 (5), around / rho0^2 and the two sums (3), the negation,
+# division and select of lambda (4).
+PBF_ROW_OPS = 28
 
 
 class Work(NamedTuple):
@@ -149,16 +157,24 @@ def stencil_work(name: str, n: int, n_cells: int, cand: int, pairs: int,
     return _pair_work(name, nbytes, cand, pairs)
 
 
-def walls_work(name: str, n: int, n_cells: int, cand: int, pairs: int,
+def walls_work(name: str, n_cells: int, cand: int, pairs: int,
                n_sources: int) -> Work:
-    """The boundary walk of pcisph_predict_rho (`name` ..._walls: the
-    boundary set and tables; pos and out are the fluid walk's) or the
-    boundary entry of pbf_terms (pbf_boundary_terms: pos in, four sums
-    out)."""
+    """The walls' walk of pcisph_predict_rho or of PBF's constraint pass
+    (`name` pcisph_predict_rho_walls, pbf_walls): the boundary set and
+    tables; pos and out are the fluid walk's."""
     nbytes = 16 * n_sources + 4 * (n_cells + 1) + 4 * n_cells
-    if name == "pbf_boundary_terms":
-        nbytes += 12 * n + 32 * n
     return _pair_work(name, nbytes, cand, pairs)
+
+
+def pbf_constraint_work(fluid: Work, walls: Work, n: int, pairs: int) -> Work:
+    """PBF's constraint pass in one launch: its `fluid` walk (pos and starts
+    in, 32 bytes a row out: constraint, lambda, gsum, ssum) and `walls`
+    walk (pbf_walls), PBF_ROW_OPS a row, and, beside them (stream_bytes),
+    the pair list its fluid walk stores: each row's base read, its count
+    and nbr (4 B a pair) written."""
+    rows = Work(0, PBF_ROW_OPS * n, PBF_ROW_OPS * n)
+    out = combined(fluid, walls, rows)
+    return out._replace(stream_bytes=out.bytes + 8 * n + 4 * pairs)
 
 
 def stencil_cells(qpos: torch.Tensor, grid: GridSpec) -> int:
@@ -264,7 +280,7 @@ def rigid_work(x: dict) -> dict[str, Work]:
     if sc.akinci:
         bst, nb = sc.boundary_starts, sc.boundary_pos.shape[0]
         walks.append(walls_work(
-            "pcisph_predict_rho_walls", n, cells, candidates(p, bst, g),
+            "pcisph_predict_rho_walls", cells, candidates(p, bst, g),
             count_pairs(p, sc.boundary_pos, bst, g, x["h"],
                         exclude_self=False), nb))
     # the stream form (perf/cases.py's pcisph_predict_rho_rigid case) and
@@ -299,13 +315,6 @@ def pbf_listed(work: Work, n: int, pairs: int, row_bytes: int) -> Work:
     `row_bytes` a row of the kernel's own inputs and output."""
     return Work(work.bytes, work.ops, work.ops,
                 8 * n + 4 * pairs + row_bytes * n)
-
-
-def pbf_stored(work: Work, n: int, pairs: int) -> Work:
-    """pbf_terms' `work` (its fluid and boundary entries) with the pair list
-    its fluid entry stores: it also reads each row's base and writes its
-    count and nbr (4 B a pair)."""
-    return work._replace(stream_bytes=work.bytes + 8 * n + 4 * pairs)
 
 
 def coef_build_work(n: int, n_cells: int, cand: int, pairs: int,
@@ -351,15 +360,16 @@ def scene_work(sc, pos: torch.Tensor, starts: torch.Tensor,
     out["boundary_terms"] = stencil_work("boundary_terms", n, cells, bcand,
                                          bpairs, nb)
     # With walls, as the steps call them: the predicted density's two walks
-    # in one launch, pbf_terms' fluid and boundary entries.
-    for name, wname in (("pcisph_predict_rho", "pcisph_predict_rho_walls"),
-                        ("pbf_terms", "pbf_boundary_terms")):
-        out[name] = combined(stencil_work(name, n, cells, cand, pairs),
-                             walls_work(wname, n, cells, bcand, bpairs, nb))
-    out["pbf_terms"] = pbf_stored(out["pbf_terms"], n, pairs)
+    # in one launch, and PBF's constraint pass (pbf_terms' one launch).
+    out["pcisph_predict_rho"] = combined(
+        stencil_work("pcisph_predict_rho", n, cells, cand, pairs),
+        walls_work("pcisph_predict_rho_walls", cells, bcand, bpairs, nb))
+    out["pbf_terms"] = pbf_constraint_work(
+        stencil_work("pbf_terms", n, cells, cand, pairs),
+        walls_work("pbf_walls", cells, bcand, bpairs, nb), n, pairs)
     out["pcisph_predict_rho_list"] = streamed(
         stencil_work("pcisph_predict_rho", n, cells, cand, pairs), n, pairs,
-        walls_work("pcisph_predict_rho_walls", n, cells, bcand, bpairs, nb))
+        walls_work("pcisph_predict_rho_walls", cells, bcand, bpairs, nb))
     for sfx, wb in (("", 4), ("_bf16", 2)):
         out["coef_build" + sfx] = coef_build_work(n, cells, cand, pairs, wb)
         out["coef_matvec" + sfx] = coef_contraction_work(False, n, pairs, wb)

@@ -60,12 +60,27 @@ def compared(case: Case) -> tuple[tuple, tuple]:
 
 
 def pbf_terms_view(out: tuple) -> tuple:
-    """pbf_terms' fluid sums, its pair list as each row's count and the
-    sources of all rows in pair order (int32, compared exactly), and the
-    boundary entry's sums."""
-    fluid, pairs, boundary = out
-    return (*fluid, pairs.cnt, S.stored_pairs(pairs)[1].to(torch.int32),
-            *boundary)
+    """PBF's constraint pass (pbf_terms' one launch): the rows' constraint,
+    lambda, gsum and ssum, and its pair list as each row's count and the
+    sources of all rows in pair order (int32, compared exactly)."""
+    rows, pairs = out
+    return (*rows, pairs.cnt, S.stored_pairs(pairs)[1].to(torch.int32))
+
+
+# A rest density below the lattices' (whose rows are all unconstrained at
+# PBF's 1000), at which most lattice rows are constrained, so that their
+# lambda takes its division.
+LOW_RHO0 = 800.0
+
+
+def pbf_constraint_args(p, st, g, h: float, m: float, rows, walls,
+                        rho0: float = pbf.RHO_0) -> tuple:
+    """The arguments of `stencil.pbf_constraint` (and its plain version) as
+    the PBF step passes them, on cell-sorted `p` with CSR `st`, the list's
+    `rows` and the boundary set `walls` (or None), at rest density `rho0`
+    (the step's, or LOW_RHO0)."""
+    return (p, st, g, h, m, pbf.w_ref(h), pbf.TENSION_K, rows, walls, rho0,
+            *pbf.ROW_CONSTANTS[1:])
 
 
 def side_list_view(side: R.SideList) -> tuple:
@@ -241,22 +256,19 @@ def solver_cases(p, st, g, h: float, m: float, walls: S.Walls, x: dict,
     """The PCISPH and PBF kernels on cell-sorted `p` with CSR `st` and the
     boundary set `walls`, as their steps call them on a scene with walls:
     the predicted density at x["shifted"] in its stencil form and in its
-    stream form over the pair store of `p` (`pair_store`), pbf_terms'
-    fluid entry, which stores the pair list, and its boundary entry
-    together, then pbf_lambda of x["lam"] and pbf_xsph at x["shifted"] with
-    velocities x["v"], both over the list that pbf_terms' wrapper made
-    here once. `work` by kernel name, or {} (no bound)."""
+    stream form over the pair store of `p` (`pair_store`), PBF's constraint
+    pass (pbf_terms' one launch: the fluid walk, which stores the pair list,
+    the walls' walk and the rows' lambda), then pbf_lambda of x["lam"] and
+    pbf_xsph at x["shifted"] with velocities x["v"], both over the list
+    that the constraint pass' wrapper made here once. `work` by kernel
+    name, or {} (no bound)."""
     sp, lam, v = x["shifted"], x["lam"], x["v"]
-    wr, kc = pbf.w_ref(h), pbf.TENSION_K
     eng = pair_store(p, st, g, h, m)
     # The list's rows, made once as a step makes them after its sort, and
     # the list itself, which both streams read.
     rows = S.pair_rows(st, g, cell_id(p, g))
-    _, pl = S.pbf_terms(p, st, g, h, m, wr, kc, rows)
-
-    def terms(fluid, boundary):
-        return lambda: (*fluid(p, st, g, h, m, wr, kc, rows),
-                        boundary(p, walls, g, h, RHO0, wr, kc))
+    args = pbf_constraint_args(p, st, g, h, m, rows, walls)
+    _, pl = S.pbf_constraint(*args)
 
     for name, kern, plain in (
             ("pcisph_predict_rho",
@@ -268,8 +280,8 @@ def solver_cases(p, st, g, h: float, m: float, walls: S.Walls, x: dict,
                                           eng=eng),
              lambda: S.pcisph_predict_rho_list_plain(eng, p, g, h, m, sp,
                                                      walls, RHO0)),
-            ("pbf_terms", terms(S.pbf_terms, S.pbf_boundary_terms),
-             terms(S.pbf_terms_plain, S.pbf_boundary_terms_plain)),
+            ("pbf_terms", lambda: S.pbf_constraint(*args),
+             lambda: S.pbf_constraint_plain(*args)),
             ("pbf_lambda", lambda: S.pbf_lambda(p, pl, h, lam),
              lambda: S.pbf_lambda_list_plain(pl, p, h, lam)),
             ("pbf_xsph", lambda: S.pbf_xsph(pl, h, sp, v),

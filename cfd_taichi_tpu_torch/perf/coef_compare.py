@@ -15,8 +15,12 @@ forms of PCISPH's predicted density with walls: the stream form over
 the inputs' pair store, "list", and the stencil form, "stencil"; and
 both without walls, "list_fluid" and "stencil_fluid") or, for `pbf`,
 csrc/pbf_terms.cu, csrc/pbf_lambda.cu and csrc/pbf_xsph.cu together
-(PBF's fluid pass with its store of the pair list, "terms", and the two
-streams over the tree's list, "lambda" and "xsph"), or, for
+(PBF's constraint pass in one launch, "constraint", without walls,
+"constraint_clamp", and at a rest density of 800, "constraint_rho800",
+where most rows are constrained; a source from before the one launch
+runs its two raw entries followed by the torch algebra for each of
+them; and the two streams over the tree's list, "lambda" and "xsph"),
+or, for
 `rigid_side`, csrc/rigid_side_force.cu (the body's reaction: the walk,
 "walk", the list's rows, "rows", the list's build, "list", and the
 stream over the tree's list, "stream", on perf/inputs.body_inputs and
@@ -78,6 +82,30 @@ added in the stencil form's order) beside the tree's:
         cfd_taichi_tpu_torch/csrc/pcisph_predict.cu > build/g1/pcisph_predict.cu
     python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel \\
         pcisph_predict --variant g1=build/g1
+
+PBF's constraint pass beside the composition before its one launch (the
+two raw entries of 80c48fd's sources and the torch algebra; every output
+and the list bit for bit), with a queue of 32 hits, and with the fluid
+walk's candidates staged per block in shared memory (perf/pbf_tile.patch:
+its capacity kPbfTile in 16-byte slots, its fill kPbfTileFill, 0 by the
+block's threads as float4, 1 by bulk copies, cp.async.bulk, of xyz; the
+queries a block kPbfThreads):
+
+    mkdir -p build/v/parent build/v/q32 build/v/tile build/v/bulk
+    for f in stencil.cuh pbf_terms.cu pbf_lambda.cu pbf_xsph.cu; do
+        git show 80c48fd:cfd_taichi_tpu_torch/csrc/$f > build/v/parent/$f
+    done
+    sed 's/kPbfQueue = 40;/kPbfQueue = 32;/' \
+        cfd_taichi_tpu_torch/csrc/pbf_terms.cu > build/v/q32/pbf_terms.cu
+    cp cfd_taichi_tpu_torch/csrc/{stencil.cuh,pbf_terms.cu} build/v/tile
+    patch -d build/v/tile -p0 < cfd_taichi_tpu_torch/perf/pbf_tile.patch
+    sed 's/kPbfTileFill = 0;/kPbfTileFill = 1;/' build/v/tile/pbf_terms.cu \
+        > build/v/bulk/pbf_terms.cu
+    cp build/v/tile/stencil.cuh build/v/bulk
+    python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel pbf \
+        --variant parent=build/v/parent --variant q32=build/v/q32 \
+        --variant tile=build/v/tile --variant bulk=build/v/bulk \
+        --bit-equal parent
 
 PBF's two streams with one lane a row and 8 pairs ahead (their terms
 added in walk order, bit-equal to the walks they replace), and with 8
@@ -242,7 +270,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from cfd_taichi_tpu_torch.models import base, pbf
+from cfd_taichi_tpu_torch.models import base
 from cfd_taichi_tpu_torch.ops import _build, coef
 from cfd_taichi_tpu_torch.ops import stencil as S
 from cfd_taichi_tpu_torch.ops.neighbors import cell_id, stencil_counts
@@ -467,34 +495,102 @@ def entries(kernel: str, x: dict) -> list[Entry]:
     return out
 
 
+def _raw_call(entry, *args) -> None:
+    """Call C entry point `entry` of the library in use on `args` (tensors
+    as their data pointers, ints as int, floats as float, ctypes.byref as
+    they are) and the current stream."""
+    cargs = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+             else ctypes.c_int(a) if isinstance(a, int)
+             else ctypes.c_float(a) if isinstance(a, float) else a
+             for a in args]
+    entry.restype = ctypes.c_int
+    rc = entry(*cargs,
+               ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc:
+        raise RuntimeError(f"{entry.__name__} failed: cudaError_t {rc}")
+
+
+def constraint_call(*args):
+    """PBF's constraint pass (`stencil.pbf_constraint`'s arguments) from the
+    library in use: its one launch or, for a source from before it, its
+    two raw entries, pbf_terms_launch (pos, starts, n, params, spiky, m,
+    inv_wref, neg_k, base, cnt, nbr, rho, gsum, around, ssum, stream) and
+    pbf_boundary_terms_launch (pos, n, bpos, bvol, bstarts, bnear, nb,
+    params, spiky, rho0, inv_wref, neg_k, rho, gsum, around, ssum, stream),
+    followed by the rows' algebra (`stencil.pbf_rows_plain`), as
+    models/pbf.solve took them there."""
+    lib = _build.library().lib
+    if getattr(lib, "pbf_constraint_launch", None) is not None:
+        return S.pbf_constraint(*args)
+    p, st, g, h, m, wr, kc, rows, walls, rho0, eps, seed = args
+    n = p.shape[0]
+    kern = (ctypes.byref(S._params(g, h)), ctypes.byref(S._spiky_poly6(h)))
+    consts = S._s_corr_constants(wr, kc)
+
+    def sums():
+        return S.PbfTerms(p.new_empty(n), p.new_empty(n, 3), p.new_empty(n),
+                          p.new_empty(n, 3))
+
+    pairs = S.PairList(rows.base, torch.empty_like(rows.base),
+                       torch.empty(rows.size, dtype=torch.int32,
+                                   device=p.device))
+    fluid = sums()
+    _raw_call(lib.pbf_terms_launch, p, st, n, *kern, f32(m), *consts, *pairs,
+              *fluid)
+    wall = None
+    if walls is not None:
+        wall = sums()
+        _raw_call(lib.pbf_boundary_terms_launch, p, n, *walls,
+                  walls.pos.shape[0], *kern, f32(rho0), *consts, *wall)
+    return S.pbf_rows_plain(fluid, wall, rho0, eps, seed), pairs
+
+
 def pbf_entries(x: dict, p, st, g, h: float, m: float) -> list[Entry]:
-    """PBF's fluid pass with its store of the pair list ("terms": the four
-    sums to 1e-5 of scale, each row's count and sources exactly, against
-    the plain version; bit for bit the sums, counts and rows), and the two
-    streams over the tree's list of the same inputs ("lambda" of x["lam"],
-    "xsph" at x["shifted"] with velocities x["v"])."""
-    wr, kc = pbf.w_ref(h), pbf.TENSION_K
+    """PBF's constraint pass, pbf_terms' one launch ("constraint": the fluid
+    walk with its store of the pair list, the walls' walk and the rows'
+    lambda; "constraint_clamp" without walls; "constraint_rho800" with
+    walls at cases.LOW_RHO0, where most rows are constrained), each
+    against the plain version (constraint, lambda, gsum and ssum to 1e-5
+    of scale, each row's count and sources exactly; "constraint_rho800"
+    fails with no constrained row), and the two streams over the tree's
+    list of the same inputs ("lambda" of x["lam"], "xsph" at x["shifted"]
+    with velocities x["v"]). A source from before the one launch runs its
+    two raw entries and the torch algebra for each constraint entry
+    (`constraint_call`), which `--bit-equal` holds the one launch to."""
     rows = S.pair_rows(st, g, cell_id(p, g))
-    terms = functools.partial(S.pbf_terms, p, st, g, h, m, wr, kc, rows)
-    want, want_pl = S.pbf_terms_plain(p, st, g, h, m, wr, kc, rows)
-    _, pl = terms()
+    sc = x.get("sc")
+    walls = base.walls(sc) if sc else S.Walls(x["bp"], x["bvol"], x["bst"],
+                                              x["bnear"])
+    with_walls = cases.pbf_constraint_args(p, st, g, h, m, rows, walls)
+    clamp = cases.pbf_constraint_args(p, st, g, h, m, rows, None)
+    low = cases.pbf_constraint_args(p, st, g, h, m, rows, walls,
+                                    cases.LOW_RHO0)
+    _, pl = S.pbf_constraint(*with_walls)
     lam, sp, v = x["lam"], x["shifted"], x["v"]
 
     def listed(out):
         return [*out[0], out[1].cnt, S.stored_pairs(out[1])[1]]
 
-    def check_terms():
-        got = listed(terms())
-        if not all(torch.equal(a, b) for a, b in zip(
-                got[4:], listed((want, want_pl))[4:])):
-            return float("inf")
-        return max(cases.scaled_error(a, b) for a, b in zip(got, want))
+    def constraint_entry(label, args, constrained):
+        call = functools.partial(constraint_call, *args)
+        want = listed(S.pbf_constraint_plain(*args))
+
+        def check():
+            got = listed(call())
+            if not (all(torch.equal(a, b) for a, b in zip(got[4:], want[4:]))
+                    and (not constrained or bool((got[1] != 0).any()))):
+                return float("inf")
+            return max(cases.scaled_error(a, b)
+                       for a, b in zip(got[:4], want[:4]))
+        return Entry(label, "pbf_terms", call, check, listed)
 
     lam_want = S.pbf_lambda_list_plain(pl, p, h, lam)
     xsph_want = S.pbf_xsph_list_plain(pl, h, sp, v)
     lam_call = functools.partial(S.pbf_lambda, p, pl, h, lam)
     xsph_call = functools.partial(S.pbf_xsph, pl, h, sp, v)
-    return [Entry("terms", "pbf_terms", terms, check_terms, listed),
+    return [constraint_entry("constraint", with_walls, False),
+            constraint_entry("constraint_clamp", clamp, False),
+            constraint_entry("constraint_rho800", low, True),
             Entry("lambda", "pbf_lambda", lam_call,
                   lambda: cases.scaled_error(lam_call(), lam_want)),
             Entry("xsph", "pbf_xsph", xsph_call,

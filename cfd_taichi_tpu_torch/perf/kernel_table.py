@@ -65,8 +65,8 @@ def kernel_rows(res: dict, tag: str, cfg_name: str) -> None:
     for case in [*cases.scene_cases(x, pairs),
                  *cases.rigid_cases(rigid, bounds.rigid_work(rigid))]:
         row = cases.measure(case)
-        # the kernel's time a launch, and all the call's kernels (pbf_terms'
-        # boundary entry, wcsph_forces' record build)
+        # the kernel's time a launch, and all the call's kernels
+        # (wcsph_forces' record build)
         row["device_us"], row["call_device_us"] = timing.device_us(
             case.kern, cases.DEVICE_KERNEL.get(case.name, case.name))
         row["device_share"] = row["bound_ms"] * 1e3 / row["device_us"]

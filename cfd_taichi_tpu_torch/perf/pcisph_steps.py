@@ -28,12 +28,17 @@ reads a step: the loops' trips and the reads outside them, peak device
 memory, and a digest of the positions after step 15, equal between two
 trees whose steps are bit for bit), then 3 profiled steps (16-18): device
 ms a step, busy share, and each kernel's launches a step and device us a
-launch (torch.profiler). With --solver pbf also digests of PBF's three
+launch (torch.profiler). With --solver pbf also the rows with lambda !=
+0 in each timed step, counted on a replay of steps 1-15 from rest (its
+positions' digest equal to the timed run's), and digests of PBF's three
 pair passes on the scene's jittered lattice (perf/inputs.lattice_inputs,
-seed 7): pbf_terms' four sums, pbf_lambda and pbf_xsph, equal between two
-trees whose kernels give the same bits (a tree from before pbf_terms
-stored the pair list walks all three). Prints one line per number and
-writes them as JSON (--out).
+seed 7) with the scene's walls: the constraint pass at cases.LOW_RHO0,
+where most rows are constrained (its constraint, lambda, gsum and ssum,
+and the count of constrained rows), and pbf_lambda and pbf_xsph over its
+list, equal between two trees whose kernels give the same bits (a tree
+from before the constraint pass' one launch has neither: its steps are
+compared by their positions). Prints one line per number and writes
+them as JSON (--out).
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ from pathlib import Path
 import torch
 
 from cfd_taichi_tpu_torch import Simulation, read_config
-from cfd_taichi_tpu_torch.models import pbf
+from cfd_taichi_tpu_torch.models import base
 from cfd_taichi_tpu_torch.ops import _build
 from cfd_taichi_tpu_torch.ops import stencil as S
 from cfd_taichi_tpu_torch.perf import inputs, timing
@@ -83,22 +88,47 @@ def _listed(kernels: dict, names: tuple) -> str:
 
 def pbf_digests(cfg_name: str) -> dict:
     """Digests of the outputs of PBF's three pair passes on the config's
-    jittered lattice, lambda and shifted positions of perf/inputs."""
+    jittered lattice, lambda and shifted positions of perf/inputs: the
+    constraint pass with the scene's walls at cases.LOW_RHO0 and the count
+    of its constrained rows, then pbf_lambda and pbf_xsph over its list."""
+    from cfd_taichi_tpu_torch.perf import cases
+
     x = inputs.lattice_inputs(cfg_name, seed=7)
     sc = x["sc"]
-    p, st, g, h, m = x["p"], x["st"], sc.grid, sc.h, sc.particle_m
-    out = S.pbf_terms(p, st, g, h, m, pbf.w_ref(h), pbf.TENSION_K)
-    if hasattr(out, "rho"):     # a tree whose three passes walk
-        terms = out
-        lam = S.pbf_lambda(p, st, g, h, x["lam"])
-        xsph = S.pbf_xsph(p, st, g, h, x["shifted"], x["v"])
-    else:
-        terms, pairs = out
-        lam = S.pbf_lambda(p, pairs, h, x["lam"])
-        xsph = S.pbf_xsph(pairs, h, x["shifted"], x["v"])
-    return dict({f"pbf_terms.{k}": _digest(t)
-                 for k, t in terms._asdict().items()},
+    p, st, g = x["p"], x["st"], sc.grid
+    rows, pairs = S.pbf_constraint(*cases.pbf_constraint_args(
+        p, st, g, sc.h, sc.particle_m, None, base.walls(sc),
+        cases.LOW_RHO0))
+    lam = S.pbf_lambda(p, pairs, sc.h, x["lam"])
+    xsph = S.pbf_xsph(pairs, sc.h, x["shifted"], x["v"])
+    return dict({f"constraint.{k}": _digest(t)
+                 for k, t in rows._asdict().items()},
+                constrained=int((rows.lam != 0).sum()),
                 pbf_lambda=_digest(lam), pbf_xsph=_digest(xsph))
+
+
+def constrained_rows(sim, advance, digest: str) -> list[int]:
+    """The rows with lambda != 0 in each of PBF's timed steps: steps 1-15
+    from rest replayed with every constraint pass counted, the positions
+    after them checked against the timed run's `digest`."""
+    found = []
+    launch = S.pbf_constraint
+
+    def counted(*args):
+        out = launch(*args)
+        found.append((out[0].lam != 0).sum())
+        return out
+
+    sim.state = sim.solver.init_state(sim.scene)
+    S.pbf_constraint = counted
+    try:
+        for _ in range(UNTIMED + TIMED):
+            advance()
+    finally:
+        S.pbf_constraint = launch
+    if _digest(sim.state.fluid.pos.flatten()) != digest:
+        raise RuntimeError("the replay parted from the timed steps")
+    return [int(c) for c in found[UNTIMED:]]
 
 
 def simulation(tag: str, solver: str):
@@ -183,12 +213,14 @@ def main() -> int:
     for tag in COUPLED if solver == "coupled" else dict(SCENES):
         sim, advance = simulation(tag, solver)
         row = res[tag] = measure(sim, advance)
-        del sim, advance
-        if solver == "pbf":
-            cfg_name = dict(SCENES)[tag]
-            row["pass_digests"] = pbf_digests(cfg_name)
-            print(f"[pbf] {args.label} {tag} pass digests "
+        if solver == "pbf" and hasattr(S, "pbf_constraint"):
+            row["constrained"] = constrained_rows(sim, advance,
+                                                  row["pos_digest"])
+            row["pass_digests"] = pbf_digests(dict(SCENES)[tag])
+            print(f"[pbf] {args.label} {tag}: rows constrained in the timed "
+                  f"steps {row['constrained']}; pass digests "
                   f"{row['pass_digests']}")
+        del sim, advance
         top = list(row["kernels"].items())[:6]
         print(f"[{solver}] {args.label} {tag}: {row['steps_per_sec']:.3f} "
               f"steps/s, iterations {row['iters']}, {row['reads_per_step']} "

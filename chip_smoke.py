@@ -37,17 +37,23 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 most queries); wcsph_forces is timed there too.
                 pcisph_predict_rho (the stencil form) and
                 pcisph_predict_rho_list (the stream form, over the
-                inputs' pair store), pbf_terms (its fluid and boundary
-                entries together; the pair list the fluid entry stores
-                against the plain version's exactly: each row's count and
-                its sources in order), pbf_lambda and pbf_xsph (streams
-                over that list, which perf/cases.py makes once) run at
-                30k, 1M and on the clustered cloud, with walls, their
-                predicted or updated positions the inputs' shifted by ~0.3
-                r (pairs cross r = h both ways) and a random negative
-                lambda; the predicted density's two forms' outputs are
-                compared bit for bit (printed), and pbf_lambda and
-                pbf_xsph must repeat bit for bit over two launches.
+                inputs' pair store), pbf_terms (PBF's constraint pass in
+                one launch: the fluid walk, the walls' walk and the rows'
+                constraint, lambda, gsum and ssum against the plain
+                composition; the pair list its fluid walk stores against
+                the plain version's exactly: each row's count and its
+                sources in order), pbf_lambda and pbf_xsph (streams over
+                that list, which perf/cases.py makes once) run at 30k, 1M
+                and on the clustered cloud, with walls, their predicted or
+                updated positions the inputs' shifted by ~0.3 r (pairs
+                cross r = h both ways) and a random negative lambda; the
+                predicted density's two forms' outputs are compared bit
+                for bit (printed), and pbf_terms, pbf_lambda and pbf_xsph
+                must repeat bit for bit over two launches; pbf_terms is
+                also held to its plain version at a rest density of 800,
+                with walls and without, where rows are constrained (at
+                1000 the lattices' are not: their constraint and lambda
+                are 0), and fails unless some are.
                 Kernel and plain times: CUDA events, median of 10 after 3
                 warm-up calls. The fluid-rigid kernels (rigid_terms,
                 rigid_contact_dot, rigid_viscosity, rigid_side_force (the
@@ -97,7 +103,7 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 PBF_AGREE, what the same kernels gave before), dt to rtol
                 1e-5, equal iteration counts every
                 step; the errors are printed. PBF again with one of its
-                pair passes (pbf_terms with its boundary entry, pbf_lambda
+                pair passes (pbf_terms, the constraint pass, pbf_lambda
                 or pbf_xsph) at a time, then all but one, then all three,
                 run by the plain version on the CPU on the card's inputs:
                 the drift each leaves, printed (which kernel adds it).
@@ -147,8 +153,8 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 stencil form) launched instead, as often as the step
                 calls them.
 10. pbf       - the same runs as PBF: pbf_terms, pbf_lambda and pbf_xsph
-                launched (pbf_terms twice a step: fluid and boundary
-                entries; the streams once) and no plain version; one host
+                launched once a step each (pbf_terms: the constraint pass,
+                walls included) and no plain version; one host
                 read a step (the pair list's size), printed with the peak
                 device memory; finite; inside the box +- 2r.
 11. scale-bf16 - 1M and 30k with bf16 coefficient storage: iterations and
@@ -298,7 +304,7 @@ PCISPH_RECOMPUTE_PATH = RECOMPUTE_PATH[:4] + ("pcisph_predict_rho",)
 PBF_PATH = ("pbf_terms", "pbf_lambda", "pbf_xsph")
 # The kernels that must repeat bit for bit over two launches in [kernels]
 REPEATED = ("rigid_side_force", "rigid_side_force_list",
-            "pcisph_predict_rho_rigid", "pbf_lambda", "pbf_xsph")
+            "pcisph_predict_rho_rigid", "pbf_terms", "pbf_lambda", "pbf_xsph")
 # [agree]: (solver, whether to start from TINY's squeezed block, the
 # largest card-vs-CPU position error allowed over its 6 steps: the bar
 # 5e-6, or what the same kernels gave before, 5.960e-08 and 1.192e-07 on
@@ -315,6 +321,9 @@ AGREE = (("dfsph", False, 5e-6), ("wcsph", True, 6.0e-8),
 # [agree]: PBF's pair passes, each run by its plain version on the CPU in
 # turn (then all three) to show which adds the card's drift
 PBF_PASSES = ("pbf_terms", "pbf_lambda", "pbf_xsph")
+# the wrapper (ops/stencil.py) through which the step launches each
+PBF_WRAPPERS = {"pbf_terms": "pbf_constraint", "pbf_lambda": "pbf_lambda",
+                "pbf_xsph": "pbf_xsph"}
 # [agree]: RIGID_CFG (tests/test_rigid.py:12-21) as DFSPH with the body in
 # the water, squeezed by 0.97 about its mean, 4 steps with rigid steps
 RIGID_CFG = {
@@ -486,7 +495,10 @@ def check_case(case, pos, torch) -> float:
 
 def repeats(case, tag: str, torch) -> None:
     """The case's kernel gives the same bits over two launches."""
-    same = torch.equal(case.kern(), case.kern())
+    from cfd_taichi_tpu_torch.perf import cases
+
+    view = case.view or cases.tensors
+    same = cases.same_bits(view(case.kern()), view(case.kern()))
     print(f"    {case.name} {tag}: two launches bit-equal {same}")
     check(same, f"{case.name} {tag}: launches differ")
 
@@ -568,9 +580,10 @@ def clustered_checks(torch, results: dict) -> None:
         if case.name in REPEATED:
             repeats(case, "clustered", torch)
         if case.name == "pbf_terms":
-            _, pl, _ = case.kern()
+            _, pl = case.kern()
             print(f"    pbf_terms clustered: {int(pl.cnt.sum())} pairs "
                   f"stored in {pl.nbr.numel()} slots")
+    pbf_constrained(torch, results, x, walls, "clustered")
 
 
 def record(results: dict, case, key: str, err: float) -> None:
@@ -598,6 +611,7 @@ def record(results: dict, case, key: str, err: float) -> None:
 
 
 def phase_kernels(torch, results: dict) -> None:
+    from cfd_taichi_tpu_torch.models import base
     from cfd_taichi_tpu_torch.perf import cases, inputs
 
     for tag, cfg_name in CONFIGS:
@@ -614,11 +628,42 @@ def phase_kernels(torch, results: dict) -> None:
             if case.name in REPEATED:
                 repeats(case, tag, torch)
         forms_bits(results, tag, outs, torch)
+        pbf_constrained(torch, results, x, base.walls(x["sc"]), tag)
         del x
         torch.cuda.empty_cache()
     rigid_checks(torch, results)
     ragged_checks(torch)
     clustered_checks(torch, results)
+
+
+def pbf_constrained(torch, results: dict, x: dict, walls, tag: str) -> None:
+    """PBF's constraint pass (pbf_terms' one launch) on inputs `x` at a rest
+    density of 800 (perf/cases.LOW_RHO0: the lattices' rows are all
+    unconstrained at 1000, so that there the constraint and lambda are 0 in
+    the kernel and the plain version alike), with `walls` and without,
+    against the plain version: constraint, lambda, gsum and ssum to TOL of
+    scale, the list (counts and sources) exactly; it fails unless some
+    rows are constrained."""
+    from cfd_taichi_tpu_torch.ops import stencil as S
+    from cfd_taichi_tpu_torch.ops.neighbors import cell_id
+    from cfd_taichi_tpu_torch.perf import cases
+
+    g, h, m = (x["sc"].grid, x["sc"].h, x["sc"].particle_m) if "sc" in x \
+        else (x["grid"], x["h"], x["m"])
+    p, st = x["p"], x["st"]
+    rows = S.pair_rows(st, g, cell_id(p, g))
+    for label, wall in (("walls", walls), ("clamp", None)):
+        args = cases.pbf_constraint_args(p, st, g, h, m, rows, wall,
+                                         cases.LOW_RHO0)
+        got = cases.pbf_terms_view(S.pbf_constraint(*args))
+        key = f"pbf_terms {tag} {label} rho0 800"
+        n_con = int((got[1] != 0).sum())
+        print(f"    {key}: {n_con} of {got[1].numel()} rows constrained")
+        check(n_con > 0, f"{key}: no row constrained")
+        err = compare(key, got, cases.pbf_terms_view(
+            S.pbf_constraint_plain(*args)), torch)
+        results["pbf_terms"][f"rho800_{label}_{tag}"] = dict(
+            max_abs_err=err, constrained=n_con)
 
 
 def forms_bits(results: dict, tag: str, outs: dict, torch) -> None:
@@ -851,14 +896,13 @@ def pbf_drift(torch) -> None:
 
     raw = copy.deepcopy(TINY)
     raw["solver"]["name"] = "pbf"
-    wrappers = {name: getattr(stencil, name) for name in
-                (*PBF_PASSES, "pbf_boundary_terms")}
+    wrappers = {name: getattr(stencil, name)
+                for name in PBF_WRAPPERS.values()}
     swaps = ([(name,) for name in PBF_PASSES]
              + [tuple(p for p in PBF_PASSES if p != name)
                 for name in PBF_PASSES] + [PBF_PASSES])
     for swap in swaps:
-        names = [*swap, *(("pbf_boundary_terms",)
-                          if "pbf_terms" in swap else ())]
+        names = [PBF_WRAPPERS[name] for name in swap]
         try:
             for name in names:
                 setattr(stencil, name, on_cpu(wrappers[name], torch))
@@ -1250,7 +1294,6 @@ def phase_solver(torch, sims: dict, results: dict, solver: str) -> None:
                   f"{solver} {tag}: residual {diag[1]} after {diag[0]} "
                   f"iterations")
         else:
-            want["pbf_terms"] = 2 * steps   # fluid and boundary entries
             # the size of the pair list, read after the sort
             check(run["reads_per_step"] == 1.0,
                   f"{solver} {tag}: {run['reads_per_step']} reads a step")
@@ -1817,8 +1860,7 @@ def shard_pbf(world: int) -> None:
     for rank in ranks:
         check(rank["overflow"] == 0, f"{tag}: overflow {rank['overflow']}")
         shard_counts(f"nccl pbf rank {rank['rank']}", rank["counts"],
-                     {**dict.fromkeys(PBF_PATH, shard_rates.STEPS),
-                      "pbf_terms": 2 * shard_rates.STEPS})
+                     dict.fromkeys(PBF_PATH, shard_rates.STEPS))
     if world == 1:
         check(r["max_pos_err"] == 0.0 and r["dt"] == r["single"]["dt"],
               f"{tag}: not the single-device step bit for bit")

@@ -69,8 +69,9 @@ def _all_outputs(sc, pos, starts, k, v, rho):
     g, h, m = sc.grid, sc.h, sc.particle_m
     ft = stencil.fluid_terms(pos, starts, g, h, m)
     eng = coef.build_coef(pos, starts, g, h, m, coef.csr_offsets(ft.count))
-    terms, pl = stencil.pbf_terms(pos, starts, g, h, m, pbf.w_ref(h),
-                                  pbf.TENSION_K)
+    terms, pl = stencil.pbf_constraint(pos, starts, g, h, m, pbf.w_ref(h),
+                                       pbf.TENSION_K, None, base.walls(sc),
+                                       *pbf.ROW_CONSTANTS)
     return [*ft,
             *stencil.boundary_terms(pos, sc.boundary_pos, sc.boundary_volume,
                                     sc.boundary_starts, g, h, 1000.0),
@@ -515,17 +516,18 @@ def test_pcisph_and_pbf_kernels_repeat_bit_for_bit(clustered):
 
 @pytest.mark.cuda
 def test_pbf_pair_list_and_streams(clustered):
-    """pbf_terms' stored pair list against the plain version's exactly
-    (each row's count and its sources in walk order, within the row's room)
-    on the clustered cloud, and pbf_lambda and pbf_xsph over it against
-    their stream forms' plain versions and the walking plain versions, to
-    1e-5 of scale, bit for bit over two launches."""
+    """The pair list that PBF's constraint pass (pbf_terms) stores against
+    the plain version's exactly (each row's count and its sources in walk
+    order, within the row's room) on the clustered cloud, and pbf_lambda
+    and pbf_xsph over it against their stream forms' plain versions and the
+    walking plain versions, to 1e-5 of scale, bit for bit over two
+    launches."""
     x, off = clustered
     p, st, g, h, m = x["p"], x["st"], x["grid"], x["h"], x["m"]
     rows = stencil.pair_rows(st, g, nb.cell_id(p, g))
-    args = (p, st, g, h, m, pbf.w_ref(h), pbf.TENSION_K, rows)
-    _, pl = stencil.pbf_terms(*args)
-    _, want = stencil.pbf_terms_plain(*args)
+    args = cases.pbf_constraint_args(p, st, g, h, m, rows, _walls(x))
+    _, pl = stencil.pbf_constraint(*args)
+    _, want = stencil.pbf_constraint_plain(*args)
     assert torch.equal(pl.cnt, want.cnt)
     assert torch.equal(coef.csr_offsets(pl.cnt), off)
     assert torch.equal(stencil.stored_pairs(pl)[1],
@@ -544,6 +546,58 @@ def test_pbf_pair_list_and_streams(clustered):
         assert torch.equal(got, kern())
         for ref in (plain(), walk()):
             assert cases.scaled_error(got, ref) <= 1e-5
+
+
+def _pbf_case(where, device):
+    """(cell-sorted positions, CSR, grid, h, m, walls) of PBF's constraint
+    pass: the 30k lattice with its walls, the clustered cloud (20k) with
+    its boundary cloud, or the cloud's last n particles (n = 1, 129: a
+    warp of one live lane) re-sorted, with the cloud's boundary."""
+    if where == "30k":
+        x = inputs.lattice_inputs("breaking_dam_30k.json", seed=7,
+                                  device=device)
+        sc = x["sc"]
+        return x["p"], x["st"], sc.grid, sc.h, sc.particle_m, base.walls(sc)
+    x = inputs.clustered_inputs(20_000 if where == "clustered" else 2000,
+                                seed=5, device=device)
+    p, st = x["p"], x["st"]
+    if where != "clustered":
+        n = int(where.split("_")[1])
+        scid, _, p, _ = base.sort_by_cells(x["grid"], p[-n:].clone())
+        st = nb.csr_starts(scid, x["grid"].num_cells)
+    return p, st, x["grid"], x["h"], x["m"], _walls(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rho0", [1000.0, 800.0], ids=["rho0_1000",
+                                                      "rho0_800"])
+@pytest.mark.parametrize("walls", [True, False], ids=["walls", "clamp"])
+@pytest.mark.parametrize("where", ["30k", "clustered", "lane_1", "lane_129"])
+def test_pbf_constraint_one_launch(cuda, where, walls, rho0):
+    """PBF's constraint pass in one launch (pbf_terms' kernel: the fluid
+    walk with its list, the walls' walk, the rows' constraint and lambda)
+    against its plain version (constraint, lambda, gsum and ssum to 1e-5
+    of scale, the list exactly), with walls and without, at PBF's rest
+    density and at cases.LOW_RHO0, where the 30k lattice's rows are
+    constrained (at 1000 they are not); bit for bit over two launches."""
+    p, st, g, h, m, w = _pbf_case(where, cuda)
+    rows = stencil.pair_rows(st, g, nb.cell_id(p, g))
+    args = cases.pbf_constraint_args(p, st, g, h, m, rows,
+                                     w if walls else None, rho0)
+    view = cases.pbf_terms_view
+    stencil.reset_counts()
+    got = view(stencil.pbf_constraint(*args))
+    assert stencil.KERNELS["pbf_terms"].launches == 1
+    want = view(stencil.pbf_constraint_plain(*args))
+    for a, b in zip(got, want, strict=True):
+        if not b.dtype.is_floating_point:
+            assert torch.equal(a, b)
+            continue
+        assert bool(torch.isfinite(a).all())
+        assert cases.scaled_error(a, b) <= 1e-5
+    if rho0 == cases.LOW_RHO0 and where in ("30k", "clustered"):
+        assert int((got[1] != 0).sum()) > 0
+    assert cases.same_bits(got, view(stencil.pbf_constraint(*args)))
 
 
 def _rigid_cases(x):

@@ -15,7 +15,7 @@ device. Held here, within one process:
 * the plain passes' pair distances (`stencil._pair_chunks`, which the
   rigid passes share) are that root of max(r2, 1e-24), bit for bit;
 * with torch.sqrt replaced by one that keeps 12 bits (what the first call
-  gave), `stencil.pbf_terms` on the CPU still holds to JAX's
+  gave), `stencil.pbf_terms_plain` still holds to JAX's
   `bandmat.dense_pbf_ops` at tests/test_torch_pbf.py's 1e-5 bar, the
   fluid-rigid plain versions keep their bits, and so does a coupled step
   of each solver whose step takes a root (DFSPH's CFL and the body's
@@ -84,8 +84,9 @@ def test_pbf_terms_hold_to_jax_whatever_torch_sqrt_gives(
     c, sc = pair_case, pair_case["sc"]
     terms, _, _ = _jax_ops(c)
     monkeypatch.setattr(torch, "sqrt", coarse_sqrt)
-    got, _ = stencil.pbf_terms(c["pos_s"], c["starts"], sc.grid, sc.h,
-                               sc.particle_m, c["w_ref"], pbf.TENSION_K)
+    got, _ = stencil.pbf_terms_plain(c["pos_s"], c["starts"], sc.grid, sc.h,
+                                     sc.particle_m, c["w_ref"],
+                                     pbf.TENSION_K)
     _check_terms(got, terms)
 
 

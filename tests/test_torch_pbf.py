@@ -178,8 +178,9 @@ def test_pbf_terms_plain_matches_dense_pbf_ops(pair_case):
     c, sc = pair_case, pair_case["sc"]
     terms, _, _ = _jax_ops(c)
     stencil.reset_counts()
-    got, _ = stencil.pbf_terms(c["pos_s"], c["starts"], sc.grid, sc.h,
-                               sc.particle_m, c["w_ref"], pbf.TENSION_K)
+    got, _ = stencil.pbf_terms_plain(c["pos_s"], c["starts"], sc.grid, sc.h,
+                                     sc.particle_m, c["w_ref"],
+                                     pbf.TENSION_K)
     assert stencil.KERNELS["pbf_terms"].plain_calls == 1
     assert float(got.ssum.abs().max()) > 0.0
     _check_terms(got, terms)
@@ -191,9 +192,111 @@ def test_pbf_boundary_terms_plain_matches_jax(pair_case):
         c["dp"].bwin, c["dp"].pos, h=st.h, rho0=1000.0, B=st.band_B,
         w_ref=c["w_ref"], k_corr=pbf.TENSION_K)
     assert (np.asarray(want[0]) > 0).sum() > 20
-    got = stencil.pbf_boundary_terms(c["pos_s"], base.walls(sc), sc.grid,
-                                     sc.h, 1000.0, c["w_ref"], pbf.TENSION_K)
+    got = stencil.pbf_boundary_terms_plain(c["pos_s"], base.walls(sc),
+                                           sc.grid, sc.h, 1000.0, c["w_ref"],
+                                           pbf.TENSION_K)
     _check_terms(got, want)
+
+
+# (walls, rho0) of the constraint pass' cases: on TINY's block with walls
+# the model's rho0; without walls the fluid's density stays below 850 at
+# rest, so rho0 700 makes about a third of the rows constrained.
+ROWS_CASES = {"walls": (True, 1000.0), "clamp": (False, 700.0)}
+
+
+def _jax_rows(c, walls, rho0):
+    """JAX's constraint pass on the case: dense_pbf_ops' terms, on walls
+    plus bandmat.pbf_boundary_terms, then the row algebra of
+    cfd_taichi_tpu/models/pbf.py:96-115 in jnp, at density rho0."""
+    st = c["st"]
+    terms, _, _ = _jax_ops(c)
+    rho = jbase.DENSITY_EPS + terms.rho
+    gsum, around, ssum = terms.gsum.to_rows(), terms.around, terms.ssum.to_rows()
+    if walls:
+        b_rho, b_g, b_around, b_ssum = bandmat.pbf_boundary_terms(
+            c["dp"].bwin, c["dp"].pos, h=st.h, rho0=rho0, B=st.band_B,
+            w_ref=c["w_ref"], k_corr=pbf.TENSION_K)
+        rho = rho + b_rho
+        gsum = gsum + b_g.to_rows()
+        around = around + b_around
+        ssum = ssum + b_ssum.to_rows()
+    constraint = jnp.maximum(rho / rho0 - 1.0, 0.0)
+    g = gsum * jnp.float32(1.0 / rho0)
+    denom = (g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1] + g[:, 2] * g[:, 2]
+             + around * jnp.float32(1.0 / rho0 ** 2))
+    lam = jnp.where(constraint == 0.0, 0.0,
+                    -constraint / (denom + jpbf.EPSILON))
+    return constraint, lam, gsum, ssum
+
+
+def _rows_args(c, walls, rho0):
+    sc = c["sc"]
+    return (c["pos_s"], c["starts"], sc.grid, sc.h, sc.particle_m,
+            c["w_ref"], pbf.TENSION_K, None,
+            base.walls(sc) if walls else None, rho0, pbf.EPSILON,
+            base.DENSITY_EPS)
+
+
+@pytest.mark.parametrize("case", ROWS_CASES)
+def test_pbf_constraint_plain_matches_jax(pair_case, case):
+    """The constraint pass (the fluid walk, the walls' walk, the rows'
+    algebra) against JAX's dense step's, with walls and without."""
+    stencil.reset_counts()
+    got, _ = stencil.pbf_constraint_plain(
+        *_rows_args(pair_case, *ROWS_CASES[case]))
+    assert stencil.KERNELS["pbf_terms"].plain_calls == 1
+    want = _jax_rows(pair_case, *ROWS_CASES[case])
+    assert float(got.constraint.max()) > 0.0
+    assert int((got.lam < 0).sum()) > 10
+    for a, b in zip(got, want, strict=True):
+        close(a, b)
+
+
+def _parent_rows(terms, bt, rho0=pbf.RHO_0):
+    """The row algebra as models/pbf.solve took it before its epilogue went
+    into the kernel: the fluid walk's `terms`, the walls' `bt` or None (and
+    rho0 a parameter)."""
+    rho = sm.f32(base.DENSITY_EPS) + terms.rho
+    gsum, around, ssum = terms.gsum, terms.around, terms.ssum
+    if bt is not None:
+        rho = rho + bt.rho
+        gsum = gsum + bt.gsum
+        around = around + bt.around
+        ssum = ssum + bt.ssum
+    constraint = torch.clamp(rho * sm.f32(1.0 / rho0) - 1.0, min=0.0)
+    grad_c_i = gsum * sm.f32(1.0 / rho0)
+    denom = (grad_c_i[:, 0] * grad_c_i[:, 0] + grad_c_i[:, 1] * grad_c_i[:, 1]
+             + grad_c_i[:, 2] * grad_c_i[:, 2]
+             + around * sm.f32(1.0 / rho0**2))
+    lam = torch.where(constraint == 0.0, torch.zeros_like(constraint),
+                      -constraint / (denom + sm.f32(pbf.EPSILON)))
+    return constraint, lam, gsum, ssum
+
+
+def _parent_composition(pos, starts, grid, h, m, w_ref, k_corr, rows, walls,
+                        rho0, epsilon, rho_seed):
+    """stencil.pbf_constraint as the two walks' plain versions and the
+    algebra before it (`_parent_rows`)."""
+    terms, pairs = stencil.pbf_terms_plain(pos, starts, grid, h, m, w_ref,
+                                           k_corr, rows)
+    bt = None if walls is None else stencil.pbf_boundary_terms_plain(
+        pos, walls, grid, h, rho0, w_ref, k_corr)
+    return stencil.PbfConstraint(*_parent_rows(terms, bt, rho0)), pairs
+
+
+@pytest.mark.parametrize("case", ROWS_CASES)
+def test_pbf_constraint_plain_keeps_the_composed_bits(pair_case, case):
+    """pbf_constraint_plain gives the bits of the two walks followed by the
+    algebra models/pbf.solve ran on them, and the same pair list."""
+    args = _rows_args(pair_case, *ROWS_CASES[case])
+    got, pl = stencil.pbf_constraint_plain(*args)
+    want, want_pl = _parent_composition(*args)
+    assert int((got.lam < 0).sum()) > 10
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+    assert torch.equal(pl.cnt, want_pl.cnt)
+    assert torch.equal(stencil.stored_pairs(pl)[1],
+                       stencil.stored_pairs(want_pl)[1])
 
 
 def test_pbf_lambda_plain_matches_lam_mv(pair_case):
@@ -284,11 +387,32 @@ def test_pbf_steps_match_jax(scene, jax_runs):
         moved = max(moved, float(np.abs(snap["vel"]).max()))
     assert moved > 1.0      # the constraint pushes the block apart
     k = stencil.KERNELS
-    assert k["pbf_terms"].plain_calls == STEPS * (2 if scene == "walls"
-                                                  else 1)
+    # one constraint pass a step: both walks and the rows in one call
+    assert k["pbf_terms"].plain_calls == STEPS
     assert k["pbf_lambda"].plain_calls == k["pbf_xsph"].plain_calls == STEPS
     assert k["fluid_terms"].plain_calls == k["viscosity"].plain_calls == 0
     assert sim.telemetry()["nan_particles"] == 0
+
+
+@pytest.mark.parametrize("scene", ["walls", "clamp"])
+def test_pbf_steps_keep_the_composed_bits(scene, jax_runs, monkeypatch):
+    """Steps from the compressed state give the bits of steps whose
+    constraint pass is the two walks followed by the algebra models/pbf.py
+    ran on them (`_parent_composition`): positions and velocities exactly."""
+    sims = []
+    for composed in (False, True):
+        if composed:
+            monkeypatch.setattr(stencil, "pbf_constraint",
+                                _parent_composition)
+        sim = _port_sim(scene)
+        sim.state = io.state_from_numpy(jax_runs[scene]["leaves"],
+                                        device="cpu")
+        for _ in range(3):
+            sim.step()
+        sims.append(sim.state.fluid)
+    assert torch.equal(sims[0].pos, sims[1].pos)
+    assert torch.equal(sims[0].vel, sims[1].vel)
+    assert torch.equal(sims[0].oid, sims[1].oid)
 
 
 def test_checkpoints_of_30_leaves_cross_between_packages(tmp_path, jax_runs):

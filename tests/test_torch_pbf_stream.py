@@ -1,7 +1,8 @@
 """PBF's pair list and its two stream forms, held on the CPU:
 
-* the pair list that `stencil.pbf_terms` stores (plain version
-  `pbf_terms_plain`, which the CPU runs): each row's count and sources in
+* the pair list that PBF's constraint pass stores (`stencil.
+  pbf_constraint`, kernel pbf_terms; plain version `pbf_constraint_plain`,
+  which the CPU runs): each row's count and sources in
   the kernels' walk order, equal to the pair store that
   `coef.build_coef_plain` builds from `_pair_chunks` (its rows in walk
   order) and to the brute-force pair set, never more pairs than its
@@ -66,8 +67,9 @@ def cloud():
 
 
 def _list(pos, starts, grid, h, m=1.0):
-    return stencil.pbf_terms(pos, starts, grid, h, m, pbf.w_ref(h),
-                             pbf.TENSION_K)[1]
+    return stencil.pbf_constraint(pos, starts, grid, h, m, pbf.w_ref(h),
+                                  pbf.TENSION_K, None, None,
+                                  *pbf.ROW_CONSTANTS)[1]
 
 
 def _assert_list_is_the_walk(pos, starts, grid, h):
@@ -192,6 +194,7 @@ def test_a_list_past_int32_offsets_raises():
         stencil.pair_rows(starts, grid, scid)
     stencil.reset_counts()
     with pytest.raises(ValueError, match="int32 offsets"):
-        stencil.pbf_terms(pos, starts, grid, 0.1, 1.0, pbf.w_ref(0.1),
-                          pbf.TENSION_K)
+        stencil.pbf_constraint(pos, starts, grid, 0.1, 1.0, pbf.w_ref(0.1),
+                               pbf.TENSION_K, None, None,
+                               *pbf.ROW_CONSTANTS)
     assert stencil.KERNELS["pbf_terms"].plain_calls == 0

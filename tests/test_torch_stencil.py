@@ -169,8 +169,9 @@ def test_cpu_tensors_take_the_plain_versions(case):
                           coef.csr_offsets(ft.count))
     coef.coef_matvec(eng, pos, k)
     coef.coef_matvec_dot(eng, pos, v)
-    _, pairs = stencil.pbf_terms(pos, starts, sc.grid, sc.h, sc.particle_m,
-                                 1e3, 1e-7)
+    _, pairs = stencil.pbf_constraint(pos, starts, sc.grid, sc.h,
+                                      sc.particle_m, 1e3, 1e-7, None,
+                                      base.walls(sc), 1000.0, 1e-6, 1e-3)
     stencil.pbf_lambda(pos, pairs, sc.h, -1e-5 * k)
     stencil.pbf_xsph(pairs, sc.h, pos + 0.01 * v, v)
     # the fluid-rigid passes, with the first 24 fluid particles, moved by
@@ -216,10 +217,9 @@ def test_wrappers_reject_other_devices(case):
             lambda: stencil.pcisph_predict_rho(
                 meta, starts, grid, 0.1, 0.1, meta, walls, 1000.0,
                 eng=coef.CoefEngine(starts, starts, meta[:, 0])),
-            lambda: stencil.pbf_terms(meta, starts, grid, 0.1, 0.1, 1e3,
-                                      1e-7),
-            lambda: stencil.pbf_boundary_terms(meta, walls, grid, 0.1,
-                                               1000.0, 1e3, 1e-7),
+            lambda: stencil.pbf_constraint(meta, starts, grid, 0.1, 0.1, 1e3,
+                                           1e-7, None, walls, 1000.0, 1e-6,
+                                           1e-3),
             lambda: stencil.pbf_lambda(meta, pairs, 0.1, meta[:, 0]),
             lambda: stencil.pbf_xsph(pairs, 0.1, meta, meta),
             lambda: stencil.make_body_box(meta, 0.1)):
