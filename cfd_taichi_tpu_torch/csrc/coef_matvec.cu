@@ -1,5 +1,7 @@
 // K6 coef_matvec / coef_matvec_dot: the two per-iteration contractions of
-// the stored-coefficient engine (ops/coef.py).
+// the stored-coefficient engine (ops/coef.py), and dfsph_kick /
+// dfsph_rate: the same two contractions with DFSPH's loop algebra in their
+// epilogue.
 //
 // Replace the three Pallas kernels of tools/perf_r5_mv3.py (the VPU
 // contraction :66-69, the batched-dot contraction :72-77, and the fused
@@ -48,6 +50,30 @@
 // without it; two pairs in flight per lane gain 6-30 % over one at kGroup
 // 8-16. kGroup 8 with kUnroll 2 was the fastest pair of the sweep: 143 /
 // 153 us (f32 matvec / dot), 54 / 50 % of the byte bound.
+//
+// dfsph_kick and dfsph_rate replace the torch ops that DFSPH's pressure
+// loops ran around the contraction (models/dfsph.py; JAX fuses the same
+// algebra into its contraction through XLA, cfd_taichi_tpu/models/
+// dfsph.py:174-222): about 20 elementwise passes over the N or 3N rows an
+// iteration, each a launch that reads and writes its rows in device memory.
+// They run the row loop below unchanged (one `contract` for all four
+// entries, through an epilogue functor, so that the contraction's bits
+// cannot drift between them) and finish each row in registers:
+//   dfsph_kick: v_out = v - (S k + matvec(k)) dt, where upd (a rank's rows
+//     to update) holds, and in the divergence loop wk_out = wk + dr alpha;
+//   dfsph_rate: d = v . S - matvec_dot(v) [- c_s], then the divergence
+//     rate dr and its k = (dr alpha / dt) / rho, or the density loop's
+//     rho_adv and k = ((rho_adv - rho0) alpha / dt^2) / rho, and the
+//     residual average's inputs: sel (& owned) and sel ? value : 0, which
+//     torch sums as it summed torch.where(sel, value, 0) before.
+// Every epilogue operation rounds once, in the order the torch ops took
+// (-fmad=false, IEEE division), so the outputs are the composition's bit
+// for bit (ops/coef.kick_composition, rate_composition). dt and dt^2 are
+// read from device memory, so the kernels sit inside the loops' captured
+// graphs. Their bound is the contraction's bytes plus the rows that the
+// epilogue alone reads and writes (perf/bounds.dfsph_work: 36-52 B a row
+// for the kick, 29-41 for the rate); like the contraction they are bound
+// by bytes.
 #include <cuda_bf16.h>
 
 #include "stencil.cuh"
@@ -106,16 +132,30 @@ __device__ __forceinline__ void add_pair(const float* __restrict__ pos,
   }
 }
 
-// One row per group of kGroup lanes. kDot picks coef_matvec_dot's lanes and
-// final form over coef_matvec's; x is k (N,) or v (N, 3).
-template <bool kDot, typename T>
+// The finishes of JAX's split over absolute coordinates at the row's
+// position x, one rounding an operation (-fmad=false): coef_matvec's
+// x_c s0 - s(1+c) and coef_matvec_dot's x s0 + y s1 + z s2 - s3.
+__device__ __forceinline__ float matvec_finish(const float x[3],
+                                               const float s[4], int c) {
+  return x[c] * s[0] - s[1 + c];
+}
+
+__device__ __forceinline__ float matvec_dot_finish(const float x[3],
+                                                   const float s[4]) {
+  return x[0] * s[0] + x[1] * s[1] + x[2] * s[2] - s[3];
+}
+
+// The row loop of all four entries: one row per group of kGroup lanes.
+// kDot picks coef_matvec_dot's lanes over coef_matvec's; x is k (N,) or v
+// (N, 3). Lane 0 of the group hands the row's four sums to `epilogue`,
+// which writes the row.
+template <bool kDot, typename T, typename Epilogue>
 __device__ __forceinline__ void contract(const float* __restrict__ pos, int n,
                                          const int* __restrict__ offsets,
                                          const int* __restrict__ nbr,
                                          const T* __restrict__ w,
                                          const float* __restrict__ x,
-                                         float* __restrict__ out,
-                                         int lane_sums) {
+                                         const Epilogue& epilogue) {
   const int g = threadIdx.x & (kGroup - 1);
   const int i = blockIdx.x * kRowsPerBlock + threadIdx.x / kGroup;
   float s[4] = {0.f, 0.f, 0.f, 0.f};
@@ -139,61 +179,163 @@ __device__ __forceinline__ void contract(const float* __restrict__ pos, int n,
 #pragma unroll
   for (int r = 0; r < 4; ++r) s[r] = group_sum(s[r]);
   if (i >= n || g != 0) return;
-  if (lane_sums) {
+  epilogue(i, s);
+}
+
+// coef_matvec's and coef_matvec_dot's rows: the final form, or with
+// lane_sums the (N, 4) sums.
+template <bool kDot>
+struct StoreRow {
+  const float* __restrict__ pos;
+  float* __restrict__ out;
+  int lane_sums;
+
+  __device__ __forceinline__ void operator()(int i, const float s[4]) const {
+    if (lane_sums) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) out[4 * i + r] = s[r];
-  } else if constexpr (kDot) {
-    out[i] = pos[3 * i] * s[0] + pos[3 * i + 1] * s[1] +
-             pos[3 * i + 2] * s[2] - s[3];
-  } else {
+      for (int r = 0; r < 4; ++r) out[4 * i + r] = s[r];
+      return;
+    }
+    const float x[3] = {pos[3 * i], pos[3 * i + 1], pos[3 * i + 2]};
+    if constexpr (kDot) {
+      out[i] = matvec_dot_finish(x, s);
+    } else {
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      out[3 * i + c] = pos[3 * i + c] * s[0] - s[1 + c];
+      for (int c = 0; c < 3; ++c) out[3 * i + c] = matvec_finish(x, s, c);
+    }
   }
-}
+};
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-coef_matvec_kernel(const float* __restrict__ pos, int n,
-                   const int* __restrict__ offsets,
-                   const int* __restrict__ nbr, const T* __restrict__ w,
-                   const float* __restrict__ k, float* __restrict__ out,
-                   int lane_sums) {
-  contract<false>(pos, n, offsets, nbr, w, k, out, lane_sums);
-}
+// dfsph_kick's row (ops/coef.kick_composition, one rounding an operation,
+// as the torch ops round):
+//   v_out = v - (S k + matvec(k)) dt    (v itself where upd is 0)
+//   wk_out = wk + dr alpha              (where wk_out is given)
+struct KickRow {
+  const float* __restrict__ pos;
+  const float* __restrict__ k;
+  const float* __restrict__ v;
+  const float* __restrict__ S;
+  const float* __restrict__ dt;     // 0-d
+  const float* __restrict__ wk;     // wk, dr, alpha and wk_out: all or none
+  const float* __restrict__ dr;
+  const float* __restrict__ alpha;
+  const bool* __restrict__ upd;     // or null: every row updates
+  float* __restrict__ v_out;
+  float* __restrict__ wk_out;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-coef_matvec_dot_kernel(const float* __restrict__ pos, int n,
-                       const int* __restrict__ offsets,
-                       const int* __restrict__ nbr, const T* __restrict__ w,
-                       const float* __restrict__ v, float* __restrict__ out,
-                       int lane_sums) {
-  contract<true>(pos, n, offsets, nbr, w, v, out, lane_sums);
-}
+  __device__ __forceinline__ void operator()(int i, const float s[4]) const {
+    const float x[3] = {pos[3 * i], pos[3 * i + 1], pos[3 * i + 2]};
+    const float ki = k[i], h = *dt;
+    const bool apply = upd == nullptr || upd[i];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float vi = v[3 * i + c];
+      const float delta = S[3 * i + c] * ki + matvec_finish(x, s, c);
+      v_out[3 * i + c] = apply ? vi - delta * h : vi;
+    }
+    if (wk_out != nullptr) wk_out[i] = wk[i] + dr[i] * alpha[i];
+  }
+};
 
-template <bool kDot, typename T>
-int launch(const float* pos, int n, const int* offsets, const int* nbr,
-           const void* w, const float* x, float* out, int lane_sums,
-           void* stream) {
-  const auto kernel =
-      kDot ? coef_matvec_dot_kernel<T> : coef_matvec_kernel<T>;
+// dfsph_rate's row (ops/coef.rate_composition): d = v . S - matvec_dot(v)
+// [- c_s], then
+//   divergence (counts given): dr = 0 where count < min_neighbors, else
+//     max(d, 0) (NaN kept, as torch.clamp keeps it); k = (dr alpha / dt) /
+//     rho; the average counts dr > 0;
+//   density: rho_adv = max(rho + dt d, rho0) (NaN kept); k = ((rho_adv -
+//     rho0) alpha / dt2) / rho; the average counts rho_adv != rho0;
+// and the average's inputs, sel (& owned where given) and sel ? value : 0.
+// Each operation rounds once, as the torch ops do: -fmad=false, IEEE
+// division.
+struct RateRow {
+  const float* __restrict__ pos;
+  const float* __restrict__ v;
+  const float* __restrict__ S;
+  const float* __restrict__ cs;     // or null: nothing subtracted
+  const int* __restrict__ counts;   // divergence; null: density
+  int min_neighbors;
+  const float* __restrict__ alpha;
+  const float* __restrict__ rho;
+  const float* __restrict__ dt;     // 0-d
+  const float* __restrict__ dt2;    // 0-d, density
+  float rho0;
+  const bool* __restrict__ owned;   // or null: every row counts
+  float* __restrict__ dr;           // divergence
+  float* __restrict__ k;
+  float* __restrict__ masked;
+  bool* __restrict__ sel;
+
+  __device__ __forceinline__ void operator()(int i, const float s[4]) const {
+    const float x[3] = {pos[3 * i], pos[3 * i + 1], pos[3 * i + 2]};
+    const float vs = v[3 * i] * S[3 * i] + v[3 * i + 1] * S[3 * i + 1] +
+                     v[3 * i + 2] * S[3 * i + 2];
+    float d = vs - matvec_dot_finish(x, s);
+    if (cs != nullptr) d = d - cs[i];
+    float val, ki;
+    bool on;
+    if (counts != nullptr) {
+      val = counts[i] < min_neighbors ? 0.f : (isnan(d) ? d : fmaxf(d, 0.f));
+      dr[i] = val;
+      on = val > 0.f;
+      ki = __fdiv_rn(__fdiv_rn(val * alpha[i], *dt), rho[i]);
+    } else {
+      val = rho[i] + *dt * d;
+      val = isnan(val) ? val : fmaxf(val, rho0);
+      on = val != rho0;
+      ki = __fdiv_rn(__fdiv_rn((val - rho0) * alpha[i], *dt2), rho[i]);
+    }
+    if (owned != nullptr) on = on && owned[i];
+    k[i] = ki;
+    masked[i] = on ? val : 0.f;
+    sel[i] = on;
+  }
+};
+
+// One __global__ a entry, so that a profile names each by its own stem.
+#define CONTRACT_KERNEL(name, kDot, Epilogue)                              \
+  template <typename T>                                                    \
+  __global__ void __launch_bounds__(kThreads)                              \
+      name(const float* __restrict__ pos, int n,                           \
+           const int* __restrict__ offsets, const int* __restrict__ nbr,   \
+           const T* __restrict__ w, const float* __restrict__ x,           \
+           Epilogue epilogue) {                                            \
+    contract<kDot>(pos, n, offsets, nbr, w, x, epilogue);                  \
+  }
+
+CONTRACT_KERNEL(coef_matvec_kernel, false, StoreRow<false>)
+CONTRACT_KERNEL(coef_matvec_dot_kernel, true, StoreRow<true>)
+CONTRACT_KERNEL(dfsph_kick_kernel, false, KickRow)
+CONTRACT_KERNEL(dfsph_rate_kernel, true, RateRow)
+
+template <typename Epilogue>
+int launch(void (*f32)(const float*, int, const int*, const int*,
+                       const float*, const float*, Epilogue),
+           void (*bf16)(const float*, int, const int*, const int*,
+                        const __nv_bfloat16*, const float*, Epilogue),
+           const float* pos, int n, const int* offsets, const int* nbr,
+           const void* w, int is_bf16, const float* x,
+           const Epilogue& epilogue, void* stream) {
   if (n > 0) {
     const int blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock;
-    kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        pos, n, offsets, nbr, (const T*)w, x, out, lane_sums);
+    if (is_bf16)
+      bf16<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+          pos, n, offsets, nbr, (const __nv_bfloat16*)w, x, epilogue);
+    else
+      f32<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+          pos, n, offsets, nbr, (const float*)w, x, epilogue);
   }
   return (int)cudaGetLastError();
 }
+
+#define LAUNCH(name, ...) \
+  launch(name<float>, name<__nv_bfloat16>, __VA_ARGS__)
 
 extern "C" int coef_matvec_launch(const float* pos, int n, const int* offsets,
                                   const int* nbr, const void* w, int bf16,
                                   const float* k, float* out, int lane_sums,
                                   void* stream) {
-  return bf16 ? launch<false, __nv_bfloat16>(pos, n, offsets, nbr, w, k, out,
-                                             lane_sums, stream)
-              : launch<false, float>(pos, n, offsets, nbr, w, k, out,
-                                     lane_sums, stream);
+  return LAUNCH(coef_matvec_kernel, pos, n, offsets, nbr, w, bf16, k,
+                StoreRow<false>{pos, out, lane_sums}, stream);
 }
 
 extern "C" int coef_matvec_dot_launch(const float* pos, int n,
@@ -201,8 +343,33 @@ extern "C" int coef_matvec_dot_launch(const float* pos, int n,
                                       const void* w, int bf16, const float* v,
                                       float* out, int lane_sums,
                                       void* stream) {
-  return bf16 ? launch<true, __nv_bfloat16>(pos, n, offsets, nbr, w, v, out,
-                                            lane_sums, stream)
-              : launch<true, float>(pos, n, offsets, nbr, w, v, out,
-                                    lane_sums, stream);
+  return LAUNCH(coef_matvec_dot_kernel, pos, n, offsets, nbr, w, bf16, v,
+                StoreRow<true>{pos, out, lane_sums}, stream);
+}
+
+extern "C" int dfsph_kick_launch(const float* pos, int n, const int* offsets,
+                                 const int* nbr, const void* w, int bf16,
+                                 const float* k, const float* v,
+                                 const float* S, const float* dt,
+                                 const float* wk, const float* dr,
+                                 const float* alpha, const bool* upd,
+                                 float* v_out, float* wk_out, void* stream) {
+  return LAUNCH(dfsph_kick_kernel, pos, n, offsets, nbr, w, bf16, k,
+                KickRow{pos, k, v, S, dt, wk, dr, alpha, upd, v_out, wk_out},
+                stream);
+}
+
+extern "C" int dfsph_rate_launch(const float* pos, int n, const int* offsets,
+                                 const int* nbr, const void* w, int bf16,
+                                 const float* v, const float* S,
+                                 const float* cs, const int* counts,
+                                 int min_neighbors, const float* alpha,
+                                 const float* rho, const float* dt,
+                                 const float* dt2, float rho0,
+                                 const bool* owned, float* dr, float* k,
+                                 float* masked, bool* sel, void* stream) {
+  return LAUNCH(dfsph_rate_kernel, pos, n, offsets, nbr, w, bf16, v,
+                RateRow{pos, v, S, cs, counts, min_neighbors, alpha, rho, dt,
+                        dt2, rho0, owned, dr, k, masked, sel},
+                stream);
 }

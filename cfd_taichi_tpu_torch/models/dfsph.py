@@ -15,6 +15,13 @@ fits, recompute beyond that; `cfd_taichi_tpu/models/dfsph.py:101-114`):
   the JAX window engine, bandmat.py:508-616): every iteration recomputes
   the coefficients from positions and stores nothing per pair.
 
+An iteration's algebra around the two matvecs (JAX's `loop_operators`,
+`cfd_taichi_tpu/models/dfsph.py:174-222`) runs through one kick and one
+rate (`loop_algebra`): on the stored-coefficient engine the kernels
+coef.dfsph_kick and coef.dfsph_rate, which finish the contraction's rows
+with it in registers, on the recompute engine the same torch ops around
+its kernels.
+
 A rigid body enters as JAX's dense coupled path has it
 (`cfd_taichi_tpu/models/dfsph.py:499-583, 686-790`; ops/rigid.py): its
 step-constant sums fold into the fluid's before the alpha factor, the
@@ -151,52 +158,6 @@ def dense_pre_terms(scene: Scene, ft: stencil.FluidTerms,
     return rho, alpha, S, tension
 
 
-def loop_operators(matvec: Callable, matvec_dot: Callable, S: torch.Tensor,
-                   counts: torch.Tensor, shard: base.Shard | None = None):
-    """The DFSPH loop algebra (`cfd_taichi_tpu/models/dfsph.py:174-222`):
-
-      stiff_vel_delta(k) = k S + matvec(k)     velocity change per unit dt
-      rho_derivative(v, c_s) -> (dr, avg)      clamped density rate and its
-                                               positive average
-      rho_adv_residual(rho, dt, v, c_s) -> (rho_adv, avg)   clamped
-                                               predicted density and its
-                                               average
-    c_s is the loop-constant solid contact dot of a coupled scene, which
-    the density rate subtracts, or None (fluid-only: nothing subtracted).
-    On a rank of a sharded step (`shard`) an average counts the rows the
-    rank owns, its count and total summed over the ranks.
-    """
-    def average(sel, vals, empty):
-        if shard is not None:
-            sel = sel & shard.owned
-        cnt = sel.sum()
-        tot = torch.where(sel, vals, torch.zeros_like(vals)).sum()
-        if shard is not None:
-            cnt, tot = shard.sum(cnt, tot)
-        return torch.where(cnt > 0, tot / cnt, empty(tot))
-
-    def stiff_vel_delta(k_over_rho):
-        return S * k_over_rho[:, None] + matvec(k_over_rho)
-
-    def vel_dot_terms(v, c_s):
-        d = dot(v, S) - matvec_dot(v)
-        return d if c_s is None else d - c_s
-
-    def rho_derivative(v, c_s=None):
-        dr = vel_dot_terms(v, c_s)
-        dr = torch.where(counts < MIN_NEIGHBORS, torch.zeros_like(dr),
-                         torch.clamp(dr, min=0.0))
-        return dr, average(dr > 0.0, dr, torch.zeros_like)
-
-    def rho_adv_residual(rho, dt, v_adv, c_s=None):
-        d = vel_dot_terms(v_adv, c_s)
-        rho_adv = torch.clamp(rho + dt * d, min=RHO_0)
-        return rho_adv, average(rho_adv != RHO_0, rho_adv,
-                                lambda t: torch.full_like(t, RHO_0))
-
-    return stiff_vel_delta, rho_derivative, rho_adv_residual
-
-
 class _Pre(NamedTuple):
     """Sorted state and step-constant terms handed to `_finish_step`."""
     pos: torch.Tensor        # (N, 3) sorted positions
@@ -208,8 +169,8 @@ class _Pre(NamedTuple):
     alpha: torch.Tensor
     count: torch.Tensor      # fluid-only pair count (the < 20 skip)
     S: torch.Tensor          # (N, 3) self-side loop coefficient
-    mv: Callable             # matvec
-    mvd: Callable            # matvec_dot
+    kick: Callable           # coef.dfsph_kick's arguments after pos
+    rate: Callable           # coef.dfsph_rate's arguments after pos
     ext_force_fn: Callable   # vel -> (N, 3) tension + viscosity
     # (include_alpha, dt) -> (N,) the solid contact dot C_s; None without
     # a coupled body
@@ -246,6 +207,21 @@ def loop_engine(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
     return (functools.partial(stencil.matvec, pos, starts, grid, h, m),
             functools.partial(stencil.matvec_dot, pos, starts, grid, h, m),
             None)
+
+
+def loop_algebra(pos: torch.Tensor, mv: Callable, mvd: Callable,
+                 store: coef.CoefEngine | None) -> tuple[Callable, Callable]:
+    """(kick, rate) of DFSPH's loops over the cell-sorted `pos`, each taking
+    `coef.dfsph_kick`'s or `coef.dfsph_rate`'s arguments after pos: on the
+    stored-coefficient engine (`store`, from `loop_engine`) the two kernels
+    that run the loop algebra in the contraction's epilogue, on the
+    recompute engine the same torch ops (`coef.kick_composition`,
+    `coef.rate_composition`) around its kernels `mv` and `mvd`."""
+    if store is not None:
+        return (functools.partial(coef.dfsph_kick, store, pos),
+                functools.partial(coef.dfsph_rate, store, pos))
+    return (functools.partial(coef.kick_composition, mv),
+            functools.partial(coef.rate_composition, mvd))
 
 
 # Set within `walked_reaction` only.
@@ -315,7 +291,8 @@ def prepare_sorted(scene: Scene, rigid: base.RigidBodyState,
     ft, bt = base.one_shot_terms(scene, pos, starts)
     table, rt, box = base.body_terms(scene, rigid, pos)
     rho, alpha, S, tension = dense_pre_terms(scene, ft, bt, rt)
-    mv, mvd, _, side = loop_lists(scene, rigid, pos, starts, ft)
+    mv, mvd, store, side = loop_lists(scene, rigid, pos, starts, ft)
+    kick, rate = loop_algebra(pos, mv, mvd, store)
 
     def ext_force_fn(v):
         visc = stencil.viscosity(pos, starts, grid, h, m, v, rho,
@@ -340,7 +317,7 @@ def prepare_sorted(scene: Scene, rigid: base.RigidBodyState,
                                           side)
 
     return _Pre(pos=pos, oid=oid, vel=vel, acc=acc, warm_k=warm_k, rho=rho,
-                alpha=alpha, count=ft.count, S=S, mv=mv, mvd=mvd,
+                alpha=alpha, count=ft.count, S=S, kick=kick, rate=rate,
                 ext_force_fn=ext_force_fn, cs_fn=cs_fn,
                 scatter_fn=scatter_fn)
 
@@ -381,40 +358,56 @@ def solve(scene: Scene, pre: _Pre, dt: torch.Tensor,
     over the ranks after it (`base.reaction_total`); the body is the same
     on every rank, so its speed joins the CFL velocity after the max over
     the ranks, and every rank takes one dt."""
-    vel, warm_k = pre.vel, pre.warm_k
+    vel, warm_k, S = pre.vel, pre.warm_k, pre.S
     rho, alpha = pre.rho, pre.alpha
-    stiff_vel_delta, rho_derivative, rho_adv_residual = loop_operators(
-        pre.mv, pre.mvd, pre.S, pre.count, shard)
+    upd, owned = (None, None) if shard is None else (shard.upd, shard.owned)
 
-    def kick(v, k_over_rho, dt):
-        new = v - stiff_vel_delta(base.synced(shard, k_over_rho)) * dt
-        return new if shard is None else torch.where(shard.upd[:, None],
-                                                     new, v)
+    def average(rate: coef.Rate, empty):
+        """The mean of the rows `rate` selects; on a rank of a sharded
+        step, of the rows the rank owns, its count and total summed over
+        the ranks (`cfd_taichi_tpu/models/dfsph.py:199-221`)."""
+        cnt, tot = rate.sel.sum(), rate.masked.sum()
+        if shard is not None:
+            cnt, tot = shard.sum(cnt, tot)
+        return torch.where(cnt > 0, tot / cnt, empty(tot))
+
+    def kick(v, k_over_rho, dt, wk=None, dr=None):
+        return pre.kick(v, base.synced(shard, k_over_rho), S, dt, wk, dr,
+                        None if wk is None else alpha, upd)
 
     # --- divergence solve (dfsph_solver.py:393-416) -------------------------
     # Warm start with the previous step's dt.
-    vel = kick(vel, (warm_k / dt) / rho, dt)
+    vel, _ = kick(vel, (warm_k / dt) / rho, dt)
     cs_div = pre.cs_fn(False, dt) if pre.cs_fn is not None else None
-    dr0, avg0 = rho_derivative(vel, cs_div)
+    divergence = coef.Divergence(pre.count, MIN_NEIGHBORS)
+
+    def rho_derivative(v):
+        """The clamped density rate, the next kick's k from it, and the
+        average positive rate."""
+        r = pre.rate(v, S, alpha, rho, dt, divergence, cs_div, owned)
+        return r.dr, r.k, average(r, torch.zeros_like)
+
+    dr0, k0, avg0 = rho_derivative(vel)
     loop_kw = loop_args(scene, shard)
 
     def div_cond(c):
-        _, _, _, avg, stop, it = c
+        _, _, _, _, avg, stop, it = c
         return (((it < MIN_ITER_DIV) | (avg > f32(DIV_THRESHOLD)))
                 & (it < MAX_ITER_DIV) & ~stop)
 
     def div_body(c):
-        v, wk, dr, avg, _, it = c
-        v = kick(v, (dr * alpha / dt) / rho, dt)
-        wk = wk + dr * alpha    # sum_up_stiff (dfsph_solver.py:381)
-        new_dr, new_avg = rho_derivative(v, cs_div)
+        # k = (dr alpha / dt) / rho came with dr from the rate; the kick
+        # also adds dr alpha to wk (sum_up_stiff, dfsph_solver.py:381)
+        v, wk, dr, k, avg, _, it = c
+        v, wk = kick(v, k, dt, wk, dr)
+        new_dr, new_k, new_avg = rho_derivative(v)
         stop = torch.abs(new_avg - avg) < f32(STALL_EPS)
-        return v, wk, new_dr, new_avg, stop, it + 1
+        return v, wk, new_dr, new_k, new_avg, stop, it + 1
 
     zero_i = torch.zeros((), dtype=torch.int32, device=vel.device)
-    vel, warm_k, _, div_avg, _, div_iters = loops.while_loop_unrolled(
+    vel, warm_k, _, _, div_avg, _, div_iters = loops.while_loop_unrolled(
         div_cond, div_body,
-        (vel, torch.zeros_like(warm_k), dr0, avg0,
+        (vel, torch.zeros_like(warm_k), dr0, k0, avg0,
          torch.zeros((), dtype=torch.bool, device=vel.device), zero_i),
         **loop_kw)
 
@@ -441,6 +434,7 @@ def solve(scene: Scene, pre: _Pre, dt: torch.Tensor,
     # update.
     cs_den = pre.cs_fn(True, dt) if pre.cs_fn is not None else None
     den_thresh = f32(DENSITY_THRESHOLD * RHO_0 * 0.01)
+    density = coef.Density(dt2, RHO_0)
 
     def den_cond(c):
         _, avg, _, it = c
@@ -448,12 +442,13 @@ def solve(scene: Scene, pre: _Pre, dt: torch.Tensor,
                 & (it < MAX_ITER_DENSITY))
 
     def den_body(c):
+        # k = ((rho_adv - rho0) alpha / dt^2) / rho comes with the residual
         v_adv, _, rforce, it = c
-        rho_adv, avg = rho_adv_residual(rho, dt, v_adv, cs_den)
-        k_over_rho = ((rho_adv - RHO_0) * alpha / dt2) / rho
+        r = pre.rate(v_adv, S, alpha, rho, dt, density, cs_den, owned)
+        avg = average(r, lambda t: torch.full_like(t, RHO_0))
         if pre.scatter_fn is not None:
-            rforce = pre.scatter_fn(k_over_rho, rforce)
-        v_adv = kick(v_adv, k_over_rho, dt)
+            rforce = pre.scatter_fn(r.k, rforce)
+        v_adv, _ = kick(v_adv, r.k, dt)
         return v_adv, avg, rforce, it + 1
 
     vel_adv, den_avg, rigid_force, den_iters = loops.while_loop_unrolled(

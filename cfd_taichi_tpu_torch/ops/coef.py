@@ -21,6 +21,21 @@ overflow. w is stored as f32 or bf16; with bf16, each lane value is rounded
 to bf16 before it is multiplied by w, as bandmat.py:913-914 and 958-959
 round the product table.
 
+DFSPH's pressure loops take the two contractions with their loop algebra
+in the epilogue (the counterpart of JAX's `loop_operators`,
+`cfd_taichi_tpu/models/dfsph.py:174-222`, which XLA fuses):
+
+    dfsph_kick(k)  v - (S k + coef_matvec(k)) dt  [and wk + dr alpha]
+    dfsph_rate(v)  d = v . S - coef_matvec_dot(v) [- c_s], then the
+                   divergence rate or the predicted density, the next
+                   kick's k and the residual average's inputs
+
+Their plain versions are `kick_composition` and `rate_composition` (the
+torch ops DFSPH ran around the contraction) on the plain contraction; the
+recompute engine runs the same compositions on its stencil kernels. The
+kernels round every operation as those torch ops do, so the two give the
+same bits on the card.
+
 Each pass has a hand-written CUDA kernel (csrc/coef_build.cu,
 csrc/coef_matvec.cu), a plain PyTorch version `*_plain`, and a wrapper that
 launches the kernel for CUDA tensors and runs the plain version for CPU
@@ -31,7 +46,8 @@ tensors; any other device raises. Launches and plain calls are counted in
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+import functools
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -54,6 +70,27 @@ class CoefEngine(NamedTuple):
     @property
     def n(self) -> int:
         return self.offsets.shape[0] - 1
+
+
+class Divergence(NamedTuple):
+    """dfsph_rate's divergence mode: the rate dr = max(d, 0), 0 on a row
+    with fewer than `min_neighbors` fluid pairs (`counts`)."""
+    counts: torch.Tensor   # (N,) int32
+    min_neighbors: int
+
+
+class Density(NamedTuple):
+    """dfsph_rate's density mode: rho_adv = max(rho + dt d, rho0)."""
+    dt2: torch.Tensor      # 0-d f32, dt * dt
+    rho0: float
+
+
+class Rate(NamedTuple):
+    """dfsph_rate's outputs."""
+    dr: torch.Tensor | None  # (N,) the divergence rate (None in Density)
+    k: torch.Tensor          # (N,) the next kick's stiffness over rho
+    masked: torch.Tensor     # (N,) the averaged value where sel, else 0
+    sel: torch.Tensor        # (N,) bool: the rows the average counts
 
 
 def csr_offsets(count: torch.Tensor) -> torch.Tensor:
@@ -141,9 +178,152 @@ def coef_matvec_dot(eng: CoefEngine, pos: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _check_rows(n: int, device: torch.device, **rows) -> None:
+    """Each of `rows` (n,) f32, (n, 3) f32 where its name is v or S, (n,)
+    bool where it is a mask, or None."""
+    for name, t in rows.items():
+        if t is None:
+            continue
+        if name in ("upd", "owned"):
+            _check(name, t, torch.bool, (n,), device)
+        else:
+            _check(name, t, torch.float32,
+                   (n, 3) if name in ("v", "S") else (n,), device)
+
+
+def dfsph_kick(eng: CoefEngine, pos: torch.Tensor, v: torch.Tensor,
+               k: torch.Tensor, S: torch.Tensor, dt: torch.Tensor,
+               wk: torch.Tensor | None = None,
+               dr: torch.Tensor | None = None,
+               alpha: torch.Tensor | None = None,
+               upd: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """DFSPH's kick over the stored pairs (`kick_composition`): (N, 3)
+    v - (S k + coef_matvec(k)) dt, v itself on the rows where `upd` (a
+    rank's rows to update) is False, and wk + dr alpha where `wk`, `dr`
+    and `alpha` are given (the divergence loop's warm-start sum), else
+    None. `dt` is a 0-d tensor on the rows' device."""
+    if not _on_cuda("dfsph_kick", pos):
+        return dfsph_kick_plain(eng, pos, v, k, S, dt, wk, dr, alpha, upd)
+    n = _check_engine(eng, pos)
+    if not (wk is None) == (dr is None) == (alpha is None):
+        raise ValueError("dfsph_kick: give wk, dr and alpha together")
+    _check_rows(n, pos.device, k=k, v=v, S=S, wk=wk, dr=dr, alpha=alpha,
+                upd=upd)
+    _check("dt", dt, torch.float32, (), pos.device)
+    v_out = torch.empty_like(v)
+    wk_out = None if wk is None else torch.empty_like(wk)
+    _launch("dfsph_kick", pos.device, pos, n, eng.offsets, eng.nbr, eng.w,
+            _is_bf16(eng), k, v, S, dt, wk, dr, alpha, upd, v_out, wk_out)
+    return v_out, wk_out
+
+
+def dfsph_rate(eng: CoefEngine, pos: torch.Tensor, v: torch.Tensor,
+               S: torch.Tensor, alpha: torch.Tensor, rho: torch.Tensor,
+               dt: torch.Tensor, mode: Divergence | Density,
+               c_s: torch.Tensor | None = None,
+               owned: torch.Tensor | None = None) -> Rate:
+    """DFSPH's density rate over the stored pairs (`rate_composition`):
+    d = v . S - coef_matvec_dot(v), less the contact dot `c_s` of a
+    coupled scene, then `mode`'s value and the next kick's k, and the
+    residual average's inputs, counted on the rows of `owned` only where
+    it is given (a rank's own rows). `dt` (and Density's dt2) 0-d tensors
+    on the rows' device."""
+    if not _on_cuda("dfsph_rate", pos):
+        return dfsph_rate_plain(eng, pos, v, S, alpha, rho, dt, mode, c_s,
+                                owned)
+    n = _check_engine(eng, pos)
+    _check_rows(n, pos.device, v=v, S=S, alpha=alpha, rho=rho, c_s=c_s,
+                owned=owned)
+    _check("dt", dt, torch.float32, (), pos.device)
+    div = isinstance(mode, Divergence)
+    if div:
+        _check("counts", mode.counts, torch.int32, (n,), pos.device)
+    else:
+        _check("dt2", mode.dt2, torch.float32, (), pos.device)
+    out = Rate(pos.new_empty(n) if div else None, pos.new_empty(n),
+               pos.new_empty(n),
+               torch.empty(n, dtype=torch.bool, device=pos.device))
+    _launch("dfsph_rate", pos.device, pos, n, eng.offsets, eng.nbr, eng.w,
+            _is_bf16(eng), v, S, c_s, mode.counts if div else None,
+            mode.min_neighbors if div else 0, alpha, rho, dt,
+            None if div else mode.dt2, 0.0 if div else f32(mode.rho0),
+            owned, out.dr, out.k, out.masked, out.sel)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The loop algebra's torch ops: the plain versions' and the recompute
+# engine's
+# ---------------------------------------------------------------------------
+
+def kick_composition(matvec: Callable, v: torch.Tensor, k: torch.Tensor,
+                     S: torch.Tensor, dt: torch.Tensor,
+                     wk: torch.Tensor | None = None,
+                     dr: torch.Tensor | None = None,
+                     alpha: torch.Tensor | None = None,
+                     upd: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """`dfsph_kick` as torch ops around `matvec` (k -> (N, 3)): JAX's
+    stiff_vel_delta(k) = S k + matvec(k) times dt off v."""
+    new = v - (S * k[:, None] + matvec(k)) * dt
+    if upd is not None:
+        new = torch.where(upd[:, None], new, v)
+    return new, (None if wk is None else wk + dr * alpha)
+
+
+def rate_composition(matvec_dot: Callable, v: torch.Tensor, S: torch.Tensor,
+                     alpha: torch.Tensor, rho: torch.Tensor,
+                     dt: torch.Tensor, mode: Divergence | Density,
+                     c_s: torch.Tensor | None = None,
+                     owned: torch.Tensor | None = None) -> Rate:
+    """`dfsph_rate` as torch ops around `matvec_dot` (v -> (N,)): JAX's
+    rho_derivative (Divergence) or rho_adv_residual (Density) up to the
+    average, whose count and total are `sel.sum()` and `masked.sum()`."""
+    d = (v[:, 0] * S[:, 0] + v[:, 1] * S[:, 1] + v[:, 2] * S[:, 2]
+         - matvec_dot(v))
+    if c_s is not None:
+        d = d - c_s
+    if isinstance(mode, Divergence):
+        dr = torch.where(mode.counts < mode.min_neighbors,
+                         torch.zeros_like(d), torch.clamp(d, min=0.0))
+        val, sel, k = dr, dr > 0.0, (dr * alpha / dt) / rho
+    else:
+        dr = None
+        val = torch.clamp(rho + dt * d, min=mode.rho0)
+        sel = val != mode.rho0
+        k = ((val - mode.rho0) * alpha / mode.dt2) / rho
+    if owned is not None:
+        sel = sel & owned
+    return Rate(dr, k, torch.where(sel, val, torch.zeros_like(val)), sel)
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions
 # ---------------------------------------------------------------------------
+
+def dfsph_kick_plain(eng: CoefEngine, pos: torch.Tensor, v: torch.Tensor,
+                     k: torch.Tensor, S: torch.Tensor, dt: torch.Tensor,
+                     wk: torch.Tensor | None = None,
+                     dr: torch.Tensor | None = None,
+                     alpha: torch.Tensor | None = None,
+                     upd: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    KERNELS["dfsph_kick"].plain_calls += 1
+    return kick_composition(functools.partial(coef_matvec_plain, eng, pos),
+                            v, k, S, dt, wk, dr, alpha, upd)
+
+
+def dfsph_rate_plain(eng: CoefEngine, pos: torch.Tensor, v: torch.Tensor,
+                     S: torch.Tensor, alpha: torch.Tensor, rho: torch.Tensor,
+                     dt: torch.Tensor, mode: Divergence | Density,
+                     c_s: torch.Tensor | None = None,
+                     owned: torch.Tensor | None = None) -> Rate:
+    KERNELS["dfsph_rate"].plain_calls += 1
+    return rate_composition(
+        functools.partial(coef_matvec_dot_plain, eng, pos), v, S, alpha,
+        rho, dt, mode, c_s, owned)
+
 
 def build_coef_plain(pos: torch.Tensor, starts: torch.Tensor,
                      grid: GridSpec, h: float, m: float,

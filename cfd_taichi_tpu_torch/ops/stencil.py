@@ -145,6 +145,15 @@ KERNELS = {k.name: k for k in (
     Kernel("coef_matvec_dot", _CSRC + "coef_matvec.cu",
            "tools/perf_r5_mv3.py:66-69/72-77/97-125, "
            "cfd_taichi_tpu/ops/bandmat.py:817"),
+    # DFSPH's loop algebra in the contraction's epilogue (the kick, and the
+    # density rate with its residual's inputs): the coef engine's DFSPH
+    # loops call these in place of coef_matvec and coef_matvec_dot.
+    Kernel("dfsph_kick", _CSRC + "coef_matvec.cu",
+           "tools/perf_r5_mv3.py:66-69/72-77/97-125, "
+           "cfd_taichi_tpu/models/dfsph.py:192-193"),
+    Kernel("dfsph_rate", _CSRC + "coef_matvec.cu",
+           "tools/perf_r5_mv3.py:66-69/72-77/97-125, "
+           "cfd_taichi_tpu/models/dfsph.py:195-221"),
 )}
 
 

@@ -338,6 +338,34 @@ def coef_contraction_work(dot: bool, n: int, pairs: int, w_bytes: int,
     return Work(nbytes, ops, ops)
 
 
+def dfsph_kick_work(n: int, pairs: int, w_bytes: int, wk: bool = False,
+                    upd: bool = False) -> Work:
+    """dfsph_kick over a CSR engine: coef_matvec's contraction, whose (N,
+    3) matvec stays in registers, plus v and S in and v_out out (36 B a
+    row); with `wk` also wk, dr and alpha in and wk_out out (16 B), with
+    `upd` the mask (1 B). Per row S k + mv, its product with dt and the
+    difference (12 operations), and wk + dr alpha (2)."""
+    c = coef_contraction_work(False, n, pairs, w_bytes)
+    nbytes = c.bytes + (24 + 16 * wk + upd) * n
+    ops = c.ops + (12 + 2 * wk) * n
+    return Work(nbytes, ops, ops)
+
+
+def dfsph_rate_work(n: int, pairs: int, w_bytes: int, divergence: bool,
+                    c_s: bool = False, owned: bool = False) -> Work:
+    """dfsph_rate over a CSR engine: coef_matvec_dot's contraction, whose
+    (N,) matvec_dot stays in registers, plus S, alpha and rho in and k,
+    the masked value and sel out (29 B a row); in the divergence mode also
+    counts in and dr out (8 B), with `c_s` the contact dot (4 B), with
+    `owned` the mask (1 B). Per row v . S and d (6 operations, 7 with
+    c_s), then the divergence clamp, k and the selection (7) or the
+    predicted density, k and the selection (9)."""
+    c = coef_contraction_work(True, n, pairs, w_bytes)
+    nbytes = c.bytes + (25 + 8 * divergence + 4 * c_s + owned) * n
+    ops = c.ops + (6 + c_s + (7 if divergence else 9)) * n
+    return Work(nbytes, ops, ops)
+
+
 def scene_work(sc, pos: torch.Tensor, starts: torch.Tensor,
                pairs: int) -> dict[str, Work]:
     """Work of every kernel's call on the cell-sorted fluid `pos` of scene

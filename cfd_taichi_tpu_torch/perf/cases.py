@@ -10,9 +10,10 @@ from __future__ import annotations
 import functools
 from typing import Callable, Iterator, NamedTuple
 
+import numpy as np
 import torch
 
-from cfd_taichi_tpu_torch.models import base, pbf
+from cfd_taichi_tpu_torch.models import base, dfsph, pbf
 from cfd_taichi_tpu_torch.ops import coef
 from cfd_taichi_tpu_torch.ops import rigid as R
 from cfd_taichi_tpu_torch.ops import stencil as S
@@ -46,6 +47,13 @@ class Case(NamedTuple):
     # maps kern's or plain's output to the tensors compared, or None (all
     # of them): pbf_terms' pair list is compared row by row (`compared`)
     view: Callable | None = None
+    # DFSPH's loop kernels: the parent's composition on the same inputs
+    # (the contraction's kernel and the torch ops around it), whose bits
+    # the kernel must give, and the magnitudes of each output's terms
+    # (`fused_scales`), to which `fused_error` holds it against the plain
+    # version
+    parent: Callable | None = None
+    scales: Callable | None = None
 
 
 def compared(case: Case) -> tuple[tuple, tuple]:
@@ -205,10 +213,15 @@ def library_calls(eng: coef.CoefEngine, lanes: torch.Tensor) -> dict:
     return {"row-major": lambda: a @ rows, "column-major": lambda: a @ cols}
 
 
+# The forms of DFSPH's loop kernels that `scene_cases` yields, by storage
+DFSPH_FORMS = {"": ("", "_div", "_mask", "_mask_den"), "_bf16": ("", "_div")}
+
+
 def scene_cases(x: dict, pairs: int) -> Iterator[Case]:
     """The cases of lattice inputs `x` with `pairs` fluid pairs: the
-    stencil passes, then for f32 and bf16 storage coef_build and the
-    contraction pair on the engine it builds."""
+    stencil passes, then for f32 and bf16 storage coef_build, the
+    contraction pair and DFSPH's loop kernels (`dfsph_cases`, in the
+    forms of DFSPH_FORMS) on the engine it builds."""
     sc, p, st, k, v, rho, pr = (x[key] for key in
                                 ("sc", "p", "st", "k", "v", "rho", "pr"))
     g, h, m = sc.grid, sc.h, sc.particle_m
@@ -235,6 +248,7 @@ def scene_cases(x: dict, pairs: int) -> Iterator[Case]:
         yield Case(name, name, kern, plain, work[name])
     yield from solver_cases(p, st, g, h, m, base.walls(sc), x, work)
     off = coef.csr_offsets(S.fluid_terms(p, st, g, h, m).count)
+    dfsph = dfsph_inputs(p, st, g, h, m, rho, seed=11)
     for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         yield Case("coef_build", "coef_build" + sfx,
                    lambda d=dtype: coef.build_coef(p, st, g, h, m, off, d,
@@ -248,7 +262,187 @@ def scene_cases(x: dict, pairs: int) -> Iterator[Case]:
                        functools.partial(plain, eng, p, x[src]),
                        work[name + sfx],
                        library_calls(eng, coef_lanes(dot, p, x[src])))
+        yield from dfsph_cases(eng, p, v, k, dfsph, sfx, DFSPH_FORMS[sfx])
         del eng
+
+
+# The dt of DFSPH's loop kernels' inputs: TINY's delta_time, inside the
+# adaptive dt's range [1e-5, 1e-3] (models/dfsph.py)
+DFSPH_DT = 4e-4
+
+
+def dfsph_inputs(p, st, g, h: float, m: float, rho: torch.Tensor,
+                 seed: int) -> dict:
+    """What DFSPH's loop kernels read besides the engine, v and k, on
+    cell-sorted `p` with CSR `st`: S, the pair counts and alpha = rho /
+    (|S|^2 + qsum) from fluid_terms (as `dfsph.dense_pre_terms` makes them
+    without walls) at densities `rho`, dt = DFSPH_DT and dt^2 as 0-d
+    tensors, then with numpy from `seed` a warm-start sum wk, a rate
+    dr >= 0, a contact dot c_s of the scale of v . S for a unit v, and
+    the masks owned (90 % of the rows) and upd (95 %)."""
+    ft = S.fluid_terms(p, st, g, h, m)
+    denom = (ft.s * ft.s).sum(dim=1) + ft.qsum
+    alpha = torch.where(denom.abs() < 1e-6, torch.zeros_like(rho),
+                        rho / denom)
+    rng = np.random.default_rng(seed)
+    n = p.shape[0]
+
+    def dev(a):
+        return torch.from_numpy(a).to(p.device)
+
+    dt = torch.tensor(DFSPH_DT, dtype=torch.float32, device=p.device)
+    scale = float(ft.s.norm(dim=1).mean())
+    return dict(S=ft.s, counts=ft.count, alpha=alpha, rho=rho, dt=dt,
+                dt2=dt * dt,
+                wk=dev(rng.uniform(-1.0, 1.0, n).astype(np.float32)),
+                dr=dev(rng.uniform(0.0, 1.0, n).astype(np.float32)),
+                c_s=dev((rng.standard_normal(n) * scale).astype(np.float32)),
+                owned=dev(rng.uniform(0.0, 1.0, n) < 0.9),
+                upd=dev(rng.uniform(0.0, 1.0, n) < 0.95))
+
+
+def dfsph_cases(eng: coef.CoefEngine, p: torch.Tensor, v: torch.Tensor,
+                k: torch.Tensor, d: dict, sfx: str = "",
+                forms: tuple = ("", "_div")) -> Iterator[Case]:
+    """dfsph_kick and dfsph_rate on engine `eng` over `p`, with v, k and
+    `d` (`dfsph_inputs`), in each of `forms`: "" as the density loop calls
+    them (the kick without wk, the rate in Density mode), "_div" as the
+    divergence loop does (the kick with wk, dr and alpha, the rate in
+    Divergence mode), "_mask" as a rank of a sharded coupled step does
+    (the divergence forms with upd, and c_s and owned), "_mask_den" (the
+    density forms so). Keys are name + form + `sfx`."""
+    n, pairs, wb = p.shape[0], eng.nbr.shape[0], eng.w.element_size()
+    density = coef.Density(d["dt2"], RHO0)
+    divergence = coef.Divergence(d["counts"], dfsph.MIN_NEIGHBORS)
+    wk = (d["wk"], d["dr"], d["alpha"])
+    rate = (v, d["S"], d["alpha"], d["rho"], d["dt"])
+    mv = functools.partial(coef.coef_matvec, eng, p)
+    mvd = functools.partial(coef.coef_matvec_dot, eng, p)
+    for form in forms:
+        div, mask = form != "_mask_den" and form != "", "_mask" in form
+        kick_args = (v, k, d["S"], d["dt"]) + (wk if div else ()) + (
+            (None,) * 3 * (not div) + (d["upd"],) if mask else ())
+        rate_args = rate + ((divergence if div else density),) + (
+            (d["c_s"], d["owned"]) if mask else ())
+        yield Case("dfsph_kick", "dfsph_kick" + form + sfx,
+                   functools.partial(coef.dfsph_kick, eng, p, *kick_args),
+                   functools.partial(coef.dfsph_kick_plain, eng, p,
+                                     *kick_args),
+                   bounds.dfsph_kick_work(n, pairs, wb, div, mask),
+                   parent=functools.partial(coef.kick_composition, mv,
+                                            *kick_args),
+                   scales=functools.partial(fused_scales, "dfsph_kick", eng,
+                                            p, *kick_args))
+        yield Case("dfsph_rate", "dfsph_rate" + form + sfx,
+                   functools.partial(coef.dfsph_rate, eng, p, *rate_args),
+                   functools.partial(coef.dfsph_rate_plain, eng, p,
+                                     *rate_args),
+                   bounds.dfsph_rate_work(n, pairs, wb, div, mask, mask),
+                   parent=functools.partial(coef.rate_composition, mvd,
+                                            *rate_args),
+                   scales=functools.partial(fused_scales, "dfsph_rate", eng,
+                                            p, *rate_args))
+
+
+def _cancel(pos: torch.Tensor, sums: torch.Tensor, lanes: int) -> float:
+    """The largest |x_i| |s_i| over the first `lanes` lane sums plus the
+    largest of the others: the magnitude of a contraction's final form
+    before it cancels."""
+    return float((pos.norm(dim=1) * sums[:, :lanes].norm(dim=1)).max()
+                 + sums[:, lanes:].abs().max())
+
+
+def fused_scales(name: str, eng: coef.CoefEngine, p: torch.Tensor, *args
+                 ) -> dict:
+    """The magnitude of the terms of each output of dfsph_kick or
+    dfsph_rate called with `args`, by output: what a summation order
+    other than the kernel's can move by 1e-5 of. The kick's v_out:
+    |v| + dt (|S k| + the matvec's terms); wk_out: |wk| + |dr alpha|. The
+    rate's d: |v . S| + the matvec_dot's terms + |c_s|, which bounds dr
+    and the divergence's masked value; k: d's over dt, times alpha / rho;
+    the density's rho_adv and masked value: |rho| + dt d's."""
+    def top(t) -> float:
+        return float(t.abs().max()) if t.numel() else 0.0
+
+    if name == "dfsph_kick":
+        v, k, S_, dt, wk, dr, alpha = (args + (None,) * 3)[:7]
+        sums = coef.coef_matvec(eng, p, k, lane_sums=True)
+        h = float(dt)
+        out = {"v_out": top(v) + h * (top(S_ * k[:, None])
+                                      + _cancel(p, sums, 1))}
+        if wk is not None:
+            out["wk_out"] = top(wk) + top(dr * alpha)
+        return out
+    v, S_, alpha, rho, dt, mode, c_s = (args + (None,))[:7]
+    sums = coef.coef_matvec_dot(eng, p, v, lane_sums=True)
+    h = float(dt)
+    dd = (float((v.norm(dim=1) * S_.norm(dim=1)).max()) + _cancel(p, sums, 3)
+          + (top(c_s) if c_s is not None else 0.0))
+    k = dd * top(alpha / rho) / h
+    if isinstance(mode, coef.Divergence):
+        return {"dr": dd, "k": k, "masked": dd}
+    val = top(rho) + h * dd
+    return {"k": k, "masked": val, "threshold": mode.rho0}
+
+
+def fused_outputs(name: str, out) -> dict:
+    """dfsph_kick's or dfsph_rate's outputs by name, those it gave."""
+    names = ("v_out", "wk_out") if name == "dfsph_kick" else \
+        coef.Rate._fields
+    return {key: t for key, t in zip(names, out) if t is not None}
+
+
+def fused_error(name: str, got, want, scales: dict, tol: float) -> dict:
+    """dfsph_kick's or dfsph_rate's outputs against the plain version's,
+    which sums the contraction in another order: each float output to
+    `tol` of its `scales` entry (`fused_scales`). The rate's selection
+    may differ only on rows whose value sits within that of the average's
+    threshold (0, or rho0 in the density mode), where the masked value
+    is then compared with the threshold instead; `flips` counts them.
+    Returns the largest error, the flips and `ok`."""
+    a, b = fused_outputs(name, got), fused_outputs(name, want)
+    row = dict(max_abs_err=0.0, flips=0, ok=a.keys() == b.keys())
+    flip = None
+    if "sel" in a:
+        flip = a["sel"] != b["sel"]
+        row["flips"] = int(flip.sum())
+        edge = scales.get("threshold", 0.0)
+        bar = tol * scales["masked"]
+        near = ((a["masked"] - edge).abs() <= bar) | ~a["sel"]
+        near &= ((b["masked"] - edge).abs() <= bar) | ~b["sel"]
+        row["ok"] &= bool(near[flip].all())
+    for key, t in a.items():
+        if key == "sel":
+            continue
+        err = (t - b[key]).abs()
+        if key == "masked" and flip is not None:
+            err = torch.where(flip, torch.zeros_like(err), err)
+        e = float(err.max()) if err.numel() else 0.0
+        row[f"err_{key}"] = e
+        row["max_abs_err"] = max(row["max_abs_err"], e)
+        row["ok"] &= e <= tol * scales[key]
+    return row
+
+
+def bits(out) -> tuple:
+    """A call's tensors as integers of their width (f32 as int32, bool as
+    uint8), so that torch.equal holds them bit for bit: -0 against +0 and
+    NaN payloads too."""
+    def raw(t):
+        if t.dtype == torch.float32:
+            return t.view(torch.int32)
+        return t.view(torch.uint8) if t.dtype == torch.bool else t
+    return tuple(None if t is None else raw(t) for t in tensors(out))
+
+
+def bit_equal(a, b) -> bool:
+    """Whether two calls' outputs are the same bits, tensor by tensor, and
+    None in the same places."""
+    x, y = bits(a), bits(b)
+    return len(x) == len(y) and all(
+        (u is None and w is None) or (u is not None and w is not None
+                                      and torch.equal(u, w))
+        for u, w in zip(x, y))
 
 
 def solver_cases(p, st, g, h: float, m: float, walls: S.Walls, x: dict,

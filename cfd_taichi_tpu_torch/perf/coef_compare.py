@@ -2,17 +2,23 @@
 on one card:
 
     python -m cfd_taichi_tpu_torch.perf.coef_compare \\
-        [--kernel coef_matvec|coef_build|viscosity|fluid_terms|
+        [--kernel coef_matvec|dfsph|coef_build|viscosity|fluid_terms|
                   boundary_terms|matvec|wcsph_forces|pcisph_predict|
                   pbf|rigid_side|rigid_gate] \\
         [--variant NAME=PATH ...] [--bit-equal NAME] [--out PATH]
 
 `--kernel` picks the source: csrc/coef_matvec.cu (the default, both
-contractions), csrc/coef_build.cu, csrc/viscosity.cu, csrc/fluid_terms.cu,
-csrc/boundary_terms.cu, csrc/matvec.cu (both recompute products, matvec
-and matvec_dot), csrc/wcsph_forces.cu or csrc/pcisph_predict.cu (both
-forms of PCISPH's predicted density with walls: the stream form over
-the inputs' pair store, "list", and the stencil form, "stencil"; and
+contractions; for `dfsph`, DFSPH's loop kernels dfsph_kick and dfsph_rate
+in the forms the density loop ("kick", "rate") and the divergence loop
+("kick_div", "rate_div") call them, beside the two contractions alone,
+in f32 and bf16; a source from before them runs the contraction and the
+torch ops around it, the composition DFSPH ran, which `--bit-equal`
+holds the kernels to), csrc/coef_build.cu, csrc/viscosity.cu,
+csrc/fluid_terms.cu, csrc/boundary_terms.cu, csrc/matvec.cu (both
+recompute products, matvec and matvec_dot), csrc/wcsph_forces.cu or
+csrc/pcisph_predict.cu (both forms of PCISPH's predicted density with
+walls: the stream form over the inputs' pair store, "list", and the
+stencil form, "stencil"; and
 both without walls, "list_fluid" and "stencil_fluid") or, for `pbf`,
 csrc/pbf_terms.cu, csrc/pbf_lambda.cu and csrc/pbf_xsph.cu together
 (PBF's constraint pass in one launch, "constraint", without walls,
@@ -73,6 +79,14 @@ A source from before boundary_terms_launch took the per-cell table
     END
     python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel \\
         boundary_terms --variant before=build/before --bit-equal before
+
+DFSPH's loop kernels beside the composition of the parent commit:
+
+    mkdir -p build/parent
+    git show d3e23c7:cfd_taichi_tpu_torch/csrc/coef_matvec.cu \\
+        > build/parent/coef_matvec.cu
+    python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel dfsph \\
+        --variant parent=build/parent/coef_matvec.cu --bit-equal parent
 
 The predicted density's stream form with one lane a row (its terms
 added in the stencil form's order) beside the tree's:
@@ -280,6 +294,7 @@ from cfd_taichi_tpu_torch.perf import cases, inputs, timing
 COMPARE_DIR = _build.BUILD_DIR.parent / "compare"
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 SOURCES = {"coef_matvec": ("coef_matvec.cu",),
+           "dfsph": ("coef_matvec.cu",),
            "coef_build": ("coef_build.cu",), "viscosity": ("viscosity.cu",),
            "fluid_terms": ("fluid_terms.cu",),
            "boundary_terms": ("boundary_terms.cu",),
@@ -406,6 +421,47 @@ def contraction_entries(engs: dict, pos, k, v) -> list[Entry]:
     return out
 
 
+def fused_call(case: cases.Case):
+    """DFSPH's loop kernel of `case` from the library in use, or, for a
+    source from before it, the parent's composition: the contraction's
+    kernel and the torch ops around it."""
+    entry = f"{case.name}_launch"
+    if getattr(_build.library().lib, entry, None) is not None:
+        return case.kern()
+    return case.parent()
+
+
+def dfsph_entries(x: dict, p, st, g, h: float, m: float) -> list[Entry]:
+    """dfsph_kick and dfsph_rate (`fused_call`) on f32 and bf16 engines of
+    `p`, as the density loop and the divergence loop call them
+    (perf/cases.dfsph_cases), each checked against its plain version
+    (cases.fused_error: the largest error over its scale, inf where the
+    selection differs away from the threshold), and the two contractions
+    alone on the same engines. Timed by all the kernels of a call."""
+    off = coef.csr_offsets(S.fluid_terms(p, st, g, h, m).count)
+    d = cases.dfsph_inputs(p, st, g, h, m, x["rho"], seed=11)
+    out = []
+    for dname, dtype in DTYPES.items():
+        eng = coef.build_coef(p, st, g, h, m, off, dtype)
+        for case in cases.dfsph_cases(eng, p, x["v"], x["k"], d):
+            want, scales = case.plain(), case.scales()
+
+            def check(case=case, want=want, scales=scales):
+                e = cases.fused_error(case.name, fused_call(case), want,
+                                      scales, TOL)
+                if not e["ok"]:
+                    return float("inf")
+                return max(e[key] / max(scales[key[4:]], 1e-30)
+                           for key in e if key.startswith("err_"))
+            label = case.key.replace("dfsph_", "")
+            out.append(Entry(f"{dname}/{label}", None,
+                             functools.partial(fused_call, case), check,
+                             lambda o: [t for t in cases.bits(o)
+                                        if t is not None]))
+        out += contraction_entries({dname: eng}, p, x["k"], x["v"])
+    return out
+
+
 def entries(kernel: str, x: dict) -> list[Entry]:
     """The kernel's calls on inputs `x` (perf/inputs.py), each with its
     check; the coef kernels once per storage dtype. Engines and offsets
@@ -465,6 +521,8 @@ def entries(kernel: str, x: dict) -> list[Entry]:
         return out
     if kernel == "pbf":
         return pbf_entries(x, p, st, g, h, m)
+    if kernel == "dfsph":
+        return dfsph_entries(x, p, st, g, h, m)
     if kernel == "rigid_side":
         return rigid_side_entries(x)
     if kernel == "rigid_gate":

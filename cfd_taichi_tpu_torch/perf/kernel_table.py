@@ -2,6 +2,7 @@
 their loop engines, measured on one card:
 
     python -m cfd_taichi_tpu_torch.perf.kernel_table [--out PATH]
+        [--profiles SOLVER/TAG/ENGINE ...]
 
 1. For every hand-written kernel, on the jittered seed lattices of
    breaking_dam_30k and breaking_dam_1m (perf/inputs.py, seed 7): the
@@ -22,9 +23,13 @@ their loop engines, measured on one card:
    WCSPH and PBF, which have no loop engine; IISPH at 30k and PCISPH at
    30k and 1M on the coef f32 and recompute engines in the same
    alternation. Last, 3 profiled steps of each run in `PROFILES` (PCISPH
-   and PBF at 1M among them) for device time by kernel and the busy share
-   (device time over wall time); for WCSPH also the record build of
-   wcsph_forces on the step's state (CUDA events, 20 calls).
+   and PBF at 1M among them) for device time by kernel, every kernel by
+   name, the device ms and kernels a step split into the hand-written
+   kernels and the rest (PyTorch's own: the loops' algebra, sort, scans,
+   copies), and the busy share (device time over wall time); for WCSPH
+   also the record build of wcsph_forces on the step's state (CUDA
+   events, 20 calls). `--profiles` runs only these profiles, of the runs
+   it names (e.g. dfsph/1m/coef_f32).
 3. The coupled DFSPH step (a fluid step and a rigid step) on
    configs/torus_flush.json as written and on a body in water
    (perf/inputs.body_scene: breaking_dam_30k's block with a ~3,200-voxel
@@ -234,11 +239,12 @@ def coupled_profiles(res: dict, sims: dict) -> None:
                   for name, (c, t) in top))
 
 
-def step_profiles(res: dict) -> None:
-    """3 profiled steps per run of `PROFILES` (1M steps 6-8, 30k steps
-    1-3): device time by kernel and the busy share."""
+def step_profiles(res: dict, runs=PROFILES) -> None:
+    """3 profiled steps per run of `runs` (1M steps 6-8, 30k steps 1-3):
+    device time by kernel, split into the hand-written kernels and the
+    rest, and the busy share."""
     sims: dict = {}
-    for solver, tag, engine in PROFILES:
+    for solver, tag, engine in runs:
         if (solver, tag) not in sims:
             sims.clear()
             torch.cuda.empty_cache()
@@ -251,15 +257,29 @@ def step_profiles(res: dict) -> None:
             found, wall = timing.profile_kernels(
                 lambda: [sim.step() for _ in range(3)])
         busy = sum(t for _, t in found.values()) / 1e6 / wall
-        top = sorted(found.items(), key=lambda kv: -kv[1][1])[:12]
+        ranked = sorted(found.items(), key=lambda kv: -kv[1][1])
+        ours = [(c, t) for name, (c, t) in ranked if name in S.KERNELS]
+        rest = [(c, t) for name, (c, t) in ranked if name not in S.KERNELS]
         res.setdefault("profiles", {})[f"{solver}/{tag}/{engine}"] = dict(
-            busy=busy, wall_s=wall, kernels={
-                name: dict(launches_per_step=c / 3, us_per_launch=t / c)
-                for name, (c, t) in top})
+            busy=busy, wall_s=wall,
+            device_ms_per_step=sum(t for _, t in found.values()) / 3e3,
+            kernels_per_step=sum(c for c, _ in found.values()) / 3,
+            handwritten_ms_per_step=sum(t for _, t in ours) / 3e3,
+            handwritten_per_step=sum(c for c, _ in ours) / 3,
+            other_ms_per_step=sum(t for _, t in rest) / 3e3,
+            other_per_step=sum(c for c, _ in rest) / 3,
+            kernels={name: dict(launches_per_step=c / 3, us_per_launch=t / c)
+                     for name, (c, t) in ranked})
+        row = res["profiles"][f"{solver}/{tag}/{engine}"]
         print(f"[profile] {solver} {tag} {engine}: busy {busy:.3f} of "
-              f"{wall:.3f} s; " + "; ".join(
+              f"{wall:.3f} s; device {row['device_ms_per_step']:.3f} ms a "
+              f"step in {row['kernels_per_step']:.1f} kernels: hand-written "
+              f"{row['handwritten_ms_per_step']:.3f} ms in "
+              f"{row['handwritten_per_step']:.1f}, the rest "
+              f"{row['other_ms_per_step']:.3f} ms in "
+              f"{row['other_per_step']:.1f}; " + "; ".join(
                   f"{name} {c / 3:.1f} x {t / c:.1f} us"
-                  for name, (c, t) in top))
+                  for name, (c, t) in ranked[:12]))
         if solver == "wcsph":
             # wcsph_forces' record build, once a step, at the step's size
             f = sim.state.fluid
@@ -274,6 +294,9 @@ def step_profiles(res: dict) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/perf/kernel_table.json")
+    ap.add_argument("--profiles", nargs="+", default=None,
+                    metavar="SOLVER/TAG/ENGINE",
+                    help="only the step profiles of these runs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA card")
@@ -281,6 +304,11 @@ def main() -> int:
     print(f"[table] card: {res['card']}")
     lib = _build.library()
     print(f"[table] kernels built in {lib.build_seconds:.1f} s")
+    if args.profiles:
+        step_profiles(res, [tuple(run.split("/")) for run in args.profiles])
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(res, indent=1))
+        return 0
     engine_rates(res)
     coupled = coupled_rates(res)
     for tag, cfg_name in CONFIGS:

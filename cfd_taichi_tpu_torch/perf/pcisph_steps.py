@@ -1,10 +1,10 @@
-"""PCISPH's (or PBF's) step from rest on one card, on breaking_dam_30k and
-breaking_dam_1m with the default (stored-coefficient, f32) engine, or the
-coupled frames of a body in water: the numbers by which two trees of the
-port are compared in one call.
+"""PCISPH's (or PBF's, or DFSPH's) step from rest on one card, on
+breaking_dam_30k and breaking_dam_1m with the default (stored-coefficient,
+f32) engine, or the coupled frames of a body in water: the numbers by
+which two trees of the port are compared in one call.
 
     PYTHONPATH=<tree> python cfd_taichi_tpu_torch/perf/pcisph_steps.py \\
-        --label NAME [--solver pcisph|pbf|coupled] [--out PATH]
+        --label NAME [--solver pcisph|pbf|dfsph|coupled] [--out PATH]
 
 With --solver coupled the cells are frames (a fluid step and a rigid
 step) from rest of the half-immersed torus (perf/inputs.torus_immersed,
@@ -27,8 +27,9 @@ around work that ends in a synchronize (steps/s, iterations a step, host
 reads a step: the loops' trips and the reads outside them, peak device
 memory, and a digest of the positions after step 15, equal between two
 trees whose steps are bit for bit), then 3 profiled steps (16-18): device
-ms a step, busy share, and each kernel's launches a step and device us a
-launch (torch.profiler). With --solver pbf also the rows with lambda !=
+ms a step, device kernels a step (graph replays included), busy share,
+and each kernel's launches a step and device us a launch
+(torch.profiler). With --solver pbf also the rows with lambda !=
 0 in each timed step, counted on a replay of steps 1-15 from rest (its
 positions' digest equal to the timed run's), and digests of PBF's three
 pair passes on the scene's jittered lattice (perf/inputs.lattice_inputs,
@@ -183,6 +184,8 @@ def measure(sim, advance) -> dict:
         lambda: [advance() for _ in range(PROFILED)])
     device_ms = sum(t for _, t in found.values()) / 1e3 / PROFILED
     return dict(steps_per_sec=rate, iters=[float(d[0]) for d in diags],
+                kernels_per_step=sum(c for c, _ in found.values())
+                / PROFILED,
                 diags=[d.tolist() for d in diags],
                 launches_per_step=launches, reads_per_step=reads,
                 reads_outside_trips=outside,
@@ -198,7 +201,8 @@ def measure(sim, advance) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--label", required=True)
-    ap.add_argument("--solver", choices=("pcisph", "pbf", "coupled"),
+    ap.add_argument("--solver", choices=("pcisph", "pbf", "dfsph",
+                                         "coupled"),
                     default="pcisph")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -226,7 +230,8 @@ def main() -> int:
               f"steps/s, iterations {row['iters']}, {row['reads_per_step']} "
               f"reads a step, peak {row['peak_gib']:.3f} GiB, positions "
               f"{row['pos_digest']}, device "
-              f"{row['device_ms_per_step']:.4f} ms a step, busy "
+              f"{row['device_ms_per_step']:.4f} ms a step in "
+              f"{row['kernels_per_step']:.1f} kernels, busy "
               f"{row['busy']:.3f}; " + "; ".join(
                   f"{name} {k['launches_per_step']:.1f} x "
                   f"{k['us_per_launch']:.2f} us" for name, k in top))

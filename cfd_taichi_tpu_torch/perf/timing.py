@@ -11,6 +11,27 @@ import time
 import torch
 
 _KERNEL = re.compile(r"\b(\w+)_kernel\b")
+# The operation inside a PyTorch kernel's name (its functor or the
+# function that launched it), e.g. MulFunctor, where_kernel_impl,
+# sum_functor, direct_copy_kernel_cuda; the launchers' own wrappers skipped
+_TORCH_OP = re.compile(r"[A-Za-z]\w*?(?:Functor|_functor|_impl|_cuda)\w*")
+_WRAPPERS = {"BinaryFunctor", "gpu_kernel_impl", "gpu_kernel_impl_nocast",
+             "func_wrapper_t", "AUnaryFunctor", "BUnaryFunctor"}
+
+
+def kernel_name(key: str) -> str:
+    """A device kernel's name in a profile: the `<name>_kernel` stem of a
+    kernel of this package; for one of PyTorch's, that stem (the launcher,
+    e.g. vectorized_elementwise) and the operation it ran, so that the
+    loops' torch ops tell apart; else the first 60 characters."""
+    m = _KERNEL.search(key)
+    if not m:
+        return key[:60]
+    if "at::native" not in key:
+        return m.group(1)
+    ops = [op for op in _TORCH_OP.findall(key[m.end():])
+           if op not in _WRAPPERS]
+    return f"{m.group(1)}:{ops[0]}" if ops else m.group(1)
 
 
 def card() -> str:
@@ -63,8 +84,8 @@ def _device_us(evt) -> float:
 
 def profile_kernels(fn, host: dict | None = None) -> tuple[dict, float]:
     """Run `fn` under torch.profiler. Returns ({kernel: (launches, device
-    us)} for every device kernel, named by its `<name>_kernel` stem where
-    it has one, and the wall seconds of the window). Where `host` holds
+    us)} for every device kernel, named by `kernel_name`, and the wall
+    seconds of the window). Where `host` holds
     names of CUDA runtime calls, each gets its (calls, host us) in the
     window."""
     from torch.autograd import DeviceType
@@ -85,7 +106,7 @@ def profile_kernels(fn, host: dict | None = None) -> tuple[dict, float]:
         m = _KERNEL.search(evt.key)
         if us <= 0.0 or (evt.device_type != DeviceType.CUDA and not m):
             continue
-        name = m.group(1) if m else evt.key[:60]
+        name = kernel_name(evt.key)
         count, total = out.get(name, (0, 0.0))
         out[name] = (count + evt.count, total + us)
     return out, wall

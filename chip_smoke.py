@@ -25,7 +25,18 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 largest |x_i| |s_i| (it cancels). The coef contraction
                 also runs on ragged CSR engines (rows of 0, 1, G-1, G+1 and
                 100+ pairs for every lane-group width G in 4-32, random
-                sources, 1000 and 1003 rows), f32 and bf16. coef_build
+                sources, 1000 and 1003 rows), f32 and bf16. DFSPH's loop
+                kernels, dfsph_kick and dfsph_rate (the contraction with
+                the loops' algebra in its epilogue), run at 30k, 1M and
+                on the clustered cloud, f32 and bf16, in the forms the
+                density and divergence loops call them (f32 also with a
+                rank's masks and a contact dot; perf/cases.dfsph_cases):
+                each output to 1e-5 of its terms' magnitude against the
+                plain version (perf/cases.fused_error: the rate's
+                selection may differ only where its value sits that close
+                to the average's threshold, the rows printed), and bit for
+                bit against the parent's composition (the contraction's
+                kernel, then the torch ops) and over two launches. coef_build
                 (f32 and bf16, nbr exactly), viscosity, matvec, matvec_dot,
                 wcsph_forces, fluid_terms (count exactly) and
                 boundary_terms also run on a clustered cloud
@@ -119,27 +130,33 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 ceil(n / U) trips, one capture where a second trip runs)
                 and on 20 steps of breaking_dam_30k as DFSPH at the scene's
                 U, at another U and with eager loops: positions, oid and
-                diag bit for bit, coef_matvec launched 1 + trips x U times
-                a step; prints host reads (trips), captures and their host
+                diag bit for bit, dfsph_kick and dfsph_rate launched 1 +
+                trips x U times a step each and the contraction alone
+                never; prints host reads (trips), captures and their host
                 ms a step. Every later phase counts a loop's launches as
                 trips x U of its sub-iterations, masked ones included
                 (`looped`), where it counts them.
 6. main       - configs/breaking_dam_30k.json as DFSPH, 100 steps from rest
                 through Simulation.step on the default engine (stored
                 coefficients, f32). fluid_terms, boundary_terms, viscosity,
-                coef_build, coef_matvec and coef_matvec_dot must have
-                launched and no plain version may have run; positions
+                coef_build, dfsph_kick and dfsph_rate must have launched
+                (the last two 1 + trips x U times a step each, and
+                coef_matvec, coef_matvec_dot, matvec and matvec_dot never)
+                and no plain version may have run; positions
                 finite; the last step's density residual at most 1.0 (0.1%
                 rho0, the loop's threshold); the last residuals and the mean
                 density iterations a step, as printed, the ones the kernels
                 gave before (DFSPH_30K).
 7. recompute  - the same 30k run with the coef budget at 0: the recompute
-                engine's matvec and matvec_dot must launch, residual <= 1.0,
-                diagnostics as in main (DFSPH_30K); then breaking_dam_1m
+                engine's matvec and matvec_dot must launch (coef_build,
+                the contraction and dfsph_kick / dfsph_rate never),
+                residual <= 1.0, diagnostics as in main (DFSPH_30K); then
+                breaking_dam_1m
                 for 15 steps on it.
 8. scale      - configs/breaking_dam_1m.json as DFSPH on the default
-                engine, steps 1-5 and 6-15: coef kernels launched, finite,
-                last density residual <= 1.0.
+                engine, steps 1-5 and 6-15: coef kernels launched (dfsph_kick
+                and dfsph_rate as in main), finite, last density residual
+                <= 1.0.
 9. pcisph     - breaking_dam_30k as PCISPH, steps 1-100 from rest, and
                 breaking_dam_1m as PCISPH, steps 6-15, on the scenes that
                 main and scale built: fluid_terms, boundary_terms,
@@ -158,7 +175,8 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 read a step (the pair list's size), printed with the peak
                 device memory; finite; inside the box +- 2r.
 11. scale-bf16 - 1M and 30k with bf16 coefficient storage: iterations and
-                residual printed, positions finite.
+                residual printed, positions finite, dfsph_kick and
+                dfsph_rate launched as in main.
 12. wcsph     - breaking_dam_30k as WCSPH, steps 1-100 from rest, and
                 breaking_dam_1m as WCSPH, steps 6-15: fluid_terms,
                 boundary_terms and wcsph_forces launched once a step and
@@ -293,13 +311,19 @@ TINY = {
 }
 CONFIGS = (("30k", "breaking_dam_30k.json"), ("1m", "breaking_dam_1m.json"))
 CLUSTERED_N = 100_000
-# Kernels each run must launch (and no plain version may run).
+# Kernels each run must launch (and no plain version may run). DFSPH's
+# loops on the coef engine run the contraction with their algebra in its
+# epilogue (dfsph_kick, dfsph_rate), IISPH's and PCISPH's the contraction
+# alone.
 COEF_PATH = ("fluid_terms", "boundary_terms", "viscosity", "coef_build",
-             "coef_matvec", "coef_matvec_dot")
+             "dfsph_kick", "dfsph_rate")
+IISPH_COEF_PATH = COEF_PATH[:4] + ("coef_matvec", "coef_matvec_dot")
+# The kernels that DFSPH's coef-engine loops do not launch
+DFSPH_IDLE = ("coef_matvec", "coef_matvec_dot", "matvec", "matvec_dot")
 RECOMPUTE_PATH = ("fluid_terms", "boundary_terms", "viscosity", "matvec",
                   "matvec_dot")
 WCSPH_PATH = ("fluid_terms", "boundary_terms", "wcsph_forces")
-PCISPH_PATH = COEF_PATH[:5] + ("pcisph_predict_rho_list",)
+PCISPH_PATH = IISPH_COEF_PATH[:5] + ("pcisph_predict_rho_list",)
 PCISPH_RECOMPUTE_PATH = RECOMPUTE_PATH[:4] + ("pcisph_predict_rho",)
 PBF_PATH = ("pbf_terms", "pbf_lambda", "pbf_xsph")
 # The kernels that must repeat bit for bit over two launches in [kernels]
@@ -365,7 +389,7 @@ COUPLING_DEMO_SIZE = (55_200, 3_200)
 RIGID_WALK_FRAMES = 3
 # [rigid]: the solver's own pair kernels, which each coupled run launches
 SOLVER_PATH = {"dfsph": COEF_PATH, "pcisph": PCISPH_PATH,
-               "iisph": COEF_PATH, "wcsph": WCSPH_PATH}
+               "iisph": IISPH_COEF_PATH, "wcsph": WCSPH_PATH}
 # [wcsph]: the density range after the run, as printed (%.2f), that the
 # kernels gave before; the same arithmetic in the same order repeats it.
 WCSPH_RHO = {"30k": ("293.99", "693.86"), "1m": ("289.52", "684.12")}
@@ -479,10 +503,37 @@ def compare_contraction(tag: str, got_sums, want_sums, got, want, pos,
     return err
 
 
+def check_fused(case, torch) -> float:
+    """dfsph_kick or dfsph_rate: against its plain version, each output to
+    1e-5 of its terms' magnitude (perf/cases.fused_error; the rate's
+    selection may differ only where the value sits that close to the
+    average's threshold), and bit for bit against the parent's composition
+    on the same inputs (the contraction's kernel and the torch ops) and
+    over two launches. Its max_abs_err against the plain version."""
+    from cfd_taichi_tpu_torch.perf import cases
+
+    got = case.kern()
+    e = cases.fused_error(case.name, got, case.plain(), case.scales(), TOL)
+    errs = "  ".join(f"{k[4:]} {v:.3e}" for k, v in e.items()
+                     if k.startswith("err_"))
+    parent = cases.bit_equal(got, case.parent())
+    again = cases.bit_equal(got, case.kern())
+    n = case.kern.args[1].shape[0]
+    print(f"    {case.key}: against plain {errs}; selection differs on "
+          f"{e['flips']} of {n} rows (at the threshold); bit-equal to the "
+          f"parent's composition {parent}, over two launches {again}")
+    check(e["ok"], f"{case.key}: against plain {e}")
+    check(parent, f"{case.key}: not bit-equal to the parent's composition")
+    check(again, f"{case.key}: two launches differ")
+    return e["max_abs_err"]
+
+
 def check_case(case, pos, torch) -> float:
     """Compare a case's kernel with its plain version; its max_abs_err."""
     from cfd_taichi_tpu_torch.perf import cases
 
+    if case.parent is not None:
+        return check_fused(case, torch)
     if case.name == "coef_build":
         return check_build(case.key, case.kern(), case.plain())
     if case.name in ("coef_matvec", "coef_matvec_dot"):
@@ -521,11 +572,12 @@ def ragged_checks(torch) -> None:
 
 
 def clustered_checks(torch, results: dict) -> None:
-    """coef_build (f32 and bf16), viscosity, matvec, matvec_dot,
-    wcsph_forces, fluid_terms, boundary_terms and the PCISPH and PBF
-    kernels on the clustered cloud, kernel against plain: a blob of
-    ~200 particles a cell, empty cells, pairs at exactly r = h on cell
-    faces, particles clamped into edge cells; boundary_terms over the
+    """coef_build (f32 and bf16), dfsph_kick and dfsph_rate (in f32 and
+    bf16; also bit for bit against the parent's composition), viscosity,
+    matvec, matvec_dot, wcsph_forces, fluid_terms, boundary_terms and the
+    PCISPH and PBF kernels on the clustered cloud, kernel against plain:
+    a blob of ~200 particles a cell, empty cells, pairs at exactly r = h
+    on cell faces, particles clamped into edge cells; boundary_terms over the
     cloud's boundary set, whose per-cell table of boundary particles near
     the wrapper makes itself here (perf/inputs.py). wcsph_forces is also
     timed there (CUDA events, its record build included)."""
@@ -547,6 +599,17 @@ def clustered_checks(torch, results: dict) -> None:
         check_build(f"coef_build clustered {dtype}",
                     coef.build_coef(p, st, g, h, m, off, dtype),
                     coef.build_coef_plain(p, st, g, h, m, off, dtype))
+    d = cases.dfsph_inputs(p, st, g, h, m, x["rho"], seed=13)
+    for dtype, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        eng = coef.build_coef(p, st, g, h, m, off, dtype)
+        print(f"[kernels] clustered cloud: DFSPH's loop kernels, {dtype} "
+              f"storage")
+        for case in cases.dfsph_cases(eng, p, x["v"], x["k"], d, sfx,
+                                      cases.DFSPH_FORMS[sfx]):
+            results.setdefault(case.name, {})[
+                "max_abs_err_clustered" + case.key[len(case.name):]] = \
+                check_fused(case, torch)
+        del eng
     compare("viscosity clustered",
             S.viscosity(p, st, g, h, m, x["v"], x["rho"], **cases.VISC),
             S.viscosity_plain(p, st, g, h, m, x["v"], x["rho"], **cases.VISC),
@@ -988,9 +1051,10 @@ def phase_loops(torch, results: dict) -> None:
     breaking_dam_30k as DFSPH on the coef f32 engine, LOOP_STEPS steps from
     rest, at the scene's U, at U = 1 (4 where the scene's is 1) and with
     eager loops at the scene's U: positions, oid and diag bit for bit,
-    coef_matvec launched 1 + trips x U times a step (the warm start and
-    each loop sub-iteration, masked ones included). Prints the captures,
-    their host ms and the host reads (trips) a step."""
+    dfsph_kick and dfsph_rate each launched 1 + trips x U times a step
+    (the warm start or the first rate, and each loop sub-iteration, masked
+    ones included), coef_matvec and coef_matvec_dot never. Prints the
+    captures, their host ms and the host reads (trips) a step."""
     from cfd_taichi_tpu_torch import Simulation
     from cfd_taichi_tpu_torch.models import dfsph
     from cfd_taichi_tpu_torch.ops import loops, stencil
@@ -1056,15 +1120,20 @@ def phase_loops(torch, results: dict) -> None:
             wall = time.perf_counter() - t0
         diags = [d.tolist() for d in diags]
         want = LOOP_STEPS + looped(diags, (0, 2), u)
-        mv = stencil.KERNELS["coef_matvec"].launches
+        got = {name: stencil.KERNELS[name].launches
+               for name in ("dfsph_kick", "dfsph_rate", "coef_matvec",
+                            "coef_matvec_dot")}
         print(f"[loops] DFSPH 30k {tag}: {LOOP_STEPS / wall:.2f} steps/s; a "
               f"step {graphs.trips / LOOP_STEPS:.2f} host reads (trips), "
               f"{graphs.captures / LOOP_STEPS:.2f} captures, "
               f"{graphs.capture_s * 1e3 / LOOP_STEPS:.3f} ms capturing "
               f"({graphs.instantiate_s * 1e3 / LOOP_STEPS:.3f} ms in "
-              f"capture_end); coef_matvec {mv} launches (want {want})")
-        check(mv == want, f"loops: {tag}: coef_matvec launched {mv} times, "
-              f"not {want}")
+              f"capture_end); launches {got} (want {want} of dfsph_kick "
+              f"and dfsph_rate, 0 of the contraction alone)")
+        check(got == dict(dfsph_kick=want, dfsph_rate=want, coef_matvec=0,
+                          coef_matvec_dot=0),
+              f"loops: {tag}: launches {got}, want {want} of dfsph_kick and "
+              f"dfsph_rate")
         check(graphs.trips == sum(loop_trips(d[c], u) for d in diags
                                   for c in (0, 2)),
               f"loops: {tag}: {graphs.trips} trips")
@@ -1166,7 +1235,7 @@ def drive(sim, tag: str, windows, path, torch) -> dict:
         check(launches > 0 or name not in path,
               f"{tag}: {name} never launched")
     check_state(sim, tag)
-    return dict(steps_per_sec=rates, last_diag=diags[-1],
+    return dict(steps=done, steps_per_sec=rates, last_diag=diags[-1],
                 max_diag=[max(col) for col in zip(*diags)],
                 mean_diag=[statistics.mean(col) for col in zip(*diags)],
                 total_diag=[sum(col) for col in zip(*diags)],
@@ -1188,6 +1257,18 @@ def check_dfsph_30k(tag: str, run: dict) -> None:
           f"{tag}: 30k diagnostics {got}, not {DFSPH_30K[tag]}")
 
 
+def dfsph_launches(tag: str, run: dict) -> None:
+    """A DFSPH run on the coef engine launched dfsph_kick and dfsph_rate
+    1 + trips x U times a step each (the warm start or the first rate, and
+    every loop sub-iteration, masked ones included), and neither the
+    contraction alone nor the recompute kernels."""
+    want = dict.fromkeys(("dfsph_kick", "dfsph_rate"),
+                         run["steps"] + sum(run["looped"]))
+    want.update(dict.fromkeys(DFSPH_IDLE, 0))
+    got = {name: run["launches"][name] for name in want}
+    check(got == want, f"{tag}: launches {got}, want {want}")
+
+
 def phase_main(torch, sims: dict, results: dict) -> None:
     from cfd_taichi_tpu_torch import Simulation
     from cfd_taichi_tpu_torch.perf import inputs
@@ -1195,9 +1276,7 @@ def phase_main(torch, sims: dict, results: dict) -> None:
     sim = sims["30k"] = Simulation(
         inputs.solver_config("breaking_dam_30k.json"), device="cuda")
     run = drive(sim, "main", [100], COEF_PATH, torch)
-    for name in ("matvec", "matvec_dot"):
-        check(run["launches"][name] == 0,
-              f"main: recompute {name} launched on the coef engine")
+    dfsph_launches("main", run)
     tele = sim.telemetry()
     print(f"[main] telemetry {json.dumps(tele)}")
     check(tele["nan_particles"] == 0, "main: NaN particles")
@@ -1230,7 +1309,8 @@ def phase_recompute(torch, sims: dict, results: dict) -> None:
         residual = run["last_diag"][3]
         check(residual <= 1.0, f"recompute: density residual {residual}")
         check_dfsph_30k("recompute", run)
-        for name in ("coef_build", "coef_matvec", "coef_matvec_dot"):
+        for name in ("coef_build", "coef_matvec", "coef_matvec_dot",
+                     "dfsph_kick", "dfsph_rate"):
             check(run["launches"][name] == 0,
                   f"recompute: {name} launched with a coef budget of 0")
         for name in ("matvec", "matvec_dot"):
@@ -1243,6 +1323,7 @@ def phase_recompute(torch, sims: dict, results: dict) -> None:
 
 def phase_scale(torch, sims: dict, results: dict) -> None:
     run = drive(one_million(torch, sims), "scale", [5, 10], COEF_PATH, torch)
+    dfsph_launches("scale", run)
     residual = run["last_diag"][3]
     check(residual <= 1.0, f"scale: density residual {residual} > 1.0")
     results["_runs"]["1m_coef_f32"] = run
@@ -1339,11 +1420,13 @@ def phase_scale_bf16(torch, sims: dict, results: dict) -> None:
     with engine(dtype=torch.bfloat16):
         results["_runs"]["1m_coef_bf16"] = drive(
             one_million(torch, sims), "scale-bf16", [5, 10], COEF_PATH, torch)
+        dfsph_launches("scale-bf16 1m", results["_runs"]["1m_coef_bf16"])
         # Free the 1M state, so that the 30k run's peak memory is its own.
         del sims["1m"]
         torch.cuda.empty_cache()
         results["_runs"]["30k_coef_bf16"] = drive(
             sims["30k"], "scale-bf16", [100], COEF_PATH, torch)
+        dfsph_launches("scale-bf16 30k", results["_runs"]["30k_coef_bf16"])
 
 
 def phase_wcsph(torch, results: dict) -> None:
@@ -1695,9 +1778,11 @@ def phase_iisph(torch, results: dict) -> None:
     check(sim.cfg.solver.name == "iisph" and sim.device.type == "cuda",
           f"iisph: {sim.cfg.solver.name} on {sim.device}")
     for engine, pins, path, idle in (
-            ("coef", {}, COEF_PATH, ("matvec", "matvec_dot")),
+            ("coef", {}, IISPH_COEF_PATH,
+             ("matvec", "matvec_dot", "dfsph_kick", "dfsph_rate")),
             ("recompute", {"budget": 0}, RECOMPUTE_PATH,
-             ("coef_build", "coef_matvec", "coef_matvec_dot"))):
+             ("coef_build", "coef_matvec", "coef_matvec_dot", "dfsph_kick",
+              "dfsph_rate"))):
         with inputs.engine(**pins):
             run = drive(sim, f"iisph-{engine}", [50], path, torch)
         for name in idle + ("wcsph_forces",):
@@ -1710,6 +1795,11 @@ def phase_iisph(torch, results: dict) -> None:
               f"iisph {engine}: not 1 iteration a step and residual 0: "
               f"mean {run['mean_diag']}, last {run['last_diag']}")
         results["_runs"][f"30k_iisph_{engine}"] = run
+        if engine == "coef":
+            # DFSPH's loops take the contraction's kernels no more: their
+            # launches are IISPH's (PCISPH's are printed in [pcisph])
+            for name in path[-2:]:
+                results[name]["launches"] = run["launches"][name]
 
 
 # ---------------------------------------------------------------------------
@@ -1720,7 +1810,7 @@ def shard_launches(solver: str, diags, unroll: int) -> dict:
     """The launches of a fluid-only run of `solver` (DFSPH on the stored-
     coefficient engine, or WCSPH) over the steps with these diags, at
     `unroll` loop iterations a trip, by kernel: each one-shot pass once a
-    step; coef_matvec and coef_matvec_dot once a step (the warm start, the
+    step; dfsph_kick and dfsph_rate once a step (the warm start, the
     first density rate) and once a loop sub-iteration, the masked ones
     included."""
     steps = len(diags)
@@ -1728,7 +1818,7 @@ def shard_launches(solver: str, diags, unroll: int) -> dict:
         return dict.fromkeys(WCSPH_PATH, steps)
     loop = steps + looped(diags, (0, 2), unroll)
     return dict(fluid_terms=steps, boundary_terms=steps, viscosity=steps,
-                coef_build=steps, coef_matvec=loop, coef_matvec_dot=loop)
+                coef_build=steps, dfsph_kick=loop, dfsph_rate=loop)
 
 
 def shard_counts(tag: str, counts: dict, want: dict) -> None:

@@ -88,7 +88,23 @@ def _all_outputs(sc, pos, starts, k, v, rho):
             eng.nbr, eng.w,
             *coef.coef_matvec(eng, pos, k, lane_sums=True).unbind(1),
             *coef.coef_matvec_dot(eng, pos, v, lane_sums=True).unbind(1),
+            *_dfsph_outputs(eng, pos, ft, k, v, rho),
             *_body_outputs(sc, pos, starts, v, rho)]
+
+
+def _dfsph_outputs(eng, pos, ft, k, v, rho):
+    """DFSPH's loop kernels once each, in their fullest form: the kick with
+    wk and a rank's upd mask, the divergence rate with a contact dot and a
+    rank's owned mask (the floats: a row's selection may differ at the
+    threshold between summation orders)."""
+    dt = torch.tensor(4e-4, dtype=torch.float32, device=pos.device)
+    alpha = 1e-3 * k
+    kick = coef.dfsph_kick(eng, pos, v, k, ft.s, dt, k, 0.5 * k, alpha,
+                           k > 0.2)
+    rate = coef.dfsph_rate(eng, pos, v, ft.s, alpha, rho, dt,
+                           coef.Divergence(ft.count, dfsph.MIN_NEIGHBORS),
+                           0.1 * k, k < 1.8)
+    return [*kick, rate.dr, rate.k, rate.masked]
 
 
 def _body_outputs(sc, pos, starts, v, rho):
@@ -150,8 +166,10 @@ def test_kernels_match_plain_versions(cuda):
         stencil.reset_counts()
         outputs[dev.type] = _all_outputs(*inputs)
         torch.cuda.synchronize()
-        want = (1, 0) if dev.type == "cuda" else (0, 1)
         for kern in stencil.KERNELS.values():
+            # the plain dfsph_kick and dfsph_rate run the plain contraction
+            want = (1, 0) if dev.type == "cuda" else \
+                (0, 2 if kern.name.startswith("coef_matvec") else 1)
             assert (kern.launches, kern.plain_calls) == want, kern.name
     for got, ref in zip(outputs["cuda"], outputs["cpu"]):
         got = got.cpu().numpy()
@@ -244,6 +262,45 @@ def test_coef_kernels_match_plain_versions(cuda, dtype):
         np.testing.assert_allclose(fn(eng, pos, x).cpu().numpy(),
                                    fn(want, pos.cpu(), x.cpu()).numpy(),
                                    rtol=0, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["", "_div", "_mask", "_mask_den"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dfsph_loop_kernels_match_the_composition(cuda, dtype, form):
+    """dfsph_kick and dfsph_rate on the jittered TINY lattice, in each form
+    a loop calls them (perf/cases.dfsph_cases: the density loop's, the
+    divergence loop's, and both with a rank's masks and a contact dot):
+    bit for bit against the composition the loops ran before (coef_matvec
+    or coef_matvec_dot, then the torch ops) and over two launches, and
+    against the plain version to 1e-5 of each output's terms
+    (cases.fused_error: the selection may differ only at the average's
+    threshold)."""
+    sc = build_scene(parse_config(copy.deepcopy(TINY)), device=cuda)
+    rng = np.random.default_rng(7)
+    n = sc.n_fluid
+    jitter = rng.uniform(-0.1, 0.1, (n, 3)).astype(np.float32)
+    raw = sc.fluid_pos0 + torch.from_numpy(jitter).to(cuda) * \
+        sc.particle_radius
+    scid, _, pos, _ = base.sort_by_cells(sc.grid, raw)
+    starts = nb.csr_starts(scid, sc.grid.num_cells)
+    g, h, m = sc.grid, sc.h, sc.particle_m
+
+    def dev(a):
+        return torch.from_numpy(a.astype(np.float32)).to(cuda)
+
+    k, v = dev(rng.uniform(0.0, 2.0, n)), dev(rng.standard_normal((n, 3)))
+    rho = dev(rng.uniform(900.0, 1100.0, n))
+    d = cases.dfsph_inputs(pos, starts, g, h, m, rho, seed=3)
+    off = coef.csr_offsets(stencil.fluid_terms(pos, starts, g, h, m).count)
+    eng = coef.build_coef(pos, starts, g, h, m, off, dtype)
+    for case in cases.dfsph_cases(eng, pos, v, k, d, forms=(form,)):
+        got = case.kern()
+        assert cases.bit_equal(got, case.parent()), case.key
+        assert cases.bit_equal(got, case.kern()), case.key
+        e = cases.fused_error(case.name, got, case.plain(), case.scales(),
+                              1e-5)
+        assert e["ok"], (case.key, e)
 
 
 @pytest.mark.cuda
@@ -899,9 +956,10 @@ def test_graph_loops_match_eager_loops_on_the_card(cuda, solver, unroll):
     """TINY squeezed by 0.85 (the loops iterate), 4 steps on the card with
     the pressure loops' graph trips and with eager trips
     (ops/loops.while_loop_unrolled_plain) at `unroll` iterations a trip:
-    positions, oid and diag bit for bit, coef_matvec launched as often in
-    both (trips x U of each loop's sub-iterations), a capture where a loop
-    takes a second trip."""
+    positions, oid and diag bit for bit, the loop's matvec (DFSPH's
+    dfsph_kick, the others' coef_matvec) launched as often in both (trips
+    x U of each loop's sub-iterations), a capture where a loop takes a
+    second trip."""
     raw = copy.deepcopy(TINY)
     raw["solver"]["name"] = solver
     runs = {}
@@ -914,7 +972,8 @@ def test_graph_loops_match_eager_loops_on_the_card(cuda, solver, unroll):
             for _ in range(4):
                 sim.step()
                 diags.append(sim.state.diag.tolist())
-        runs[eager] = (sim, diags, stencil.KERNELS["coef_matvec"].launches)
+        mv = "dfsph_kick" if solver == "dfsph" else "coef_matvec"
+        runs[eager] = (sim, diags, stencil.KERNELS[mv].launches)
     (graph, diags, mv), (plain, _, mv_plain) = runs[False], runs[True]
     for a, b in ((graph.state.fluid.pos, plain.state.fluid.pos),
                  (graph.state.fluid.oid, plain.state.fluid.oid),
@@ -1012,7 +1071,7 @@ def test_sharded_step_on_nccl_world_one_matches_single_device(cuda, solver):
                          device="cuda", args=(solver,), timeout=600)
     _check_shards(ranks, _single_run(solver, cuda), "graph")
     launched = {k for k, (n, _) in ranks[0]["counts"].items() if n}
-    assert launched >= {"dfsph": {"coef_matvec", "viscosity"},
+    assert launched >= {"dfsph": {"dfsph_kick", "dfsph_rate", "viscosity"},
                         "wcsph": {"wcsph_forces"},
                         "iisph": {"coef_matvec_dot"},
                         "pcisph": {"pcisph_predict_rho_list"},
