@@ -74,12 +74,33 @@
 // epilogue alone reads and writes (perf/bounds.dfsph_work: 36-52 B a row
 // for the kick, 29-41 for the rate); like the contraction they are bound
 // by bytes.
+//
+// The source record. dfsph_rate's lanes [v, x . v] of a source j depend on
+// j alone, so they are formed once a source instead of once a pair: the
+// (N, 4) f32 record rec[j] = [vx, vy, vz, x . v], 16-byte aligned, which
+// dfsph_kick's epilogue writes for every row it writes (v_out, or v where
+// upd is 0) and dfsph_pack writes from a v that no kick wrote (the density
+// loop's first rate). The rate's pair loop then gathers one float4 a pair
+// (one load instruction instead of six scalar loads into the 12-byte rows
+// of pos and v, and no x . v), and its epilogue reads v_i from the same
+// row. x . v is (x vx + y vy) + z vz, one rounding an operation, as the
+// in-register lanes formed it, so the record changes no bit. The
+// contraction's own kernels and the kick keep their in-register lanes.
+// Measured on the H100 at 1M (PERF.md §6, perf/coef_compare.py): the rate
+// 183 -> 160 us with 4 pairs loaded ahead a lane (164 with 2; kGroup 4 or
+// 16, which change the bits, 200-250), the kick +9 us for the record's
+// stores (streaming stores: within +-3 us, not kept), and a bf16 engine's
+// rate over the record rounded to bf16 (8 B a source, perf/dfsph_rec8.patch)
+// -10 us, before the second record its kick would have to write: not kept.
 #include <cuda_bf16.h>
 
 #include "stencil.cuh"
 
 constexpr int kGroup = 8;    // lanes per row: a power of two <= 32
 constexpr int kUnroll = 2;   // pairs a lane loads before it gathers
+// The same for the record form (dfsph_rate), whose pair is one gather.
+// Unrolling changes no bit (a lane adds its pairs in order); kGroup does.
+constexpr int kRecordUnroll = 4;
 constexpr int kRowsPerBlock = kThreads / kGroup;
 static_assert(kGroup >= 1 && kGroup <= 32 && (kGroup & (kGroup - 1)) == 0,
               "kGroup must be a power of two no larger than a warp");
@@ -108,13 +129,30 @@ __device__ __forceinline__ float group_sum(float x) {
   return x;
 }
 
+// Where a row's four lanes come from: formed in registers from k and pos
+// (coef_matvec's [k, x k, y k, z k]) or from v and pos (coef_matvec_dot's
+// [v, x . v]), or gathered as one record (dfsph_rate).
+enum class Lanes { kK, kV, kRecord };
+
+// The record of a row at x with velocity v: [vx, vy, vz, x . v].
+__device__ __forceinline__ float4 record(const float x[3], float vx, float vy,
+                                         float vz) {
+  return make_float4(vx, vy, vz, x[0] * vx + x[1] * vy + x[2] * vz);
+}
+
 // s += w times the four lanes of source j.
-template <bool kDot, typename T>
+template <Lanes L, typename T>
 __device__ __forceinline__ void add_pair(const float* __restrict__ pos,
                                          const float* __restrict__ x, int j,
                                          float wq, float s[4]) {
   const T t{};
-  if constexpr (kDot) {
+  if constexpr (L == Lanes::kRecord) {
+    const float4 r = __ldg(reinterpret_cast<const float4*>(x) + j);
+    s[0] += wq * lane(r.x, t);
+    s[1] += wq * lane(r.y, t);
+    s[2] += wq * lane(r.z, t);
+    s[3] += wq * lane(r.w, t);
+  } else if constexpr (L == Lanes::kV) {
     const float vx = __ldg(x + 3 * j), vy = __ldg(x + 3 * j + 1),
                 vz = __ldg(x + 3 * j + 2);
     const float xv = __ldg(pos + 3 * j) * vx + __ldg(pos + 3 * j + 1) * vy +
@@ -146,34 +184,34 @@ __device__ __forceinline__ float matvec_dot_finish(const float x[3],
 }
 
 // The row loop of all four entries: one row per group of kGroup lanes.
-// kDot picks coef_matvec_dot's lanes over coef_matvec's; x is k (N,) or v
-// (N, 3). Lane 0 of the group hands the row's four sums to `epilogue`,
-// which writes the row.
-template <bool kDot, typename T, typename Epilogue>
+// L picks the lanes; x is k (N,), v (N, 3) or the record (N, 4). Lane 0
+// of the group hands the row's four sums to `epilogue`, which writes the
+// row.
+template <Lanes L, typename T, typename Epilogue>
 __device__ __forceinline__ void contract(const float* __restrict__ pos, int n,
                                          const int* __restrict__ offsets,
                                          const int* __restrict__ nbr,
                                          const T* __restrict__ w,
                                          const float* __restrict__ x,
                                          const Epilogue& epilogue) {
+  constexpr int kU = L == Lanes::kRecord ? kRecordUnroll : kUnroll;
   const int g = threadIdx.x & (kGroup - 1);
   const int i = blockIdx.x * kRowsPerBlock + threadIdx.x / kGroup;
   float s[4] = {0.f, 0.f, 0.f, 0.f};
   if (i < n) {
     const int end = __ldg(offsets + i + 1);
-    for (int q0 = __ldg(offsets + i) + g; q0 < end;
-         q0 += kGroup * kUnroll) {
-      int j[kUnroll];
-      float wq[kUnroll];
+    for (int q0 = __ldg(offsets + i) + g; q0 < end; q0 += kGroup * kU) {
+      int j[kU];
+      float wq[kU];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < kU; ++u) {
         const int q = q0 + u * kGroup;
         j[u] = q < end ? __ldcs(nbr + q) : -1;
         wq[u] = q < end ? load_w(w, q) : 0.f;
       }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        if (j[u] >= 0) add_pair<kDot, T>(pos, x, j[u], wq[u], s);
+      for (int u = 0; u < kU; ++u)
+        if (j[u] >= 0) add_pair<L, T>(pos, x, j[u], wq[u], s);
     }
   }
 #pragma unroll
@@ -210,6 +248,7 @@ struct StoreRow {
 // as the torch ops round):
 //   v_out = v - (S k + matvec(k)) dt    (v itself where upd is 0)
 //   wk_out = wk + dr alpha              (where wk_out is given)
+//   rec = [v_out, x . v_out]            (the record dfsph_rate gathers)
 struct KickRow {
   const float* __restrict__ pos;
   const float* __restrict__ k;
@@ -222,23 +261,27 @@ struct KickRow {
   const bool* __restrict__ upd;     // or null: every row updates
   float* __restrict__ v_out;
   float* __restrict__ wk_out;
+  float4* __restrict__ rec;
 
   __device__ __forceinline__ void operator()(int i, const float s[4]) const {
     const float x[3] = {pos[3 * i], pos[3 * i + 1], pos[3 * i + 2]};
     const float ki = k[i], h = *dt;
     const bool apply = upd == nullptr || upd[i];
+    float vo[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       const float vi = v[3 * i + c];
       const float delta = S[3 * i + c] * ki + matvec_finish(x, s, c);
-      v_out[3 * i + c] = apply ? vi - delta * h : vi;
+      vo[c] = apply ? vi - delta * h : vi;
+      v_out[3 * i + c] = vo[c];
     }
+    rec[i] = record(x, vo[0], vo[1], vo[2]);
     if (wk_out != nullptr) wk_out[i] = wk[i] + dr[i] * alpha[i];
   }
 };
 
-// dfsph_rate's row (ops/coef.rate_composition): d = v . S - matvec_dot(v)
-// [- c_s], then
+// dfsph_rate's row (ops/coef.rate_composition), v_i from the record's row
+// i: d = v . S - matvec_dot(v) [- c_s], then
 //   divergence (counts given): dr = 0 where count < min_neighbors, else
 //     max(d, 0) (NaN kept, as torch.clamp keeps it); k = (dr alpha / dt) /
 //     rho; the average counts dr > 0;
@@ -249,7 +292,7 @@ struct KickRow {
 // division.
 struct RateRow {
   const float* __restrict__ pos;
-  const float* __restrict__ v;
+  const float4* __restrict__ rec;
   const float* __restrict__ S;
   const float* __restrict__ cs;     // or null: nothing subtracted
   const int* __restrict__ counts;   // divergence; null: density
@@ -267,8 +310,8 @@ struct RateRow {
 
   __device__ __forceinline__ void operator()(int i, const float s[4]) const {
     const float x[3] = {pos[3 * i], pos[3 * i + 1], pos[3 * i + 2]};
-    const float vs = v[3 * i] * S[3 * i] + v[3 * i + 1] * S[3 * i + 1] +
-                     v[3 * i + 2] * S[3 * i + 2];
+    const float4 v = rec[i];
+    const float vs = v.x * S[3 * i] + v.y * S[3 * i + 1] + v.z * S[3 * i + 2];
     float d = vs - matvec_dot_finish(x, s);
     if (cs != nullptr) d = d - cs[i];
     float val, ki;
@@ -292,20 +335,31 @@ struct RateRow {
 };
 
 // One __global__ a entry, so that a profile names each by its own stem.
-#define CONTRACT_KERNEL(name, kDot, Epilogue)                              \
+#define CONTRACT_KERNEL(name, L, Epilogue)                                 \
   template <typename T>                                                    \
   __global__ void __launch_bounds__(kThreads)                              \
       name(const float* __restrict__ pos, int n,                           \
            const int* __restrict__ offsets, const int* __restrict__ nbr,   \
            const T* __restrict__ w, const float* __restrict__ x,           \
            Epilogue epilogue) {                                            \
-    contract<kDot>(pos, n, offsets, nbr, w, x, epilogue);                  \
+    contract<L>(pos, n, offsets, nbr, w, x, epilogue);                     \
   }
 
-CONTRACT_KERNEL(coef_matvec_kernel, false, StoreRow<false>)
-CONTRACT_KERNEL(coef_matvec_dot_kernel, true, StoreRow<true>)
-CONTRACT_KERNEL(dfsph_kick_kernel, false, KickRow)
-CONTRACT_KERNEL(dfsph_rate_kernel, true, RateRow)
+CONTRACT_KERNEL(coef_matvec_kernel, Lanes::kK, StoreRow<false>)
+CONTRACT_KERNEL(coef_matvec_dot_kernel, Lanes::kV, StoreRow<true>)
+CONTRACT_KERNEL(dfsph_kick_kernel, Lanes::kK, KickRow)
+CONTRACT_KERNEL(dfsph_rate_kernel, Lanes::kRecord, RateRow)
+
+// dfsph_pack: the record of every row from a v that no kick wrote, one
+// thread a row (24 B read, 16 B written a row: bound by bytes).
+__global__ void __launch_bounds__(kThreads)
+    dfsph_pack_kernel(const float* __restrict__ pos, int n,
+                      const float* __restrict__ v, float4* __restrict__ rec) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const float x[3] = {pos[3 * i], pos[3 * i + 1], pos[3 * i + 2]};
+  rec[i] = record(x, v[3 * i], v[3 * i + 1], v[3 * i + 2]);
+}
 
 template <typename Epilogue>
 int launch(void (*f32)(const float*, int, const int*, const int*,
@@ -353,23 +407,34 @@ extern "C" int dfsph_kick_launch(const float* pos, int n, const int* offsets,
                                  const float* S, const float* dt,
                                  const float* wk, const float* dr,
                                  const float* alpha, const bool* upd,
-                                 float* v_out, float* wk_out, void* stream) {
+                                 float* v_out, float* wk_out, float* rec,
+                                 void* stream) {
   return LAUNCH(dfsph_kick_kernel, pos, n, offsets, nbr, w, bf16, k,
-                KickRow{pos, k, v, S, dt, wk, dr, alpha, upd, v_out, wk_out},
+                KickRow{pos, k, v, S, dt, wk, dr, alpha, upd, v_out, wk_out,
+                        reinterpret_cast<float4*>(rec)},
                 stream);
 }
 
 extern "C" int dfsph_rate_launch(const float* pos, int n, const int* offsets,
                                  const int* nbr, const void* w, int bf16,
-                                 const float* v, const float* S,
+                                 const float* rec, const float* S,
                                  const float* cs, const int* counts,
                                  int min_neighbors, const float* alpha,
                                  const float* rho, const float* dt,
                                  const float* dt2, float rho0,
                                  const bool* owned, float* dr, float* k,
                                  float* masked, bool* sel, void* stream) {
-  return LAUNCH(dfsph_rate_kernel, pos, n, offsets, nbr, w, bf16, v,
-                RateRow{pos, v, S, cs, counts, min_neighbors, alpha, rho, dt,
-                        dt2, rho0, owned, dr, k, masked, sel},
+  return LAUNCH(dfsph_rate_kernel, pos, n, offsets, nbr, w, bf16, rec,
+                RateRow{pos, reinterpret_cast<const float4*>(rec), S, cs,
+                        counts, min_neighbors, alpha, rho, dt, dt2, rho0,
+                        owned, dr, k, masked, sel},
                 stream);
+}
+
+extern "C" int dfsph_pack_launch(const float* pos, int n, const float* v,
+                                 float* rec, void* stream) {
+  if (n > 0)
+    dfsph_pack_kernel<<<grid_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
+        pos, n, v, reinterpret_cast<float4*>(rec));
+  return (int)cudaGetLastError();
 }

@@ -22,6 +22,25 @@ coef.dfsph_kick and coef.dfsph_rate, which finish the contraction's rows
 with it in registers, on the recompute engine the same torch ops around
 its kernels.
 
+On the stored-coefficient engine the rate reads no v: it gathers the
+source record [v, x . v] of one (N, 4) buffer that `loop_algebra` makes
+once a step, before the divergence loop and outside any captured graph
+(so a graph reads and writes a fixed address), and that is no carry leaf
+of either loop (the trips' gate would select and copy it every
+sub-iteration). Every kick writes the record of the v it returns, in
+place; `coef.dfsph_pack` writes it once a step from the density loop's
+first v, which no kick returned. Each rate reads the record of the v it
+is handed, at every number of gated sub-iterations a trip, because:
+* the divergence body is kick then rate, so its rate reads what its own
+  kick wrote; so does the rate after the warm-start kick;
+* the density body is rate then kick, so its rate reads what the last
+  real sub-iteration's kick wrote, or, in the first, the pack;
+* the gate (ops/loops.py) is monotone: once `cond` fails on the carry it
+  fails on every later sub-iteration of the loop, whose carry no longer
+  changes, so a real sub-iteration never follows a masked one, and what a
+  masked sub-iteration writes is read only by masked ones, whose outputs
+  the gate discards. After the divergence loop the pack overwrites it.
+
 A rigid body enters as JAX's dense coupled path has it
 (`cfd_taichi_tpu/models/dfsph.py:499-583, 686-790`; ops/rigid.py): its
 step-constant sums fold into the fluid's before the alpha factor, the
@@ -169,8 +188,9 @@ class _Pre(NamedTuple):
     alpha: torch.Tensor
     count: torch.Tensor      # fluid-only pair count (the < 20 skip)
     S: torch.Tensor          # (N, 3) self-side loop coefficient
-    kick: Callable           # coef.dfsph_kick's arguments after pos
-    rate: Callable           # coef.dfsph_rate's arguments after pos
+    kick: Callable           # `loop_algebra`'s kick, rate and pack
+    rate: Callable
+    pack: Callable
     ext_force_fn: Callable   # vel -> (N, 3) tension + viscosity
     # (include_alpha, dt) -> (N,) the solid contact dot C_s; None without
     # a coupled body
@@ -210,18 +230,33 @@ def loop_engine(scene: Scene, pos: torch.Tensor, starts: torch.Tensor,
 
 
 def loop_algebra(pos: torch.Tensor, mv: Callable, mvd: Callable,
-                 store: coef.CoefEngine | None) -> tuple[Callable, Callable]:
-    """(kick, rate) of DFSPH's loops over the cell-sorted `pos`, each taking
-    `coef.dfsph_kick`'s or `coef.dfsph_rate`'s arguments after pos: on the
-    stored-coefficient engine (`store`, from `loop_engine`) the two kernels
-    that run the loop algebra in the contraction's epilogue, on the
-    recompute engine the same torch ops (`coef.kick_composition`,
-    `coef.rate_composition`) around its kernels `mv` and `mvd`."""
+                 store: coef.CoefEngine | None
+                 ) -> tuple[Callable, Callable, Callable]:
+    """(kick, rate, pack) of DFSPH's loops over the cell-sorted `pos`: kick
+    takes `coef.dfsph_kick`'s arguments after pos and returns (v_out,
+    wk_out); rate takes `coef.dfsph_rate`'s with v in the record's place;
+    pack(v) readies the rate's input for a v that no kick returned. On the
+    stored-coefficient engine (`store`, from `loop_engine`) the kernels
+    that run the loop algebra in the contraction's epilogue, around one
+    source record made here (module note): the kick and the pack write it,
+    the rate reads it and not its v. On the recompute engine the same
+    torch ops (`coef.kick_composition`, `coef.rate_composition`) around its
+    kernels `mv` and `mvd`, on v; pack does nothing."""
     if store is not None:
-        return (functools.partial(coef.dfsph_kick, store, pos),
-                functools.partial(coef.dfsph_rate, store, pos))
+        rec = pos.new_empty(pos.shape[0], 4)
+
+        def kick(v, *args):
+            return coef.dfsph_kick(store, pos, v, *args, rec=rec)[:2]
+
+        def rate(v, *args):
+            return coef.dfsph_rate(store, pos, rec, *args)
+
+        def pack(v):
+            coef.dfsph_pack(pos, v, rec)
+
+        return kick, rate, pack
     return (functools.partial(coef.kick_composition, mv),
-            functools.partial(coef.rate_composition, mvd))
+            functools.partial(coef.rate_composition, mvd), lambda v: None)
 
 
 # Set within `walked_reaction` only.
@@ -292,7 +327,7 @@ def prepare_sorted(scene: Scene, rigid: base.RigidBodyState,
     table, rt, box = base.body_terms(scene, rigid, pos)
     rho, alpha, S, tension = dense_pre_terms(scene, ft, bt, rt)
     mv, mvd, store, side = loop_lists(scene, rigid, pos, starts, ft)
-    kick, rate = loop_algebra(pos, mv, mvd, store)
+    kick, rate, pack = loop_algebra(pos, mv, mvd, store)
 
     def ext_force_fn(v):
         visc = stencil.viscosity(pos, starts, grid, h, m, v, rho,
@@ -318,7 +353,7 @@ def prepare_sorted(scene: Scene, rigid: base.RigidBodyState,
 
     return _Pre(pos=pos, oid=oid, vel=vel, acc=acc, warm_k=warm_k, rho=rho,
                 alpha=alpha, count=ft.count, S=S, kick=kick, rate=rate,
-                ext_force_fn=ext_force_fn, cs_fn=cs_fn,
+                pack=pack, ext_force_fn=ext_force_fn, cs_fn=cs_fn,
                 scatter_fn=scatter_fn)
 
 
@@ -417,6 +452,7 @@ def solve(scene: Scene, pre: _Pre, dt: torch.Tensor,
     vel_adv = vel + force_ext * true_div(dt, f32(scene.particle_m))
     speed = ieee_sqrt(dot(vel_adv, vel_adv))
     vel_adv = base.synced(shard, vel_adv)
+    pre.pack(vel_adv)
     max_vel = speed.max() if shard is None else shard.max(speed)
     if scene.coupled:
         # The body's fastest particle joins the CFL velocity.

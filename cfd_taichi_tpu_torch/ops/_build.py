@@ -91,9 +91,10 @@ _SIGNATURES = {
     "coef_matvec_launch": (_P, _I, _P, _P, _P, _I, _P, _P, _I, _P),
     "coef_matvec_dot_launch": (_P, _I, _P, _P, _P, _I, _P, _P, _I, _P),
     "dfsph_kick_launch": (_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                          _P, _P, _P, _P),
+                          _P, _P, _P, _P, _P),
     "dfsph_rate_launch": (_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
                           _P, _P, _F, _P, _P, _P, _P, _P, _P),
+    "dfsph_pack_launch": (_P, _I, _P, _P, _P),
 }
 
 

@@ -36,6 +36,17 @@ recompute engine runs the same compositions on its stencil kernels. The
 kernels round every operation as those torch ops do, so the two give the
 same bits on the card.
 
+The rate reads its lanes [v, x . v] from a source record: an (N, 4) f32
+tensor, 16-byte aligned, rec[j] = [v_j, x_j . v_j], formed once a source
+(the JAX engine's product table of its dot, bandmat.py:958-959) and
+gathered as one 16-byte load a pair. The kick writes the record of the v
+it returns; `dfsph_pack` writes it for a v that no kick wrote. The rate
+takes the record instead of v, so a caller must hand it the record of the
+v it means: models/dfsph.py says why its loops always do. The plain
+versions keep that dataflow (the kick's writes the record, the rate's
+contracts the record it is given and reads v from it), so a stale record
+shows on the CPU too.
+
 Each pass has a hand-written CUDA kernel (csrc/coef_build.cu,
 csrc/coef_matvec.cu), a plain PyTorch version `*_plain`, and a wrapper that
 launches the kernel for CUDA tensors and runs the plain version for CPU
@@ -178,6 +189,15 @@ def coef_matvec_dot(eng: CoefEngine, pos: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _check_record(rec: torch.Tensor, n: int, device: torch.device) -> None:
+    """The source record: contiguous (n, 4) f32 on `device`, its data 16-byte
+    aligned (the rate gathers a row as one float4)."""
+    _check("rec", rec, torch.float32, (n, 4), device)
+    if rec.data_ptr() % 16:
+        raise ValueError(f"rec: want a 16-byte aligned data_ptr(), got "
+                         f"{rec.data_ptr():#x}")
+
+
 def _check_rows(n: int, device: torch.device, **rows) -> None:
     """Each of `rows` (n,) f32, (n, 3) f32 where its name is v or S, (n,)
     bool where it is a mask, or None."""
@@ -196,15 +216,22 @@ def dfsph_kick(eng: CoefEngine, pos: torch.Tensor, v: torch.Tensor,
                wk: torch.Tensor | None = None,
                dr: torch.Tensor | None = None,
                alpha: torch.Tensor | None = None,
-               upd: torch.Tensor | None = None
-               ) -> tuple[torch.Tensor, torch.Tensor | None]:
+               upd: torch.Tensor | None = None,
+               rec: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor]:
     """DFSPH's kick over the stored pairs (`kick_composition`): (N, 3)
-    v - (S k + coef_matvec(k)) dt, v itself on the rows where `upd` (a
-    rank's rows to update) is False, and wk + dr alpha where `wk`, `dr`
-    and `alpha` are given (the divergence loop's warm-start sum), else
-    None. `dt` is a 0-d tensor on the rows' device."""
-    if not _on_cuda("dfsph_kick", pos):
-        return dfsph_kick_plain(eng, pos, v, k, S, dt, wk, dr, alpha, upd)
+    v_out = v - (S k + coef_matvec(k)) dt, v itself on the rows where `upd`
+    (a rank's rows to update) is False; wk + dr alpha where `wk`, `dr` and
+    `alpha` are given (the divergence loop's warm-start sum), else None;
+    and the source record of v_out, every row, written into `rec` where it
+    is given (in place), else into a new tensor. `dt` is a 0-d tensor on
+    the rows' device."""
+    on_cuda = _on_cuda("dfsph_kick", pos)
+    if rec is not None:
+        _check_record(rec, pos.shape[0], pos.device)
+    if not on_cuda:
+        return dfsph_kick_plain(eng, pos, v, k, S, dt, wk, dr, alpha, upd,
+                                rec)
     n = _check_engine(eng, pos)
     if not (wk is None) == (dr is None) == (alpha is None):
         raise ValueError("dfsph_kick: give wk, dr and alpha together")
@@ -213,27 +240,32 @@ def dfsph_kick(eng: CoefEngine, pos: torch.Tensor, v: torch.Tensor,
     _check("dt", dt, torch.float32, (), pos.device)
     v_out = torch.empty_like(v)
     wk_out = None if wk is None else torch.empty_like(wk)
+    rec = pos.new_empty(n, 4) if rec is None else rec
     _launch("dfsph_kick", pos.device, pos, n, eng.offsets, eng.nbr, eng.w,
-            _is_bf16(eng), k, v, S, dt, wk, dr, alpha, upd, v_out, wk_out)
-    return v_out, wk_out
+            _is_bf16(eng), k, v, S, dt, wk, dr, alpha, upd, v_out, wk_out,
+            rec)
+    return v_out, wk_out, rec
 
 
-def dfsph_rate(eng: CoefEngine, pos: torch.Tensor, v: torch.Tensor,
+def dfsph_rate(eng: CoefEngine, pos: torch.Tensor, rec: torch.Tensor,
                S: torch.Tensor, alpha: torch.Tensor, rho: torch.Tensor,
                dt: torch.Tensor, mode: Divergence | Density,
                c_s: torch.Tensor | None = None,
                owned: torch.Tensor | None = None) -> Rate:
-    """DFSPH's density rate over the stored pairs (`rate_composition`):
-    d = v . S - coef_matvec_dot(v), less the contact dot `c_s` of a
-    coupled scene, then `mode`'s value and the next kick's k, and the
+    """DFSPH's density rate over the stored pairs (`rate_composition`) of
+    the velocities v whose source record is `rec` (`dfsph_pack`, or the
+    kick's): d = v . S - coef_matvec_dot(v), less the contact dot `c_s` of
+    a coupled scene, then `mode`'s value and the next kick's k, and the
     residual average's inputs, counted on the rows of `owned` only where
     it is given (a rank's own rows). `dt` (and Density's dt2) 0-d tensors
     on the rows' device."""
-    if not _on_cuda("dfsph_rate", pos):
-        return dfsph_rate_plain(eng, pos, v, S, alpha, rho, dt, mode, c_s,
+    on_cuda = _on_cuda("dfsph_rate", pos)
+    _check_record(rec, pos.shape[0], pos.device)
+    if not on_cuda:
+        return dfsph_rate_plain(eng, pos, rec, S, alpha, rho, dt, mode, c_s,
                                 owned)
     n = _check_engine(eng, pos)
-    _check_rows(n, pos.device, v=v, S=S, alpha=alpha, rho=rho, c_s=c_s,
+    _check_rows(n, pos.device, S=S, alpha=alpha, rho=rho, c_s=c_s,
                 owned=owned)
     _check("dt", dt, torch.float32, (), pos.device)
     div = isinstance(mode, Divergence)
@@ -245,10 +277,28 @@ def dfsph_rate(eng: CoefEngine, pos: torch.Tensor, v: torch.Tensor,
                pos.new_empty(n),
                torch.empty(n, dtype=torch.bool, device=pos.device))
     _launch("dfsph_rate", pos.device, pos, n, eng.offsets, eng.nbr, eng.w,
-            _is_bf16(eng), v, S, c_s, mode.counts if div else None,
+            _is_bf16(eng), rec, S, c_s, mode.counts if div else None,
             mode.min_neighbors if div else 0, alpha, rho, dt,
             None if div else mode.dt2, 0.0 if div else f32(mode.rho0),
             owned, out.dr, out.k, out.masked, out.sel)
+    return out
+
+
+def dfsph_pack(pos: torch.Tensor, v: torch.Tensor,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """The (N, 4) source record [v, x . v] of velocities `v` at `pos`, for
+    a rate whose v no kick wrote; written into `out` where it is given (in
+    place), else into a new tensor."""
+    on_cuda = _on_cuda("dfsph_pack", pos)
+    n = pos.shape[0]
+    if out is not None:
+        _check_record(out, n, pos.device)
+    if not on_cuda:
+        return dfsph_pack_plain(pos, v, out)
+    _check("pos", pos, torch.float32, (n, 3), pos.device)
+    _check("v", v, torch.float32, (n, 3), pos.device)
+    out = pos.new_empty(n, 4) if out is None else out
+    _launch("dfsph_pack", pos.device, pos, n, v, out)
     return out
 
 
@@ -307,22 +357,44 @@ def dfsph_kick_plain(eng: CoefEngine, pos: torch.Tensor, v: torch.Tensor,
                      wk: torch.Tensor | None = None,
                      dr: torch.Tensor | None = None,
                      alpha: torch.Tensor | None = None,
-                     upd: torch.Tensor | None = None
-                     ) -> tuple[torch.Tensor, torch.Tensor | None]:
+                     upd: torch.Tensor | None = None,
+                     rec: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor | None,
+                                torch.Tensor]:
     KERNELS["dfsph_kick"].plain_calls += 1
-    return kick_composition(functools.partial(coef_matvec_plain, eng, pos),
-                            v, k, S, dt, wk, dr, alpha, upd)
+    v_out, wk_out = kick_composition(
+        functools.partial(coef_matvec_plain, eng, pos), v, k, S, dt, wk, dr,
+        alpha, upd)
+    return v_out, wk_out, _into(rec, _record(pos, v_out))
 
 
-def dfsph_rate_plain(eng: CoefEngine, pos: torch.Tensor, v: torch.Tensor,
+def dfsph_rate_plain(eng: CoefEngine, pos: torch.Tensor, rec: torch.Tensor,
                      S: torch.Tensor, alpha: torch.Tensor, rho: torch.Tensor,
                      dt: torch.Tensor, mode: Divergence | Density,
                      c_s: torch.Tensor | None = None,
                      owned: torch.Tensor | None = None) -> Rate:
+    """The composition over the record: its lanes contracted as they are,
+    v read from its first three columns."""
     KERNELS["dfsph_rate"].plain_calls += 1
     return rate_composition(
-        functools.partial(coef_matvec_dot_plain, eng, pos), v, S, alpha,
-        rho, dt, mode, c_s, owned)
+        lambda _: _dot_finish(pos, _contract_plain(eng, rec)), rec[:, :3], S,
+        alpha, rho, dt, mode, c_s, owned)
+
+
+def dfsph_pack_plain(pos: torch.Tensor, v: torch.Tensor,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    KERNELS["dfsph_pack"].plain_calls += 1
+    return _into(out, _record(pos, v))
+
+
+def _record(pos: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[v, x . v], x . v summed x + y + z as coef_matvec_dot's lanes."""
+    xv = pos[:, 0] * v[:, 0] + pos[:, 1] * v[:, 1] + pos[:, 2] * v[:, 2]
+    return torch.cat([v, xv[:, None]], dim=1)
+
+
+def _into(out: torch.Tensor | None, rec: torch.Tensor) -> torch.Tensor:
+    return rec if out is None else out.copy_(rec)
 
 
 def build_coef_plain(pos: torch.Tensor, starts: torch.Tensor,
@@ -367,10 +439,12 @@ def coef_matvec_dot_plain(eng: CoefEngine, pos: torch.Tensor,
                           v: torch.Tensor,
                           lane_sums: bool = False) -> torch.Tensor:
     KERNELS["coef_matvec_dot"].plain_calls += 1
-    xv = pos[:, 0] * v[:, 0] + pos[:, 1] * v[:, 1] + pos[:, 2] * v[:, 2]
-    s = _contract_plain(eng, torch.cat([v, xv[:, None]], dim=1))
-    if lane_sums:
-        return s
+    s = _contract_plain(eng, _record(pos, v))
+    return s if lane_sums else _dot_finish(pos, s)
+
+
+def _dot_finish(pos: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """coef_matvec_dot's final form of its lane sums s: x . s - s3."""
     return pos[:, 0] * s[:, 0] + pos[:, 1] * s[:, 1] + pos[:, 2] * s[:, 2] \
         - s[:, 3]
 

@@ -154,6 +154,11 @@ KERNELS = {k.name: k for k in (
     Kernel("dfsph_rate", _CSRC + "coef_matvec.cu",
            "tools/perf_r5_mv3.py:66-69/72-77/97-125, "
            "cfd_taichi_tpu/models/dfsph.py:195-221"),
+    # The rate's source record [v, x . v] from a v that no kick wrote (the
+    # kick's epilogue writes it otherwise): the JAX engine's product table
+    # of its dot, formed once a source.
+    Kernel("dfsph_pack", _CSRC + "coef_matvec.cu",
+           "cfd_taichi_tpu/ops/bandmat.py:958-959"),
 )}
 
 

@@ -366,6 +366,12 @@ def dfsph_rate_work(n: int, pairs: int, w_bytes: int, divergence: bool,
     return Work(nbytes, ops, ops)
 
 
+def dfsph_pack_work(n: int) -> Work:
+    """dfsph_pack: pos and v in (24 B a row), the record out (16 B); x . v
+    (5 operations a row)."""
+    return Work(40 * n, 5 * n, 5 * n)
+
+
 def scene_work(sc, pos: torch.Tensor, starts: torch.Tensor,
                pairs: int) -> dict[str, Work]:
     """Work of every kernel's call on the cell-sorted fluid `pos` of scene
@@ -403,4 +409,5 @@ def scene_work(sc, pos: torch.Tensor, starts: torch.Tensor,
         out["coef_matvec" + sfx] = coef_contraction_work(False, n, pairs, wb)
         out["coef_matvec_dot" + sfx] = coef_contraction_work(True, n, pairs,
                                                              wb)
+    out["dfsph_pack"] = dfsph_pack_work(n)
     return out

@@ -221,7 +221,8 @@ def scene_cases(x: dict, pairs: int) -> Iterator[Case]:
     """The cases of lattice inputs `x` with `pairs` fluid pairs: the
     stencil passes, then for f32 and bf16 storage coef_build, the
     contraction pair and DFSPH's loop kernels (`dfsph_cases`, in the
-    forms of DFSPH_FORMS) on the engine it builds."""
+    forms of DFSPH_FORMS) on the engine it builds, then dfsph_pack of
+    v."""
     sc, p, st, k, v, rho, pr = (x[key] for key in
                                 ("sc", "p", "st", "k", "v", "rho", "pr"))
     g, h, m = sc.grid, sc.h, sc.particle_m
@@ -264,6 +265,10 @@ def scene_cases(x: dict, pairs: int) -> Iterator[Case]:
                        library_calls(eng, coef_lanes(dot, p, x[src])))
         yield from dfsph_cases(eng, p, v, k, dfsph, sfx, DFSPH_FORMS[sfx])
         del eng
+    yield Case("dfsph_pack", "dfsph_pack",
+               functools.partial(coef.dfsph_pack, p, v),
+               functools.partial(coef.dfsph_pack_plain, p, v),
+               work["dfsph_pack"])
 
 
 # The dt of DFSPH's loop kernels' inputs: TINY's delta_time, inside the
@@ -310,38 +315,50 @@ def dfsph_cases(eng: coef.CoefEngine, p: torch.Tensor, v: torch.Tensor,
     divergence loop does (the kick with wk, dr and alpha, the rate in
     Divergence mode), "_mask" as a rank of a sharded coupled step does
     (the divergence forms with upd, and c_s and owned), "_mask_den" (the
-    density forms so). Keys are name + form + `sfx`."""
+    density forms so). The rate reads the source record of v, packed once
+    here by the plain version. `parent` is the composition the loops ran
+    before the kernels (the contraction's kernel, then the torch ops, on
+    v), the kick's with the record packed from its v_out. Keys are name +
+    form + `sfx`."""
     n, pairs, wb = p.shape[0], eng.nbr.shape[0], eng.w.element_size()
     density = coef.Density(d["dt2"], RHO0)
     divergence = coef.Divergence(d["counts"], dfsph.MIN_NEIGHBORS)
     wk = (d["wk"], d["dr"], d["alpha"])
-    rate = (v, d["S"], d["alpha"], d["rho"], d["dt"])
+    rec = coef.dfsph_pack_plain(p, v)
     mv = functools.partial(coef.coef_matvec, eng, p)
     mvd = functools.partial(coef.coef_matvec_dot, eng, p)
     for form in forms:
         div, mask = form != "_mask_den" and form != "", "_mask" in form
         kick_args = (v, k, d["S"], d["dt"]) + (wk if div else ()) + (
             (None,) * 3 * (not div) + (d["upd"],) if mask else ())
-        rate_args = rate + ((divergence if div else density),) + (
+        rate_args = (d["S"], d["alpha"], d["rho"], d["dt"],
+                     divergence if div else density) + (
             (d["c_s"], d["owned"]) if mask else ())
         yield Case("dfsph_kick", "dfsph_kick" + form + sfx,
                    functools.partial(coef.dfsph_kick, eng, p, *kick_args),
                    functools.partial(coef.dfsph_kick_plain, eng, p,
                                      *kick_args),
                    bounds.dfsph_kick_work(n, pairs, wb, div, mask),
-                   parent=functools.partial(coef.kick_composition, mv,
-                                            *kick_args),
+                   parent=functools.partial(parent_kick, mv, p, *kick_args),
                    scales=functools.partial(fused_scales, "dfsph_kick", eng,
                                             p, *kick_args))
         yield Case("dfsph_rate", "dfsph_rate" + form + sfx,
-                   functools.partial(coef.dfsph_rate, eng, p, *rate_args),
-                   functools.partial(coef.dfsph_rate_plain, eng, p,
+                   functools.partial(coef.dfsph_rate, eng, p, rec,
+                                     *rate_args),
+                   functools.partial(coef.dfsph_rate_plain, eng, p, rec,
                                      *rate_args),
                    bounds.dfsph_rate_work(n, pairs, wb, div, mask, mask),
-                   parent=functools.partial(coef.rate_composition, mvd,
+                   parent=functools.partial(coef.rate_composition, mvd, v,
                                             *rate_args),
                    scales=functools.partial(fused_scales, "dfsph_rate", eng,
-                                            p, *rate_args))
+                                            p, v, *rate_args))
+
+
+def parent_kick(mv: Callable, p: torch.Tensor, *args) -> tuple:
+    """The kick's composition around `mv` with `args` (v, k, S, dt, ...),
+    and the source record packed from its v_out by the plain version."""
+    v_out, wk_out = coef.kick_composition(mv, *args)
+    return v_out, wk_out, coef.dfsph_pack_plain(p, v_out)
 
 
 def _cancel(pos: torch.Tensor, sums: torch.Tensor, lanes: int) -> float:
@@ -386,7 +403,8 @@ def fused_scales(name: str, eng: coef.CoefEngine, p: torch.Tensor, *args
 
 
 def fused_outputs(name: str, out) -> dict:
-    """dfsph_kick's or dfsph_rate's outputs by name, those it gave."""
+    """dfsph_kick's or dfsph_rate's outputs by name, those it gave (not the
+    kick's record, which is held bit for bit to the pack of its v_out)."""
     names = ("v_out", "wk_out") if name == "dfsph_kick" else \
         coef.Rate._fields
     return {key: t for key, t in zip(names, out) if t is not None}

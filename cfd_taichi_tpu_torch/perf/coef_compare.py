@@ -11,7 +11,9 @@ on one card:
 contractions; for `dfsph`, DFSPH's loop kernels dfsph_kick and dfsph_rate
 in the forms the density loop ("kick", "rate") and the divergence loop
 ("kick_div", "rate_div") call them, beside the two contractions alone,
-in f32 and bf16; a source from before them runs the contraction and the
+in f32 and bf16; a source from before the rate's source record calls
+its entries as they were then, the kick writing no record and the rate
+reading v; one from before the kernels runs the contraction and the
 torch ops around it, the composition DFSPH ran, which `--bit-equal`
 holds the kernels to), csrc/coef_build.cu, csrc/viscosity.cu,
 csrc/fluid_terms.cu, csrc/boundary_terms.cu, csrc/matvec.cu (both
@@ -80,13 +82,40 @@ A source from before boundary_terms_launch took the per-cell table
     python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel \\
         boundary_terms --variant before=build/before --bit-equal before
 
-DFSPH's loop kernels beside the composition of the parent commit:
+DFSPH's loop kernels beside those of commit fc0d7c5, whose rate formed
+its lanes from pos and v in registers, and beside the composition of
+commit d3e23c7; and the record form with other lanes a row and pairs a
+lane loads ahead (kGroup changes the bits, kRecordUnroll does not):
 
-    mkdir -p build/parent
+    mkdir -p build/fc0 build/d3e
+    git show fc0d7c5:cfd_taichi_tpu_torch/csrc/coef_matvec.cu \\
+        > build/fc0/coef_matvec.cu
     git show d3e23c7:cfd_taichi_tpu_torch/csrc/coef_matvec.cu \\
-        > build/parent/coef_matvec.cu
+        > build/d3e/coef_matvec.cu
+    for v in "4 2" "4 4" "8 2" "16 2" "16 4"; do
+        set -- $v; mkdir -p build/g$1u$2
+        sed -e "s/kGroup = [0-9]*;/kGroup = $1;/" \\
+            -e "s/kRecordUnroll = [0-9]*;/kRecordUnroll = $2;/" \\
+            cfd_taichi_tpu_torch/csrc/coef_matvec.cu \\
+            > build/g$1u$2/coef_matvec.cu
+    done
     python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel dfsph \\
-        --variant parent=build/parent/coef_matvec.cu --bit-equal parent
+        --variant fc0=build/fc0/coef_matvec.cu \\
+        --variant d3e=build/d3e/coef_matvec.cu \\
+        --variant g8u2=build/g8u2 --variant g4u2=build/g4u2 ... \\
+        --bit-equal fc0
+
+The bf16 engine's rate over the record rounded to bf16 at the table (8 B
+a source, as the JAX engine rounds its product table; perf/dfsph_rec8.patch
+adds the entry dfsph_rate_rec8_launch, whose pairs gather the bf16 record
+and whose rows read v from the f32 one; the entries "rate_rec8" and
+"rate_div_rec8" call it where a source has it, else the f32-record rate):
+
+    mkdir -p build/rec8
+    cp cfd_taichi_tpu_torch/csrc/coef_matvec.cu build/rec8
+    patch -d build/rec8 -p0 < cfd_taichi_tpu_torch/perf/dfsph_rec8.patch
+    python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel dfsph \\
+        --variant rec8=build/rec8 --bit-equal tree
 
 The predicted density's stream form with one lane a row (its terms
 added in the stencil form's order) beside the tree's:
@@ -421,14 +450,95 @@ def contraction_entries(engs: dict, pos, k, v) -> list[Entry]:
     return out
 
 
+# dfsph_kick's entry point before the source record: no record pointer.
+KICK_BEFORE_RECORD = (_build._SIGNATURES["dfsph_kick_launch"][:-2]
+                      + (ctypes.c_void_p,))
+
+
 def fused_call(case: cases.Case):
-    """DFSPH's loop kernel of `case` from the library in use, or, for a
-    source from before it, the parent's composition: the contraction's
-    kernel and the torch ops around it."""
-    entry = f"{case.name}_launch"
-    if getattr(_build.library().lib, entry, None) is not None:
+    """DFSPH's loop kernel of `case` from the library in use; for a source
+    from before the rate's source record (no dfsph_pack), its entry as it
+    was then (`before_record`); for one from before the kernels, the
+    parent's composition: the contraction's kernel and the torch ops
+    around it."""
+    lib = _build.library().lib
+    if getattr(lib, "dfsph_pack_launch", None) is not None:
         return case.kern()
+    if getattr(lib, f"{case.name}_launch", None) is not None:
+        return before_record(case)
     return case.parent()
+
+
+def before_record(case: cases.Case):
+    """`case` through a source from before the source record: the kick
+    writes none ((v_out, wk_out)), the rate reads v (the parent's, on
+    which `case.parent` runs) in the record's place, through the same
+    arguments otherwise."""
+    eng, p, *args = case.kern.args
+    n, dev = p.shape[0], p.device
+    head = (p, n, eng.offsets, eng.nbr, eng.w, coef._is_bf16(eng))
+    if case.name == "dfsph_kick":
+        v, k, S_, dt, wk, dr, alpha, upd = (*args, None, None, None,
+                                            None)[:8]
+        _build.library().lib.dfsph_kick_launch.argtypes = KICK_BEFORE_RECORD
+        v_out = torch.empty_like(v)
+        wk_out = None if wk is None else torch.empty_like(wk)
+        S._launch("dfsph_kick", dev, *head, k, v, S_, dt, wk, dr, alpha, upd,
+                  v_out, wk_out)
+        return v_out, wk_out
+    _, S_, alpha, rho, dt, mode, c_s, owned = (*args, None, None)[:8]
+    v = case.parent.args[1]
+    div = isinstance(mode, coef.Divergence)
+    out = coef.Rate(p.new_empty(n) if div else None, p.new_empty(n),
+                    p.new_empty(n), torch.empty(n, dtype=torch.bool,
+                                                device=dev))
+    S._launch("dfsph_rate", dev, *head, v, S_, c_s,
+              mode.counts if div else None, mode.min_neighbors if div else 0,
+              alpha, rho, dt, None if div else mode.dt2,
+              0.0 if div else f32(mode.rho0), owned, *out)
+    return out
+
+
+# dfsph_rate_rec8_launch of perf/dfsph_rec8.patch: the rate's arguments
+# with the bf16 record after the f32 one, and no storage flag (bf16 w).
+_P, _I = ctypes.c_void_p, ctypes.c_int
+REC8_ARGS = (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+             ctypes.c_float, _P, _P, _P, _P, _P, _P)
+
+
+def rec8_call(case: cases.Case, rec8: torch.Tensor):
+    """`case` (dfsph_rate on a bf16 engine) through the library's
+    dfsph_rate_rec8_launch over `rec8`, its record rounded to bf16, or,
+    for a library without it, as `fused_call` calls it."""
+    lib = _build.library().lib
+    entry = getattr(lib, "dfsph_rate_rec8_launch", None)
+    if entry is None:
+        return fused_call(case)
+    entry.argtypes = REC8_ARGS
+    eng, p, rec, S_, alpha, rho, dt, mode, c_s, owned = (
+        *case.kern.args, None, None)[:10]
+    n, dev = p.shape[0], p.device
+    div = isinstance(mode, coef.Divergence)
+    out = coef.Rate(p.new_empty(n) if div else None, p.new_empty(n),
+                    p.new_empty(n), torch.empty(n, dtype=torch.bool,
+                                                device=dev))
+    S._launch("dfsph_rate", dev, p, n, eng.offsets, eng.nbr, eng.w, rec,
+              rec8, S_, c_s, mode.counts if div else None,
+              mode.min_neighbors if div else 0, alpha, rho, dt,
+              None if div else mode.dt2, 0.0 if div else f32(mode.rho0),
+              owned, *out, entry="dfsph_rate_rec8")
+    return out
+
+
+def fused_check(name: str, call: Callable, want, scales: dict) -> float:
+    """A DFSPH loop kernel's call against the plain version's outputs
+    `want` (cases.fused_error): the largest error over its scale, inf
+    where the selection differs away from the threshold."""
+    e = cases.fused_error(name, call(), want, scales, TOL)
+    if not e["ok"]:
+        return float("inf")
+    return max(e[key] / max(scales[key[4:]], 1e-30)
+               for key in e if key.startswith("err_"))
 
 
 def dfsph_entries(x: dict, p, st, g, h: float, m: float) -> list[Entry]:
@@ -445,19 +555,15 @@ def dfsph_entries(x: dict, p, st, g, h: float, m: float) -> list[Entry]:
         eng = coef.build_coef(p, st, g, h, m, off, dtype)
         for case in cases.dfsph_cases(eng, p, x["v"], x["k"], d):
             want, scales = case.plain(), case.scales()
-
-            def check(case=case, want=want, scales=scales):
-                e = cases.fused_error(case.name, fused_call(case), want,
-                                      scales, TOL)
-                if not e["ok"]:
-                    return float("inf")
-                return max(e[key] / max(scales[key[4:]], 1e-30)
-                           for key in e if key.startswith("err_"))
-            label = case.key.replace("dfsph_", "")
-            out.append(Entry(f"{dname}/{label}", None,
-                             functools.partial(fused_call, case), check,
-                             lambda o: [t for t in cases.bits(o)
-                                        if t is not None]))
+            label = f"{dname}/{case.key.replace('dfsph_', '')}"
+            calls = {label: functools.partial(fused_call, case)}
+            if dname == "bf16" and case.name == "dfsph_rate":
+                calls[label + "_rec8"] = functools.partial(
+                    rec8_call, case, case.kern.args[2].to(torch.bfloat16))
+            for lab, call in calls.items():
+                out.append(Entry(lab, None, call, functools.partial(
+                    fused_check, case.name, call, want, scales),
+                    lambda o: [t for t in cases.bits(o) if t is not None]))
         out += contraction_entries({dname: eng}, p, x["k"], x["v"])
     return out
 

@@ -27,7 +27,9 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 100+ pairs for every lane-group width G in 4-32, random
                 sources, 1000 and 1003 rows), f32 and bf16. DFSPH's loop
                 kernels, dfsph_kick and dfsph_rate (the contraction with
-                the loops' algebra in its epilogue), run at 30k, 1M and
+                the loops' algebra in its epilogue; the rate gathers the
+                source record [v, x . v] that the kick writes, packed
+                here by the plain version), run at 30k, 1M and
                 on the clustered cloud, f32 and bf16, in the forms the
                 density and divergence loops call them (f32 also with a
                 rank's masks and a contact dot; perf/cases.dfsph_cases):
@@ -36,7 +38,11 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 selection may differ only where its value sits that close
                 to the average's threshold, the rows printed), and bit for
                 bit against the parent's composition (the contraction's
-                kernel, then the torch ops) and over two launches. coef_build
+                kernel, then the torch ops; the kick's record against the
+                plain pack of its v_out) and over two launches; dfsph_pack
+                (the record of a v that no kick wrote) bit for bit against
+                its plain version at 30k and 1M and on the clustered
+                cloud. coef_build
                 (f32 and bf16, nbr exactly), viscosity, matvec, matvec_dot,
                 wcsph_forces, fluid_terms (count exactly) and
                 boundary_terms also run on a clustered cloud
@@ -131,25 +137,28 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 and on 20 steps of breaking_dam_30k as DFSPH at the scene's
                 U, at another U and with eager loops: positions, oid and
                 diag bit for bit, dfsph_kick and dfsph_rate launched 1 +
-                trips x U times a step each and the contraction alone
-                never; prints host reads (trips), captures and their host
-                ms a step. Every later phase counts a loop's launches as
-                trips x U of its sub-iterations, masked ones included
-                (`looped`), where it counts them.
+                trips x U times a step each, dfsph_pack once a step, and
+                the contraction alone never; prints host reads (trips),
+                captures and their host ms a step. Every later phase
+                counts a loop's launches as trips x U of its
+                sub-iterations, masked ones included (`looped`), where it
+                counts them.
 6. main       - configs/breaking_dam_30k.json as DFSPH, 100 steps from rest
                 through Simulation.step on the default engine (stored
                 coefficients, f32). fluid_terms, boundary_terms, viscosity,
-                coef_build, dfsph_kick and dfsph_rate must have launched
-                (the last two 1 + trips x U times a step each, and
-                coef_matvec, coef_matvec_dot, matvec and matvec_dot never)
-                and no plain version may have run; positions
+                coef_build, dfsph_kick, dfsph_rate and dfsph_pack must have
+                launched (the kick and the rate 1 + trips x U times a step
+                each, the pack once a step, and coef_matvec,
+                coef_matvec_dot, matvec and matvec_dot never) and no
+                plain version may have run; positions
                 finite; the last step's density residual at most 1.0 (0.1%
                 rho0, the loop's threshold); the last residuals and the mean
                 density iterations a step, as printed, the ones the kernels
                 gave before (DFSPH_30K).
 7. recompute  - the same 30k run with the coef budget at 0: the recompute
                 engine's matvec and matvec_dot must launch (coef_build,
-                the contraction and dfsph_kick / dfsph_rate never),
+                the contraction and dfsph_kick / dfsph_rate / dfsph_pack
+                never),
                 residual <= 1.0, diagnostics as in main (DFSPH_30K); then
                 breaking_dam_1m
                 for 15 steps on it.
@@ -313,10 +322,10 @@ CONFIGS = (("30k", "breaking_dam_30k.json"), ("1m", "breaking_dam_1m.json"))
 CLUSTERED_N = 100_000
 # Kernels each run must launch (and no plain version may run). DFSPH's
 # loops on the coef engine run the contraction with their algebra in its
-# epilogue (dfsph_kick, dfsph_rate), IISPH's and PCISPH's the contraction
-# alone.
+# epilogue (dfsph_kick, dfsph_rate; dfsph_pack readies the density loop's
+# first rate), IISPH's and PCISPH's the contraction alone.
 COEF_PATH = ("fluid_terms", "boundary_terms", "viscosity", "coef_build",
-             "dfsph_kick", "dfsph_rate")
+             "dfsph_kick", "dfsph_rate", "dfsph_pack")
 IISPH_COEF_PATH = COEF_PATH[:4] + ("coef_matvec", "coef_matvec_dot")
 # The kernels that DFSPH's coef-engine loops do not launch
 DFSPH_IDLE = ("coef_matvec", "coef_matvec_dot", "matvec", "matvec_dot")
@@ -532,6 +541,8 @@ def check_case(case, pos, torch) -> float:
     """Compare a case's kernel with its plain version; its max_abs_err."""
     from cfd_taichi_tpu_torch.perf import cases
 
+    if case.name == "dfsph_pack":
+        return check_pack(case.key, case, torch)
     if case.parent is not None:
         return check_fused(case, torch)
     if case.name == "coef_build":
@@ -542,6 +553,20 @@ def check_case(case, pos, torch) -> float:
             case.kern(), case.plain(), pos, case.name == "coef_matvec_dot",
             torch)
     return compare(case.key, *cases.compared(case), torch)
+
+
+def check_pack(tag: str, case, torch) -> float:
+    """dfsph_pack against its plain version bit for bit (one rounding an
+    operation on both sides), and over two launches."""
+    from cfd_taichi_tpu_torch.perf import cases
+
+    got = case.kern()
+    same = cases.bit_equal(got, case.plain())
+    again = cases.bit_equal(got, case.kern())
+    print(f"    {tag}: bit-equal to the plain version {same}, over two "
+          f"launches {again}")
+    check(same and again, f"{tag}: not bit-equal")
+    return 0.0
 
 
 def repeats(case, tag: str, torch) -> None:
@@ -610,6 +635,12 @@ def clustered_checks(torch, results: dict) -> None:
                 "max_abs_err_clustered" + case.key[len(case.name):]] = \
                 check_fused(case, torch)
         del eng
+    pack = cases.Case("dfsph_pack", "dfsph_pack",
+                      functools.partial(coef.dfsph_pack, p, x["v"]),
+                      functools.partial(coef.dfsph_pack_plain, p, x["v"]),
+                      None)
+    results.setdefault("dfsph_pack", {})["max_abs_err_clustered"] = \
+        check_pack("dfsph_pack clustered", pack, torch)
     compare("viscosity clustered",
             S.viscosity(p, st, g, h, m, x["v"], x["rho"], **cases.VISC),
             S.viscosity_plain(p, st, g, h, m, x["v"], x["rho"], **cases.VISC),
@@ -1053,7 +1084,8 @@ def phase_loops(torch, results: dict) -> None:
     eager loops at the scene's U: positions, oid and diag bit for bit,
     dfsph_kick and dfsph_rate each launched 1 + trips x U times a step
     (the warm start or the first rate, and each loop sub-iteration, masked
-    ones included), coef_matvec and coef_matvec_dot never. Prints the
+    ones included), dfsph_pack once a step, coef_matvec and
+    coef_matvec_dot never. Prints the
     captures, their host ms and the host reads (trips) a step."""
     from cfd_taichi_tpu_torch import Simulation
     from cfd_taichi_tpu_torch.models import dfsph
@@ -1121,16 +1153,18 @@ def phase_loops(torch, results: dict) -> None:
         diags = [d.tolist() for d in diags]
         want = LOOP_STEPS + looped(diags, (0, 2), u)
         got = {name: stencil.KERNELS[name].launches
-               for name in ("dfsph_kick", "dfsph_rate", "coef_matvec",
-                            "coef_matvec_dot")}
+               for name in ("dfsph_kick", "dfsph_rate", "dfsph_pack",
+                            "coef_matvec", "coef_matvec_dot")}
         print(f"[loops] DFSPH 30k {tag}: {LOOP_STEPS / wall:.2f} steps/s; a "
               f"step {graphs.trips / LOOP_STEPS:.2f} host reads (trips), "
               f"{graphs.captures / LOOP_STEPS:.2f} captures, "
               f"{graphs.capture_s * 1e3 / LOOP_STEPS:.3f} ms capturing "
               f"({graphs.instantiate_s * 1e3 / LOOP_STEPS:.3f} ms in "
               f"capture_end); launches {got} (want {want} of dfsph_kick "
-              f"and dfsph_rate, 0 of the contraction alone)")
-        check(got == dict(dfsph_kick=want, dfsph_rate=want, coef_matvec=0,
+              f"and dfsph_rate, {LOOP_STEPS} of dfsph_pack, 0 of the "
+              f"contraction alone)")
+        check(got == dict(dfsph_kick=want, dfsph_rate=want,
+                          dfsph_pack=LOOP_STEPS, coef_matvec=0,
                           coef_matvec_dot=0),
               f"loops: {tag}: launches {got}, want {want} of dfsph_kick and "
               f"dfsph_rate")
@@ -1260,10 +1294,11 @@ def check_dfsph_30k(tag: str, run: dict) -> None:
 def dfsph_launches(tag: str, run: dict) -> None:
     """A DFSPH run on the coef engine launched dfsph_kick and dfsph_rate
     1 + trips x U times a step each (the warm start or the first rate, and
-    every loop sub-iteration, masked ones included), and neither the
-    contraction alone nor the recompute kernels."""
+    every loop sub-iteration, masked ones included), dfsph_pack once a
+    step, and neither the contraction alone nor the recompute kernels."""
     want = dict.fromkeys(("dfsph_kick", "dfsph_rate"),
                          run["steps"] + sum(run["looped"]))
+    want["dfsph_pack"] = run["steps"]
     want.update(dict.fromkeys(DFSPH_IDLE, 0))
     got = {name: run["launches"][name] for name in want}
     check(got == want, f"{tag}: launches {got}, want {want}")
@@ -1310,7 +1345,7 @@ def phase_recompute(torch, sims: dict, results: dict) -> None:
         check(residual <= 1.0, f"recompute: density residual {residual}")
         check_dfsph_30k("recompute", run)
         for name in ("coef_build", "coef_matvec", "coef_matvec_dot",
-                     "dfsph_kick", "dfsph_rate"):
+                     "dfsph_kick", "dfsph_rate", "dfsph_pack"):
             check(run["launches"][name] == 0,
                   f"recompute: {name} launched with a coef budget of 0")
         for name in ("matvec", "matvec_dot"):
@@ -1779,10 +1814,11 @@ def phase_iisph(torch, results: dict) -> None:
           f"iisph: {sim.cfg.solver.name} on {sim.device}")
     for engine, pins, path, idle in (
             ("coef", {}, IISPH_COEF_PATH,
-             ("matvec", "matvec_dot", "dfsph_kick", "dfsph_rate")),
+             ("matvec", "matvec_dot", "dfsph_kick", "dfsph_rate",
+              "dfsph_pack")),
             ("recompute", {"budget": 0}, RECOMPUTE_PATH,
              ("coef_build", "coef_matvec", "coef_matvec_dot", "dfsph_kick",
-              "dfsph_rate"))):
+              "dfsph_rate", "dfsph_pack"))):
         with inputs.engine(**pins):
             run = drive(sim, f"iisph-{engine}", [50], path, torch)
         for name in idle + ("wcsph_forces",):
@@ -1812,13 +1848,14 @@ def shard_launches(solver: str, diags, unroll: int) -> dict:
     `unroll` loop iterations a trip, by kernel: each one-shot pass once a
     step; dfsph_kick and dfsph_rate once a step (the warm start, the
     first density rate) and once a loop sub-iteration, the masked ones
-    included."""
+    included; dfsph_pack once a step."""
     steps = len(diags)
     if solver == "wcsph":
         return dict.fromkeys(WCSPH_PATH, steps)
     loop = steps + looped(diags, (0, 2), unroll)
     return dict(fluid_terms=steps, boundary_terms=steps, viscosity=steps,
-                coef_build=steps, dfsph_kick=loop, dfsph_rate=loop)
+                coef_build=steps, dfsph_kick=loop, dfsph_rate=loop,
+                dfsph_pack=steps)
 
 
 def shard_counts(tag: str, counts: dict, want: dict) -> None:

@@ -94,17 +94,19 @@ def _all_outputs(sc, pos, starts, k, v, rho):
 
 def _dfsph_outputs(eng, pos, ft, k, v, rho):
     """DFSPH's loop kernels once each, in their fullest form: the kick with
-    wk and a rank's upd mask, the divergence rate with a contact dot and a
-    rank's owned mask (the floats: a row's selection may differ at the
-    threshold between summation orders)."""
+    wk and a rank's upd mask (and its record), the pack of v, the
+    divergence rate over that record with a contact dot and a rank's owned
+    mask (the floats: a row's selection may differ at the threshold
+    between summation orders)."""
     dt = torch.tensor(4e-4, dtype=torch.float32, device=pos.device)
     alpha = 1e-3 * k
     kick = coef.dfsph_kick(eng, pos, v, k, ft.s, dt, k, 0.5 * k, alpha,
                            k > 0.2)
-    rate = coef.dfsph_rate(eng, pos, v, ft.s, alpha, rho, dt,
+    rec = coef.dfsph_pack(pos, v)
+    rate = coef.dfsph_rate(eng, pos, rec, ft.s, alpha, rho, dt,
                            coef.Divergence(ft.count, dfsph.MIN_NEIGHBORS),
                            0.1 * k, k < 1.8)
-    return [*kick, rate.dr, rate.k, rate.masked]
+    return [*kick, rec, rate.dr, rate.k, rate.masked]
 
 
 def _body_outputs(sc, pos, starts, v, rho):
@@ -167,9 +169,9 @@ def test_kernels_match_plain_versions(cuda):
         outputs[dev.type] = _all_outputs(*inputs)
         torch.cuda.synchronize()
         for kern in stencil.KERNELS.values():
-            # the plain dfsph_kick and dfsph_rate run the plain contraction
+            # the plain dfsph_kick runs the plain coef_matvec
             want = (1, 0) if dev.type == "cuda" else \
-                (0, 2 if kern.name.startswith("coef_matvec") else 1)
+                (0, 2 if kern.name == "coef_matvec" else 1)
             assert (kern.launches, kern.plain_calls) == want, kern.name
     for got, ref in zip(outputs["cuda"], outputs["cpu"]):
         got = got.cpu().numpy()
@@ -301,6 +303,66 @@ def test_dfsph_loop_kernels_match_the_composition(cuda, dtype, form):
         e = cases.fused_error(case.name, got, case.plain(), case.scales(),
                               1e-5)
         assert e["ok"], (case.key, e)
+        if case.name == "dfsph_kick":
+            # the kick's record is the pack kernel's of its v_out
+            assert cases.bit_equal(got[2], coef.dfsph_pack(pos, got[0]))
+
+
+@pytest.mark.cuda
+def test_dfsph_pack_matches_its_plain_version(clustered):
+    """The source record of a v, bit for bit (one rounding an operation on
+    both sides), on the clustered cloud, and written in place."""
+    x, _ = clustered
+    want = coef.dfsph_pack_plain(x["p"], x["v"])
+    assert cases.bit_equal(coef.dfsph_pack(x["p"], x["v"]), want)
+    buf = torch.empty_like(want)
+    assert coef.dfsph_pack(x["p"], x["v"], buf).data_ptr() == buf.data_ptr()
+    assert cases.bit_equal(buf, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unroll", [1, 3])
+def test_dfsph_steps_read_no_stale_record_on_the_card(cuda, unroll,
+                                                      monkeypatch):
+    """TINY as DFSPH from rest, 40 steps on the card (the block reaches the
+    floor near step 33, and both loops iterate) with graph trips at
+    `unroll` iterations a trip: bit for bit the same steps with every rate
+    handed a record packed afresh from its v; dfsph_kick and dfsph_rate
+    launched 1 + trips x U times a step, dfsph_pack once a step, the
+    contraction alone never."""
+    def run(repack):
+        algebra = dfsph.loop_algebra
+
+        def wrapped(*args):
+            kick, rate, pack = algebra(*args)
+
+            def fresh(v, *a):
+                pack(v)
+                return rate(v, *a)
+            return kick, fresh if repack else rate, pack
+        monkeypatch.setattr(dfsph, "loop_algebra", wrapped)
+        sim = Simulation(parse_config(copy.deepcopy(TINY)), device=cuda)
+        stencil.reset_counts()
+        diags = []
+        with inputs.loop_mode(unroll=unroll):
+            for _ in range(40):
+                sim.step()
+                diags.append(sim.state.diag.tolist())
+        monkeypatch.undo()
+        counts = {name: stencil.KERNELS[name].launches for name in
+                  ("dfsph_kick", "dfsph_rate", "dfsph_pack", "coef_matvec",
+                   "coef_matvec_dot")}
+        return sim.state, diags, counts
+
+    state, diags, counts = run(False)
+    again, _, _ = run(True)
+    assert torch.equal(state.fluid.pos, again.fluid.pos)
+    assert torch.equal(state.diag, again.diag)
+    assert max(d[2] for d in diags) > dfsph.MIN_ITER_DENSITY
+    looped = sum(-(-round(d[c]) // unroll) * unroll for d in diags
+                 for c in (0, 2))
+    assert counts == dict(dfsph_kick=40 + looped, dfsph_rate=40 + looped,
+                          dfsph_pack=40, coef_matvec=0, coef_matvec_dot=0)
 
 
 @pytest.mark.cuda

@@ -108,10 +108,11 @@ def _kick_args(x, variant, wk):
 
 
 def _rate_args(x, variant, divergence):
+    """The rate's arguments after its source: v for the composition, the
+    record for the plain version."""
     c_s, masks = VARIANTS[variant]
-    return (x["v"], x["S"], x["alpha"], x["rho"], x["dt"],
-            _mode(x, divergence), x["c_s"] if c_s else None,
-            x["owned"] if masks else None)
+    return (x["S"], x["alpha"], x["rho"], x["dt"], _mode(x, divergence),
+            x["c_s"] if c_s else None, x["owned"] if masks else None)
 
 
 def _np(t):
@@ -182,11 +183,12 @@ def test_kick_matches_jax_stiff_vel_delta(block, variant, wk):
 def test_rate_matches_jax_loop_operators(block, variant, divergence):
     x = block
     args = _rate_args(x, variant, divergence)
-    got = coef.dfsph_rate_plain(x["eng"], x["pos"], *args)
+    rec = coef.dfsph_pack_plain(x["pos"], x["v"])
+    got = coef.dfsph_rate_plain(x["eng"], x["pos"], rec, *args)
     want, avg = _jax_rate(x, variant, divergence)
     e = cases.fused_error("dfsph_rate", got, want,
                           cases.fused_scales("dfsph_rate", x["eng"], x["pos"],
-                                             *args), TOL)
+                                             x["v"], *args), TOL)
     assert e["ok"], e
     assert e["flips"] == 0
     assert int(got.sel.sum()) == int(want.sel.sum()) > 0
@@ -239,14 +241,15 @@ def test_plain_versions_give_the_parent_composition_bits(block, variant):
     x = block
     for wk in (False, True):
         args = _kick_args(x, variant, wk)
-        assert cases.bit_equal(coef.dfsph_kick_plain(x["eng"], x["pos"],
-                                                     *args),
-                               parent_kick(x["eng"], x["pos"], *args))
+        got = coef.dfsph_kick_plain(x["eng"], x["pos"], *args)
+        assert cases.bit_equal(got[:2], parent_kick(x["eng"], x["pos"],
+                                                    *args))
+    rec = coef.dfsph_pack_plain(x["pos"], x["v"])
     for divergence in (True, False):
         args = _rate_args(x, variant, divergence)
         assert cases.bit_equal(tuple(coef.dfsph_rate_plain(x["eng"], x["pos"],
-                                                           *args)),
-                               parent_rate(x["eng"], x["pos"], *args))
+                                                           rec, *args)),
+                               parent_rate(x["eng"], x["pos"], x["v"], *args))
 
 
 def test_nan_rates_are_kept_as_the_composition_keeps_them(block):
@@ -258,11 +261,12 @@ def test_nan_rates_are_kept_as_the_composition_keeps_them(block):
     v = x["v"].clone()
     row = int(torch.nonzero(x["counts"] >= dfsph.MIN_NEIGHBORS)[0])
     v[row] = float("nan")
+    rec = coef.dfsph_pack_plain(x["pos"], v)
     for divergence in (True, False):
-        args = (v,) + _rate_args(x, "fluid", divergence)[1:]
-        got = coef.dfsph_rate_plain(x["eng"], x["pos"], *args)
+        args = _rate_args(x, "fluid", divergence)
+        got = coef.dfsph_rate_plain(x["eng"], x["pos"], rec, *args)
         assert cases.bit_equal(tuple(got),
-                               parent_rate(x["eng"], x["pos"], *args))
+                               parent_rate(x["eng"], x["pos"], v, *args))
         if divergence:
             assert torch.isnan(got.dr[row]) and not bool(got.sel[row])
         else:
@@ -275,7 +279,8 @@ def test_kernel_wrappers_take_cpu_or_cuda_tensors_only(block):
     with pytest.raises(ValueError, match="no kernel for device meta"):
         coef.dfsph_kick(x["eng"], meta, x["v"], x["k"], x["S"], x["dt"])
     with pytest.raises(ValueError, match="no kernel for device meta"):
-        coef.dfsph_rate(x["eng"], meta, *_rate_args(x, "fluid", True))
+        coef.dfsph_rate(x["eng"], meta, x["v"].to("meta"),
+                        *_rate_args(x, "fluid", True))
 
 
 # ---------------------------------------------------------------------------
@@ -286,9 +291,10 @@ def test_kernel_wrappers_take_cpu_or_cuda_tensors_only(block):
 def test_dfsph_loops_take_the_kernels_on_the_coef_engine(budget,
                                                         monkeypatch):
     """One TINY step: on the stored-coefficient engine every kick and rate
-    goes through the two wrappers (1 + iterations of each loop a step);
-    on the recompute engine none does, and the composition runs on the
-    stencil kernels."""
+    goes through the two wrappers (1 + iterations of each loop a step) and
+    the density loop's first record through dfsph_pack (once); on the
+    recompute engine none does, and the composition runs on the stencil
+    kernels."""
     if budget == "zero":
         monkeypatch.setattr(dfsph, "COEF_BYTE_BUDGET", 0)
     sim = Simulation(parse_config(copy.deepcopy(TINY)), device="cpu")
@@ -296,12 +302,13 @@ def test_dfsph_loops_take_the_kernels_on_the_coef_engine(budget,
     sim.step()
     k = stencil.KERNELS
     iters = round(float(sim.state.diag[0]) + float(sim.state.diag[2]))
-    fused = (k["dfsph_kick"].plain_calls, k["dfsph_rate"].plain_calls)
+    fused = (k["dfsph_kick"].plain_calls, k["dfsph_rate"].plain_calls,
+             k["dfsph_pack"].plain_calls)
     if budget == "default":
-        assert fused == (1 + iters, 1 + iters)
+        assert fused == (1 + iters, 1 + iters, 1)
         assert k["coef_matvec"].plain_calls == 1 + iters
         assert k["matvec"].plain_calls == 0
     else:
-        assert fused == (0, 0)
+        assert fused == (0, 0, 0)
         assert k["matvec"].plain_calls == k["matvec_dot"].plain_calls \
             == 1 + iters
