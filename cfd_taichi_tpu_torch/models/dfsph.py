@@ -41,6 +41,21 @@ is handed, at every number of gated sub-iterations a trip, because:
   masked sub-iteration writes is read only by masked ones, whose outputs
   the gate discards. After the divergence loop the pack overwrites it.
 
+The next kick's k is kept the same way, on either engine: every rate
+writes the k it returns into one (N,) buffer that `loop_algebra` makes
+beside the record, no carry leaf either, and each kick of the divergence
+loop reads that buffer, so the divergence loop carries no k and its gate
+selects and copies one N-row leaf fewer each sub-iteration. Each such
+kick reads the k that the last real sub-iteration's rate returned (the k
+a carry would hand it), or, in the first, the rate's after the warm
+start, by the same argument with rate and kick exchanged: the divergence
+body is kick then rate; the density body is rate then kick, and its kick
+reads its own rate's k; what a masked sub-iteration's rate writes is read
+only by masked kicks; the density loop's first rate writes the buffer
+before any kick reads it. The warm-start kick takes its own k, (warm_k /
+dt) / rho; a rank of a sharded step hands each kick the buffer with its
+ghost rows' values from their owners (`base.synced`).
+
 A rigid body enters as JAX's dense coupled path has it
 (`cfd_taichi_tpu/models/dfsph.py:499-583, 686-790`; ops/rigid.py): its
 step-constant sums fold into the fluid's before the alpha factor, the
@@ -234,14 +249,17 @@ def loop_algebra(pos: torch.Tensor, mv: Callable, mvd: Callable,
                  ) -> tuple[Callable, Callable, Callable]:
     """(kick, rate, pack) of DFSPH's loops over the cell-sorted `pos`: kick
     takes `coef.dfsph_kick`'s arguments after pos and returns (v_out,
-    wk_out); rate takes `coef.dfsph_rate`'s with v in the record's place;
-    pack(v) readies the rate's input for a v that no kick returned. On the
-    stored-coefficient engine (`store`, from `loop_engine`) the kernels
-    that run the loop algebra in the contraction's epilogue, around one
-    source record made here (module note): the kick and the pack write it,
-    the rate reads it and not its v. On the recompute engine the same
-    torch ops (`coef.kick_composition`, `coef.rate_composition`) around its
-    kernels `mv` and `mvd`, on v; pack does nothing."""
+    wk_out); rate takes `coef.dfsph_rate`'s with v in the record's place
+    and writes the k it returns into one buffer made here, the same tensor
+    every call (module note); pack(v) readies the rate's input for a v
+    that no kick returned. On the stored-coefficient engine (`store`, from
+    `loop_engine`) the kernels that run the loop algebra in the
+    contraction's epilogue, around one source record made here: the kick
+    and the pack write it, the rate reads it and not its v. On the
+    recompute engine the same torch ops (`coef.kick_composition`,
+    `coef.rate_composition`) around its kernels `mv` and `mvd`, on v; pack
+    does nothing."""
+    k = pos.new_empty(pos.shape[0])
     if store is not None:
         rec = pos.new_empty(pos.shape[0], 4)
 
@@ -249,14 +267,15 @@ def loop_algebra(pos: torch.Tensor, mv: Callable, mvd: Callable,
             return coef.dfsph_kick(store, pos, v, *args, rec=rec)[:2]
 
         def rate(v, *args):
-            return coef.dfsph_rate(store, pos, rec, *args)
+            return coef.dfsph_rate(store, pos, rec, *args, k_out=k)
 
         def pack(v):
             coef.dfsph_pack(pos, v, rec)
 
         return kick, rate, pack
     return (functools.partial(coef.kick_composition, mv),
-            functools.partial(coef.rate_composition, mvd), lambda v: None)
+            functools.partial(coef.rate_composition, mvd, k_out=k),
+            lambda v: None)
 
 
 # Set within `walked_reaction` only.
@@ -422,27 +441,29 @@ def solve(scene: Scene, pre: _Pre, dt: torch.Tensor,
         r = pre.rate(v, S, alpha, rho, dt, divergence, cs_div, owned)
         return r.dr, r.k, average(r, torch.zeros_like)
 
-    dr0, k0, avg0 = rho_derivative(vel)
+    # k: the buffer into which every rate writes its k (`loop_algebra`),
+    # so each kick reads the last rate's (module note); no carry leaf
+    dr0, k, avg0 = rho_derivative(vel)
     loop_kw = loop_args(scene, shard)
 
     def div_cond(c):
-        _, _, _, _, avg, stop, it = c
+        _, _, _, avg, stop, it = c
         return (((it < MIN_ITER_DIV) | (avg > f32(DIV_THRESHOLD)))
                 & (it < MAX_ITER_DIV) & ~stop)
 
     def div_body(c):
         # k = (dr alpha / dt) / rho came with dr from the rate; the kick
         # also adds dr alpha to wk (sum_up_stiff, dfsph_solver.py:381)
-        v, wk, dr, k, avg, _, it = c
+        v, wk, dr, avg, _, it = c
         v, wk = kick(v, k, dt, wk, dr)
-        new_dr, new_k, new_avg = rho_derivative(v)
+        new_dr, _, new_avg = rho_derivative(v)
         stop = torch.abs(new_avg - avg) < f32(STALL_EPS)
-        return v, wk, new_dr, new_k, new_avg, stop, it + 1
+        return v, wk, new_dr, new_avg, stop, it + 1
 
     zero_i = torch.zeros((), dtype=torch.int32, device=vel.device)
-    vel, warm_k, _, _, div_avg, _, div_iters = loops.while_loop_unrolled(
+    vel, warm_k, _, div_avg, _, div_iters = loops.while_loop_unrolled(
         div_cond, div_body,
-        (vel, torch.zeros_like(warm_k), dr0, k0, avg0,
+        (vel, torch.zeros_like(warm_k), dr0, avg0,
          torch.zeros((), dtype=torch.bool, device=vel.device), zero_i),
         **loop_kw)
 

@@ -45,7 +45,10 @@ takes the record instead of v, so a caller must hand it the record of the
 v it means: models/dfsph.py says why its loops always do. The plain
 versions keep that dataflow (the kick's writes the record, the rate's
 contracts the record it is given and reads v from it), so a stale record
-shows on the CPU too.
+shows on the CPU too. The rate writes the next kick's k into a buffer
+where it is given one (`k_out`, in place), so that a caller can keep the
+last rate's k at a fixed address (models/dfsph.py), its plain version and
+the composition too.
 
 Each pass has a hand-written CUDA kernel (csrc/coef_build.cu,
 csrc/coef_matvec.cu), a plain PyTorch version `*_plain`, and a wrapper that
@@ -251,19 +254,22 @@ def dfsph_rate(eng: CoefEngine, pos: torch.Tensor, rec: torch.Tensor,
                S: torch.Tensor, alpha: torch.Tensor, rho: torch.Tensor,
                dt: torch.Tensor, mode: Divergence | Density,
                c_s: torch.Tensor | None = None,
-               owned: torch.Tensor | None = None) -> Rate:
+               owned: torch.Tensor | None = None,
+               k_out: torch.Tensor | None = None) -> Rate:
     """DFSPH's density rate over the stored pairs (`rate_composition`) of
     the velocities v whose source record is `rec` (`dfsph_pack`, or the
     kick's): d = v . S - coef_matvec_dot(v), less the contact dot `c_s` of
-    a coupled scene, then `mode`'s value and the next kick's k, and the
-    residual average's inputs, counted on the rows of `owned` only where
-    it is given (a rank's own rows). `dt` (and Density's dt2) 0-d tensors
-    on the rows' device."""
+    a coupled scene, then `mode`'s value and the next kick's k (written
+    into `k_out` where it is given), and the residual average's inputs,
+    counted on the rows of `owned` only where it is given (a rank's own
+    rows). `dt` (and Density's dt2) 0-d tensors on the rows' device."""
     on_cuda = _on_cuda("dfsph_rate", pos)
     _check_record(rec, pos.shape[0], pos.device)
+    if k_out is not None:
+        _check("k_out", k_out, torch.float32, (pos.shape[0],), pos.device)
     if not on_cuda:
         return dfsph_rate_plain(eng, pos, rec, S, alpha, rho, dt, mode, c_s,
-                                owned)
+                                owned, k_out)
     n = _check_engine(eng, pos)
     _check_rows(n, pos.device, S=S, alpha=alpha, rho=rho, c_s=c_s,
                 owned=owned)
@@ -273,8 +279,8 @@ def dfsph_rate(eng: CoefEngine, pos: torch.Tensor, rec: torch.Tensor,
         _check("counts", mode.counts, torch.int32, (n,), pos.device)
     else:
         _check("dt2", mode.dt2, torch.float32, (), pos.device)
-    out = Rate(pos.new_empty(n) if div else None, pos.new_empty(n),
-               pos.new_empty(n),
+    out = Rate(pos.new_empty(n) if div else None,
+               pos.new_empty(n) if k_out is None else k_out, pos.new_empty(n),
                torch.empty(n, dtype=torch.bool, device=pos.device))
     _launch("dfsph_rate", pos.device, pos, n, eng.offsets, eng.nbr, eng.w,
             _is_bf16(eng), rec, S, c_s, mode.counts if div else None,
@@ -326,10 +332,12 @@ def rate_composition(matvec_dot: Callable, v: torch.Tensor, S: torch.Tensor,
                      alpha: torch.Tensor, rho: torch.Tensor,
                      dt: torch.Tensor, mode: Divergence | Density,
                      c_s: torch.Tensor | None = None,
-                     owned: torch.Tensor | None = None) -> Rate:
+                     owned: torch.Tensor | None = None,
+                     k_out: torch.Tensor | None = None) -> Rate:
     """`dfsph_rate` as torch ops around `matvec_dot` (v -> (N,)): JAX's
     rho_derivative (Divergence) or rho_adv_residual (Density) up to the
-    average, whose count and total are `sel.sum()` and `masked.sum()`."""
+    average, whose count and total are `sel.sum()` and `masked.sum()`; k
+    written into `k_out` where it is given."""
     d = (v[:, 0] * S[:, 0] + v[:, 1] * S[:, 1] + v[:, 2] * S[:, 2]
          - matvec_dot(v))
     if c_s is not None:
@@ -337,12 +345,13 @@ def rate_composition(matvec_dot: Callable, v: torch.Tensor, S: torch.Tensor,
     if isinstance(mode, Divergence):
         dr = torch.where(mode.counts < mode.min_neighbors,
                          torch.zeros_like(d), torch.clamp(d, min=0.0))
-        val, sel, k = dr, dr > 0.0, (dr * alpha / dt) / rho
+        val, sel = dr, dr > 0.0
+        k = torch.div(dr * alpha / dt, rho, out=k_out)
     else:
         dr = None
         val = torch.clamp(rho + dt * d, min=mode.rho0)
         sel = val != mode.rho0
-        k = ((val - mode.rho0) * alpha / mode.dt2) / rho
+        k = torch.div((val - mode.rho0) * alpha / mode.dt2, rho, out=k_out)
     if owned is not None:
         sel = sel & owned
     return Rate(dr, k, torch.where(sel, val, torch.zeros_like(val)), sel)
@@ -372,13 +381,14 @@ def dfsph_rate_plain(eng: CoefEngine, pos: torch.Tensor, rec: torch.Tensor,
                      S: torch.Tensor, alpha: torch.Tensor, rho: torch.Tensor,
                      dt: torch.Tensor, mode: Divergence | Density,
                      c_s: torch.Tensor | None = None,
-                     owned: torch.Tensor | None = None) -> Rate:
+                     owned: torch.Tensor | None = None,
+                     k_out: torch.Tensor | None = None) -> Rate:
     """The composition over the record: its lanes contracted as they are,
     v read from its first three columns."""
     KERNELS["dfsph_rate"].plain_calls += 1
     return rate_composition(
         lambda _: _dot_finish(pos, _contract_plain(eng, rec)), rec[:, :3], S,
-        alpha, rho, dt, mode, c_s, owned)
+        alpha, rho, dt, mode, c_s, owned, k_out)
 
 
 def dfsph_pack_plain(pos: torch.Tensor, v: torch.Tensor,

@@ -11,11 +11,8 @@ on one card:
 contractions; for `dfsph`, DFSPH's loop kernels dfsph_kick and dfsph_rate
 in the forms the density loop ("kick", "rate") and the divergence loop
 ("kick_div", "rate_div") call them, beside the two contractions alone,
-in f32 and bf16; a source from before the rate's source record calls
-its entries as they were then, the kick writing no record and the rate
-reading v; one from before the kernels runs the contraction and the
-torch ops around it, the composition DFSPH ran, which `--bit-equal`
-holds the kernels to), csrc/coef_build.cu, csrc/viscosity.cu,
+in f32 and bf16, each variant through the tree's entries),
+csrc/coef_build.cu, csrc/viscosity.cu,
 csrc/fluid_terms.cu, csrc/boundary_terms.cu, csrc/matvec.cu (both
 recompute products, matvec and matvec_dot), csrc/wcsph_forces.cu or
 csrc/pcisph_predict.cu (both forms of PCISPH's predicted density with
@@ -82,16 +79,11 @@ A source from before boundary_terms_launch took the per-cell table
     python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel \\
         boundary_terms --variant before=build/before --bit-equal before
 
-DFSPH's loop kernels beside those of commit fc0d7c5, whose rate formed
-its lanes from pos and v in registers, and beside the composition of
-commit d3e23c7; and the record form with other lanes a row and pairs a
-lane loads ahead (kGroup changes the bits, kRecordUnroll does not):
+DFSPH's loop kernels beside a source with the same entries (a parent
+that changed no entry's arguments: an older one is compared from its own
+tree), here the record form with other lanes a row and pairs a lane
+loads ahead (kGroup changes the bits, kRecordUnroll does not):
 
-    mkdir -p build/fc0 build/d3e
-    git show fc0d7c5:cfd_taichi_tpu_torch/csrc/coef_matvec.cu \\
-        > build/fc0/coef_matvec.cu
-    git show d3e23c7:cfd_taichi_tpu_torch/csrc/coef_matvec.cu \\
-        > build/d3e/coef_matvec.cu
     for v in "4 2" "4 4" "8 2" "16 2" "16 4"; do
         set -- $v; mkdir -p build/g$1u$2
         sed -e "s/kGroup = [0-9]*;/kGroup = $1;/" \\
@@ -100,10 +92,8 @@ lane loads ahead (kGroup changes the bits, kRecordUnroll does not):
             > build/g$1u$2/coef_matvec.cu
     done
     python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel dfsph \\
-        --variant fc0=build/fc0/coef_matvec.cu \\
-        --variant d3e=build/d3e/coef_matvec.cu \\
         --variant g8u2=build/g8u2 --variant g4u2=build/g4u2 ... \\
-        --bit-equal fc0
+        --bit-equal g8u2
 
 The bf16 engine's rate over the record rounded to bf16 at the table (8 B
 a source, as the JAX engine rounds its product table; perf/dfsph_rec8.patch
@@ -450,55 +440,6 @@ def contraction_entries(engs: dict, pos, k, v) -> list[Entry]:
     return out
 
 
-# dfsph_kick's entry point before the source record: no record pointer.
-KICK_BEFORE_RECORD = (_build._SIGNATURES["dfsph_kick_launch"][:-2]
-                      + (ctypes.c_void_p,))
-
-
-def fused_call(case: cases.Case):
-    """DFSPH's loop kernel of `case` from the library in use; for a source
-    from before the rate's source record (no dfsph_pack), its entry as it
-    was then (`before_record`); for one from before the kernels, the
-    parent's composition: the contraction's kernel and the torch ops
-    around it."""
-    lib = _build.library().lib
-    if getattr(lib, "dfsph_pack_launch", None) is not None:
-        return case.kern()
-    if getattr(lib, f"{case.name}_launch", None) is not None:
-        return before_record(case)
-    return case.parent()
-
-
-def before_record(case: cases.Case):
-    """`case` through a source from before the source record: the kick
-    writes none ((v_out, wk_out)), the rate reads v (the parent's, on
-    which `case.parent` runs) in the record's place, through the same
-    arguments otherwise."""
-    eng, p, *args = case.kern.args
-    n, dev = p.shape[0], p.device
-    head = (p, n, eng.offsets, eng.nbr, eng.w, coef._is_bf16(eng))
-    if case.name == "dfsph_kick":
-        v, k, S_, dt, wk, dr, alpha, upd = (*args, None, None, None,
-                                            None)[:8]
-        _build.library().lib.dfsph_kick_launch.argtypes = KICK_BEFORE_RECORD
-        v_out = torch.empty_like(v)
-        wk_out = None if wk is None else torch.empty_like(wk)
-        S._launch("dfsph_kick", dev, *head, k, v, S_, dt, wk, dr, alpha, upd,
-                  v_out, wk_out)
-        return v_out, wk_out
-    _, S_, alpha, rho, dt, mode, c_s, owned = (*args, None, None)[:8]
-    v = case.parent.args[1]
-    div = isinstance(mode, coef.Divergence)
-    out = coef.Rate(p.new_empty(n) if div else None, p.new_empty(n),
-                    p.new_empty(n), torch.empty(n, dtype=torch.bool,
-                                                device=dev))
-    S._launch("dfsph_rate", dev, *head, v, S_, c_s,
-              mode.counts if div else None, mode.min_neighbors if div else 0,
-              alpha, rho, dt, None if div else mode.dt2,
-              0.0 if div else f32(mode.rho0), owned, *out)
-    return out
-
-
 # dfsph_rate_rec8_launch of perf/dfsph_rec8.patch: the rate's arguments
 # with the bf16 record after the f32 one, and no storage flag (bf16 w).
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -509,11 +450,11 @@ REC8_ARGS = (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
 def rec8_call(case: cases.Case, rec8: torch.Tensor):
     """`case` (dfsph_rate on a bf16 engine) through the library's
     dfsph_rate_rec8_launch over `rec8`, its record rounded to bf16, or,
-    for a library without it, as `fused_call` calls it."""
+    for a library without it, as the tree's wrapper calls it."""
     lib = _build.library().lib
     entry = getattr(lib, "dfsph_rate_rec8_launch", None)
     if entry is None:
-        return fused_call(case)
+        return case.kern()
     entry.argtypes = REC8_ARGS
     eng, p, rec, S_, alpha, rho, dt, mode, c_s, owned = (
         *case.kern.args, None, None)[:10]
@@ -542,7 +483,7 @@ def fused_check(name: str, call: Callable, want, scales: dict) -> float:
 
 
 def dfsph_entries(x: dict, p, st, g, h: float, m: float) -> list[Entry]:
-    """dfsph_kick and dfsph_rate (`fused_call`) on f32 and bf16 engines of
+    """dfsph_kick and dfsph_rate (their wrappers) on f32 and bf16 engines of
     `p`, as the density loop and the divergence loop call them
     (perf/cases.dfsph_cases), each checked against its plain version
     (cases.fused_error: the largest error over its scale, inf where the
@@ -556,7 +497,7 @@ def dfsph_entries(x: dict, p, st, g, h: float, m: float) -> list[Entry]:
         for case in cases.dfsph_cases(eng, p, x["v"], x["k"], d):
             want, scales = case.plain(), case.scales()
             label = f"{dname}/{case.key.replace('dfsph_', '')}"
-            calls = {label: functools.partial(fused_call, case)}
+            calls = {label: case.kern}
             if dname == "bf16" and case.name == "dfsph_rate":
                 calls[label + "_rec8"] = functools.partial(
                     rec8_call, case, case.kern.args[2].to(torch.bfloat16))

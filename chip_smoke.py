@@ -518,7 +518,9 @@ def check_fused(case, torch) -> float:
     selection may differ only where the value sits that close to the
     average's threshold), and bit for bit against the parent's composition
     on the same inputs (the contraction's kernel and the torch ops) and
-    over two launches. Its max_abs_err against the plain version."""
+    over two launches; the rate also with its k written into a buffer
+    given (`k_out`, as DFSPH's loops call it). Its max_abs_err against the
+    plain version."""
     from cfd_taichi_tpu_torch.perf import cases
 
     got = case.kern()
@@ -527,10 +529,17 @@ def check_fused(case, torch) -> float:
                      if k.startswith("err_"))
     parent = cases.bit_equal(got, case.parent())
     again = cases.bit_equal(got, case.kern())
+    into = ""
+    if case.name == "dfsph_rate":
+        buf = torch.full_like(got.k, float("nan"))
+        out = case.kern(k_out=buf)
+        same = out.k is buf and cases.bit_equal(got, out)
+        into = f", into a buffer {same}"
+        check(same, f"{case.key}: its k written into k_out differs")
     n = case.kern.args[1].shape[0]
     print(f"    {case.key}: against plain {errs}; selection differs on "
           f"{e['flips']} of {n} rows (at the threshold); bit-equal to the "
-          f"parent's composition {parent}, over two launches {again}")
+          f"parent's composition {parent}, over two launches {again}{into}")
     check(e["ok"], f"{case.key}: against plain {e}")
     check(parent, f"{case.key}: not bit-equal to the parent's composition")
     check(again, f"{case.key}: two launches differ")

@@ -16,13 +16,24 @@ CPU the plain versions keep that dataflow, so a stale record shows here:
     rate handed a record packed afresh from its v, while a step whose pack
     is left out is not; and it is within 5e-6 of JAX's steps on its coef
     engine (positions through oid, f32 coefficients) with equal iteration
-    counts, the bar of tests/test_torch_dfsph.py.
+    counts, the bar of tests/test_torch_dfsph.py;
+(d) the rate writes the next kick's k into a buffer where it is given one
+    (`k_out`), the same bits as a k of its own, and refuses a buffer that
+    is not a contiguous (N,) f32 tensor; so does the composition that the
+    recompute engine runs;
+(e) the divergence loop carries no k: its kicks read the buffer into
+    which every rate writes (models/dfsph.py). From the same start at
+    U = 1, 2 and 4 the steps are bit for bit those whose divergence kicks
+    are each handed k = (dr alpha / dt) / rho formed afresh from the dr
+    they are handed (the carry's, the k a carry would hold), while a step
+    whose rates leave the buffer alone is not.
 
 The rate over the record against JAX's `loop_operators` and against the
 composition the loops ran before is tests/test_torch_dfsph_fused.py's.
 """
 
 import copy
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -189,18 +200,17 @@ def jax_run():
     return dict(leaves=leaves, snaps=snaps)
 
 
-def _steps(leaves, unroll, monkeypatch, rate=None):
+def _steps(leaves, unroll, monkeypatch, wrap=None):
     """STEPS steps of TINY on the coef engine from JAX's start `leaves`,
-    at `unroll` sub-iterations a trip, each step's rate wrapped by
-    `rate(rate, pack)` where one is given: (positions, oid, diag) after
+    at `unroll` sub-iterations a trip, each step's (kick, rate, pack)
+    wrapped by `wrap` where one is given: (positions, oid, diag) after
     each step."""
     monkeypatch.setattr(dfsph, "loop_unroll", lambda scene: unroll)
-    if rate is not None:
+    if wrap is not None:
         algebra = dfsph.loop_algebra
 
         def wrapped(*args):
-            kick, r, pack = algebra(*args)
-            return kick, rate(r, pack), pack
+            return wrap(*algebra(*args))
         monkeypatch.setattr(dfsph, "loop_algebra", wrapped)
     sim = Simulation(parse_config(copy.deepcopy(TINY)), device="cpu")
     sim.state = io.state_from_numpy(leaves, device="cpu")
@@ -213,12 +223,12 @@ def _steps(leaves, unroll, monkeypatch, rate=None):
     return out
 
 
-def _repacked(rate, pack):
+def _repacked(kick, rate, pack):
     """The rate handed a record packed afresh from its v on every call."""
     def call(v, *args):
         pack(v)
         return rate(v, *args)
-    return call
+    return kick, call, pack
 
 
 def _same(a, b):
@@ -252,3 +262,98 @@ def test_a_step_without_its_pack_differs(monkeypatch, jax_run):
     monkeypatch.setattr(coef, "dfsph_pack", lambda pos, v, out=None: out)
     got = _steps(jax_run["leaves"], 1, monkeypatch)
     assert not all(_same(a, b) for a, b in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# (d) the rate's k written into a buffer
+# ---------------------------------------------------------------------------
+
+def _rate_args(x, form):
+    mode = (coef.Density(x["dt2"], 1000.0) if form == "density"
+            else coef.Divergence(x["counts"], 20))
+    return (x["S"], x["alpha"], x["rho"], x["dt"], mode) + (
+        (x["c_s"], x["owned"]) if form == "contact" else ())
+
+
+@pytest.mark.parametrize("form", ["divergence", "density", "contact"])
+def test_rate_writes_its_k_into_the_buffer_given(lattice, form):
+    x = lattice
+    n = x["pos"].shape[0]
+    args = _rate_args(x, form)
+    rec = coef.dfsph_pack(x["pos"], x["v"])
+    mvd = functools.partial(coef.coef_matvec_dot_plain, x["eng"], x["pos"])
+    for call in (functools.partial(coef.dfsph_rate, x["eng"], x["pos"], rec),
+                 functools.partial(coef.rate_composition, mvd, x["v"])):
+        want = call(*args)
+        buf = torch.full((n,), float("nan"))
+        got = call(*args, k_out=buf)
+        assert got.k is buf
+        assert cases.bit_equal(got, want)
+        assert bool(torch.isfinite(buf).all())
+
+
+@pytest.mark.parametrize("what", ["(N + 1,)", "f64", "strided"])
+def test_rate_refuses_a_bad_k_buffer(lattice, what):
+    x = lattice
+    n = x["pos"].shape[0]
+    buf = {"(N + 1,)": torch.zeros(n + 1),
+           "f64": torch.zeros(n, dtype=torch.float64),
+           "strided": torch.zeros(2 * n)[::2]}[what]
+    with pytest.raises(ValueError, match="k_out: want"):
+        coef.dfsph_rate(x["eng"], x["pos"], coef.dfsph_pack(x["pos"], x["v"]),
+                        *_rate_args(x, "divergence"), k_out=buf)
+
+
+# ---------------------------------------------------------------------------
+# (e) no kick reads a stale k: TINY's steps
+# ---------------------------------------------------------------------------
+
+def _k_from_carry(kick, rate, pack):
+    """Each divergence kick (the one handed wk) handed k = (dr alpha / dt)
+    / rho formed from the dr it is handed, the carry's, as the rate forms
+    it, in place of the rate's buffer; rho is the rates' (a step
+    constant)."""
+    seen = {}
+
+    def rate_(v, S, alpha, rho, *args, **kw):
+        seen["rho"] = rho
+        return rate(v, S, alpha, rho, *args, **kw)
+
+    def kick_(v, k, S, dt, wk=None, dr=None, alpha=None, upd=None):
+        if wk is not None:
+            k = torch.div(dr * alpha / dt, seen["rho"])
+        return kick(v, k, S, dt, wk, dr, alpha, upd)
+    return kick_, rate_, pack
+
+
+def _buffer_left_alone(kick, rate, pack):
+    """Each rate hands back its k in a tensor of its own and zeroes the
+    buffer it wrote."""
+    def rate_(*args, **kw):
+        r = rate(*args, **kw)
+        k = r.k.clone()
+        r.k.zero_()
+        return r._replace(k=k)
+    return kick, rate_, pack
+
+
+@pytest.mark.parametrize("unroll", UNROLLS)
+def test_no_kick_reads_a_stale_k(unroll, monkeypatch, jax_run):
+    got = _steps(jax_run["leaves"], unroll, monkeypatch)
+    want = _steps(jax_run["leaves"], unroll, monkeypatch, _k_from_carry)
+    assert all(_same(a, b) for a, b in zip(got, want))
+    # the divergence loop iterates past its first kick in every step
+    assert min(float(d[0]) for _, _, d in got) > 1
+
+
+def test_a_step_whose_rates_leave_the_k_buffer_differs(monkeypatch,
+                                                      jax_run):
+    """The check above can fail: with the buffer zeroed after each rate
+    the divergence loop's kicks read zeros, and the steps change, unless
+    they take k from the carry's dr."""
+    want = _steps(jax_run["leaves"], 1, monkeypatch)
+    got = _steps(jax_run["leaves"], 1, monkeypatch, _buffer_left_alone)
+    assert not all(_same(a, b) for a, b in zip(got, want))
+    fixed = _steps(jax_run["leaves"], 1, monkeypatch,
+                   lambda *t: _k_from_carry(*_buffer_left_alone(*t)))
+    assert all(_same(a, b) for a, b in zip(fixed, want))
