@@ -57,27 +57,52 @@
 // 110.3 (spills). At 1M the 39k particles' groups take ~4 waves of
 // resident blocks, each as long as its slowest warp's chain.
 //
-// The list: one thread a rigid particle on the queued walk (queued_walk_of,
-// stencil.cuh), which stores each pair it charges in walk order, as the
-// JAX package hoists the pair vectors once a step: rec[base_j + kListStride
-// t] = (i, g) for its t-th pair in walk order, g = (x_i - x_j) rho0 V_j c(r)
-// as three f32 bit patterns, and cnt_j. A warp's 32 rows interleave, as
-// pbf_terms' (stencil.cuh, stream_rows), each with room for the largest
-// fluid stencil count of its warp's rows, which rigid_side_rows_kernel
-// finds before the walk from the CSR offsets at the body's own cells; the
-// pairs are a subset of those candidates, so no row overflows it. A drain
-// turn then writes one 512-byte run a warp.
+// The list: the same ordered group walk, kSideListGroup lanes a rigid
+// particle and kSideListChunk candidates a lane a round, storing each pair
+// it charges in walk order, as the JAX package hoists the pair vectors
+// once a step: rec[base_j + kListStride t] = (i, g) for its t-th pair in
+// walk order, g = (x_i - x_j) rho0 V_j c(r) as three f32 bit patterns, and
+// cnt_j. Each lane computes g of the hit it holds (SideStore: the walk's
+// coeff, so the same bits); a ballot ranks the group's charged hits, and
+// the hit of rank q goes to slot found + q. Hits come in walk order (hit
+// done + l on lane l), so the records and their order are those of a
+// thread that walks alone. A warp's 32 rows interleave, as pbf_terms'
+// (stencil.cuh, stream_rows), each with room for the largest fluid stencil
+// count of its warp's rows, which rigid_side_rows_kernel finds before the
+// walk from the CSR offsets at the body's own cells; the pairs are a
+// subset of those candidates, so no row overflows it. A group's stores
+// land 512 B apart (one row's slots), where the one-thread form's drain
+// wrote one 512-byte run a warp: the list is small (~1 MB at 1M).
+// Measured on an H100 80GB HBM3 at 700 W (perf/coef_compare.py --kernel
+// rigid_side, device us at 1M / 30k / the half-immersed torus; the first
+// form, one thread a rigid particle on the queued walk, 27.26-27.33 /
+// 21.16-21.30 / 15.55-15.70 in the same calls), lanes x candidates a lane
+// a round: 16 x 2 21.83-22.27 / 5.98-6.07 / 4.03-4.08 (kept), 8 x 2 20.50
+// / 7.06 / 5.88, 16 x 1 22.21 / 6.75 / 5.10, 8 x 1 21.39 / 9.12 / 7.45. At
+// 1M the 39k groups take several waves of resident blocks, as the walk's.
 //
 // The stream: stream_rows (stencil.cuh) over the int4 records, kSideGroup
 // lanes a row, kSideAhead records (one 16-byte streaming load each) in
-// flight ahead of their u gathers. With one lane a row a thread adds g u in
-// walk order, so that, built with -fmad=false, the stored g, its product
-// with u and the sum round exactly as the walk's ((-dx) * coeff) * ui: the
-// stream is bit-equal to the walk. Most rows are short (1.6 pairs a row on
-// the 1M block's body, 4.9 on the 30k one's: only the body's skin has
-// fluid near), so a row's few dependent loads and the launch set the time.
-// Measured on an H100 (perf/coef_compare.py --kernel rigid_side, device us
-// at 1M / 30k / the half-immersed torus): one lane with 1 record ahead
+// flight ahead of their gathers. It gathers the solver's per-fluid value
+// and forms u_i = value_i * scale there (DFSPH: k / rho and m, which the
+// density loop then need not multiply over all N rows before each launch;
+// PCISPH: its u and 1), and u_i = 0 where a rank does not own row i, as
+// torch's where(owned, u, 0) gives (the mask a template argument: a
+// branch on a null mask in the pair loop cost 1.8-2.1 us a launch). With
+// one lane a row a thread adds g u in walk order, so that, built with
+// -fmad=false, u (one rounding, as torch's value * scale), the stored g,
+// its product with u and the sum round exactly as the walk's ((-dx) *
+// coeff) * ui of the same u: the stream is bit-equal to the walk. Most
+// rows are short (1.6 pairs a row on the 1M block's body, 4.9 on the 30k
+// one's: only the body's skin has fluid near), so a row's few dependent
+// loads and the launch set the time: 5.44 / 5.10 / 4.28 us a launch of k
+// and m, where the stream of u took 5.62 / 5.04 / 4.28 and torch's u = k m
+// before it 2.1 / 1.2 / 1.2 more. The row's force loaded at the entry with
+// its bounds (the store then waits only on the sums) took 7.33 / 6.20 /
+// 5.13, and 7.94 / 7.09 / 6.22 with 2 records ahead: it is read at the
+// store. Measured on an H100 (perf/coef_compare.py --kernel rigid_side,
+// device us at 1M / 30k / the half-immersed torus), the stream of u alone
+// before the scale: one lane with 1 record ahead
 // 5.75 / 5.15 / 4.26, 2 ahead 6.65 / 6.10 / 5.00, 4 ahead 6.63-6.91 /
 // 5.94-5.95 / 5.15-5.21, 8 ahead 7.18-7.93 / 5.63-6.98 / 5.56-5.83, 16
 // ahead 9.10 / 8.39 / 6.90; 2 lanes with 8 ahead 6.58-6.71 / 6.36-6.39 /
@@ -87,8 +112,8 @@
 
 constexpr int kSideWalkGroup = 16;  // the walk: lanes a rigid particle
 constexpr int kSideWalkChunk = 2;  // the walk: candidates a lane tests a round
-constexpr int kSideQueue = 40;  // the list: hits a thread can hold
-constexpr int kSideChunk = 8;   // the list: candidates tested between votes
+constexpr int kSideListGroup = 16;  // the list: lanes a rigid particle
+constexpr int kSideListChunk = 2;  // the list: candidates a lane tests a round
 constexpr int kSideGroup = 1;   // stream: lanes per row
 constexpr int kSideAhead = 1;   // stream: records a lane loads ahead
 
@@ -140,32 +165,44 @@ struct SideWalk {
   }
 };
 
+// The list's stores of one rigid particle: a batch's hits (hit done + l on
+// lane l, in walk order) on the group's lanes, each charged pair ranked
+// among the group's by a ballot and stored at slot found + its rank.
+template <int kG>
 struct SideStore {
   SidePair k;
   int4* row;  // the query's row of the list
-  int found;
+  int base;   // the group's first lane within its warp
+  int lane;   // the lane within its group
+  int found;  // pairs stored so far
 
-  __device__ __forceinline__ void operator()(int i, const XyzRows::Record&,
-                                             float dx, float dy, float dz,
-                                             float r2, bool take) {
+  __device__ __forceinline__ void operator()(const Pair& h, int) {
+    // dx is the query (rigid) minus the source (fluid): x_i - x_j = -dx.
     bool charged;
-    const float coeff = k.coeff(r2, take, charged);
-    if (charged) {
-      row[kListStride * found++] =
-          make_int4(i, __float_as_int((-dx) * coeff),
-                    __float_as_int((-dy) * coeff),
-                    __float_as_int((-dz) * coeff));
-    }
+    const float coeff = k.coeff(h.r2, h.hit, charged);
+    const unsigned add = (__ballot_sync(kFullWarp, charged) >> base) &
+                         ((2u << (kG - 1)) - 1u);  // kG = 32: every bit
+    if (charged)
+      row[kListStride * (found + __popc(add & ((1u << lane) - 1u)))] =
+          make_int4(h.j, __float_as_int((-h.dx) * coeff),
+                    __float_as_int((-h.dy) * coeff),
+                    __float_as_int((-h.dz) * coeff));
+    found += __popc(add);
   }
 };
 
-// The stream's row j: out_j = force_j + sum_t g_t u[i_t].
+// The stream's row j: out_j = force_j + sum_t g_t u[i_t], u_i = value_i
+// scale (with kOwned, 0 where owned[i] is 0). The mask is a template
+// argument, not a branch on a null pointer in the pair loop.
+template <bool kOwned>
 struct SideStream {
-  const float* u;
+  const float* value;
+  float scale;
+  const unsigned char* owned;  // a rank's rows (torch bool); kOwned only
   const float* force;
   float* out;
 
-  struct Row {};  // the row's force is read once, at the store
+  struct Row {};
   struct Sums {
     float x, y, z;
   };
@@ -174,7 +211,8 @@ struct SideStream {
   __device__ __forceinline__ static Row shfl(const Row& r, int) { return r; }
   __device__ __forceinline__ void add(Sums& s, const Row&,
                                       const int4& q) const {
-    const float ui = __ldg(u + q.x);
+    float ui = __ldg(value + q.x) * scale;
+    if (kOwned && !__ldg(owned + q.x)) ui = 0.f;
     s.x += __int_as_float(q.y) * ui;
     s.y += __int_as_float(q.z) * ui;
     s.z += __int_as_float(q.w) * ui;
@@ -242,9 +280,10 @@ rigid_side_rows_kernel(const float* __restrict__ rpos, int nr,
   if (j == 0) room[0] = 0;
 }
 
-// The walk of each row j, storing its pairs from slot base_j = kListStride
-// offs[j / kListStride] + its lane (offs: the running sum of the rows'
-// room), and base_j and cnt_j.
+// The walk of each row j (a group of kSideListGroup lanes), storing its
+// pairs from slot base_j = kListStride offs[j / kListStride] + j's lane in
+// its warp of rows (offs: the running sum of the rows' room), and base_j
+// and cnt_j.
 __global__ void __launch_bounds__(kThreads, kQueuedBlocks)
 rigid_side_list_kernel(const float* __restrict__ rpos,
                        const float* __restrict__ rvol, int nr,
@@ -254,27 +293,29 @@ rigid_side_list_kernel(const float* __restrict__ rpos,
                        const long long* __restrict__ offs,
                        int* __restrict__ base, int* __restrict__ cnt,
                        int4* __restrict__ rec) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = j < nr;
+  const LaneGroup<kSideListGroup> g = lane_group<kSideListGroup>(nr);
+  const int j = g.q;
   float xj = 0.f, yj = 0.f, zj = 0.f;
-  SideStore store{{&p, 0.f}, rec, 0};
-  if (live) {
+  SideStore<kSideListGroup> store{{&p, 0.f}, rec, g.base, g.lane, 0};
+  if (g.live) {
     xj = rpos[3 * j], yj = rpos[3 * j + 1], zj = rpos[3 * j + 2];
     store.k.coeff_v = rho0 * rvol[j];
     const int b = kListStride * (int)__ldg(offs + j / kListStride) +
                   (j & (kListStride - 1));
-    base[j] = b;
+    if (g.lane == 0) base[j] = b;
     store.row += b;
   }
-  queued_walk_of<kSideQueue, kSideChunk, kDrainUnroll>(
-      XyzRows{pos}, n, starts, p, live, -1, xj, yj, zj, store);
-  if (live) cnt[j] = store.found;
+  ordered_group_walk<kSideListGroup, kSideListChunk>(pos, n, starts, p, g,
+                                                     xj, yj, zj, store);
+  if (g.live && g.lane == 0) cnt[j] = store.found;
 }
 
+template <bool kOwned>
 __global__ void __launch_bounds__(kThreads)
 rigid_side_force_list_kernel(int nr, const int* __restrict__ base,
                              const int* __restrict__ cnt,
-                             const int4* __restrict__ rec, SideStream s) {
+                             const int4* __restrict__ rec,
+                             SideStream<kOwned> s) {
   stream_rows<kSideGroup, kSideAhead>(nr, base, cnt, rec, s);
 }
 
@@ -312,8 +353,8 @@ extern "C" int rigid_side_list_launch(const float* rpos, const float* rvol,
                                       const void* offs, int* base, int* cnt,
                                       void* rec, void* stream) {
   if (nr > 0) {
-    rigid_side_list_kernel<<<grid_blocks(nr), kThreads, 0,
-                             (cudaStream_t)stream>>>(
+    rigid_side_list_kernel<<<lane_group_blocks<kSideListGroup>(nr),
+                             kThreads, 0, (cudaStream_t)stream>>>(
         rpos, rvol, nr, pos, starts, n, *p, rho0,
         static_cast<const long long*>(offs), base, cnt,
         static_cast<int4*>(rec));
@@ -321,16 +362,25 @@ extern "C" int rigid_side_list_launch(const float* rpos, const float* rvol,
   return (int)cudaGetLastError();
 }
 
-extern "C" int rigid_side_force_list_launch(int nr, const int* base,
-                                            const int* cnt, const void* rec,
-                                            const float* u,
-                                            const float* force, float* out,
-                                            void* stream) {
-  if (nr > 0) {
-    rigid_side_force_list_kernel<<<grid_blocks(nr), kThreads, 0,
-                                   (cudaStream_t)stream>>>(
-        nr, base, cnt, static_cast<const int4*>(rec),
-        SideStream{u, force, out});
+// The stream of value * scale: owned is a rank's (N,) bool rows, or null.
+extern "C" int rigid_side_stream_launch(int nr, const int* base,
+                                        const int* cnt, const void* rec,
+                                        const float* value, float scale,
+                                        const void* owned,
+                                        const float* force, float* out,
+                                        void* stream) {
+  const auto* ri = static_cast<const int4*>(rec);
+  const auto* mask = static_cast<const unsigned char*>(owned);
+  if (nr > 0 && mask != nullptr) {
+    rigid_side_force_list_kernel<true>
+        <<<grid_blocks(nr), kThreads, 0, (cudaStream_t)stream>>>(
+            nr, base, cnt, ri,
+            SideStream<true>{value, scale, mask, force, out});
+  } else if (nr > 0) {
+    rigid_side_force_list_kernel<false>
+        <<<grid_blocks(nr), kThreads, 0, (cudaStream_t)stream>>>(
+            nr, base, cnt, ri,
+            SideStream<false>{value, scale, nullptr, force, out});
   }
   return (int)cudaGetLastError();
 }

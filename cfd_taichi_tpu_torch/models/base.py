@@ -193,21 +193,27 @@ def solid_viscosity(scene: Scene, rigid: RigidBodyState,
 
 
 def body_reaction(scene: Scene, rigid: RigidBodyState, pos: torch.Tensor,
-                  starts: torch.Tensor, u: torch.Tensor,
+                  starts: torch.Tensor, value: torch.Tensor,
                   force: torch.Tensor, shard: Shard | None = None,
-                  side: rigid_ops.SideList | None = None) -> torch.Tensor:
+                  side: rigid_ops.SideList | None = None,
+                  scale: float = 1.0) -> torch.Tensor:
     """The body's (Nr, 3) `force` plus the fluid's reaction of the per-fluid
-    scalar `u` (already scaled by m), each fluid-rigid pair charged once
-    from the rigid side: a stream over the step's reaction list `side`
-    (`dfsph.loop_lists`) where the step built one, else a walk of the fluid's
-    stencil. On a rank of a sharded step (`shard`) u is zeroed on the rows
-    the rank does not own, so that each pair is charged by one rank
+    scalar u = `value` * f32(`scale`) (u already scaled by m, or the
+    solver's value and m), each fluid-rigid pair charged once from the
+    rigid side: a stream over the step's reaction list `side`
+    (`dfsph.loop_lists`) where the step built one, which forms u at its
+    gather, else a walk of the fluid's stencil of u formed here. On a rank
+    of a sharded step (`shard`) u is zeroed on the rows the rank does not
+    own, so that each pair is charged by one rank
     (`cfd_taichi_tpu/parallel/domain.py:817-827`), and `force` is the
     rank's partial (`reaction_start`)."""
-    if shard is not None:
-        u = torch.where(shard.owned, u, torch.zeros_like(u))
+    owned = shard.owned if shard is not None else None
     if side is not None:
-        return rigid_ops.rigid_side_force_list(side, u, force)
+        return rigid_ops.rigid_side_force_list(side, value, force, scale,
+                                               owned)
+    u = value if scale == 1.0 else value * f32(scale)
+    if owned is not None:
+        u = torch.where(owned, u, torch.zeros_like(u))
     return rigid_ops.rigid_side_force(rigid.pos, scene.rigid_volume, pos,
                                       starts, scene.grid, scene.h, RHO_0, u,
                                       force)

@@ -366,9 +366,9 @@ def prepare_sorted(scene: Scene, rigid: base.RigidBodyState,
 
         if scene.fs_couple:
             def scatter_fn(k_over_rho, force):
+                # u = k / rho m, formed at the reaction's gather
                 return base.body_reaction(scene, rigid, pos, starts,
-                                          k_over_rho * f32(m), force, shard,
-                                          side)
+                                          k_over_rho, force, shard, side, m)
 
     return _Pre(pos=pos, oid=oid, vel=vel, acc=acc, warm_k=warm_k, rho=rho,
                 alpha=alpha, count=ft.count, S=S, kick=kick, rate=rate,

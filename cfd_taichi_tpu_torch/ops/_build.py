@@ -85,7 +85,7 @@ _SIGNATURES = {
     "rigid_side_rows_launch": (_P, _I, _P, _PP, _P, _P),
     "rigid_side_list_launch": (_P, _P, _I, _P, _P, _I, _PP, _F, _P, _P, _P,
                                _P, _P),
-    "rigid_side_force_list_launch": (_I, _P, _P, _P, _P, _P, _P, _P),
+    "rigid_side_stream_launch": (_I, _P, _P, _P, _P, _F, _P, _P, _P, _P),
     "body_box_launch": (_P, _I, _F, _F, _P, _P),
     "coef_build_launch": (_P, _P, _I, _PP, _F, _P, _P, _P, _I, _P),
     "coef_matvec_launch": (_P, _I, _P, _P, _P, _I, _P, _P, _I, _P),

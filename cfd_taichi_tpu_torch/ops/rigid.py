@@ -38,11 +38,14 @@ fit together; the launch counts are rows of `stencil.KERNELS`):
   source): the form of DFSPH's density loop and PCISPH's loop, which
   charge it once an iteration over the same start-of-step geometry. As
   JAX's build_rigid_side hoists the pair vectors, the list entry walks
-  once a step and stores each charged pair (`SideList`: the fluid index
-  and g = rho0 V_j c (x_i - x_j)), in rows that `rigid_side_rows` sizes before
-  it from the fluid's CSR offsets at the body's own cells (a warp's 32
-  rows interleaved, as PBF's pair list); the stream then adds g u_i over
-  each row in walk order, bit for bit as the walk.
+  once a step, as the walk does, and stores each charged pair (`SideList`:
+  the fluid index and g = rho0 V_j c (x_i - x_j)), in rows that
+  `rigid_side_rows` sizes before it from the fluid's CSR offsets at the
+  body's own cells (a warp's 32 rows interleaved, as PBF's pair list); the
+  stream then adds g u_i over each row in walk order, bit for bit as the
+  walk, with u_i = value_i scale formed at its gather (DFSPH hands in k /
+  rho and m, as JAX forms k m at its gather) and 0 on the rows a rank does
+  not own.
 
 Pairs are those with r2 <= f32(h)^2 at the start-of-step positions, r =
 sqrt(max(r2, 1e-24)) (`_geom0`, rigid_dense.py:118-127); the reaction
@@ -313,18 +316,25 @@ def rigid_side_list(rpos: torch.Tensor, rvol: torch.Tensor,
     return side
 
 
-def rigid_side_force_list(side: SideList, u: torch.Tensor,
-                          force: torch.Tensor) -> torch.Tensor:
+def rigid_side_force_list(side: SideList, value: torch.Tensor,
+                          force: torch.Tensor, scale: float = 1.0,
+                          owned: torch.Tensor | None = None) -> torch.Tensor:
     """R4, stream: (Nr, 3) force_j + sum_t g_jt u[i_jt] over the stored
-    `side` (`rigid_side_list`), each row in walk order (replaces
-    rigid_dense.rigid_side_force)."""
+    `side` (`rigid_side_list`), each row in walk order, u = `value` *
+    f32(`scale`) formed at the gather (one f32 rounding, as torch's
+    product) and 0 where the (N,) bool `owned` of a rank is False
+    (replaces rigid_dense.rigid_side_force)."""
     if not _on_cuda("rigid_side_force_list", force):
-        return rigid_side_force_list_plain(side, u, force)
+        return rigid_side_force_list_plain(side, value, force, scale, owned)
     nr = _check_side(side, force.device)
-    _check("u", u, torch.float32, (u.shape[0],), force.device)
+    n = value.shape[0]
+    _check("value", value, torch.float32, (n,), force.device)
     _check("force", force, torch.float32, (nr, 3), force.device)
+    if owned is not None:
+        _check("owned", owned, torch.bool, (n,), force.device)
     out = torch.empty_like(force)
-    _launch("rigid_side_force_list", force.device, nr, *side, u, force, out)
+    _launch("rigid_side_force_list", force.device, nr, *side, value,
+            f32(scale), owned, force, out, entry="rigid_side_stream")
     return out
 
 
@@ -481,11 +491,17 @@ def side_pairs(side: SideList
     return rows, rec[:, 0].long(), rec[:, 1:].contiguous().view(torch.float32)
 
 
-def rigid_side_force_list_plain(side: SideList, u: torch.Tensor,
-                                force: torch.Tensor) -> torch.Tensor:
-    """The stream form: each stored pair's g u_i added into its row in pair
-    order (index_add_), then to the force."""
+def rigid_side_force_list_plain(side: SideList, value: torch.Tensor,
+                                force: torch.Tensor, scale: float = 1.0,
+                                owned: torch.Tensor | None = None
+                                ) -> torch.Tensor:
+    """The stream form: u_i = value_i f32(scale) at each stored pair's
+    fluid index i (0 where `owned` is False), its g u_i added into its row
+    in pair order (index_add_), then to the force."""
     KERNELS["rigid_side_force_list"].plain_calls += 1
     rows, i, g = side_pairs(side)
+    u = value[i] * f32(scale)
+    if owned is not None:
+        u = torch.where(owned[i], u, torch.zeros_like(u))
     return force + torch.zeros_like(force).index_add_(0, rows,
-                                                      g * u[i][:, None])
+                                                      g * u[:, None])

@@ -18,6 +18,7 @@ from cfd_taichi_tpu_torch.ops import coef
 from cfd_taichi_tpu_torch.ops import rigid as R
 from cfd_taichi_tpu_torch.ops import stencil as S
 from cfd_taichi_tpu_torch.ops.neighbors import cell_id
+from cfd_taichi_tpu_torch.ops.smoothing import f32
 from cfd_taichi_tpu_torch.perf import bounds, timing
 
 VISC = dict(c_s=13.0, alpha=0.08)
@@ -508,8 +509,10 @@ def rigid_cases(x: dict, work: dict | None = None) -> Iterator[Case]:
     once (`gate_box`): the solid sums, the contact dot of x["v_r"], the
     solid viscosity, the reaction of x["u"]
     on x["force"] by the walk, the reaction list's rows, the list, and its
-    stream over the list that the wrappers made here once (`side_list`;
-    its library yardstick `side_library_calls`), the gate itself, and
+    stream over the list that the wrappers made here once (`side_list`),
+    as DFSPH's density loop calls it: of x["k"] and the scale m (its
+    library yardstick `side_library_calls` of u = k m, formed outside the
+    timing), the gate itself, and
     PCISPH's predicted density at x["shifted"] with its
     walk over the body (and the walls, where the scene has them): its
     stream form over the pair store of x["p"] as pcisph_predict_rho_rigid
@@ -528,7 +531,7 @@ def rigid_cases(x: dict, work: dict | None = None) -> Iterator[Case]:
     side = (x["rpos"], x["rvol"], p, x["st"], g, h, RHO0, x["u"],
             x["force"])
     build, listed = side_list(x)
-    stream = (listed, x["u"], x["force"])
+    stream = (listed, x["k"], x["force"], m)
     rows = (x["rpos"], x["st"], g)
     for name, kern, plain in (
             ("rigid_terms", *gated["rigid_terms"]),
@@ -549,7 +552,7 @@ def rigid_cases(x: dict, work: dict | None = None) -> Iterator[Case]:
              lambda: S.pcisph_predict_rho(*predict, eng=eng, body_box=box),
              lambda: S.pcisph_predict_rho_list_plain(eng, p, *predict[2:]))):
         yield Case(name, name, kern, plain, work.get(name),
-                   side_library_calls(*stream)
+                   side_library_calls(listed, x["k"] * f32(m), x["force"])
                    if name == "rigid_side_force_list" else {},
                    side_list_view if name == "rigid_side_list" else None)
     yield Case("pcisph_predict_rho", "pcisph_predict_rho_body",

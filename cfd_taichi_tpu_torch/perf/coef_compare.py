@@ -28,8 +28,8 @@ them; and the two streams over the tree's list, "lambda" and "xsph"),
 or, for
 `rigid_side`, csrc/rigid_side_force.cu (the body's reaction: the walk,
 "walk", the list's rows, "rows", the list's build, "list", and the
-stream over the tree's list, "stream", on perf/inputs.body_inputs and
-torus_inputs), or, for `rigid_gate`, csrc/rigid_terms.cu and
+stream over the tree's list of k and the scale m, "stream", and of u,
+"stream_u", on perf/inputs.body_inputs and torus_inputs), or, for `rigid_gate`, csrc/rigid_terms.cu and
 csrc/rigid_viscosity.cu (the solid sums, "terms", the contact dot,
 "dot", and the solid viscosity, "visc", each with the body's gate made
 once as a step makes it, with a gate that holds every query,
@@ -168,6 +168,31 @@ kSideAhead), each against one lane a row bit for bit:
     python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel rigid_side \\
         --variant s1a4=build/s1a4 --variant s1a16=build/s1a16 \\
         --variant s2a8=build/s2a8 --variant s4a4=build/s4a4 --bit-equal tree
+
+The reaction's list (a group of kSideListGroup lanes a body particle,
+kSideListChunk candidates a lane a round) and its stream beside the
+sources of commit 4793ae7 (the list one thread a body particle on the
+queued walk; a stream of u, which torch forms from k and m there:
+`side_stream_call`), every output bit for bit with them, with other
+groups and chunks, and with the stream's records 2 ahead:
+
+    mkdir -p build/side_parent build/a2
+    git show 4793ae7:cfd_taichi_tpu_torch/csrc/rigid_side_force.cu \
+        > build/side_parent/rigid_side_force.cu
+    for v in "8 1" "8 2" "16 1"; do
+        set -- $v; mkdir -p build/l$1c$2
+        sed -e "s/kSideListGroup = [0-9]*;/kSideListGroup = $1;/" \
+            -e "s/kSideListChunk = [0-9]*;/kSideListChunk = $2;/" \
+            cfd_taichi_tpu_torch/csrc/rigid_side_force.cu \
+            > build/l$1c$2/rigid_side_force.cu
+    done
+    sed "s/kSideAhead = 1;/kSideAhead = 2;/" \
+        cfd_taichi_tpu_torch/csrc/rigid_side_force.cu \
+        > build/a2/rigid_side_force.cu
+    python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel rigid_side \
+        --variant parent=build/side_parent --variant l8c1=build/l8c1 \
+        --variant l8c2=build/l8c2 --variant l16c1=build/l16c1 \
+        --variant a2=build/a2 --bit-equal parent
 
 The reaction's walk (a group of kSideWalkGroup lanes a body particle,
 kSideWalkChunk candidates a lane a round) beside the one-thread walk of
@@ -702,13 +727,42 @@ def pbf_entries(x: dict, p, st, g, h: float, m: float) -> list[Entry]:
                   lambda: cases.scaled_error(xsph_call(), xsph_want))]
 
 
+def side_stream_call(side, value: torch.Tensor, force: torch.Tensor,
+                     scale: float) -> torch.Tensor:
+    """rigid_side_force_list(side, value, force, scale) from the library in
+    use: through the wrapper, or, for a source from before the stream
+    formed u at its gather (its entry rigid_side_force_list_launch takes
+    u), u = value * f32(scale) by torch and that entry, as that tree's
+    density loop launches the two."""
+    from cfd_taichi_tpu_torch.ops import rigid as R
+
+    lib = _build.library().lib
+    if hasattr(lib, "rigid_side_stream_launch"):
+        return R.rigid_side_force_list(side, value, force, scale)
+    entry = lib.rigid_side_force_list_launch
+    entry.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7
+    entry.restype = ctypes.c_int
+    u = value if scale == 1.0 else value * f32(scale)
+    out = torch.empty_like(force)
+    rc = entry(side.base.shape[0], *(ctypes.c_void_p(t.data_ptr()) for t in
+                                     (*side, u, force, out)),
+               ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc:
+        raise RuntimeError(f"rigid_side_force_list_launch failed: "
+                           f"cudaError_t {rc}")
+    return out
+
+
 def rigid_side_entries(x: dict) -> list[Entry]:
     """The body's reaction on coupled inputs `x`: the walk of x["u"] on
     x["force"] ("walk"), the list's rows ("rows": exactly), the list's
     build ("list": each row's count and fluid indices exactly, g to 1e-5
     of scale, against the plain version; bit for bit the counts, indices
-    and g), the stream over the tree's list ("stream") and its library
-    yardstick on that list ("addmv", perf/cases.side_library_calls)."""
+    and g), the stream over the tree's list as DFSPH's density loop calls
+    it, of x["k"] and the scale m ("stream"; `side_stream_call`: a source
+    from before the scale is timed with torch's u = k m), and of x["u"]
+    alone ("stream_u": the kernel's own change), and the library yardstick
+    on that list of u = k m ("addmv", perf/cases.side_library_calls)."""
     from cfd_taichi_tpu_torch.ops import rigid as R
 
     rows_args = (x["rpos"], x["st"], x["grid"])
@@ -729,10 +783,14 @@ def rigid_side_entries(x: dict) -> list[Entry]:
 
     walk = functools.partial(R.rigid_side_force, *walk_args)
     walk_want = R.rigid_side_force_plain(*walk_args)
-    stream = functools.partial(R.rigid_side_force_list, side, x["u"],
-                               x["force"])
-    stream_want = R.rigid_side_force_list_plain(side, x["u"], x["force"])
-    addmv = cases.side_library_calls(side, x["u"], x["force"])["addmv"]
+    m = x["m"]
+    stream = functools.partial(side_stream_call, side, x["k"], x["force"], m)
+    stream_want = R.rigid_side_force_list_plain(side, x["k"], x["force"], m)
+    stream_u = functools.partial(side_stream_call, side, x["u"], x["force"],
+                                 1.0)
+    stream_u_want = R.rigid_side_force_list_plain(side, x["u"], x["force"])
+    addmv = cases.side_library_calls(side, x["k"] * f32(m),
+                                     x["force"])["addmv"]
     return [Entry("walk", "rigid_side_force", walk,
                   lambda: cases.scaled_error(walk(), walk_want)),
             Entry("rows", "rigid_side_rows", rows,
@@ -743,6 +801,8 @@ def rigid_side_entries(x: dict) -> list[Entry]:
                   listed),
             Entry("stream", "rigid_side_force_list", stream,
                   lambda: cases.scaled_error(stream(), stream_want)),
+            Entry("stream_u", "rigid_side_force_list", stream_u,
+                  lambda: cases.scaled_error(stream_u(), stream_u_want)),
             Entry("addmv", None, addmv,
                   lambda: cases.scaled_error(addmv(), stream_want))]
 

@@ -145,9 +145,10 @@ def coupled_inputs(sc, seed: int, device="cuda") -> dict:
     with numpy from `seed` in this order after the jitter, random rigid
     velocities `v_r`, fluid velocities `v`, densities `rho`, the quirk's
     densities `rho_quirk`, a body velocity `body_vel`, the reaction's `u`
-    (k / rho m of a density iteration's size), a start force `force` and
-    predicted positions `shifted` (PCISPH's, for its walk over the
-    body)."""
+    (k / rho m of a density iteration's size), a start force `force`,
+    predicted positions `shifted` (PCISPH's, for its walk over the body)
+    and the density loop's k / rho `k` (u's size over m: the value that
+    DFSPH's loop hands the reaction's stream with the scale m)."""
     from cfd_taichi_tpu_torch.models import base
     from cfd_taichi_tpu_torch.ops import neighbors as nb
     from cfd_taichi_tpu_torch.ops import rigid
@@ -173,6 +174,7 @@ def coupled_inputs(sc, seed: int, device="cuda") -> dict:
              u=dev(rng.standard_normal(n) * 1e-4),
              force=dev(rng.standard_normal((nr, 3))))
     x["shifted"] = shifted(p, r, rng)
+    x["k"] = dev(rng.standard_normal(n) * (1e-4 / sc.particle_m))
     return x
 
 

@@ -29,7 +29,9 @@ their loop engines, measured on one card:
    copies), and the busy share (device time over wall time); for WCSPH
    also the record build of wcsph_forces on the step's state (CUDA
    events, 20 calls). `--profiles` runs only these profiles, of the runs
-   it names (e.g. dfsph/1m/coef_f32).
+   it names (e.g. dfsph/1m/coef_f32; dfsph/body_1m/coef_f32 profiles the
+   frames, a fluid step and a rigid step, of breaking_dam_1m's block with
+   a body at its centre, perf/inputs.body_scene, steps 6-8).
 3. The coupled DFSPH step (a fluid step and a rigid step) on
    configs/torus_flush.json as written and on a body in water
    (perf/inputs.body_scene: breaking_dam_30k's block with a ~3,200-voxel
@@ -128,14 +130,20 @@ PROFILES = (("dfsph", "1m", "recompute"), ("dfsph", "1m", "coef_f32"),
             ("dfsph", "1m", "coef_bf16"), ("wcsph", "1m", "-"),
             ("iisph", "30k", "coef_f32"), ("pcisph", "1m", "coef_f32"),
             ("pbf", "1m", "-"))
-WINDOWS = {"30k": (0, 100), "1m": (5, 10)}   # (untimed steps, timed steps)
+# (untimed steps, timed steps)
+WINDOWS = {"30k": (0, 100), "1m": (5, 10), "body_30k": (0, 100),
+           "body_1m": (5, 10)}
 
 
 def simulation(solver: str, tag: str):
+    """The run's Simulation on the card; a tag "body_<size>" is that
+    block with a body at its centre (perf/inputs.body_scene)."""
     from cfd_taichi_tpu_torch import Simulation
 
-    return Simulation(inputs.solver_config(dict(CONFIGS)[tag], solver),
-                      device="cuda")
+    block = dict(CONFIGS)[tag.removeprefix("body_")]
+    return Simulation(inputs.solver_config(block, solver), device="cuda",
+                      scene=inputs.body_scene(block)
+                      if tag.startswith("body_") else None)
 
 
 def engine_rates(res: dict) -> None:
@@ -250,12 +258,13 @@ def step_profiles(res: dict, runs=PROFILES) -> None:
             torch.cuda.empty_cache()
             sims[(solver, tag)] = simulation(solver, tag)
         sim = sims[(solver, tag)]
+        advance = sim.frame if tag.startswith("body_") else sim.step
         with inputs.engine(**PINS[engine]):
             sim.state = sim.solver.init_state(sim.scene)
             for _ in range(WINDOWS[tag][0]):
-                sim.step()
+                advance()
             found, wall = timing.profile_kernels(
-                lambda: [sim.step() for _ in range(3)])
+                lambda: [advance() for _ in range(3)])
         busy = sum(t for _, t in found.values()) / 1e6 / wall
         ranked = sorted(found.items(), key=lambda kv: -kv[1][1])
         ours = [(c, t) for name, (c, t) in ranked if name in S.KERNELS]

@@ -4,14 +4,18 @@ f32) engine, or the coupled frames of a body in water: the numbers by
 which two trees of the port are compared in one call.
 
     PYTHONPATH=<tree> python cfd_taichi_tpu_torch/perf/pcisph_steps.py \\
-        --label NAME [--solver pcisph|pbf|dfsph|coupled] [--out PATH]
+        --label NAME [--solver pcisph|pbf|dfsph|coupled] [--cells TAG ...]
+        [--out PATH]
 
 With --solver coupled the cells are frames (a fluid step and a rigid
 step) from rest of the half-immersed torus (perf/inputs.torus_immersed,
-DFSPH), breaking_dam_30k's and breaking_dam_1m's blocks with a body at
+DFSPH), configs/torus_flush.json as written ("torus_flush", DFSPH: the
+torus beside the water, which reaches it in the later frames),
+breaking_dam_30k's and breaking_dam_1m's blocks with a body at
 their centre (perf/inputs.body_scene) as DFSPH, IISPH and WCSPH (the two
 whose step walks the body's reaction) and configs/coupling_demo.json
-(PCISPH), each measured as a step below; the digest
+(PCISPH), each measured as a step below (`--cells` picks some, in the
+order given); the digest
 also covers the body's particles, velocity and spin, and the device
 times of the body's reaction (its walk, or its list's rows, the list and
 the list's stream) and of the fluid side's passes over the body (the
@@ -60,7 +64,7 @@ from cfd_taichi_tpu_torch.perf import inputs, timing
 
 SCENES = (("30k", "breaking_dam_30k.json"), ("1m", "breaking_dam_1m.json"))
 COUPLED = ("torus", "body_30k", "coupling_demo", "body_1m", "body_30k_iisph",
-           "body_1m_iisph", "body_30k_wcsph", "body_1m_wcsph")
+           "body_1m_iisph", "body_30k_wcsph", "body_1m_wcsph", "torus_flush")
 # (block, solver) of a body-in-water cell
 BODY_BLOCKS = {"body_30k": ("breaking_dam_30k.json", "dfsph"),
                "body_1m": ("breaking_dam_1m.json", "dfsph"),
@@ -140,9 +144,8 @@ def simulation(tag: str, solver: str):
         return sim, sim.step
     if tag == "torus":
         sim = Simulation(inputs.torus_immersed(), device="cuda")
-    elif tag == "coupling_demo":
-        sim = Simulation(read_config(str(inputs.CONFIGS /
-                                         "coupling_demo.json")),
+    elif tag in ("coupling_demo", "torus_flush"):
+        sim = Simulation(read_config(str(inputs.CONFIGS / f"{tag}.json")),
                          device="cuda")
     else:
         block, body_solver = BODY_BLOCKS[tag]
@@ -204,6 +207,9 @@ def main() -> int:
     ap.add_argument("--solver", choices=("pcisph", "pbf", "dfsph",
                                          "coupled"),
                     default="pcisph")
+    ap.add_argument("--cells", nargs="+", default=None, metavar="TAG",
+                    help="only these cells (default: every cell of the "
+                         "solver)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -214,7 +220,8 @@ def main() -> int:
     print(f"[{solver}] {args.label}: {res['package']} on {res['card']}")
     print(f"[{solver}] kernels built in "
           f"{_build.library().build_seconds:.1f} s")
-    for tag in COUPLED if solver == "coupled" else dict(SCENES):
+    for tag in args.cells or (COUPLED if solver == "coupled"
+                              else dict(SCENES)):
         sim, advance = simulation(tag, solver)
         row = res[tag] = measure(sim, advance)
         if solver == "pbf" and hasattr(S, "pbf_constraint"):

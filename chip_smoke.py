@@ -77,9 +77,12 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 reaction's walk), rigid_side_rows (the reaction list's
                 warp offsets, exactly), rigid_side_list (the reaction's
                 list, each row's count and fluid indices exactly, its pair
-                vectors to 1e-5 of scale) and rigid_side_force_list (the
-                list's stream, timed beside torch.addmv and @ of the
-                list's CSR matrix, the library yardstick), and
+                vectors to 1e-5 of scale; then its bases, counts and
+                records bit for bit) and rigid_side_force_list (the
+                list's stream of k and the scale m, as DFSPH's density
+                loop calls it, timed beside torch.addmv and @ of the
+                list's CSR matrix and u = k m, the library yardstick),
+                and
                 the predicted density with its walk over the body at the
                 inputs' positions shifted by ~0.3 r, in its stream form
                 named pcisph_predict_rho_rigid and in its stencil form
@@ -90,10 +93,12 @@ Phases, each fatal on failure (exit code 1, and no final "ok" line):
                 and on the half-immersed torus scene (perf/inputs.
                 torus_inputs), with random rigid and fluid
                 velocities, densities and u, to 1e-5 of scale;
-                rigid_side_force, rigid_side_force_list and
-                pcisph_predict_rho_rigid must also repeat bit for bit over
-                two launches, the stream must give the walk's bits on the
-                same inputs, each form with its
+                rigid_side_force, rigid_side_list, rigid_side_force_list
+                and pcisph_predict_rho_rigid must also repeat bit for bit
+                over two launches, the stream must give the walk's bits on
+                the same inputs (of u, and of k and m against the walk of
+                u = k m; with a rank's mask, the stream of where(owned,
+                k m, 0)), each form with its
                 body gate must give the bits of the same launch ungated
                 (every warp walking the body), and the body's walk is
                 timed as the call less the call without the body, gated
@@ -336,7 +341,7 @@ PCISPH_PATH = IISPH_COEF_PATH[:5] + ("pcisph_predict_rho_list",)
 PCISPH_RECOMPUTE_PATH = RECOMPUTE_PATH[:4] + ("pcisph_predict_rho",)
 PBF_PATH = ("pbf_terms", "pbf_lambda", "pbf_xsph")
 # The kernels that must repeat bit for bit over two launches in [kernels]
-REPEATED = ("rigid_side_force", "rigid_side_force_list",
+REPEATED = ("rigid_side_force", "rigid_side_list", "rigid_side_force_list",
             "pcisph_predict_rho_rigid", "pbf_terms", "pbf_lambda", "pbf_xsph")
 # [agree]: (solver, whether to start from TINY's squeezed block, the
 # largest card-vs-CPU position error allowed over its 6 steps: the bar
@@ -785,8 +790,9 @@ def forms_bits(results: dict, tag: str, outs: dict, torch) -> None:
 def rigid_checks(torch, results: dict) -> None:
     """The fluid-rigid kernels against their plain versions on a body in
     water at 30k and 1M and on the half-immersed torus scene, timed;
-    rigid_side_force, its list's stream and the stream form with the
-    body's walk repeat bit for bit; the list's stream gives the walk's bits
+    rigid_side_force, its list, the list's stream and the stream form
+    with the body's walk repeat bit for bit; the list is its plain
+    version's bit for bit and its stream gives the walk's bits
     (`stream_bits`); the body gate of the predicted density (`body_gate`)
     and of the contact dot and the solid viscosity (`rigid_gate`)."""
     from cfd_taichi_tpu_torch.perf import bounds, cases, inputs
@@ -813,23 +819,58 @@ def rigid_checks(torch, results: dict) -> None:
 
 
 def stream_bits(torch, results: dict, x: dict, tag: str) -> None:
-    """The reaction's stream over the list, which the list's kernel built,
-    against the walk on the same coupled inputs `x`: bit for bit."""
+    """The reaction list that the list's kernel built on coupled inputs
+    `x` against its plain version's, bit for bit (each row's base, count
+    and records); its stream against the walk on the same inputs, bit for
+    bit: of x["u"], and of x["k"] and the scale m against the walk of
+    u = k m; with a rank's mask (half the rows, numpy-seeded) against the
+    stream of where(owned, k m, 0)."""
+    import numpy as np
+
     from cfd_taichi_tpu_torch.ops import rigid as R
+    from cfd_taichi_tpu_torch.ops.smoothing import f32
     from cfd_taichi_tpu_torch.perf import cases
 
-    _, side = cases.side_list(x)
-    got = R.rigid_side_force_list(side, x["u"], x["force"])
-    walk = R.rigid_side_force(x["rpos"], x["rvol"], x["p"], x["st"],
-                              x["grid"], x["h"], cases.RHO0, x["u"],
-                              x["force"])
-    differ = int((got != walk).sum())
-    results["rigid_side_force_list"][f"against_walk_{tag}"] = differ
-    print(f"  rigid_side_force_list {tag}: against the walk {differ} of "
-          f"{got.numel()} elements differ; {int(side.cnt.sum())} pairs in "
+    build, side = cases.side_list(x)
+    plain = R.rigid_side_list_plain(*build)
+    same = torch.equal(side.base, plain.base) and all(
+        torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in
+        zip(cases.side_list_view(side), cases.side_list_view(plain)))
+    results["rigid_side_list"][f"bits_{tag}"] = same
+    print(f"  rigid_side_list {tag}: bases, counts and records bit-equal "
+          f"to the plain list {same}")
+    check(same, f"rigid_side_list {tag}: not the plain list's bits")
+
+    def walk(u):
+        return R.rigid_side_force(x["rpos"], x["rvol"], x["p"], x["st"],
+                                  x["grid"], x["h"], cases.RHO0, u,
+                                  x["force"])
+
+    m = x["m"]
+    km = x["k"] * f32(m)
+    owned = torch.from_numpy(np.random.default_rng(5).uniform(
+        size=km.shape[0]) < 0.5).to(km.device)
+    for form, got, want in (
+            ("u", R.rigid_side_force_list(side, x["u"], x["force"]),
+             walk(x["u"])),
+            ("k_m", R.rigid_side_force_list(side, x["k"], x["force"], m),
+             walk(km)),
+            ("owned", R.rigid_side_force_list(side, x["k"], x["force"], m,
+                                              owned),
+             R.rigid_side_force_list(
+                 side, torch.where(owned, km, torch.zeros_like(km)),
+                 x["force"]))):
+        differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        results["rigid_side_force_list"][f"against_walk_{form}_{tag}"] = \
+            differ
+        print(f"  rigid_side_force_list {tag}, {form}: against "
+              f"{'the walk' if form != 'owned' else 'where(owned, k m, 0)'} "
+              f"{differ} of {got.numel()} elements differ")
+        check(differ == 0, f"rigid_side_force_list {tag} {form}: not the "
+              "walk's bits")
+    print(f"  rigid_side_force_list {tag}: {int(side.cnt.sum())} pairs in "
           f"{side.rec.shape[0]} slots ({side.rec.numel() * 4 / 2**20:.3f} "
           f"MiB)")
-    check(differ == 0, f"rigid_side_force_list {tag}: not the walk's bits")
 
 
 def body_gate(torch, results: dict, x: dict, tag: str) -> None:

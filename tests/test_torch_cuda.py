@@ -33,6 +33,7 @@ from cfd_taichi_tpu_torch.ops import coef
 from cfd_taichi_tpu_torch.ops import neighbors as nb
 from cfd_taichi_tpu_torch.ops import rigid
 from cfd_taichi_tpu_torch.ops import stencil
+from cfd_taichi_tpu_torch.ops.smoothing import f32
 from cfd_taichi_tpu_torch.perf import cases, inputs
 
 TINY = {
@@ -875,6 +876,46 @@ def test_the_reaction_stream_gives_the_walks_bits(cuda, where):
     assert torch.equal(walk, rigid.rigid_side_force(
         x["rpos"], x["rvol"], x["p"], x["st"], x["grid"], x["h"],
         cases.RHO0, x["u"], x["force"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["30k", "1m", "torus"])
+def test_the_reaction_list_and_its_stream_of_k_and_m(cuda, where):
+    """The list's kernel (the ordered group walk, its pairs ranked by a
+    ballot) against its plain version, each row's base, count and records
+    bit for bit; its stream of the density loop's k and the scale m
+    against the stream and the walk of u = k m formed in torch, and with a
+    rank's mask against the stream of where(owned, k m, 0), bit for bit;
+    one launch a call."""
+    x = (inputs.torus_inputs(seed=3, device=cuda) if where == "torus" else
+         inputs.body_inputs({"30k": "breaking_dam_30k.json",
+                             "1m": "breaking_dam_1m.json"}[where], seed=3,
+                            device=cuda))
+    build, side = cases.side_list(x)
+    plain = rigid.rigid_side_list_plain(*build)
+    assert torch.equal(side.base, plain.base)
+    for a, b in zip(cases.side_list_view(side), cases.side_list_view(plain)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert int(side.cnt.sum()) > 0
+    m = x["m"]
+    km = x["k"] * f32(m)
+    stencil.reset_counts()
+    got = rigid.rigid_side_force_list(side, x["k"], x["force"], m)
+    assert stencil.KERNELS["rigid_side_force_list"].launches == 1
+    assert stencil.KERNELS["rigid_side_force_list"].plain_calls == 0
+    bits = got.view(torch.int32)
+    assert torch.equal(bits, rigid.rigid_side_force_list(
+        side, km, x["force"]).view(torch.int32))
+    assert torch.equal(bits, rigid.rigid_side_force(
+        x["rpos"], x["rvol"], x["p"], x["st"], x["grid"], x["h"],
+        cases.RHO0, km, x["force"]).view(torch.int32))
+    owned = torch.from_numpy(np.random.default_rng(5).uniform(
+        size=km.shape[0]) < 0.5).to(cuda)
+    got = rigid.rigid_side_force_list(side, x["k"], x["force"], m, owned)
+    want = rigid.rigid_side_force_list(
+        side, torch.where(owned, km, torch.zeros_like(km)), x["force"])
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert not torch.equal(got, bits.view(torch.float32))
 
 
 @pytest.mark.cuda
