@@ -66,6 +66,20 @@
 // their pairs to one pair functor type, so that they share one queue in
 // shared memory. Hits drain in walk order: a run repeats bit for bit. Sums
 // stay in registers and each output is written once, with no atomics.
+//
+// The body's walk is the queued walk, one thread a row, in the warps with a
+// row inside the gate. Measured on an H100 against four other forms, each
+// bit-equal to it (PERF.md section 6; perf/pcisph_body_<form>.patch): a
+// group of 8 or 16 lanes a row on the reaction's ordered group walk took
+// 3.5-4.5 times as long at 30k and on the torus, since a warp near the body
+// holds a median of 13-24 rows inside the gate (perf/body_rows.py) and the
+// groups take them a few at a time; one thread a row with its candidates
+// streamed across the 9 runs, with its runs' bounds loaded at once, or
+// with no queue (each hit's term added as found) each added instructions a
+// candidate and took longer on the torus. One 16-byte record [x, y, z, V]
+// a body particle in place of four scalar loads took 7-20 % off it, even
+// packed by a kernel of each call: a record the body's table would hold
+// once a step (perf/pcisph_body_records.patch).
 #include "stencil.cuh"
 
 constexpr int kPredictQueue = 40;  // hits a thread can hold
@@ -287,4 +301,29 @@ extern "C" int pcisph_predict_rho_list_launch(
         rho);
   }
   return (int)cudaGetLastError();
+}
+
+// What the body's walk was built with, for a run to print: the candidates
+// it tests between two votes, then for the stencil form and the stream
+// form each its registers a thread, local memory a thread (the stack
+// frame and spills), static shared memory a block and resident blocks an
+// SM (out: 9 ints).
+extern "C" int pcisph_predict_attributes(int* out) {
+  out[0] = kPredictChunk;
+  const void* kernels[2] = {(const void*)pcisph_predict_rho_kernel,
+                            (const void*)pcisph_predict_rho_list_kernel};
+  for (int k = 0; k < 2; ++k) {
+    cudaFuncAttributes a;
+    cudaError_t e = cudaFuncGetAttributes(&a, kernels[k]);
+    if (e != cudaSuccess) return (int)e;
+    int blocks = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernels[k],
+                                                      kThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    out[1 + 4 * k] = a.numRegs;
+    out[2 + 4 * k] = (int)a.localSizeBytes;
+    out[3 + 4 * k] = (int)a.sharedSizeBytes;
+    out[4 + 4 * k] = blocks;
+  }
+  return 0;
 }

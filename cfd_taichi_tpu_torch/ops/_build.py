@@ -87,6 +87,9 @@ _SIGNATURES = {
                                _P, _P),
     "rigid_side_stream_launch": (_I, _P, _P, _P, _P, _F, _P, _P, _P, _P),
     "body_box_launch": (_P, _I, _F, _F, _P, _P),
+    # queries of how two kernels were built and launched (no stream)
+    "body_box_blocks": (_I,),
+    "pcisph_predict_attributes": (_P,),
     "coef_build_launch": (_P, _P, _I, _PP, _F, _P, _P, _P, _I, _P),
     "coef_matvec_launch": (_P, _I, _P, _P, _P, _I, _P, _P, _I, _P),
     "coef_matvec_dot_launch": (_P, _I, _P, _P, _P, _I, _P, _P, _I, _P),

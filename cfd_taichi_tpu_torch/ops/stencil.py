@@ -521,6 +521,28 @@ def pcisph_predict_rho(pos: torch.Tensor, starts: torch.Tensor,
     return out
 
 
+def body_walk_build() -> dict:
+    """How the card's predicted density walks the body (csrc/
+    pcisph_predict.cu): one thread a row on the queued walk, `chunk`
+    candidates between two votes, and for each form its registers and
+    local memory a thread, static shared memory a block and resident
+    blocks an SM."""
+    out = (ctypes.c_int * 9)()
+    _build.library().call("pcisph_predict_attributes", out)
+    forms = {form: dict(zip(("registers", "local_bytes", "shared_bytes",
+                             "blocks_per_sm"), out[1 + 4 * k:5 + 4 * k]))
+             for k, form in enumerate(("pcisph_predict_rho",
+                                       "pcisph_predict_rho_list"))}
+    return dict(chunk=out[0], **forms)
+
+
+def body_box_blocks(nr: int) -> int:
+    """The blocks that the card's body_box launch folds a body of `nr` > 0
+    particles with: one, or a cluster of them (csrc/body_box.cu,
+    box_blocks)."""
+    return int(_build.library().lib.body_box_blocks(nr))
+
+
 # The body gate's margin beyond h, relative: a pair's f32 test
 # |x_i - x_s|^2 <= f32(h)^2 holds only within h (1 + 3 eps) on each axis,
 # and the box's corners round at the coordinates' own scale (BOX_SLACK of

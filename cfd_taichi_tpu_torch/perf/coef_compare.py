@@ -4,7 +4,7 @@ on one card:
     python -m cfd_taichi_tpu_torch.perf.coef_compare \\
         [--kernel coef_matvec|dfsph|coef_build|viscosity|fluid_terms|
                   boundary_terms|matvec|wcsph_forces|pcisph_predict|
-                  pbf|rigid_side|rigid_gate] \\
+                  pbf|rigid_side|rigid_gate|pcisph_body|body_box] \\
         [--variant NAME=PATH ...] [--bit-equal NAME] [--out PATH]
 
 `--kernel` picks the source: csrc/coef_matvec.cu (the default, both
@@ -37,7 +37,19 @@ once as a step makes it, with a gate that holds every query,
 differs from its ungated one by a bit fails its check), and with one
 that holds none, "terms_closed", "dot_closed" and "visc_closed"; and
 csrc/body_box.cu, the gate's kernel, "box", beside its plain version,
-"box_plain"; on the same inputs as rigid_side). A
+"box_plain"; on the same inputs as rigid_side), or, for `pcisph_body`,
+csrc/pcisph_predict.cu with the body: both forms of the predicted density
+at the inputs' shifted positions, with the walls, over the body with its
+gate made as a step makes it ("list", "stencil"), ungated ("list_ungated",
+"stencil_ungated"; a gated call that differs from its ungated one by a
+bit fails its check) and without the body ("list_nobody",
+"stencil_nobody"): the body's walk is the call less the call without it,
+printed for each source and form, by events and by device time; or, for
+`body_box`, csrc/body_box.cu alone: the gate of the inputs' body ("box")
+and of numpy-seeded clouds of 1, 31, 1024, 8191, 8193, 16,384, 16,385
+and 39,146 particles ("box_n1", ...; `BOX_EDGES`), each bit for bit with
+its plain
+version, beside the plain version of the body's ("box_plain"). A
 variant's PATH is a source of one of those files (it replaces the
 tree's of its name), or
 a directory: its `.cu` of the kernel's names
@@ -194,6 +206,57 @@ groups and chunks, and with the stream's records 2 ahead:
         --variant l8c2=build/l8c2 --variant l16c1=build/l16c1 \
         --variant a2=build/a2 --bit-equal parent
 
+The body's walk of the predicted density (the queued walk, one thread a
+fluid row in the warps with a row inside the gate) beside 9359194's, every
+output bit for bit with it, with other chunks (kPredictChunk: the fluid's
+and the walls' walks take it too), and in the forms it was measured
+against (perf/pcisph_body_<form>.patch, each applied to copies of
+stencil.cuh and pcisph_predict.cu): a group of kBodyGroup lanes a row on
+the reaction's ordered group walk, kBodyChunk candidates a lane a round
+("groups"); one thread a row with its candidates streamed across the 9
+runs ("streamed"), with its 9 runs' bounds loaded at once ("preloaded"),
+with no queue, each hit's term added as found ("direct"), with kBodyDrain
+hits a drain turn ("drain4"), over 16-byte records [x, y, z, V] that a
+kernel of each call packs, kRecordChunk candidates a chunk ("records");
+and a launch of its own over a list of the rows inside the gate (slots
+taken by an atomic, the list's count zeroed by a memset each call),
+kOwnGroup lanes a row on the ordered group walk ("own"), which the
+walk's figures count by every kernel of the call; and the gate's
+fold (one block, or a cluster above kBoxOneBlock particles) beside
+9359194's one block, and with other thresholds, block widths and
+cluster sizes (over 8 blocks needs the non-portable size, which the
+launch asks for):
+
+    mkdir -p build/body_parent build/box_parent
+    for f in stencil.cuh pcisph_predict.cu; do
+        git show 9359194:cfd_taichi_tpu_torch/csrc/$f > build/body_parent/$f
+    done
+    git show 9359194:cfd_taichi_tpu_torch/csrc/body_box.cu \\
+        > build/box_parent/body_box.cu
+    for form in groups streamed preloaded direct drain4 records own; do
+        mkdir -p build/$form
+        cp cfd_taichi_tpu_torch/csrc/{stencil.cuh,pcisph_predict.cu} \\
+            build/$form
+        patch -d build/$form -p0 \\
+            < cfd_taichi_tpu_torch/perf/pcisph_body_$form.patch
+    done
+    python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel pcisph_body \\
+        --variant parent=build/body_parent --variant groups=build/groups \\
+        --variant streamed=build/streamed \\
+        --variant preloaded=build/preloaded --variant direct=build/direct \\
+        --variant drain4=build/drain4 --variant records=build/records \\
+        --variant own=build/own --bit-equal parent
+    for v in "8192 512" "24576 512" "16384 1024"; do
+        set -- $v; mkdir -p build/o$1t$2
+        sed -e "s/kBoxOneBlock = [0-9]*;/kBoxOneBlock = $1;/" \\
+            -e "s/kBoxThreads = [0-9]*;/kBoxThreads = $2;/" \\
+            cfd_taichi_tpu_torch/csrc/body_box.cu > build/o$1t$2/body_box.cu
+    done
+    python -m cfd_taichi_tpu_torch.perf.coef_compare --kernel body_box \\
+        --variant parent=build/box_parent --variant o8192t512=build/o8192t512 \\
+        --variant o24576t512=build/o24576t512 \\
+        --variant o16384t1024=build/o16384t1024 --bit-equal parent
+
 The reaction's walk (a group of kSideWalkGroup lanes a body particle,
 kSideWalkChunk candidates a lane a round) beside the one-thread walk of
 commit 643b61d, every output bit for bit with it, and with other groups
@@ -347,7 +410,18 @@ SOURCES = {"coef_matvec": ("coef_matvec.cu",),
            "pbf": ("pbf_terms.cu", "pbf_lambda.cu", "pbf_xsph.cu"),
            "rigid_side": ("rigid_side_force.cu",),
            "rigid_gate": ("rigid_terms.cu", "rigid_viscosity.cu",
-                          "body_box.cu")}
+                          "body_box.cu"),
+           "pcisph_body": ("pcisph_predict.cu",),
+           "body_box": ("body_box.cu",)}
+# body_box's edge sizes: one particle, less than a warp, a block's
+# threads, two passes (kBoxThreads x kBoxUnroll) less and more one,
+# the most it takes alone (kBoxOneBlock) and one more, the first a cluster
+# folds, and the 1M block's body
+BOX_EDGES = (1, 31, 1024, 8191, 8193, 16_384, 16_385, 39_146)
+# The forms of the predicted density that --kernel pcisph_body runs, by
+# the kernel's name: (label, pair store or not)
+BODY_FORMS = (("list", "pcisph_predict_rho_list"),
+              ("stencil", "pcisph_predict_rho"))
 # The entry point of a wcsph_forces source from before the packed records,
 # renamed so (see above): (pos, starts, n, params, m, nu_num, q2e_add,
 # tension_mk, vel, rho, p', out, stream).
@@ -599,6 +673,10 @@ def entries(kernel: str, x: dict) -> list[Entry]:
         return rigid_side_entries(x)
     if kernel == "rigid_gate":
         return rigid_gate_entries(x)
+    if kernel == "pcisph_body":
+        return pcisph_body_entries(x)
+    if kernel == "body_box":
+        return body_box_entries(x)
     if kernel == "viscosity":
         args = (p, st, g, h, m, x["v"], x["rho"])
         want = S.viscosity_plain(*args, **cases.VISC)
@@ -850,12 +928,107 @@ def rigid_gate_entries(x: dict) -> list[Entry]:
               lambda: 0.0)]
 
 
+def pcisph_body_entries(x: dict) -> list[Entry]:
+    """PCISPH's predicted density on coupled inputs `x` at x["shifted"],
+    with the scene's walls, in both forms (`BODY_FORMS`: the stream form
+    over the pair store of x["p"], "list", and the stencil form,
+    "stencil"): with the body and its gate made as a step makes it, each
+    against the plain version and bit for bit with the same launch
+    ungated; ungated ("..._ungated"); and without the body
+    ("..._nobody"), against the plain version without it."""
+    g, h, m, p, st = (x[k] for k in ("grid", "h", "m", "p", "st"))
+    predict = (p, st, g, h, m, x["shifted"], base.walls(x["sc"]),
+               cases.RHO0)
+    eng = cases.pair_store(p, st, g, h, m)
+    box = cases.gate_box(x)
+    open_box = cases.ungated_box(box.device)
+    out = []
+    for label, name in BODY_FORMS:
+        store = eng if label == "list" else None
+
+        def plain(body, store=store):
+            if store is None:
+                return S.pcisph_predict_rho_plain(*predict, body)
+            return S.pcisph_predict_rho_list_plain(store, p, *predict[2:],
+                                                   body)
+
+        def call(b, body=x["table"], store=store):
+            return S.pcisph_predict_rho(*predict, body, store, b)
+
+        want, want_none = plain(x["table"]), plain(None)
+
+        def check(call=call, want=want, gated=True):
+            got = call(box if gated else open_box)
+            if gated and not torch.equal(got, call(open_box)):
+                return float("inf")
+            return cases.scaled_error(got, want)
+        out += [Entry(label, name, functools.partial(call, box), check),
+                Entry(f"{label}_ungated", name,
+                      functools.partial(call, open_box),
+                      functools.partial(check, gated=False)),
+                Entry(f"{label}_nobody", name,
+                      functools.partial(call, None, None),
+                      lambda call=call, want=want_none: cases.scaled_error(
+                          call(None, None), want))]
+    return out
+
+
+def body_box_entries(x: dict) -> list[Entry]:
+    """The body's gate on coupled inputs `x` ("box") and on numpy-seeded
+    clouds of `BOX_EDGES` particles ("box_n<nr>", coordinates uniform in
+    [-3, 5) m), each bit for bit with its plain version; and the plain
+    version of the body's ("box_plain", timed by all its kernels)."""
+    import numpy as np
+
+    h = x["h"]
+    dev = x["p"].device
+    rng = np.random.default_rng(13)
+    clouds = {"box": x["table"].pos, **{
+        f"box_n{nr}": torch.from_numpy(rng.uniform(
+            -3.0, 5.0, size=(nr, 3)).astype(np.float32)).to(dev)
+        for nr in BOX_EDGES}}
+    out = []
+    for label, bpos in clouds.items():
+        want = S.make_body_box_plain(bpos, h)
+        call = functools.partial(S.make_body_box, bpos, h)
+        out.append(Entry(label, "body_box", call,
+                         lambda call=call, want=want:
+                         0.0 if torch.equal(call(), want) else float("inf")))
+    bpos = x["table"].pos
+    return out + [Entry("box_plain", None,
+                        functools.partial(S.make_body_box_plain, bpos, h),
+                        lambda: 0.0)]
+
+
+def body_walks(res: dict, case: str) -> None:
+    """The body's walk of each source and form of --kernel pcisph_body:
+    its call less its call without the body, by events and by the device
+    time of all the call's kernels (a source may walk the body in a
+    launch of its own)."""
+    for key, stat in (("ms", "median"), ("call_device_us", None)):
+        found = res.get(f"{key}_{case}", {})
+        for label, _ in BODY_FORMS:
+            for sfx in ("", "_ungated"):
+                for src in sorted({k.split("/")[0] for k in found}):
+                    got = [found.get(f"{src}/{label}{end}")
+                           for end in (sfx, "_nobody")]
+                    if None in got:
+                        continue
+                    a, b = ((t[stat] if stat else t) for t in got)
+                    us = (a - b) * (1e3 if key == "ms" else 1.0)
+                    res.setdefault(f"body_walk_{key}_{case}", {})[
+                        f"{src}/{label}{sfx}"] = us
+                    print(f"[{case}] {src:10s} the body's walk, "
+                          f"{label}{sfx or ' gated'}: {us:.2f} us "
+                          f"({'events' if key == 'ms' else 'device'})")
+
+
 def cells(kernel: str) -> list[tuple[str, Callable, bool]]:
     """(case, inputs, timed with events) in the order they run: the 1M
     inputs, then the contraction's ragged engines (checked only), the
     half-immersed torus (rigid_side, rigid_gate) or the clustered cloud,
     then 30k."""
-    if kernel in ("rigid_side", "rigid_gate"):
+    if kernel in ("rigid_side", "rigid_gate", "pcisph_body", "body_box"):
         return [("1m", lambda: inputs.body_inputs("breaking_dam_1m.json",
                                                   3), True),
                 ("torus", lambda: inputs.torus_inputs(3), True),
@@ -964,6 +1137,13 @@ def main() -> int:
     for name, lib in libs.items():
         regs = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln]
         print(f"[compare] {name}: {regs}")
+        if kernel == "pcisph_body" and hasattr(lib.lib,
+                                               "pcisph_predict_attributes"):
+            with using(lib):
+                build = S.body_walk_build()
+            print(f"[compare] {name}: chunk {build['chunk']}; " + "; ".join(
+                f"{form} {b}" for form, b in build.items()
+                if isinstance(b, dict)))
     res: dict = {"card": timing.card(), "kernel": kernel, "check": {}}
     if args.bit_equal and args.bit_equal not in libs:
         raise SystemExit(f"--bit-equal {args.bit_equal}: no such source")
@@ -974,6 +1154,8 @@ def main() -> int:
         if timed:
             time_rounds(res, libs, case, ents)
         device_times(res, libs, case, ents)
+        if kernel == "pcisph_body":
+            body_walks(res, case)
         del ents
         torch.cuda.empty_cache()
         if case == "1m" and kernel == "coef_matvec":

@@ -13,9 +13,11 @@ DFSPH), configs/torus_flush.json as written ("torus_flush", DFSPH: the
 torus beside the water, which reaches it in the later frames),
 breaking_dam_30k's and breaking_dam_1m's blocks with a body at
 their centre (perf/inputs.body_scene) as DFSPH, IISPH and WCSPH (the two
-whose step walks the body's reaction) and configs/coupling_demo.json
-(PCISPH), each measured as a step below (`--cells` picks some, in the
-order given); the digest
+whose step walks the body's reaction) and PCISPH (whose predicted density
+walks the body in every iteration, the body in water from the first
+step), and configs/coupling_demo.json (PCISPH: from rest its body stands
+beside the water, so the gate takes no warp), each measured as a step
+below (`--cells` picks some, in the order given); the digest
 also covers the body's particles, velocity and spin, and the device
 times of the body's reaction (its walk, or its list's rows, the list and
 the list's stream) and of the fluid side's passes over the body (the
@@ -64,17 +66,23 @@ from cfd_taichi_tpu_torch.perf import inputs, timing
 
 SCENES = (("30k", "breaking_dam_30k.json"), ("1m", "breaking_dam_1m.json"))
 COUPLED = ("torus", "body_30k", "coupling_demo", "body_1m", "body_30k_iisph",
-           "body_1m_iisph", "body_30k_wcsph", "body_1m_wcsph", "torus_flush")
+           "body_1m_iisph", "body_30k_wcsph", "body_1m_wcsph", "torus_flush",
+           "body_30k_pcisph", "body_1m_pcisph")
 # (block, solver) of a body-in-water cell
 BODY_BLOCKS = {"body_30k": ("breaking_dam_30k.json", "dfsph"),
                "body_1m": ("breaking_dam_1m.json", "dfsph"),
                "body_30k_iisph": ("breaking_dam_30k.json", "iisph"),
                "body_1m_iisph": ("breaking_dam_1m.json", "iisph"),
                "body_30k_wcsph": ("breaking_dam_30k.json", "wcsph"),
-               "body_1m_wcsph": ("breaking_dam_1m.json", "wcsph")}
+               "body_1m_wcsph": ("breaking_dam_1m.json", "wcsph"),
+               "body_30k_pcisph": ("breaking_dam_30k.json", "pcisph"),
+               "body_1m_pcisph": ("breaking_dam_1m.json", "pcisph")}
 # The reaction's kernels, whose device times a coupled cell prints
 REACTION = ("rigid_side_force", "rigid_side_rows", "rigid_side_list",
             "rigid_side_force_list")
+# The body's gate and the predicted density (whose call walks the body in
+# a coupled PCISPH step), whose device times it prints too
+GATE = ("body_box", "pcisph_predict_rho", "pcisph_predict_rho_list")
 # The fluid side's passes over the body, whose device times it prints too
 FLUID_SIDE = ("rigid_terms", "rigid_contact_dot", "rigid_viscosity")
 UNTIMED, TIMED, PROFILED = 5, 10, 3
@@ -246,7 +254,8 @@ def main() -> int:
             print(f"[coupled] {args.label} {tag}: diag of the last step "
                   f"{row['diags'][-1]}; reaction "
                   f"{_listed(row['kernels'], REACTION)}; fluid side "
-                  f"{_listed(row['kernels'], FLUID_SIDE)}")
+                  f"{_listed(row['kernels'], FLUID_SIDE)}; gate and "
+                  f"predicted density {_listed(row['kernels'], GATE)}")
         torch.cuda.empty_cache()
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

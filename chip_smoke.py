@@ -794,9 +794,22 @@ def rigid_checks(torch, results: dict) -> None:
     with the body's walk repeat bit for bit; the list is its plain
     version's bit for bit and its stream gives the walk's bits
     (`stream_bits`); the body gate of the predicted density (`body_gate`)
-    and of the contact dot and the solid viscosity (`rigid_gate`)."""
+    and of the contact dot and the solid viscosity (`rigid_gate`); the
+    gate's kernel at the edge sizes (`box_edges`)."""
+    from cfd_taichi_tpu_torch.ops import stencil as S
     from cfd_taichi_tpu_torch.perf import bounds, cases, inputs
 
+    build = S.body_walk_build()
+    results.setdefault("pcisph_predict_rho_rigid", {})["body_walk_build"] = \
+        build
+    print(f"[kernels] the predicted density's body walk: the queued walk, "
+          f"one thread a row, {build['chunk']} candidates between votes; "
+          + "; ".join(
+              f"{form} {b['registers']} registers, {b['local_bytes']} B "
+              f"local (spills), {b['shared_bytes']} B shared, "
+              f"{b['blocks_per_sm']} blocks an SM"
+              for form, b in build.items() if isinstance(b, dict)))
+    box_edges(torch, results)
     for tag, make in (
             ("30k", lambda: inputs.body_inputs("breaking_dam_30k.json", 3)),
             ("1m", lambda: inputs.body_inputs("breaking_dam_1m.json", 3)),
@@ -873,6 +886,37 @@ def stream_bits(torch, results: dict, x: dict, tag: str) -> None:
           f"MiB)")
 
 
+# body_box's edge sizes (perf/coef_compare.BOX_EDGES: one particle, less
+# than a warp, a block's threads, its two passes less and more one, the
+# most it takes alone and one more, the first a cluster folds, and the 1M
+# block's body)
+BOX_EDGES = (1, 31, 1024, 8191, 8193, 16_384, 16_385, 39_146)
+
+
+def box_edges(torch, results: dict) -> None:
+    """body_box on numpy-seeded clouds of BOX_EDGES particles (coordinates
+    uniform in [-3, 5) m), each box bit for bit with its plain version's;
+    the blocks that fold each printed."""
+    import numpy as np
+
+    from cfd_taichi_tpu_torch.ops import stencil as S
+
+    rng = np.random.default_rng(13)
+    for nr in BOX_EDGES:
+        bpos = torch.from_numpy(rng.uniform(-3.0, 5.0, size=(nr, 3)).astype(
+            np.float32)).cuda()
+        same = torch.equal(S.make_body_box(bpos, 0.1),
+                           S.make_body_box_plain(bpos, 0.1))
+        blocks = S.body_box_blocks(nr)
+        row = results.setdefault("body_box", {})
+        row[f"edge_bits_{nr}"], row[f"fold_blocks_{nr}"] = same, blocks
+        fold = "one block" if blocks == 1 else f"a cluster of {blocks} blocks"
+        print(f"  body_box, {nr} particles: {fold}; bit-equal to its plain "
+              f"version {same}")
+        check(same, f"body_box at {nr} particles: not its plain version's "
+              "bits")
+
+
 def body_gate(torch, results: dict, x: dict, tag: str) -> None:
     """The predicted density's body gate on coupled inputs `x`: each form
     with the gate (the box made once, as a step makes it) against the same
@@ -884,6 +928,7 @@ def body_gate(torch, results: dict, x: dict, tag: str) -> None:
     from cfd_taichi_tpu_torch.ops import stencil as S
     from cfd_taichi_tpu_torch.perf import cases, timing
 
+    card = timing.card()
     args = (x["p"], x["st"], x["grid"], x["h"], x["m"], x["shifted"],
             base.walls(x["sc"]), cases.RHO0)
     eng = cases.pair_store(x["p"], x["st"], x["grid"], x["h"], x["m"])
@@ -913,7 +958,8 @@ def body_gate(torch, results: dict, x: dict, tag: str) -> None:
         print(f"  {form} {tag}: with the body {gated:.4f} ms (ungated "
               f"{ungated:.4f}), without {none:.4f} ms (in turns "
               f"{[round(t, 4) for t in ms]}), so the body's walk "
-              f"{gated - none:.4f} ms (ungated {ungated - none:.4f})")
+              f"{gated - none:.4f} ms (ungated {ungated - none:.4f}); "
+              f"{card}")
 
 
 def rigid_gate(torch, results: dict, x: dict, tag: str) -> None:

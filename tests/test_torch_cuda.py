@@ -748,6 +748,62 @@ def test_predicted_density_body_gate_keeps_every_bit(cuda, where):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("where", ["30k", "1m", "torus"])
+def test_predicted_density_body_walk(cuda, where):
+    """Both forms of the predicted density, whose warps with a row inside
+    the body's gate walk the body: against the plain version to 1e-5 of
+    scale, gated bit-equal to ungated, two launches bit-equal, the body's
+    sum (the call less the call without the body) nonzero on some rows;
+    one launch a call, no plain call."""
+    x = (inputs.torus_inputs(seed=3, device=cuda) if where == "torus" else
+         inputs.body_inputs({"30k": "breaking_dam_30k.json",
+                             "1m": "breaking_dam_1m.json"}[where], seed=3,
+                            device=cuda))
+    args = (x["p"], x["st"], x["grid"], x["h"], x["m"], x["shifted"],
+            base.walls(x["sc"]), cases.RHO0)
+    box = cases.gate_box(x)
+    eng = cases.pair_store(x["p"], x["st"], x["grid"], x["h"], x["m"])
+    for store in (None, eng):
+        want = (stencil.pcisph_predict_rho_plain(*args, x["table"])
+                if store is None else stencil.pcisph_predict_rho_list_plain(
+                    store, x["p"], *args[2:], x["table"]))
+        stencil.reset_counts()
+        got = stencil.pcisph_predict_rho(*args, x["table"], store, box)
+        assert stencil.KERNELS["pcisph_predict_rho_rigid"].launches == 1
+        assert all(k.plain_calls == 0 for k in stencil.KERNELS.values())
+        assert cases.scaled_error(got, want) <= 1e-5, store is None
+        assert torch.equal(got, stencil.pcisph_predict_rho(
+            *args, x["table"], store, box))
+        assert torch.equal(got, stencil.pcisph_predict_rho(
+            *args, x["table"], store, cases.ungated_box(cuda)))
+        alone = stencil.pcisph_predict_rho(*args, None, store)
+        assert bool((got != alone).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nr", [1, 31, 1024, 8191, 8193, 16_384, 16_385,
+                                39_146, 70_001])
+def test_body_box_cluster_at_edge_sizes(cuda, nr):
+    """The body's gate, one block's fold or a cluster's, each block a
+    slice: bit for bit with its plain version on a numpy-seeded cloud of
+    nr particles (one, less than a warp, a block's threads, its two passes
+    less and more one, the most one block takes and one more, the 1M
+    block's body, and more than the largest cluster's one pass), and on
+    the cloud moved far from the origin, where the margin's slack term
+    counts; one launch a call."""
+    rng = np.random.default_rng(nr)
+    bpos = torch.from_numpy(rng.uniform(-3.0, 5.0, size=(nr, 3)).astype(
+        np.float32)).to(cuda)
+    for shift in (0.0, 300.0):
+        moved = (bpos + shift).contiguous()
+        stencil.reset_counts()
+        got = stencil.make_body_box(moved, 0.1)
+        assert stencil.KERNELS["body_box"].launches == 1
+        assert torch.equal(got, stencil.make_body_box_plain(moved, 0.1))
+    assert 1 <= stencil.body_box_blocks(nr) <= 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["30k", "1m", "torus"])
 def test_contact_dot_and_viscosity_body_gate_keeps_every_bit(cuda, where):
     """rigid_terms, rigid_contact_dot and rigid_viscosity with the body's
     gate (made once, as a step makes it, by body_box: its plain version's
